@@ -1,0 +1,202 @@
+"""Device-tier expert cache: fixed slot buffers + a pluggable policy
+(port of ``repro.core.expert_cache``).
+
+One stacked device buffer per weight matrix (``[n_slots, d, ff]`` etc.),
+a host-side slot map, and installs that are a real host->device copy
+(``buf[slot].copy_(master, non_blocking=True)`` from the store's pinned
+masters, where the JAX package updated ``buf.at[slot].set``). The copy
+is queued on the current stream ahead of the kernels that read the
+slot, so no synchronisation is needed. All decisions (hit/miss/evict)
+happen on the host, as in the reference.
+
+The expert FFN reads resident experts IN PLACE through ``slots_of``
+(``ops.moe_ffn`` takes the slot buffers plus slot indices); the JAX
+package's ``gather`` copy of U experts per chunk is gone.
+
+Memory tiers (``tiers=``) are not ported yet (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache_policies import CachePolicy
+from repro_torch.core.expert_store import ExpertStore
+from repro_torch.core.faults import FetchOutcome
+
+
+class ExpertCache:
+    """Cache for ONE MoE layer's experts.
+
+    Parameters
+    ----------
+    layer : which MoE layer this cache serves (keys the store).
+    n_slots : device slots; must equal ``policy.capacity``.
+    policy : eviction policy (see ``repro_torch.core.cache_policies``).
+    store : host-tier master copies the misses stream from.
+    shapes : per-weight-matrix shapes, e.g. ``{"w1": (d, ff), ...}``.
+    dtype, device : slot buffer dtype (fp32) and device.
+
+    Counters (cumulative): ``hits``/``misses`` demand accesses,
+    ``prefetches`` speculative installs actually transferred,
+    ``bytes_transferred`` real store bytes moved host→device.
+    """
+
+    def __init__(self, layer: int, n_slots: int, policy: CachePolicy,
+                 store: ExpertStore, shapes: Dict[str, tuple],
+                 dtype=torch.float32, device="cuda", faults=None):
+        assert policy.capacity == n_slots
+        self.layer = layer
+        self.n_slots = n_slots
+        self.policy = policy
+        self.store = store
+        self.faults = faults  # Optional[FaultInjector], shared stack-wide
+        self.buffers = {k: torch.zeros((n_slots, *s), dtype=dtype,
+                                       device=device)
+                        for k, s in shapes.items()}
+        self.slot_of: Dict[int, int] = {}
+        self._free: List[int] = list(range(n_slots))
+        # counters
+        self.hits = 0
+        self.misses = 0
+        self.prefetches = 0
+        self.bytes_transferred = 0
+        # fault-injection counters / last-call fault state
+        self.fetch_failures = 0       # demand fetches abandoned (degraded)
+        self.corrupt_refetches = 0    # checksum-mismatch redeliveries
+        self.last_failed: Tuple[int, ...] = ()
+        self.last_prefetch_failed: Tuple[int, ...] = ()
+        self.last_prefetch_outcomes: Dict[int, FetchOutcome] = {}
+
+    # ------------------------------------------------------------------
+    def cached_ids(self) -> Tuple[int, ...]:
+        """Resident expert ids, sorted (the trace's cache snapshot)."""
+        return tuple(sorted(self.slot_of))
+
+    def plan_fetches(self, eids: Sequence[int]) -> Dict[int, FetchOutcome]:
+        """Pre-decide the fate of each would-be demand fetch among
+        ``eids`` (cached ids are hits — no fetch event is consumed).
+        The caller learns the degraded set BEFORE compute and hands the
+        same outcomes back to ``access`` (and to the transfer engine),
+        so randomness is consumed exactly once per fetch."""
+        if self.faults is None or self.faults.plan.is_null:
+            return {}
+        out = {}
+        for eid in eids:
+            if eid not in self.slot_of:
+                out[eid] = self.faults.fetch_plan((self.layer, eid))
+        return out
+
+    def _install(self, eid: int, pinned: frozenset = frozenset(), *,
+                 outcome: Optional[FetchOutcome] = None
+                 ) -> Tuple[int, Optional[int]]:
+        """Fetch eid from the store into a slot. Returns
+        (slot, evicted). A caller-supplied ``outcome``
+        with corrupt deliveries exercises the REAL checksum path: the
+        payload is actually corrupted, the mismatch detected, and the
+        fetch redelivered."""
+        evicted = None
+        if self._free:
+            slot = self._free.pop()
+        else:
+            victim = self.policy.choose_victim(pinned)
+            slot = self.slot_of.pop(victim)
+            self.policy.remove(victim)
+            evicted = victim
+        w = self.store.fetch((self.layer, eid))
+        if outcome is not None and outcome.corrupt_deliveries and \
+                self.faults is not None:
+            key = (self.layer, eid)
+            for _ in range(outcome.corrupt_deliveries):
+                bad = self.faults.corrupt_payload(w)
+                if self.store.verify(key, bad):
+                    w = bad  # crc collision: corruption slips through
+                    continue
+                self.corrupt_refetches += 1
+                w = self.store.fetch(key)
+        for k, v in w.items():
+            src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.asarray(v))
+            self.buffers[k][slot].copy_(src, non_blocking=True)
+        self.slot_of[eid] = slot
+        self.policy.on_insert(eid)
+        self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))
+        return slot, evicted
+
+    def access(self, eids: Sequence[int],
+               outcomes: Optional[Dict[int, FetchOutcome]] = None
+               ) -> Tuple[List[int], List[int], List[int]]:
+        """Demand access for this token: returns (hits, misses, evicted).
+
+        All of ``eids`` are pinned while installing so an expert needed
+        by the current token can never evict another one of them; the
+        caller chunks to ≤ capacity if the working set exceeds it.
+
+        ``outcomes`` (from ``plan_fetches``) carries pre-planned fault
+        fates: a miss whose outcome is abandoned is NOT installed — it
+        still counts as a miss (the attempts were made) and lands in
+        ``last_failed``; the engine degrades around it.
+        """
+        assert len(set(eids)) <= self.n_slots, "working set exceeds cache"
+        pinned = frozenset(eids)
+        hits, misses, evicted = [], [], []
+        failed: List[int] = []
+        for eid in eids:
+            if eid in self.slot_of:
+                hits.append(eid)
+                self.policy.on_access(eid)
+            else:
+                misses.append(eid)
+                out = outcomes.get(eid) if outcomes else None
+                if out is not None and not out.success:
+                    failed.append(eid)
+                    continue
+                _, ev = self._install(eid, pinned, outcome=out)
+                if ev is not None:
+                    evicted.append(ev)
+        self.hits += len(hits)
+        self.misses += len(misses)
+        self.fetch_failures += len(failed)
+        self.last_failed = tuple(failed)
+        self.policy.tick()
+        return hits, misses, evicted
+
+    def prefetch(self, eids: Sequence[int]) -> List[int]:
+        """Speculatively admit eids (no demand stall). Returns the ids
+        actually transferred (already-cached ones are free). Under
+        fault injection each transfer's fate is planned here
+        (``last_prefetch_outcomes`` aligns with the returned list);
+        abandoned prefetches are not installed and land in
+        ``last_prefetch_failed`` — harmless, the demand path refetches.
+        """
+        moved = []
+        fates: Dict[int, FetchOutcome] = self.plan_fetches(eids)
+        failed: List[int] = []
+        for eid in eids:
+            if eid in self.slot_of:
+                self.policy.on_access(eid)
+                continue
+            out = fates.get(eid)
+            if out is not None and not out.success:
+                failed.append(eid)
+                continue
+            self._install(eid, outcome=out)
+            moved.append(eid)
+        self.prefetches += len(moved)
+        self.last_prefetch_failed = tuple(failed)
+        self.last_prefetch_outcomes = {e: fates[e] for e in moved
+                                       if e in fates}
+        return moved
+
+    def slots_of(self, eids: Sequence[int]) -> List[int]:
+        """Slot index of each cached expert in ``eids`` (the rows of
+        ``buffers`` the expert FFN reads in place)."""
+        return [self.slot_of[e] for e in eids]
+
+    def device_nbytes(self) -> int:
+        """Device bytes this cache's slot buffers pin (static — slots
+        are allocated up front, not per resident expert)."""
+        return sum(v.numel() * v.element_size()
+                   for v in self.buffers.values())

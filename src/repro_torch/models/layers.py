@@ -1,0 +1,71 @@
+"""Shared low-level layers: init, norms, positions (port of
+``repro.models.layers``; same formulas, same fp32 internals)."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+# ---------------------------------------------------------------- init
+def dense_init(gen: torch.Generator, shape, in_dim: Optional[int] = None,
+               scale: float = 1.0, dtype=torch.float32, device="cuda"):
+    """Truncated-normal fan-in init (stddev = scale / sqrt(in_dim)),
+    drawn on ``device`` from ``gen`` (a generator of that device)."""
+    if in_dim is None:
+        in_dim = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / math.sqrt(max(in_dim, 1))
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
+               device="cuda"):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x, weight, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+# ------------------------------------------------------------ positions
+def sinusoidal_positions(positions, dim: int, max_timescale: float = 10_000.0):
+    """positions [...,] int -> [..., dim] float32 sinusoidal embedding."""
+    half = dim // 2
+    freq = torch.exp(-math.log(max_timescale)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions [...] -> cos,sin of shape [..., head_dim//2]."""
+    half = head_dim // 2
+    exps = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=positions.device), exps)
+    ang = positions[..., None].float() * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., H, head_dim]; cos/sin broadcastable to [..., 1, head_dim//2].
+
+    Uses the 'split-half' (rotate_half) convention.
+    """
+    half = x.shape[-1] // 2
+    cos, sin = cos.float(), sin.float()
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,141 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of
+the JAX package, its configs mirror the reference's field for field,
+its params bridge to and from the JAX package's bit for bit, and
+``chip_smoke.py`` refuses to run without a GPU or outside the repo."""
+import dataclasses
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import tiny
+from repro.models import transformer as jtf
+import repro_torch.configs as pcfg
+from repro_torch.models import transformer as ptf
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
+                       re.MULTILINE)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: one intra-op thread is faster than a pool, and keeps
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def ptiny(**kw):
+    """The port's twin of ``conftest.tiny('mixtral-8x7b')``."""
+    defaults = dict(layers=2, d_model=64, experts=4, vocab=128)
+    defaults.update(kw)
+    cfg = pcfg.reduced(pcfg.get_config("mixtral-8x7b"), **defaults)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+# ------------------------------------------------------------- imports
+def test_port_sources_import_no_jax_and_no_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in IMPORT_RE.finditer(f.read_text())]
+    assert bad == []
+
+
+def test_port_import_pulls_in_no_jax():
+    code = ("import sys; sys.path.insert(0, 'src'); import repro_torch, "
+            "repro_torch.core, repro_torch.serving.offload_serving, "
+            "repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m == 'repro' or "
+            "m.startswith(('jax', 'repro.'))]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_gpu():
+    r = _run_smoke(ROOT)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run_smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+# ------------------------------------------------------------- configs
+def test_configs_mirror_reference_field_for_field():
+    from repro.configs import get_config
+    want = dataclasses.asdict(get_config("mixtral-8x7b"))
+    assert dataclasses.asdict(pcfg.get_config("mixtral-8x7b")) == want
+    assert dataclasses.asdict(ptiny()) == dataclasses.asdict(
+        tiny("mixtral-8x7b"))
+    assert pcfg.list_archs() == ["mixtral-8x7b"]
+
+
+# -------------------------------------------------------------- bridge
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_bridge_roundtrip_is_bitwise():
+    cfg = tiny("mixtral-8x7b")
+    npt = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(0)))
+    tp = ptf.from_jax_params(npt, device="cpu")
+    back = ptf.to_jax_params(tp)
+    a, b = dict(_leaves(npt)), dict(_leaves(back))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert a[k].tobytes() == b[k].tobytes(), k
+    # stacked layouts at the port's public surface
+    e = tp["layers"]["moe"]["experts"]
+    assert tuple(e["w1"].shape) == (cfg.num_layers, cfg.num_experts,
+                                    cfg.d_model, cfg.expert_d_ff)
+    assert tuple(e["w2"].shape) == (cfg.num_layers, cfg.num_experts,
+                                    cfg.expert_d_ff, cfg.d_model)
+
+
+def test_port_init_matches_reference_tree_and_scales():
+    cfg = tiny("mixtral-8x7b", d_model=96)
+    jp = dict(_leaves(jax.tree.map(np.asarray,
+                                   jtf.init_params(cfg, jax.random.PRNGKey(0)))))
+    gen = torch.Generator().manual_seed(0)
+    pp = dict(_leaves(ptf.to_jax_params(
+        ptf.init_params(ptiny(d_model=96), gen, device="cpu"))))
+    assert jp.keys() == pp.keys()
+    for k in jp:
+        assert jp[k].shape == pp[k].shape and jp[k].dtype == pp[k].dtype, k
+        sj, sp = float(jp[k].std()), float(pp[k].std())
+        assert sp == pytest.approx(sj, rel=0.15, abs=1e-7), k
+    # a seeded generator reproduces its draws
+    again = ptf.init_params(ptiny(d_model=96),
+                            torch.Generator().manual_seed(0), device="cpu")
+    np.testing.assert_array_equal(again["embed"].numpy(), pp["/embed"])
