@@ -620,8 +620,8 @@ class OffloadEngine:
         for i, t in enumerate(prompt):
             logits, state = self.decode_token(state, [[t]], i, i)
         for _ in range(n_new):
-            gen = request_generator(seed, len(out)) if temperature > 0 \
-                else None
+            gen = request_generator(seed, len(out), device=logits.device) \
+                if temperature > 0 else None
             nxt = int(sample_token(gen, logits, temperature=temperature)[0])
             out.append(nxt)
             pos = len(out) - 1

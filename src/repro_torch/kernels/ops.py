@@ -103,7 +103,7 @@ def build_kernels() -> Dict[str, dict]:
     return report
 
 
-def kernel_entry(name: str):
+def _entry(name: str):
     """The bound C entry point of kernel ``name`` (built at first use)."""
     if name not in _FNS:
         build_kernels()
@@ -156,8 +156,10 @@ def moe_ffn(x_e, w1, w3, w2, slots: Sequence[int]):
         return moe_gemm.plain(x_e, w1, w3, w2,
                               torch.tensor(slots, dtype=torch.long))
     _check_cuda("moe_ffn", torch.float32, x_e, w1, w3, w2)
-    fn = kernel_entry("moe_ffn")
-    sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+    fn = _entry("moe_ffn")
+    # from pinned memory, so the upload does not wait for the stream
+    sl = torch.tensor(slots, dtype=torch.int32, pin_memory=True).to(
+        dev, non_blocking=True)
     y = moe_gemm.launch(fn, x_e, w1, w3, w2, sl)
     LAUNCHES["moe_ffn"] += 1
     return y
@@ -195,7 +197,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos):
                          f"{paged_mod.MAX_GROUP} query heads per KV head "
                          f"and head_dim <= {paged_mod.MAX_HEAD_DIM}, got "
                          f"{H // KV} and {hd}")
-    fn = kernel_entry("paged_attention")
+    fn = _entry("paged_attention")
     tbl = block_tables.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = paged_mod.launch(fn, q, k_pool, v_pool, tbl, pos)

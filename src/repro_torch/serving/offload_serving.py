@@ -560,7 +560,7 @@ class ContinuousOffloadServer:
             return int(torch.argmax(row, dim=-1))
         top_p = self.top_p if req.top_p is None else req.top_p
         seed = self.seed if req.seed is None else req.seed
-        gen = request_generator(seed, req.pos)
+        gen = request_generator(seed, req.pos, device=row.device)
         return int(sample_token(gen, row[None, :], temperature=temp,
                                 top_p=top_p)[0])
 

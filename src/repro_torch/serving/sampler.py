@@ -6,9 +6,11 @@ and matches the reference exactly. At temperature > 0 the JAX package
 draws with threefry keys (``jax.random.fold_in``), which torch cannot
 reproduce. The port keeps the PROPERTY that matters to serving: a draw
 is a pure function of (seed, token index), independent of batch
-composition and admission order, through a CPU ``torch.Generator``
-seeded from those two numbers. Parity with the JAX package at
-temperature > 0 is therefore statistical only.
+composition and admission order, through a ``torch.Generator`` on the
+logits' device seeded from those two numbers, so a draw on the card
+needs no copy of the logits to the host. Parity with the JAX package at
+temperature > 0 is therefore statistical only (and a draw on the card
+differs from the draw on the CPU for the same pair).
 """
 from __future__ import annotations
 
@@ -18,22 +20,25 @@ from typing import Optional
 import torch
 
 
-def request_generator(seed: int, token_idx: int) -> torch.Generator:
-    """CPU generator for one (request, token) draw, seeded from a hash
-    of (seed, token_idx): same pair, same draw, on every run."""
+def request_generator(seed: int, token_idx: int,
+                      device="cpu") -> torch.Generator:
+    """Generator on ``device`` for one (request, token) draw, seeded from
+    a hash of (seed, token_idx): same pair, same device, same draw, on
+    every run."""
     h = hashlib.blake2b(repr((int(seed), int(token_idx))).encode(),
                         digest_size=8)
-    return torch.Generator(device="cpu").manual_seed(
+    return torch.Generator(device=device).manual_seed(
         int.from_bytes(h.digest(), "big") >> 1)
 
 
 def sample_token(gen: Optional[torch.Generator], logits, *,
                  temperature: float = 0.0, top_p: float = 1.0):
-    """logits [B, V] -> token ids [B] (int64; on the host when sampled).
-    ``gen`` is unused when ``temperature <= 0``."""
+    """logits [B, V] -> token ids [B] (int64, on the logits' device).
+    ``gen`` must live on that device; it is unused when
+    ``temperature <= 0``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits.float().cpu() / temperature
+    logits = logits.float() / temperature
     if top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
