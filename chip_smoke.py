@@ -3,33 +3,56 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It drives the port's main path end to end and checks it:
+It drives the port's two entry points end to end and checks them:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
+2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
    the card from a seeded generator; the expert masters go to pinned
    host memory one expert at a time;
-4. serves 4 staggered requests (32-token prompts, 16 greedy tokens
-   each) through ``ContinuousOffloadServer`` (LFU cache of 4 slots a
-   layer, speculative prefetch, max_batch 4, paged KV in 16-token
-   blocks), with every kernel's launch count reset just before and read
-   just after;
-5. checks each request's tokens against ``OffloadEngine.generate`` on
-   the card (dense KV, plain attention) and the last logits for finite
-   values of the right shape;
-6. holds each kernel wrapper (``ops.moe_ffn``, ``ops.paged_attention``)
-   against its plain PyTorch version on the card, on the arguments of
-   the run's heaviest call (most expert rows; most visible keys), and
-   times both (CUDA events after a warm-up) beside the card's bound for
-   the same work;
-7. holds each wrapper against its plain version on further shapes the
+4. offload serving: serves 4 staggered requests (32-token prompts, 16
+   greedy tokens each) through ``ContinuousOffloadServer`` (LFU cache of
+   4 slots a layer, speculative prefetch, max_batch 4, paged KV in
+   16-token blocks), with every kernel's launch count reset just before
+   and read just after, and checks each request's tokens against
+   ``OffloadEngine.generate`` (dense KV, plain attention) and the last
+   logits for finite values of the right shape;
+5. the offload invariants on the card, each on 2 requests of 8 greedy
+   tokens: ``overlap=True`` gives the tokens of ``overlap=False``,
+   ``prefill_chunk=4`` those of per-token prefill, and
+   ``faults=FaultPlan.null()`` the tokens, ``stats()`` and trace of
+   ``faults=None``;
+6. full-sequence prefill, Mixtral (the same weights): ``prefill`` of 2
+   prompts of 2048 tokens through the default ``moe_path="auto"``
+   (``moe_capacity`` without a mesh), then ``prefill(moe_path="dense")``
+   of 2 prompts of 512 tokens against ``ServingEngine(moe_path="dense")
+   .generate_batch`` on the same prompts (8 greedy tokens): the engine
+   feeds the prompt token by token through ``decode_step``, so its
+   logits at the last prompt position are held against the prefill's;
+7. the same for Mamba2-2.7B at its full published widths (d_model 2560,
+   d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
+   50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
+   prompts of 512 tokens (2 chunks), then a timed prefill of 2 x 2048;
+8. each prefill's launch counts are reset before it and read after it:
+   flash attention must launch once per attention layer, SSD chunk once
+   per SSM layer;
+9. holds each kernel wrapper (``ops.moe_ffn``, ``ops.paged_attention``,
+   ``ops.flash_attention``, ``ops.ssd_chunk``) against its plain
+   PyTorch version on the card, on the arguments of the main path's
+   heaviest call, and times both (CUDA events after a warm-up) beside
+   the card's bound for the same work and, for flash attention, one
+   ``scaled_dot_product_attention`` call on the same inputs (a yardstick
+   the port never calls);
+10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
    heads per KV head (1 to 16), head dims up to 256 and a row with no
-   visible key.
+   visible key (paged); ragged lengths, windows, no causal mask, values
+   narrower than keys, MQA, bf16 (flash); other chunk lengths, head
+   counts and widths (SSD).
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -39,14 +62,17 @@ before printing any result.
 
     python3 chip_smoke.py --profile
 
-does the same with ``torch.profiler`` tracing the serving loop, and
-prints a ``profile`` line: the device time of the loop by kind (expert
-copies host-to-device, each kernel, the rest), the device's busy and
-idle shares of the loop's wall time, and the copy rate. The profiler
-slows the host, so that run's step times are not the ones to quote.
+does the same with ``torch.profiler`` tracing the serving loop and one
+2 x 2048 prefill of each model, and prints a ``profile`` line for each:
+the device time by kind (expert copies host-to-device, each kernel,
+matrix products, the rest), the device's busy and idle shares of the
+traced wall time, and (serving) the copy rate. The profiler slows the
+host, so that run's step times are not the ones to quote.
 """
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -59,10 +85,21 @@ SRC = ROOT / "src"
 SEED = 0
 PROMPT_LEN, NEW_TOKENS = 32, 16
 SUBMIT_AT_STEP = (0, 0, 6, 12)      # one entry per request: staggered joins
+INVARIANT_REQUESTS, INVARIANT_TOKENS = 2, 8
+PREFILL_B, PREFILL_S, ENGINE_S, ENGINE_NEW = 2, 2048, 512, 8
+MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
-TOL = {"moe_ffn": 1e-4, "paged_attention": 2e-4}   # rtol = atol, fp32
-# further shapes for step 7: (E, C, d, F), the CPU tests' moe_ffn shapes
+# kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
+# whose sums over a 256-position chunk reach |y| ~ 200: there the bound is
+# max |kernel - plain| <= TOL * max |plain|
+TOL = {"moe_ffn": 1e-4, "paged_attention": 2e-4, "flash_attention": 2e-4,
+       "ssd_chunk": 2e-5}
+BF16_TOL = 2e-2     # bf16 output rounding (2^-8 relative) of values up to ~4
+# prefill vs the decode_step loop, fp32 logits: rtol = atol (flash vs
+# dense-cache attention, chunked SSD vs the recurrence: summation order)
+PREFILL_TOL = 3e-3
+# further shapes for step 10: (E, C, d, F), the CPU tests' moe_ffn shapes
 # then C > 8 rows over several ragged contraction slices (4- and 16-byte
 # loads); (B, H, KV, hd, N, bs, T), the CPU tests' paged shapes then 3, 5,
 # 12 and 16 query heads per KV head and head dims 40, 72, 256
@@ -74,11 +111,34 @@ PAGED_SHAPES = [(2, 4, 2, 64, 8, 8, 3), (3, 4, 4, 64, 10, 16, 2),
                 (1, 8, 1, 128, 6, 8, 4), (2, 6, 2, 40, 20, 8, 9),
                 (3, 15, 3, 72, 9, 4, 6), (2, 12, 1, 128, 12, 16, 4),
                 (2, 16, 1, 256, 12, 16, 5)]
+# (B, Sq, Sk, H, KV, hd, vd, causal, window, dtype) for flash attention:
+# ragged S (1, 37, 160, 1000), windows 37 and 1024, no causal mask, MLA
+# widths (hd 192, vd 128), MQA and 1 to 16 query heads per KV head, hd 40
+# to 256, bf16, and more queries than keys under a window (rows that see
+# no key); (G, Q, H, P, N) for SSD chunk: Q 64 and 100, H 6, P 32, N 16
+# and 64, G 1, and a chunk ragged in every width
+FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
+                (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
+                (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
+                (2, 1000, 1000, 12, 1, 72, 72, True, 1024, "float32"),
+                (1, 96, 96, 4, 1, 128, 128, False, 0, "float32"),
+                (1, 129, 129, 3, 3, 40, 40, False, 37, "float32"),
+                (1, 300, 300, 6, 2, 192, 128, True, 0, "float32"),
+                (1, 200, 200, 16, 1, 256, 256, True, 37, "float32"),
+                (1, 100, 40, 4, 2, 64, 64, True, 16, "float32"),
+                (2, 256, 256, 32, 8, 128, 128, True, 0, "bfloat16"),
+                (1, 160, 160, 4, 2, 64, 64, False, 37, "bfloat16")]
+SSD_SHAPES = [(1, 64, 6, 32, 16), (2, 100, 6, 32, 64), (1, 64, 6, 32, 64),
+              (3, 37, 5, 72, 130), (2, 256, 80, 64, 128)]
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "moe_ffn": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                 "src/repro/kernels/moe_gemm.py:40"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:70"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:67"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:55"),
 }
 
 
@@ -134,6 +194,30 @@ def visible_keys(q, kp, vp, bt, pos):
     return int((pos.long() + 1).clamp(max=bt.shape[1] * kp.shape[1]).sum())
 
 
+@contextlib.contextmanager
+def recording(ops, seen, specs):
+    """Wrap the kernel wrappers ``ops.<name>`` named in ``specs`` (name ->
+    (size, keep)) so that each call whose ``size(*args, **kw)`` is the
+    largest so far leaves ``keep(*args, **kw)`` in ``seen[name]``."""
+    originals = {name: getattr(ops, name) for name in specs}
+
+    def wrap(name, wrapper, size, keep):
+        def call(*args, **kw):
+            n = size(*args, **kw)
+            if name not in seen or n >= seen[name][0]:
+                seen[name] = (n, keep(*args, **kw))
+            return wrapper(*args, **kw)
+        return call
+
+    for name, (size, keep) in specs.items():
+        setattr(ops, name, wrap(name, originals[name], size, keep))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+
+
 def serve(srv, prompts, ops, prof=None):
     """Run the staggered workload; record each kernel wrapper's heaviest
     call (moe_ffn: most expert rows E*C; paged_attention: most visible
@@ -142,26 +226,16 @@ def serve(srv, prompts, ops, prof=None):
     """
     import torch
     seen = {}
-
-    def recording(name, wrapper, size, keep):
-        def call(*args):
-            n = size(*args)
-            if name not in seen or n >= seen[name][0]:
-                seen[name] = (n, keep(*args))
-            return wrapper(*args)
-        return call
-
-    originals = (ops.moe_ffn, ops.paged_attention)
-    ops.moe_ffn = recording(
-        "moe_ffn", ops.moe_ffn, lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
-        # the slot buffers (GBs) are kept by reference
-        lambda x_e, w1, w3, w2, slots: (x_e.clone(), w1, w3, w2,
-                                        list(slots)))
-    ops.paged_attention = recording(
-        "paged_attention", ops.paged_attention, visible_keys,
-        lambda *args: tuple(a.clone() for a in args))
+    specs = {
+        "moe_ffn": (lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
+                    # the slot buffers (GBs) are kept by reference
+                    lambda x_e, w1, w3, w2, slots: (x_e.clone(), w1, w3, w2,
+                                                    list(slots))),
+        "paged_attention": (visible_keys,
+                            lambda *args: tuple(a.clone() for a in args)),
+    }
     rids, step_ms, step_h2d = [], [], []
-    try:
+    with recording(ops, seen, specs):
         ops.reset_launch_counts()
         if prof is not None:
             prof.start()
@@ -185,20 +259,28 @@ def serve(srv, prompts, ops, prof=None):
         if prof is not None:
             prof.stop()
         launches = ops.launch_counts()
-    finally:
-        ops.moe_ffn, ops.paged_attention = originals
     return (rids, launches, step_ms, step_h2d,
             {k: v[1] for k, v in seen.items()}, loop_ms)
 
 
-def device_time_summary(prof, loop_ms, h2d_bytes):
-    """The profiled loop's device activity: milliseconds by kind, the
-    union of all device intervals as the busy time, and the expert
-    copies' rate (all host-to-device copy time counted, the few small
-    index uploads included)."""
+KINDS = (  # profiler kernel-name fragments -> kind, first match wins
+    (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
+    (("paged_attention_kernel",), "paged_attention"),
+    (("flash_attention_kernel",), "flash_attention"),
+    (("ssd_chunk_kernel",), "ssd_chunk"),
+    (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
+)
+
+
+def device_time_summary(prof, wall_ms, h2d_bytes=None):
+    """The traced window's device activity: milliseconds by kind, the
+    union of all device intervals as the busy time, and, when
+    ``h2d_bytes`` is given (the serving loop), the expert copies' rate
+    (all host-to-device copy time counted, the few small index uploads
+    included)."""
     from torch.autograd import DeviceType
-    kinds = {"h2d_copy": 0.0, "other_copy": 0.0, "moe_ffn": 0.0,
-             "paged_attention": 0.0, "other_kernels": 0.0}
+    kinds = {"h2d_copy": 0.0, "other_copy": 0.0, "other_kernels": 0.0}
+    kinds.update({kind: 0.0 for _, kind in KINDS})
     top, spans = {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -210,70 +292,146 @@ def device_time_summary(prof, loop_ms, h2d_bytes):
             kind = "h2d_copy"
         elif name.startswith(("Memcpy", "Memset")):
             kind = "other_copy"
-        elif any(k in name for k in ("skinny_partial", "swiglu_finish",
-                                     "sum_partials")):
-            kind = "moe_ffn"
-        elif "paged_attention_kernel" in name:
-            kind = "paged_attention"
         else:
-            kind = "other_kernels"
+            kind = next((k for frags, k in KINDS
+                         if any(f in name for f in frags)), "other_kernels")
         kinds[kind] += ms
         top[name[:80]] = top.get(name[:80], 0.0) + ms
-    check(kinds["h2d_copy"] > 0, "the profiler saw no host-to-device copy")
+    check(bool(spans), "the profiler saw no device activity")
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy_us += b - max(a, end)
             end = b
     busy_ms = busy_us / 1e3
-    return {"loop_ms": loop_ms, "device_ms_by_kind": kinds,
-            "device_busy_ms": busy_ms, "busy_share": busy_ms / loop_ms,
-            "idle_share": 1.0 - busy_ms / loop_ms,
-            "h2d_expert_bytes": h2d_bytes,
-            "h2d_GB_per_s": h2d_bytes / kinds["h2d_copy"] / 1e6,
-            "top_device_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
-                                  [:12])}
+    out = {"wall_ms": wall_ms, "device_ms_by_kind": kinds,
+           "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "top_device_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                 [:12])}
+    if h2d_bytes is not None:
+        check(kinds["h2d_copy"] > 0, "the profiler saw no host-to-device copy")
+        out["h2d_expert_bytes"] = h2d_bytes
+        out["h2d_GB_per_s"] = h2d_bytes / kinds["h2d_copy"] / 1e6
+    return out
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a flash_attention call scores unmasked."""
+    import numpy as np
+    q = np.arange(Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(Sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def kernel_cases(calls):
-    """(name, wrapper(), plain(), graph-timed?, bytes, flops, shape) for
-    each kernel on the arguments of the run's heaviest call. Bytes count
-    each input read once and each output written once; paged
-    attention's keys are the ones the call's positions make visible."""
+    """(name, wrapper(), plain(), library() or None, graph-timed?, bytes,
+    flops, shape) for each kernel whose heaviest main-path call is in
+    ``calls``. Bytes count each input read once and each output written
+    once; flops count the work these inputs need: paged attention's keys
+    are the ones the call's positions make visible, flash attention's
+    (query, key) pairs the ones its masks leave, SSD's the lower
+    triangle of each chunk."""
     import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import moe_gemm, ops
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ssd_chunk as ssd_mod
 
-    x_e, w1, w3, w2, slots = calls["moe_ffn"]
-    E, C, d = x_e.shape
-    F = w1.shape[-1]
-    sl = torch.tensor(slots, device="cuda")
-    yield ("moe_ffn", lambda: ops.moe_ffn(x_e, w1, w3, w2, slots),
-           lambda: moe_gemm.plain(x_e, w1, w3, w2, sl), False,
-           4 * (2 * E * C * d + 3 * E * d * F + E), 6 * E * C * d * F,
-           {"E": E, "C": C, "d": d, "F": F})
+    if "moe_ffn" in calls:
+        x_e, w1, w3, w2, slots = calls["moe_ffn"]
+        E, C, d = x_e.shape
+        F_ = w1.shape[-1]
+        sl = torch.tensor(slots, device="cuda")
+        yield ("moe_ffn", lambda: ops.moe_ffn(x_e, w1, w3, w2, slots),
+               lambda: moe_gemm.plain(x_e, w1, w3, w2, sl), None, False,
+               4 * (2 * E * C * d + 3 * E * d * F_ + E), 6 * E * C * d * F_,
+               {"E": E, "C": C, "d": d, "F": F_})
 
-    q, kp, vp, bt, pos = calls["paged_attention"]
-    B, H, hd = q.shape
-    bs, KV, T = kp.shape[1], kp.shape[2], bt.shape[1]
-    keys = visible_keys(q, kp, vp, bt, pos)
-    yield ("paged_attention", lambda: ops.paged_attention(q, kp, vp, bt, pos),
-           lambda: paged_mod.plain(q, kp, vp, bt, pos), True,
-           4 * (2 * B * H * hd + 2 * keys * KV * hd + B * T + B),
-           4 * keys * H * hd,
-           {"B": B, "H": H, "KV": KV, "hd": hd, "bs": bs, "T": T,
-            "visible_keys": keys})
+    if "paged_attention" in calls:
+        q, kp, vp, bt, pos = calls["paged_attention"]
+        B, H, hd = q.shape
+        bs, KV, T = kp.shape[1], kp.shape[2], bt.shape[1]
+        keys = visible_keys(q, kp, vp, bt, pos)
+        yield ("paged_attention",
+               lambda: ops.paged_attention(q, kp, vp, bt, pos),
+               lambda: paged_mod.plain(q, kp, vp, bt, pos), None, True,
+               4 * (2 * B * H * hd + 2 * keys * KV * hd + B * T + B),
+               4 * keys * H * hd,
+               {"B": B, "H": H, "KV": KV, "hd": hd, "bs": bs, "T": T,
+                "visible_keys": keys})
+
+    if "flash_attention" in calls:
+        q, k, v, kw = calls["flash_attention"]
+        B, Sq, H, hd = q.shape
+        Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+        pairs = visible_pairs(Sq, Sk, causal, window)
+        library = None
+        if window == 0:   # SDPA has no sliding window
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        yield ("flash_attention",
+               lambda: ops.flash_attention(q, k, v, **kw),
+               lambda: flash_mod.plain(q, k, v, causal=causal, window=window),
+               library, False,
+               q.element_size() * (B * Sq * H * hd + B * Sk * KV * (hd + vd)
+                                   + B * Sq * H * vd),
+               2 * B * H * pairs * (hd + vd),
+               {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                "vd": vd, "causal": causal, "window": window,
+                "dtype": str(q.dtype), "visible_pairs": pairs})
+
+    if "ssd_chunk" in calls:
+        dA, xw, Bm, Cm = calls["ssd_chunk"]
+        G, Q, H = dA.shape
+        P, N = xw.shape[3], Bm.shape[2]
+        tri = Q * (Q + 1) // 2
+        yield ("ssd_chunk", lambda: ops.ssd_chunk(dA, xw, Bm, Cm),
+               lambda: ssd_mod.plain(dA, xw, Bm, Cm), None, False,
+               4 * (G * Q * H + 2 * G * Q * H * P + 2 * G * Q * N
+                    + G * H * P * N),
+               G * (2 * tri * N + tri * H + 2 * tri * H * P + Q * H * P
+                    + 2 * Q * H * P * N),
+               {"G": G, "Q": Q, "H": H, "P": P, "N": N})
+
+
+def agree(name, got, want, tol, what):
+    """Max |kernel - plain| over the outputs (a tensor or a tuple),
+    raising past the tolerance: rtol = atol = ``tol`` elementwise, or for
+    ssd_chunk ``tol`` times each output's largest |plain|."""
+    import torch
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    worst = 0.0
+    for g, w in pairs:
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        if name == "ssd_chunk":
+            ok = err <= tol * float(w.abs().max())
+        else:
+            ok = torch.allclose(g, w, rtol=tol, atol=tol)
+        check(ok, f"{what}: max |kernel - plain| = {err:.3e}, tol {tol}")
+        worst = max(worst, err)
+    return worst
 
 
 def coverage_checks():
-    """Each wrapper against its plain version on the card at MOE_SHAPES
-    and PAGED_SHAPES (inputs from a seeded numpy generator, weights in
-    E + 1 slots read in reverse order, one paged row with pos -1).
-    Raises on the first disagreement; returns one record per shape."""
+    """Each wrapper against its plain version on the card at MOE_SHAPES,
+    PAGED_SHAPES, FLASH_SHAPES and SSD_SHAPES (inputs from a seeded numpy
+    generator; moe weights in E + 1 slots read in reverse order; one
+    paged row with pos -1). Raises on the first disagreement; returns
+    one record per shape."""
     import numpy as np
     import torch
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import moe_gemm, ops
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import ssd_chunk as ssd_mod
 
     rng = np.random.default_rng(SEED)
 
@@ -281,24 +439,21 @@ def coverage_checks():
         return torch.from_numpy(
             (rng.normal(size=shape) * scale).astype(np.float32)).cuda()
 
-    def held(name, shape, got, want):
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=TOL[name], atol=TOL[name]),
-              f"{name} at {shape}: max |kernel - plain| = {err:.3e}, "
-              f"tol {TOL[name]}")
-        return {"name": name, "shape": shape, "max_abs_err": err}
-
     out = []
+
+    def held(name, shape, got, want, tol=None):
+        tol = TOL[name] if tol is None else tol
+        err = agree(name, got, want, tol, f"{name} at {shape}")
+        out.append({"name": name, "shape": shape, "max_abs_err": err,
+                    "tol": tol})
+
     for E, C, d, F in MOE_SHAPES:
         x = rand((E, C, d), 0.5)
         w1, w3 = rand((E + 1, d, F), 0.05), rand((E + 1, d, F), 0.05)
         w2 = rand((E + 1, F, d), 0.05)
         slots = list(range(E, 0, -1))
-        out.append(held("moe_ffn", [E, C, d, F],
-                        ops.moe_ffn(x, w1, w3, w2, slots),
-                        moe_gemm.plain(x, w1, w3, w2,
-                                       torch.tensor(slots, device="cuda"))))
+        held("moe_ffn", [E, C, d, F], ops.moe_ffn(x, w1, w3, w2, slots),
+             moe_gemm.plain(x, w1, w3, w2, torch.tensor(slots, device="cuda")))
     for B, H, KV, hd, N, bs, T in PAGED_SHAPES:
         q = rand((B, H, hd))
         kp, vp = rand((N, bs, KV, hd)), rand((N, bs, KV, hd))
@@ -308,16 +463,217 @@ def coverage_checks():
             rng.integers(0, T * bs, (B,)).astype(np.int32)).cuda()
         if B > 2:
             pos[-1] = -1   # no visible key: uniform over the row's keys
-        out.append(held("paged_attention", [B, H, KV, hd, N, bs, T],
-                        ops.paged_attention(q, kp, vp, bt, pos),
-                        paged_mod.plain(q, kp, vp, bt, pos)))
+        held("paged_attention", [B, H, KV, hd, N, bs, T],
+             ops.paged_attention(q, kp, vp, bt, pos),
+             paged_mod.plain(q, kp, vp, bt, pos))
+    for B, Sq, Sk, H, KV, hd, vd, causal, window, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q = rand((B, Sq, H, hd)).to(dtype)
+        k, v = rand((B, Sk, KV, hd)).to(dtype), rand((B, Sk, KV, vd)).to(dtype)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        check(got.dtype == dtype, f"flash_attention: output {got.dtype}")
+        # bf16: against the fp32 plain version on the same (bf16) values
+        want = flash_mod.plain(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+        held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
+                                 dt], got, want,
+             BF16_TOL if dtype == torch.bfloat16 else None)
+    for G, Q, H, P, N in SSD_SHAPES:
+        dA = -rand((G, Q, H), 0.1).abs()
+        xw, Bm, Cm = rand((G, Q, H, P)), rand((G, Q, N)), rand((G, Q, N))
+        held("ssd_chunk", [G, Q, H, P, N], ops.ssd_chunk(dA, xw, Bm, Cm),
+             ssd_mod.plain(dA, xw, Bm, Cm))
     return out
+
+
+def offload_invariants(params, cfg, prompts):
+    """The offload server's invariants on the card, each against one
+    reference run (overlap off, per-token prefill, no fault injector) on
+    the first INVARIANT_REQUESTS prompts: overlap on and chunked prefill
+    give the same tokens; a null fault plan the same tokens, trace and
+    stats() (plus the injector's own counters, all zero). Servers are built one at a time (each pins its expert
+    masters). Raises on a mismatch."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    base = dict(cache_slots=4, policy="lfu", prefetch="spec",
+                max_batch=INVARIANT_REQUESTS, kv_block_size=16,
+                cache_len=PROMPT_LEN + INVARIANT_TOKENS, device="cuda")
+
+    def run(**kw):
+        srv = ContinuousOffloadServer(params, cfg, **{**base, **kw})
+        rids = [srv.submit(p, max_new=INVARIANT_TOKENS)
+                for p in prompts[:INVARIANT_REQUESTS]]
+        srv.run()
+        out = ([srv.result(r)[PROMPT_LEN:] for r in rids], srv.stats(),
+               srv.trace.to_json())
+        del srv
+        gc.collect()
+        return out
+
+    t0 = time.perf_counter()
+    ref = run()
+    for name, kw in (("overlap", dict(overlap=True)),
+                     ("prefill_chunk", dict(prefill_chunk=4)),
+                     ("null_fault_plan", dict(faults=FaultPlan.null()))):
+        toks, stats, trace = run(**kw)
+        check(toks == ref[0], f"offload invariant {name}: tokens {toks} != "
+                              f"{ref[0]}")
+        if name == "null_fault_plan":
+            # equal on every key of the reference; the counters an
+            # injector adds are all zero (repr: NaN equals NaN)
+            shared = {k: repr(v) for k, v in stats.items() if k in ref[1]}
+            check(shared == {k: repr(v) for k, v in ref[1].items()},
+                  f"null fault plan: stats() {stats} != {ref[1]}")
+            extra = {k: v for k, v in stats.items() if k not in ref[1]}
+            check(all(v == 0 for v in extra.values()),
+                  f"null fault plan: fault counters {extra}")
+            check(trace == ref[2], "null fault plan: the trace differs")
+    return {"offload_invariants": ["overlap", "prefill_chunk",
+                                   "null_fault_plan"],
+            "tokens": ref[0], "seconds": time.perf_counter() - t0}
+
+
+PREFILL_SPECS = {   # heaviest prefill calls, copied as they were
+    "flash_attention": (
+        lambda q, k, v, **kw: q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2],
+        lambda q, k, v, **kw: (q.clone(), k.clone(), v.clone(), dict(kw))),
+    "ssd_chunk": (lambda dA, xw, *_: xw.numel(),
+                  lambda *args: tuple(a.clone() for a in args)),
+}
+
+
+def prefill_run(params, cfg, toks, ops, seen, prof=None, **kw):
+    """One ``prefill`` with every launch count reset just before and read
+    just after, recording the kernels' heaviest calls into ``seen``.
+    Returns (logits, launches, wall ms, profile or None)."""
+    import torch
+    from repro_torch.models.transformer import prefill
+    with recording(ops, seen, PREFILL_SPECS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        logits = prefill(params, cfg, toks, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            prof.stop()
+        launches = ops.launch_counts()
+    summary = device_time_summary(prof, ms) if prof is not None else None
+    return logits, launches, ms, summary
+
+
+def check_launches(launches, want, what):
+    """The prefill's counts: ``want`` (kernel -> launches) exactly, and no
+    launch of any other kernel."""
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
+                                      f"expected {want.get(name, 0)}")
+
+
+def engine_vs_prefill(params, cfg, toks, pre_logits):
+    """``ServingEngine(moe_path="dense").generate_batch`` on the prompts
+    ``toks`` [B, S]: its decode_step logits at the last prompt position
+    must equal ``pre_logits`` (prefill on the same prompts) within
+    PREFILL_TOL, and its first token the prefill's argmax on every row
+    whose top-2 margin exceeds twice the tolerance."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    B, S = toks.shape
+    eng = ServingEngine(params, cfg, cache_len=S + ENGINE_NEW,
+                        moe_path="dense", device="cuda")
+    last = {}
+    step = eng._step
+
+    def step_keeping_last_prompt_logits(state, tokens, pos):
+        logits, state = step(state, tokens, pos)
+        if pos == S - 1:
+            last["logits"] = logits.clone()
+        return logits, state
+
+    eng._step = step_keeping_last_prompt_logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dec = last["logits"]
+    V = cfg.vocab_size
+    check(tuple(pre_logits.shape) == (B, V) == tuple(dec.shape),
+          f"logits shapes {tuple(pre_logits.shape)}, {tuple(dec.shape)}")
+    check(bool(torch.isfinite(pre_logits).all()), "non-finite prefill logits")
+    check(all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o)
+              for o in outs), f"engine output {outs}")
+    err = float((pre_logits - dec).abs().max())
+    check(torch.allclose(pre_logits, dec, rtol=PREFILL_TOL, atol=PREFILL_TOL),
+          f"{cfg.name}: prefill vs decode_step logits differ by {err:.3e}")
+    top = torch.topk(pre_logits, 2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) > 2 * PREFILL_TOL * (1 + top[:, 0].abs())
+    first = torch.tensor([o[0] for o in outs], device=pre_logits.device)
+    same = first == pre_logits.argmax(dim=-1)
+    check(bool(same[sure].all()), f"{cfg.name}: engine first tokens "
+          f"{first.tolist()} != prefill argmax on rows with a clear margin")
+    return {"prefill_vs_decode_max_abs_err": err, "tol": PREFILL_TOL,
+            "first_token_rows_checked": int(sure.sum()),
+            "engine_tokens": outs, "engine_s": seconds}
+
+
+def prefill_phase(params, cfg, ops, seen, kernel, profile):
+    """Drive ``prefill`` and ``ServingEngine`` for one model: the
+    ENGINE_S-token comparison (``moe_path="dense"``), then two
+    PREFILL_B x PREFILL_S prefills through ``moe_path="auto"`` (counted
+    and timed; the second is warm) and, with ``profile``, a third under
+    the profiler. Every prefill launches ``kernel`` once a layer and
+    nothing else. Returns (launches summed over the counted
+    runs, report)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    want = {kernel: cfg.num_layers}
+    total = {name: 0 for name in ops.LAUNCHES}
+    rep = {"model": cfg.name, "layers": cfg.num_layers}
+
+    def counted(toks, what, **kw):
+        logits, launches, ms, _ = prefill_run(params, cfg, toks, ops, seen,
+                                              **kw)
+        check_launches(launches, want, what)
+        for name, n in launches.items():
+            total[name] += n
+        return logits, launches, ms
+
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, ENGINE_S))).cuda()
+    logits, launches, ms = counted(toks, f"{cfg.name} prefill "
+                                         f"{PREFILL_B}x{ENGINE_S}",
+                                   moe_path="dense")
+    rep[f"prefill_{PREFILL_B}x{ENGINE_S}"] = {
+        "moe_path": "dense", "launches": launches, "ms": ms}
+    rep["engine"] = engine_vs_prefill(params, cfg, toks, logits)
+
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    for run in ("cold", "warm"):
+        logits, launches, ms = counted(
+            toks, f"{cfg.name} prefill {PREFILL_B}x{PREFILL_S}")
+        check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: prefill logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        rep[f"prefill_{PREFILL_B}x{PREFILL_S}_{run}"] = {
+            "launches": launches, "ms": ms}
+    if profile:
+        act = torch.profiler.ProfilerActivity
+        prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+        rep["profile"] = prefill_run(params, cfg, toks, ops, {}, prof)[3]
+    return total, rep
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace the serving loop with torch.profiler")
+                        help="trace the serving loop and one prefill of "
+                             "each model with torch.profiler")
     args = parser.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         sys.exit("chip_smoke.py: no src/repro_torch beside this script; "
@@ -328,6 +684,7 @@ def main() -> None:
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; "
                  "this script needs a CUDA GPU")
     import numpy as np
+    from torch.autograd import DeviceType
 
     import repro_torch
     check(Path(repro_torch.__file__).resolve().is_relative_to(SRC),
@@ -337,6 +694,10 @@ def main() -> None:
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
 
+    # fp32 products in full fp32 (no TF32), the plain versions' precision
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
 
@@ -389,8 +750,9 @@ def main() -> None:
     if prof is not None:
         print(json.dumps({"profile": device_time_summary(
             prof, loop_ms, sum(step_h2d))}), flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name}: the main path never launched its kernel")
+    for name in ("moe_ffn", "paged_attention"):
+        check(launches[name] > 0,
+              f"{name}: the main path never launched its kernel")
 
     # ---- outputs: finite logits, server tokens == generate tokens ---
     logits = srv._logits
@@ -409,29 +771,76 @@ def main() -> None:
           flush=True)
 
     # ---- each kernel against its plain version ----------------------
-    # (the run's launches were read above: these do not count)
+    # (each run's launches were read when it ended: these do not count)
     kernels = []
-    for name, kern, plain, graph, nbytes, flops, shape in kernel_cases(
-            calls):
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(torch.allclose(got, want, rtol=TOL[name], atol=TOL[name]),
-              f"{name}: max |kernel - plain| = {err:.3e}, tol {TOL[name]}")
-        iters = 20 if graph else 10
-        ms = device_ms(kern, iters, graph=graph)
-        plain_ms = device_ms(plain, iters, graph=graph)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
-            "max_abs_err": err, "tol": TOL[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "flops": flops,
-            "shape": shape})
+
+    def hold_and_time(calls, launches_by_kernel):
+        for (name, kern, plain, library, graph, nbytes, flops,
+             shape) in kernel_cases(calls):
+            err = agree(name, kern(), plain(), TOL[name], name)
+            iters = 20 if graph else 10
+            ms = device_ms(kern, iters, graph=graph)
+            plain_ms = device_ms(plain, iters, graph=graph)
+            library_ms = (device_ms(library, iters, graph=graph)
+                          if library is not None else None)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1],
+                "launches": launches_by_kernel[name], "max_abs_err": err,
+                "tol": TOL[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "bytes": nbytes, "flops": flops,
+                "shape": shape})
+            if args.profile and library is not None:
+                # name the kernels the library call ran
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+                library()
+                torch.cuda.synchronize()
+                prof.stop()
+                kernels[-1]["library_kernels"] = sorted(
+                    {ev.name[:100] for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA})
+            print(json.dumps({"kernel": kernels[-1]}), flush=True)
+
+    hold_and_time(calls, launches)
+    del srv, calls, store
+    gc.collect()
+
+    # ---- the offload invariants on the card -------------------------
+    print(json.dumps(offload_invariants(params, cfg, prompts)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- full-sequence prefill and ServingEngine: Mixtral -----------
+    seen = {}
+    flash_launches, rep = prefill_phase(params, cfg, ops, seen,
+                                        "flash_attention", args.profile)
+    print(json.dumps({"prefill": rep}), flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the same for Mamba2 ----------------------------------------
+    mcfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                               num_layers=MAMBA_LAYERS, dtype="float32")
+    mparams = init_params(
+        mcfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    ssd_launches, rep = prefill_phase(mparams, mcfg, ops, seen, "ssd_chunk",
+                                      args.profile)
+    print(json.dumps({"prefill": rep}), flush=True)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hold_and_time({k: v[1] for k, v in seen.items()},
+                  {"flash_attention": flash_launches["flash_attention"],
+                   "ssd_chunk": ssd_launches["ssd_chunk"]})
     print(json.dumps({"coverage": coverage_checks()}), flush=True)
+    print(json.dumps({"wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -211,8 +211,9 @@ def list_archs():
 
 def _ensure_loaded():
     # import side-effect registration (the port registers the configs
-    # its slices serve; mixtral-8x7b is the first)
-    from repro_torch.configs import mixtral_8x7b  # noqa: F401
+    # its slices serve)
+    from repro_torch.configs import (mamba2_2_7b, mixtral_8x7b,  # noqa: F401
+                                     qwen2_5_3b)
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,

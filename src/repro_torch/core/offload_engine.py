@@ -43,11 +43,6 @@ from repro_torch.models.layers import rms_norm, sinusoidal_positions
 from repro_torch.serving.sampler import request_generator, sample_token
 
 
-def _layer_slice(tree, i):
-    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def _grouped_ffn(xf, buffers, slots: Sequence[int], comb: np.ndarray):
     """xf [B,d]; buffers: the layer cache's slot buffers w1/w3 [S,d,ff],
     w2 [S,ff,d]; slots: the U slots to run; comb [B,U] -> y [B,d].
@@ -163,7 +158,7 @@ class OffloadEngine:
         self.store = ExpertStore.from_params(
             params, cfg, quant=quant, pin=self.device.type == "cuda")
         # per-layer param views, sliced once
-        self._layers = [_layer_slice(params["layers"], l)
+        self._layers = [tf._layer(params["layers"], l)
                         for l in range(cfg.num_layers)]
 
         d, ff = cfg.d_model, cfg.expert_d_ff

@@ -1,0 +1,60 @@
+"""Full-sequence (prefill) attention: the CUDA kernel's launcher and its
+plain PyTorch version.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
+The kernel (``csrc/flash_attention.cu``, whose header says what bounds
+it on an H100 and how the design answers) runs one block per (batch
+row, KV head, tile of query positions) that serves the KV head's G
+query heads, reads K/V in place from ``[B, S, KV, hd]``, skips the key
+tiles its rows cannot see, and masks the ragged edges itself. The plain
+version repeats K/V per query head and runs ``ref.flash_attention_ref``
+(exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
+public wrapper that checks the arguments and picks between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.ref import flash_attention_ref
+
+SOURCE = "flash_attention.cu"
+SYMBOL = "flash_attention_fwd"
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
+MAX_HEAD_DIM = 256   # q/k width; v may be narrower
+
+
+def plain(q, k, v, *, causal: bool, window: int):
+    """q [B,Sq,H,hd]; k [B,Sk,KV,hd]; v [B,Sk,KV,vd] -> [B,Sq,H,vd]."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, vd = k.shape[1], k.shape[2], v.shape[-1]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+    kf = k.transpose(1, 2).reshape(B * H, Sk, hd)
+    vf = v.transpose(1, 2).reshape(B * H, Sk, vd)
+    out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(B, H, Sq, vd).transpose(1, 2)
+
+
+def launch(fn, q, k, v, *, causal: bool, window: int):
+    """Launch on the current stream. Arguments are checked by the
+    caller: one dtype (fp32 or bf16), contiguous, on one CUDA device.
+    Returns [B, Sq, H, vd] in q's dtype; raises if the launch was
+    refused."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, vd = k.shape[1], k.shape[2], v.shape[-1]
+    out = torch.empty((B, Sq, H, vd), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, vd,
+             int(causal), window, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: cudaError {err}")
+    return out

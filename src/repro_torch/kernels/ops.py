@@ -31,15 +31,18 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_gemm, paged_attention as paged_mod
+from repro_torch.kernels import ssd_chunk as ssd_mod
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod}
+_MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
+            "flash_attention": flash_mod, "ssd_chunk": ssd_mod}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
-LAUNCHES: Dict[str, int] = {"moe_ffn": 0, "paged_attention": 0}
+LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
 
 
 def _nvcc() -> str:
@@ -111,10 +114,12 @@ def _entry(name: str):
 
 
 def _check_cuda(name: str, dtype, *tensors) -> None:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     for t in tensors:
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: the CUDA kernel takes {dtype}, "
-                             f"got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            raise ValueError(f"{name}: the CUDA kernel takes one of "
+                             f"{dtypes} for all of its tensors, got "
+                             f"{[str(u.dtype) for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous "
                              f"tensors")
@@ -202,6 +207,67 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos):
     pos = pos.to(torch.int32).contiguous()
     out = paged_mod.launch(fn, q, k_pool, v_pool, tbl, pos)
     LAUNCHES["paged_attention"] += 1
+    return out
+
+
+# ------------------------------------------------------ flash attention
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-sequence attention: q [B,Sq,H,hd], k [B,Sk,KV,hd], v
+    [B,Sk,KV,vd] with vd <= hd (MLA's values are narrower) -> [B,Sq,H,vd]
+    in q's dtype. GQA groups H // KV query heads per KV head; ``causal``
+    masks keys after the query's position; ``window`` > 0 masks keys
+    ``window`` or more positions back (0: unbounded). Scale 1/sqrt(hd)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention: q [B,Sq,H,hd], k [B,Sk,KV,hd], "
+                         f"v [B,Sk,KV,vd], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != hd or tuple(v.shape[:3]) != (B, Sk, KV)
+            or v.shape[3] > hd or H % KV != 0 or window < 0):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (window "
+                         f"{window}) do not fit")
+    window = int(window)
+    dev = _one_device("flash_attention", q, k, v)
+    if dev.type == "cpu":
+        return flash_mod.plain(q, k, v, causal=causal, window=window)
+    _check_cuda("flash_attention", (torch.float32, torch.bfloat16), q, k, v)
+    if H // KV > flash_mod.MAX_GROUP or hd > flash_mod.MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the CUDA kernel takes up to "
+                         f"{flash_mod.MAX_GROUP} query heads per KV head "
+                         f"and head_dim <= {flash_mod.MAX_HEAD_DIM}, got "
+                         f"{H // KV} and {hd}")
+    out = flash_mod.launch(_entry("flash_attention"), q, k, v,
+                           causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# ------------------------------------------------------------ ssd chunk
+def ssd_chunk(dA, xw, Bm, Cm):
+    """Mamba2 SSD intra-chunk step over G chunks at once: dA [G,Q,H],
+    xw [G,Q,H,P], Bm/Cm [G,Q,N] -> (Y_intra [G,Q,H,P], S_chunk
+    [G,H,P,N]), both fp32."""
+    if dA.dim() != 3 or xw.dim() != 4:
+        raise ValueError(f"ssd_chunk: dA [G,Q,H] and xw [G,Q,H,P], got "
+                         f"{tuple(dA.shape)} and {tuple(xw.shape)}")
+    G, Q, H = dA.shape
+    if (tuple(xw.shape[:3]) != (G, Q, H) or Bm.dim() != 3
+            or tuple(Bm.shape[:2]) != (G, Q) or Cm.shape != Bm.shape):
+        raise ValueError(f"ssd_chunk: shapes dA {tuple(dA.shape)}, xw "
+                         f"{tuple(xw.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)} do not fit [G,Q,H], [G,Q,H,P], "
+                         f"[G,Q,N]")
+    dev = _one_device("ssd_chunk", dA, xw, Bm, Cm)
+    if dev.type == "cpu":
+        return ssd_mod.plain(dA, xw, Bm, Cm)
+    _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
+    if Q > ssd_mod.MAX_CHUNK:
+        raise ValueError(f"ssd_chunk: the CUDA kernel takes chunks of up "
+                         f"to {ssd_mod.MAX_CHUNK} positions, got {Q}")
+    out = ssd_mod.launch(_entry("ssd_chunk"), dA, xw, Bm, Cm)
+    LAUNCHES["ssd_chunk"] += 1
     return out
 
 

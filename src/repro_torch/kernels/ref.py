@@ -46,3 +46,43 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, pos):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgl,blkh->bkgh", w, vg.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale=None):
+    """q [BH,Sq,hd]; k [BH,Sk,hd]; v [BH,Sk,vd] -> [BH,Sq,vd] in q's
+    dtype (exact softmax in fp32). Masked scores get ``NEG_INF``; a row
+    with no visible key is uniform over all keys."""
+    Sq, hd = q.shape[1], q.shape[2]
+    Sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window > 0:
+        mask = mask & (q_pos - k_pos < window)
+    s = torch.where(mask[None], s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(dA, xw, Bm, Cm):
+    """dA [G,Q,H]; xw [G,Q,H,P]; Bm/Cm [G,Q,N] -> (Y_intra [G,Q,H,P],
+    S_chunk [G,H,P,N]), both fp32: the SSD intra-chunk step with the
+    decay matrix materialised as [G,Q,Q,H]."""
+    dA, xw, Bm, Cm = dA.float(), xw.float(), Bm.float(), Cm.float()
+    Q = dA.shape[1]
+    cum = torch.cumsum(dA, dim=1)
+    rel = cum[:, :, None, :] - cum[:, None, :, :]           # [G,Q,Q,H]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=dA.device))
+    decay = torch.where(mask[None, :, :, None], torch.exp(rel),
+                        torch.zeros((), device=dA.device))
+    scores = torch.einsum("gin,gjn->gij", Cm, Bm)
+    y = torch.einsum("gijh,gij,gjhp->gihp", decay, scores, xw)
+    decay_end = torch.exp(cum[:, -1:, :] - cum)              # [G,Q,H]
+    s = torch.einsum("gjh,gjn,gjhp->ghpn", decay_end, Bm, xw)
+    return y, s

@@ -1,5 +1,7 @@
-"""GQA attention for decode: projections, dense and paged KV caches
-(port of the GQA decode half of ``repro.models.attention``).
+"""GQA attention: projections, the full-sequence path (prefill), and
+decode over dense, ring (sliding-window) and paged KV caches (port of
+the GQA half of ``repro.models.attention``; MLA and cross-attention come
+with a later slice).
 
 Conventions are the JAX package's: ``x [B, S, d]``; weights
 ``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``; dense cache
@@ -14,6 +16,7 @@ the same dict. That saves copying the whole cache or pool every step.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -75,12 +78,65 @@ def _project_qkv(p, cfg, x, positions, *, rope: bool):
 
 
 # =====================================================================
-# GQA decode with a dense KV cache
+# GQA full-sequence (prefill / forward)
+# =====================================================================
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int]):
+    """Full-sequence attention, always through the flash-attention kernel
+    wrapper (the JAX package's XLA blockwise alternative is not a kernel
+    and is not ported). q [B,S,H,hd], k/v [B,S,KV,hd] -> [B,S,H,hd]."""
+    return kops.flash_attention(q, k, v, causal=causal, window=window or 0)
+
+
+def gqa_full(p, cfg, x, positions, *, window: Optional[int] = None,
+             causal: bool = True):
+    """x [B,S,d], positions [B,S] -> [B,S,d]."""
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=True)
+    out = _sdpa(q, k, v, causal=causal, window=window)
+    return _out_proj(out, p["wo"])
+
+
+# =====================================================================
+# GQA decode with a dense KV cache (full or ring / sliding window)
 # =====================================================================
 def gqa_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
+    """x [B,1,d]; cache {k,v [B,L,kv,hd]}; pos an int (the same for every
+    row). Without a window the cache holds positions 0..L-1 and this is
+    ``gqa_decode_multipos``. With a window the cache is a ring of L
+    slots: position ``pos`` writes slot ``pos % L`` (in place) and the
+    step attends to every slot written so far, the last L positions
+    (slot i holds position ``pos - ((pos - i) mod L)``)."""
+    B = x.shape[0]
+    if window is None:
+        return gqa_decode_multipos(
+            p, cfg, x, cache,
+            torch.full((B,), int(pos), dtype=torch.long, device=x.device))
+    pos = int(pos)
+    L = cache["k"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=True)
+    k, v = cache["k"], cache["v"]
+    slot = pos % L
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+
+    H, KV, hd = q.shape[2], k.shape[2], cfg.head_dim
+    G = H // KV
+    qf = q.reshape(B, KV, G, hd).to(k.dtype)
+    s = torch.einsum("bkgh,blkh->bkgl", qf, k).float() / math.sqrt(hd)
+    idx = torch.arange(L, device=x.device)
+    valid = pos - torch.remainder(pos - idx, L) >= 0
+    s = torch.where(valid[None, None, None, :], s,
+                    torch.full((), NEG_INF, device=x.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype), v).float()
+    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    return _out_proj(out, p["wo"]), cache
 
 
 def gqa_decode_multipos(p, cfg, x, cache, pos_vec):

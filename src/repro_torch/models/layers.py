@@ -1,5 +1,5 @@
-"""Shared low-level layers: init, norms, positions (port of
-``repro.models.layers``; same formulas, same fp32 internals)."""
+"""Shared low-level layers: init, norms, positions, the SwiGLU MLP (port
+of ``repro.models.layers``; same formulas, same fp32 internals)."""
 from __future__ import annotations
 
 import math
@@ -69,3 +69,26 @@ def apply_rope(x, cos, sin):
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLPs
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
+                dtype, *, layers: int, device="cuda"):
+    """Stacked SwiGLU params for ``layers`` layers: ``w1/w3 [L,d,ff]``,
+    ``w2 [L,ff,d]`` (JAX init scales; ``n_layers`` sets the residual
+    scale)."""
+    res_scale = 1.0 / math.sqrt(2 * max(n_layers, 1))
+    L = layers
+    return {
+        "w1": dense_init(gen, (L, d_model, d_ff), d_model, dtype=dtype,
+                         device=device),
+        "w3": dense_init(gen, (L, d_model, d_ff), d_model, dtype=dtype,
+                         device=device),
+        "w2": dense_init(gen, (L, d_ff, d_model), d_ff, scale=res_scale,
+                         dtype=dtype, device=device),
+    }
+
+
+def swiglu(params, x):
+    h = torch.nn.functional.silu(x @ params["w1"]) * (x @ params["w3"])
+    return h @ params["w2"]

@@ -1,31 +1,41 @@
-"""Model params and the decode-side blocks of the ``moe`` family (port of
-the decode half of ``repro.models.transformer``).
+"""Model params, the full-sequence forward / prefill and the decode step
+of the ``dense``, ``moe`` and ``ssm`` families (port of
+``repro.models.transformer``).
 
 Params are a plain dict with the JAX package's tree and layouts, layers
 stacked on a leading ``[L]`` axis::
 
-    {"embed" [V,d], "final_norm" [d], "unembed" [d,V],
-     "layers": {"ln1" [L,d], "attn": {wq [L,d,H,hd], wk/wv [L,d,KV,hd],
-                                      wo [L,H,hd,d]},
-                "ln2" [L,d], "moe": {"router" [L,d,E],
-                                     "experts": {w1/w3 [L,E,d,ff],
-                                                 w2 [L,E,ff,d]}}}}
+    {"embed" [V,d], "final_norm" [d], "unembed" [d,V] (untied only),
+     "layers": {"ln1" [L,d],
+                "attn": {wq [L,d,H,hd], wk/wv [L,d,KV,hd], wo [L,H,hd,d],
+                         bq/bk/bv (QKV bias only)},      # dense, moe
+                "ln2" [L,d],                              # dense, moe
+                "mlp": {w1/w3 [L,d,ff], w2 [L,ff,d]},     # dense
+                "moe": {"router" [L,d,E],                 # moe
+                        "experts": {w1/w3 [L,E,d,ff], w2 [L,E,ff,d]}},
+                "ssm": {in_z, in_xbc, in_dt, conv_w, conv_b, A_log,
+                        D, dt_bias, norm, out_proj}}}      # ssm
 
 ``from_jax_params`` / ``to_jax_params`` move such a tree between numpy
 (the JAX package's params via ``np.asarray``) and torch, bit for bit.
-Full-sequence forward, prefill and the other families come with later
-slices (ROADMAP.md).
+The JAX package scans over the stacked layers; the port loops over
+them in Python and runs eagerly. MLA, the hybrid, encdec and vlm
+families come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import embed_init, rms_norm
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (embed_init, init_swiglu, rms_norm,
+                                       sinusoidal_positions, swiglu)
+
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _param_dtype(cfg) -> torch.dtype:
@@ -33,17 +43,22 @@ def _param_dtype(cfg) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.family != "moe" or cfg.use_mla:
+    if cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the GQA 'moe' family so far "
-            f"(ROADMAP.md queue A: MLA, full-sequence and SSM families)")
+            f"{cfg.name}: MLA attention (mla_full, mla_decode*) is not "
+            f"ported yet (ROADMAP.md open items: MLA)")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
+            f"port runs {FAMILIES} (ROADMAP.md open items: hybrid, "
+            f"cross-attention for encdec/vlm)")
 
 
 def init_params(cfg, gen: torch.Generator, dtype=None, device="cuda"):
-    """Random params for an MoE decoder, drawn from ``gen`` (a generator
-    on ``device``) with the JAX package's init scales. The draws differ
-    from JAX's: tests that compare the two bridge JAX's params with
-    ``from_jax_params`` instead."""
+    """Random params for a dense, MoE or SSM decoder, drawn from ``gen``
+    (a generator on ``device``) with the JAX package's init scales. The
+    draws differ from JAX's: tests that compare the two bridge JAX's
+    params with ``from_jax_params`` instead."""
     _check_supported(cfg)
     dtype = dtype or _param_dtype(cfg)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
@@ -53,12 +68,22 @@ def init_params(cfg, gen: torch.Generator, dtype=None, device="cuda"):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, (d, V), dtype, device=device)
-    params["layers"] = {
-        "ln1": torch.ones((L, d), dtype=dtype, device=device),
-        "attn": attn.init_gqa(gen, cfg, dtype, layers=L, device=device),
-        "ln2": torch.ones((L, d), dtype=dtype, device=device),
-        "moe": moe_lib.init_moe(gen, cfg, dtype, layers=L, device=device),
-    }
+    layers: Dict[str, Any] = {
+        "ln1": torch.ones((L, d), dtype=dtype, device=device)}
+    if cfg.family == "ssm":
+        layers["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype, layers=L,
+                                         device=device)
+    else:
+        layers["attn"] = attn.init_gqa(gen, cfg, dtype, layers=L,
+                                       device=device)
+        layers["ln2"] = torch.ones((L, d), dtype=dtype, device=device)
+        if cfg.is_moe:
+            layers["moe"] = moe_lib.init_moe(gen, cfg, dtype, layers=L,
+                                             device=device)
+        else:
+            layers["mlp"] = init_swiglu(gen, d, cfg.d_ff, L, dtype,
+                                        layers=L, device=device)
+    params["layers"] = layers
     return params
 
 
@@ -99,20 +124,125 @@ def logits_from_hidden(params, cfg, h):
     return (h @ unembed_matrix(params)).float()
 
 
+def _layer(stacked, i: int):
+    """Layer i's params: a view of every stacked [L, ...] leaf."""
+    return _tree_map(lambda t: t[i], stacked)
+
+
+# =====================================================================
+# full-sequence blocks
+# =====================================================================
+def _attn_full(p, cfg, h, positions, window):
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    return h + attn.gqa_full(p["attn"], cfg, x, positions, window=window)
+
+
+def _ffn_full(p, cfg, h, moe_path):
+    """The block's FFN half: (h, aux). SSM blocks have none."""
+    if cfg.family == "ssm":
+        return h, 0.0
+    x = rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_lib.moe_apply(p["moe"], cfg, x, path=moe_path)
+        return h + y, aux
+    return h + swiglu(p["mlp"], x), 0.0
+
+
+def _block_full(p, cfg, h, positions, *, window, moe_path):
+    if cfg.family == "ssm":
+        h = h + ssm_lib.ssd_full(p["ssm"], cfg,
+                                 rms_norm(h, p["ln1"], cfg.norm_eps))
+    else:
+        h = _attn_full(p, cfg, h, positions, window)
+    return _ffn_full(p, cfg, h, moe_path)
+
+
+def _embed(params, cfg, tokens, positions):
+    h = params["embed"][tokens]
+    if cfg.pos_emb == "sinusoidal":
+        h = h + sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    return h
+
+
+def forward(params, cfg, tokens, *, window: Optional[int] = None,
+            moe_path: str = "auto"):
+    """tokens [B,S] -> (hidden [B,S,d] before the final norm, aux_loss
+    fp32 scalar)."""
+    _check_supported(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    h = _embed(params, cfg, tokens, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.num_layers):
+        h, a = _block_full(_layer(params["layers"], i), cfg, h, positions,
+                           window=window, moe_path=moe_path)
+        aux = aux + a
+    return h, aux
+
+
+def prefill(params, cfg, tokens, *, moe_path: str = "auto"):
+    """Full forward returning last-position logits [B, V] (no [B,S,V])."""
+    h, _ = forward(params, cfg, tokens, moe_path=moe_path)
+    return logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
+
+
 # =====================================================================
 # decode state and blocks
 # =====================================================================
 def init_decode_state(params, cfg, batch: int, cache_len: int, *,
                       dtype=None, device="cuda"):
-    """Dense decode caches, one per layer: ``{"layers": [{k,v
-    [B,cache_len,KV,hd]}] * L}`` (the JAX package stacks them on [L]
-    and the engine unstacks; the port keeps the engine's form, since
-    decode updates each layer's cache in place)."""
+    """Decode state, one entry per layer: ``{"layers": [cache] * L}`` with
+    a dense KV cache ``{k,v [B,cache_len,KV,hd]}`` per attention layer or
+    an SSM state ``{ssd [B,H,P,N] fp32, conv [B,W-1,di+2N]}`` per SSM
+    layer (the JAX package stacks them on [L]; the port keeps one entry
+    per layer, since decode updates KV caches in place)."""
     _check_supported(cfg)
     dtype = dtype or _param_dtype(cfg)
-    return {"layers": [attn.gqa_cache_init(cfg, batch, cache_len, dtype,
-                                           device=device)
-                       for _ in range(cfg.num_layers)]}
+    if cfg.family == "ssm":
+        layers = [ssm_lib.ssm_state_init(cfg, batch, dtype, device=device)
+                  for _ in range(cfg.num_layers)]
+    else:
+        layers = [attn.gqa_cache_init(cfg, batch, cache_len, dtype,
+                                      device=device)
+                  for _ in range(cfg.num_layers)]
+    return {"layers": layers}
+
+
+def _attn_decode(p, cfg, h, cache, pos, window):
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    y, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos, window=window)
+    return h + y, cache
+
+
+def _block_decode(p, cfg, h, cache, pos, *, window, moe_path):
+    if cfg.family == "ssm":
+        y, cache = ssm_lib.ssd_decode(p["ssm"], cfg,
+                                      rms_norm(h, p["ln1"], cfg.norm_eps),
+                                      cache)
+        h = h + y
+    else:
+        h, cache = _attn_decode(p, cfg, h, cache, pos, window)
+    h, _ = _ffn_full(p, cfg, h, moe_path)
+    return h, cache
+
+
+def decode_step(params, cfg, state, token, pos: int, *,
+                window: Optional[int] = None, moe_path: str = "auto"):
+    """token [B,1] int, pos an int (the same for every row) -> (logits
+    [B,V], new state). KV caches are updated in place; SSM states are
+    replaced in the returned state's list."""
+    B = token.shape[0]
+    positions = torch.full((B, 1), int(pos), dtype=torch.long,
+                           device=token.device)
+    h = _embed(params, cfg, token, positions)
+    caches = []
+    for i, cache in enumerate(state["layers"]):
+        h, cache = _block_decode(_layer(params["layers"], i), cfg, h, cache,
+                                 pos, window=window, moe_path=moe_path)
+        caches.append(cache)
+    new_state = dict(state)
+    new_state["layers"] = caches
+    return logits_from_hidden(params, cfg, h)[:, 0], new_state
 
 
 def _attn_decode_multipos(p, cfg, h, cache, pos_vec):

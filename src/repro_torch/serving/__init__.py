@@ -1,4 +1,6 @@
-"""Serving over the offload engine: ``offload_serving``
+"""Serving: over the offload engine, ``offload_serving``
 (``ContinuousOffloadServer``, ``OffloadServer``), ``scheduler``,
-``request``, ``sampler``. Import from the submodules (the engine uses
-``sampler``, so this package imports nothing eagerly)."""
+``request``; with every weight on the device, ``engine``
+(``ServingEngine``); both sample with ``sampler``. Import from the
+submodules (the offload engine uses ``sampler``, so this package
+imports nothing eagerly)."""

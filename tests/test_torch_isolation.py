@@ -56,13 +56,29 @@ def test_port_sources_import_no_jax_and_no_reference():
 def test_port_import_pulls_in_no_jax():
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch, "
             "repro_torch.core, repro_torch.serving.offload_serving, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.serving.engine, repro_torch.models.ssm, "
+            "repro_torch.models.transformer, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m == 'repro' or "
             "m.startswith(('jax', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_calls_no_library_kernel():
+    """The port's kernels are its own: no module calls PyTorch's fused
+    attention (``chip_smoke.py`` times it only as a yardstick), and no
+    CUDA source pulls in cuBLAS or cuDNN."""
+    py = [f for f in PORT.rglob("*.py")
+          if "scaled_dot_product_attention" in f.read_text()]
+    assert py == []
+    cu = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
+    assert {f.stem for f in cu} == {"moe_gemm", "paged_attention",
+                                    "flash_attention", "ssd_chunk"}
+    bad = [f.name for f in cu
+           if re.search(r"#include\s*<(cublas|cudnn)", f.read_text())]
+    assert bad == []
 
 
 def _run_smoke(cwd):
@@ -93,7 +109,17 @@ def test_configs_mirror_reference_field_for_field():
     assert dataclasses.asdict(pcfg.get_config("mixtral-8x7b")) == want
     assert dataclasses.asdict(ptiny()) == dataclasses.asdict(
         tiny("mixtral-8x7b"))
-    assert pcfg.list_archs() == ["mixtral-8x7b"]
+    assert pcfg.list_archs() == ["mamba2-2.7b", "mixtral-8x7b",
+                                 "qwen2.5-3b"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+def test_new_configs_mirror_reference_field_for_field(arch):
+    from repro.configs import get_config, reduced
+    assert dataclasses.asdict(pcfg.get_config(arch)) == dataclasses.asdict(
+        get_config(arch))
+    assert dataclasses.asdict(pcfg.reduced(pcfg.get_config(arch))) == \
+        dataclasses.asdict(reduced(get_config(arch)))
 
 
 # -------------------------------------------------------------- bridge
@@ -121,6 +147,62 @@ def test_bridge_roundtrip_is_bitwise():
                                     cfg.d_model, cfg.expert_d_ff)
     assert tuple(e["w2"].shape) == (cfg.num_layers, cfg.num_experts,
                                     cfg.expert_d_ff, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+def test_dense_and_ssm_bridge_roundtrip_is_bitwise(arch):
+    """The dense family's ``mlp`` (and QKV biases, tied embeddings) and
+    the ssm family's ``ssm`` params survive the round trip bit for bit;
+    ``A_log``, ``D`` and ``dt_bias`` stay fp32 even in a bf16 model."""
+    cfg = tiny(arch)
+    npt = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(3)))
+    back = ptf.to_jax_params(ptf.from_jax_params(npt, device="cpu"))
+    a, b = dict(_leaves(npt)), dict(_leaves(back))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert a[k].tobytes() == b[k].tobytes(), k
+    assert ("/layers/mlp/w1" in a) == (arch == "qwen2.5-3b")
+    assert ("/layers/ssm/A_log" in a) == (arch == "mamba2-2.7b")
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    tb = ptf.from_jax_params(jax.tree.map(
+        np.asarray, jtf.init_params(bf, jax.random.PRNGKey(3))), device="cpu")
+    if arch == "mamba2-2.7b":
+        assert {tb["layers"]["ssm"][n].dtype
+                for n in ("A_log", "D", "dt_bias")} == {torch.float32}
+        assert tb["layers"]["ssm"]["in_z"].dtype == torch.bfloat16
+    else:
+        assert tb["layers"]["mlp"]["w1"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+def test_port_init_matches_reference_tree_for_dense_and_ssm(arch):
+    """The port's own init draws the JAX package's tree, shapes, dtypes
+    and (within sampling noise) scales for the other two families."""
+    cfg = tiny(arch, d_model=96)
+    jp = dict(_leaves(jax.tree.map(np.asarray,
+                                   jtf.init_params(cfg, jax.random.PRNGKey(0)))))
+    pc = dataclasses.replace(pcfg.reduced(pcfg.get_config(arch), layers=2,
+                                          d_model=96, experts=4, vocab=128),
+                             dtype="float32")
+    pp = dict(_leaves(ptf.to_jax_params(
+        ptf.init_params(pc, torch.Generator().manual_seed(0), device="cpu"))))
+    assert jp.keys() == pp.keys()
+    # the per-head SSM vectors are too short for a std: check their
+    # supports (A = -exp(A_log) in [-16, -1], softplus(dt_bias) in
+    # [1e-3, 1e-1], D = 1)
+    ranges = {"/layers/ssm/A_log": (0.0, np.log(16.0)),
+              "/layers/ssm/dt_bias": (np.log(np.expm1(1e-3)),
+                                      np.log(np.expm1(1e-1))),
+              "/layers/ssm/D": (1.0, 1.0)}
+    for k in jp:
+        assert jp[k].shape == pp[k].shape and jp[k].dtype == pp[k].dtype, k
+        if k in ranges:
+            lo, hi = ranges[k]
+            assert lo - 1e-5 <= pp[k].min() and pp[k].max() <= hi + 1e-5, k
+            continue
+        sj, sp = float(jp[k].std()), float(pp[k].std())
+        assert sp == pytest.approx(sj, rel=0.2, abs=1e-7), k
 
 
 def test_port_init_matches_reference_tree_and_scales():

@@ -1,6 +1,7 @@
 """The port's kernel wrappers on the CPU: each plain version (the path a
 CPU tensor takes) against the JAX package's Pallas kernel in interpret
-mode and its jnp oracle, on the shapes of ``test_kernels.py``. The CUDA
+mode and its jnp oracle, on the shapes of ``test_kernels.py``, and the
+wrappers' argument checks. The CUDA
 kernels themselves run only on the card: ``chip_smoke.py`` holds each
 against its plain version there."""
 import jax.numpy as jnp
@@ -140,6 +141,125 @@ def test_paged_attention_rejects_mismatched_shapes():
                             torch.zeros(2))
 
 
+# ------------------------------------------------------ flash attention
+FLASH_SHAPES = [
+    (1, 64, 2, 2, 64),
+    (2, 160, 4, 2, 64),    # GQA, S off the 64-row block
+    (1, 96, 4, 1, 128),    # MQA
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 37])
+def test_flash_attention_plain_matches_pallas(B, S, H, KV, hd, causal,
+                                              window):
+    """The wrapper on CPU tensors against the Pallas kernel in interpret
+    mode (64-row blocks, so the ragged S=160 takes its padding path)
+    and the jnp oracle. fp32; tolerance 2e-4 (summation order)."""
+    rng = np.random.default_rng(S * 10 + H + window)
+    q, k, v = (_rand(rng, (B, S, n, hd)) for n in (H, KV, KV))
+    (jq, tq), (jk, tk), (jv, tv) = map(_both, (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal,
+                              window=window).numpy()
+    for impl, blocks in (("pallas_interpret", dict(block_q=64, block_k=64)),
+                         ("xla", {})):
+        want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    impl=impl, **blocks)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_flash_attention_plain_narrow_values_matches_pallas():
+    """v narrower than q/k (MLA: qk width hd + rope, v width hd)."""
+    rng = np.random.default_rng(11)
+    q, k = _rand(rng, (2, 48, 4, 96)), _rand(rng, (2, 48, 2, 96))
+    v = _rand(rng, (2, 48, 2, 64))
+    (jq, tq), (jk, tk), (jv, tv) = map(_both, (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    assert tuple(got.shape) == (2, 48, 4, 64)
+    want = jops.flash_attention(jq, jk, jv, causal=True,
+                                impl="pallas_interpret", block_q=16,
+                                block_k=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_flash_attention_plain_bf16_matches_pallas():
+    """bf16 inputs, output in bf16: against the Pallas kernel on the same
+    bf16 inputs (bf16 rounding of the output: 2e-2) and against fp32
+    attention on the widened inputs."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_rand(rng, (1, 128, 2, 64)) for _ in range(3))
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ops.flash_attention(*tb)
+    assert got.dtype == torch.bfloat16
+    want = jops.flash_attention(*jb, impl="pallas_interpret", block_q=64,
+                                block_k=64)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    exact = ops.flash_attention(*(t.float() for t in tb))
+    torch.testing.assert_close(got.float(), exact, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(k=torch.zeros(1, 8, 3, 16)),       # H % KV != 0
+    dict(v=torch.zeros(1, 8, 2, 32)),       # v wider than q/k
+    dict(k=torch.zeros(1, 8, 2, 8)),        # k width != q width
+    dict(q=torch.zeros(8, 4, 16)),          # not [B,S,H,hd]
+    dict(window=-1),
+])
+def test_flash_attention_rejects_what_it_cannot_take(bad):
+    args = dict(q=torch.zeros(1, 8, 4, 16), k=torch.zeros(1, 8, 2, 16),
+                v=torch.zeros(1, 8, 2, 16), window=0)
+    args.update(bad)
+    with pytest.raises(ValueError):
+        ops.flash_attention(args["q"], args["k"], args["v"],
+                            window=args["window"])
+
+
+# ------------------------------------------------------------ ssd chunk
+SSD_SHAPES = [
+    (2, 32, 8, 16, 24, 4),
+    (3, 64, 16, 32, 16, 8),
+    (1, 16, 6, 8, 8, 3),     # H not a multiple of the Pallas head block
+]
+
+
+@pytest.mark.parametrize("G,Q,H,P,N,bh", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_plain_matches_pallas(G, Q, H, P, N, bh, dtype):
+    """The wrapper on CPU tensors against the Pallas kernel in interpret
+    mode, on the same inputs in the same dtype (both compute in fp32):
+    1e-4 in fp32, 3e-2 in bf16 as ``test_kernels.py`` states."""
+    rng = np.random.default_rng(G * 100 + Q)
+    arrs = [-np.abs(_rand(rng, (G, Q, H), 0.1)), _rand(rng, (G, Q, H, P)),
+            _rand(rng, (G, Q, N)), _rand(rng, (G, Q, N))]
+    jd = getattr(jnp, dtype)
+    jargs = [jnp.asarray(a, jd) for a in arrs]
+    targs = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    got_y, got_s = ops.ssd_chunk(*targs)
+    assert got_y.dtype == got_s.dtype == torch.float32
+    want_y, want_s = jops.ssd_chunk(*jargs, impl="pallas_interpret",
+                                    block_h=bh)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=tol,
+                               atol=tol)
+
+
+def test_ssd_chunk_rejects_mismatched_shapes():
+    dA, xw = torch.zeros(2, 8, 3), torch.zeros(2, 8, 3, 4)
+    bm = torch.zeros(2, 8, 5)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(dA, torch.zeros(2, 8, 4, 4), bm, bm)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(dA, xw, bm, torch.zeros(2, 8, 6))
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launch_counts()
     x = torch.zeros(1, 2, 8)
@@ -149,7 +269,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                         torch.zeros(2, 4, 1, 8),
                         torch.zeros(1, 1, dtype=torch.int32),
                         torch.zeros(1, dtype=torch.int32))
-    assert ops.launch_counts() == {"moe_ffn": 0, "paged_attention": 0}
+    ops.flash_attention(torch.zeros(1, 3, 2, 8), torch.zeros(1, 3, 1, 8),
+                        torch.zeros(1, 3, 1, 8))
+    ops.ssd_chunk(torch.zeros(1, 4, 2), torch.zeros(1, 4, 2, 3),
+                  torch.zeros(1, 4, 5), torch.zeros(1, 4, 5))
+    assert ops.launch_counts() == {"moe_ffn": 0, "paged_attention": 0,
+                                   "flash_attention": 0, "ssd_chunk": 0}
 
 
 def test_unsupported_device_raises():
@@ -158,3 +283,11 @@ def test_unsupported_device_raises():
         ops.moe_ffn(m, torch.zeros(1, 8, 4, device="meta"),
                     torch.zeros(1, 8, 4, device="meta"),
                     torch.zeros(1, 4, 8, device="meta"), [0])
+    m4 = torch.zeros(1, 3, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        ops.flash_attention(m4, m4, m4)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(torch.zeros(1, 4, 2, device="meta"),
+                      torch.zeros(1, 4, 2, 3, device="meta"),
+                      torch.zeros(1, 4, 5, device="meta"),
+                      torch.zeros(1, 4, 5, device="meta"))
