@@ -7,7 +7,9 @@ It drives the port's two entry points end to end and checks them:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) and prints flash
+   attention's ``ptxas`` report (registers, shared memory, spills) on a
+   JSON line of its own;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -45,14 +47,18 @@ It drives the port's two entry points end to end and checks them:
    heaviest call, and times both (CUDA events after a warm-up) beside
    the card's bound for the same work and, for flash attention, one
    ``scaled_dot_product_attention`` call on the same inputs (a yardstick
-   the port never calls);
+   the port never calls). The bound takes each kernel's operations at
+   the peak of the units it runs them on: flash attention's at the TF32
+   tensor-core rate (with the fp32-core bound and the three-pass 3xTF32
+   floor beside it), the others' at the fp32 rate;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
    heads per KV head (1 to 16), head dims up to 256 and a row with no
    visible key (paged); ragged lengths, windows, no causal mask, values
-   narrower than keys, MQA, bf16 (flash); other chunk lengths, head
-   counts and widths (SSD).
+   narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
+   (a partial k-step), rows copied 4 bytes or one element at a time
+   (flash); other chunk lengths, head counts and widths (SSD).
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -90,6 +96,11 @@ PREFILL_B, PREFILL_S, ENGINE_S, ENGINE_NEW = 2, 2048, 512, 8
 MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
+# the peak each kernel's operations run at: flash attention's products are
+# TF32 tensor-core MMAs (3 passes each for fp32 inputs), the rest fp32
+PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
+FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
 # whose sums over a 256-position chunk reach |y| ~ 200: there the bound is
 # max |kernel - plain| <= TOL * max |plain|
@@ -112,11 +123,13 @@ PAGED_SHAPES = [(2, 4, 2, 64, 8, 8, 3), (3, 4, 4, 64, 10, 16, 2),
                 (3, 15, 3, 72, 9, 4, 6), (2, 12, 1, 128, 12, 16, 4),
                 (2, 16, 1, 256, 12, 16, 5)]
 # (B, Sq, Sk, H, KV, hd, vd, causal, window, dtype) for flash attention:
-# ragged S (1, 37, 160, 1000), windows 37 and 1024, no causal mask, MLA
-# widths (hd 192, vd 128), MQA and 1 to 16 query heads per KV head, hd 40
-# to 256, bf16, and more queries than keys under a window (rows that see
-# no key); (G, Q, H, P, N) for SSD chunk: Q 64 and 100, H 6, P 32, N 16
-# and 64, G 1, and a chunk ragged in every width
+# ragged S (1, 37, 160, 333, 1000), windows 37 and 1024, no causal mask,
+# MLA widths (hd 192, vd 128), MQA and 1 to 16 query heads per KV head,
+# hd 36 to 256, bf16, more queries than keys under a window (rows that
+# see no key), a 4096-key causal row (drift over 128 tiles), hd 36 and 37
+# (a partial k8 step), rows of 4-byte copies (fp32 hd 37, vd 21) and of
+# element loads (bf16 hd 37, vd 21); (G, Q, H, P, N) for SSD chunk: Q 64
+# and 100, H 6, P 32, N 16 and 64, G 1, and a chunk ragged in every width
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -127,7 +140,11 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 200, 200, 16, 1, 256, 256, True, 37, "float32"),
                 (1, 100, 40, 4, 2, 64, 64, True, 16, "float32"),
                 (2, 256, 256, 32, 8, 128, 128, True, 0, "bfloat16"),
-                (1, 160, 160, 4, 2, 64, 64, False, 37, "bfloat16")]
+                (1, 160, 160, 4, 2, 64, 64, False, 37, "bfloat16"),
+                (1, 4096, 4096, 32, 8, 128, 128, True, 0, "float32"),
+                (2, 333, 333, 32, 4, 36, 36, True, 0, "float32"),
+                (1, 70, 70, 6, 3, 37, 21, True, 0, "float32"),
+                (1, 70, 70, 6, 3, 37, 21, True, 0, "bfloat16")]
 SSD_SHAPES = [(1, 64, 6, 32, 16), (2, 100, 6, 32, 64), (1, 64, 6, 32, 64),
               (3, 37, 5, 72, 130), (2, 256, 80, 64, 128)]
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -709,6 +726,10 @@ def main() -> None:
         for line in rep["ptxas"].splitlines():
             if "registers" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    if "flash_attention" in built:   # its registers, shared memory, spills
+        print(json.dumps({"ptxas": {"flash_attention": [
+            line.strip() for line in built["flash_attention"]["ptxas"]
+            .splitlines() if line.strip()]}}), flush=True)
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,
@@ -783,16 +804,25 @@ def main() -> None:
             plain_ms = device_ms(plain, iters, graph=graph)
             library_ms = (device_ms(library, iters, graph=graph)
                           if library is not None else None)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+            peak, rate = PEAK.get(name, FP32_PEAK)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+            bound_ms = max(t_bytes, t_ops) * 1e3
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": launches_by_kernel[name], "max_abs_err": err,
                 "tol": TOL[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_peak": f"{peak}, {rate / 1e12:g} TFLOP/s",
+                "share_of_bound": bound_ms / ms,
                 "library_ms": library_ms, "bytes": nbytes, "flops": flops,
                 "shape": shape})
+            if name in PEAK:   # the fp32-core bound, and 3 TF32 passes
+                kernels[-1]["bound_fp32_ms"] = max(
+                    t_bytes, flops / FP32_FLOPS_PER_S) * 1e3
+                kernels[-1]["bound_3xtf32_ms"] = max(
+                    t_bytes, 3 * flops / rate) * 1e3
             if args.profile and library is not None:
                 # name the kernels the library call ran
                 prof = torch.profiler.profile(

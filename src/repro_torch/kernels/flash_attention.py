@@ -5,8 +5,11 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
 The kernel (``csrc/flash_attention.cu``, whose header says what bounds
 it on an H100 and how the design answers) runs one block per (batch
 row, KV head, tile of query positions) that serves the KV head's G
-query heads, reads K/V in place from ``[B, S, KV, hd]``, skips the key
-tiles its rows cannot see, and masks the ragged edges itself. The plain
+query heads, reads K/V in place from ``[B, S, KV, hd]`` through a
+``cp.async`` ring, computes both products on the TF32 tensor cores
+(``mma.sync``, each fp32 operand split hi + lo: 3xTF32, fp32 accuracy),
+keeps the online softmax in registers, skips the key tiles its rows
+cannot see, and masks the ragged edges itself. The plain
 version repeats K/V per query head and runs ``ref.flash_attention_ref``
 (exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
 public wrapper that checks the arguments and picks between the two.

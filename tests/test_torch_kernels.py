@@ -4,6 +4,8 @@ mode and its jnp oracle, on the shapes of ``test_kernels.py``, and the
 wrappers' argument checks. The CUDA
 kernels themselves run only on the card: ``chip_smoke.py`` holds each
 against its plain version there."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops
 
 
@@ -218,6 +221,60 @@ def test_flash_attention_rejects_what_it_cannot_take(bad):
     with pytest.raises(ValueError):
         ops.flash_attention(args["q"], args["k"], args["v"],
                             window=args["window"])
+
+
+def _tf32(x):
+    """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero: ``cvt.rna.tf32.f32``'s rounding, by the bit masking the CUDA
+    kernel does, ``(bits + 0x1000) & ~0x1fff``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 operands, fp32 sums: one pass (hi.hi) or the
+    kernel's 3xTF32 split (lo.hi + hi.lo + hi.hi, lo = tf32(x - hi))."""
+    if passes == 0:                      # no rounding: the float64 oracle
+        return a @ b
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if passes == 3:
+        out = _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + out
+    return out
+
+
+def test_flash_attention_tf32_split_error():
+    """The precision argument for the CUDA kernel's tensor-core design,
+    on the CPU: causal attention at hd 128 with both products on TF32
+    operands. One TF32 pass misses flash attention's fp32 tolerance
+    (2e-4 against the plain version, unchanged); the 3xTF32 split the
+    kernel runs holds it with room (~1e-6, the error of fp32 itself)."""
+    rng = np.random.default_rng(14)
+    B, S, H, KV, hd = 1, 256, 4, 2, 128
+    q, k, v = (torch.from_numpy(_rand(rng, (B, S, n, hd)))
+               for n in (H, KV, KV))
+    want = flash_mod.plain(q, k, v, causal=True, window=0)
+
+    def heads(x):   # [B,S,n,hd] -> [B*H, S, hd], K/V repeated per head
+        x = x.repeat_interleave(H // x.shape[2], dim=2)
+        return x.transpose(1, 2).reshape(B * H, S, hd)
+
+    def attention(passes, dtype=torch.float32):
+        qf, kf, vf = (heads(x).to(dtype) for x in (q, k, v))
+        s = _mm_tf32(qf, kf.transpose(1, 2), passes) / math.sqrt(hd)
+        keep = torch.ones(S, S, dtype=torch.bool).tril()
+        s = torch.where(keep, s, torch.full((), -1e30, dtype=dtype))
+        out = _mm_tf32(torch.softmax(s, dim=-1), vf, passes)
+        return out.reshape(B, H, S, hd).transpose(1, 2)
+
+    oracle = attention(0, torch.float64)
+    one, three = attention(1), attention(3)
+    assert torch.allclose(three, want, rtol=2e-4, atol=2e-4)
+    assert not torch.allclose(one, want, rtol=2e-4, atol=2e-4)
+    err = {name: float((x.double() - oracle).abs().max())
+           for name, x in (("fp32", want), ("1xTF32", one),
+                           ("3xTF32", three))}
+    assert err["1xTF32"] > 5 * 2e-4, err
+    assert err["3xTF32"] < 2e-4 / 50 and err["fp32"] < 2e-4 / 50, err
 
 
 # ------------------------------------------------------------ ssd chunk
