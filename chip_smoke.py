@@ -7,9 +7,9 @@ It drives the port's two entry points end to end and checks them:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together) and prints flash
-   attention's ``ptxas`` report (registers, shared memory, spills) on a
-   JSON line of its own;
+   (one ``nvcc`` per source, all started together) and prints the
+   ``ptxas`` reports (registers, shared memory, spills) of flash
+   attention and SSD chunk on a JSON line each;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -48,9 +48,9 @@ It drives the port's two entry points end to end and checks them:
    the card's bound for the same work and, for flash attention, one
    ``scaled_dot_product_attention`` call on the same inputs (a yardstick
    the port never calls). The bound takes each kernel's operations at
-   the peak of the units it runs them on: flash attention's at the TF32
-   tensor-core rate (with the fp32-core bound and the three-pass 3xTF32
-   floor beside it), the others' at the fp32 rate;
+   the peak of the units it runs them on: flash attention's and SSD
+   chunk's at the TF32 tensor-core rate (with the fp32-core bound and
+   the three-pass 3xTF32 floor beside it), the others' at the fp32 rate;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
@@ -58,7 +58,10 @@ It drives the port's two entry points end to end and checks them:
    visible key (paged); ragged lengths, windows, no causal mask, values
    narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
    (a partial k-step), rows copied 4 bytes or one element at a time
-   (flash); other chunk lengths, head counts and widths (SSD).
+   (flash); other chunk lengths (37 to 1024), head counts (1 to 80) and
+   widths, P and N off the multiples of 8 (a partial k-step, 4-byte
+   copies), a strongly decaying dA (SSD), and a 4096-position chunk
+   against a float64 evaluation of the same sums.
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -97,9 +100,11 @@ MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
-# the peak each kernel's operations run at: flash attention's products are
-# TF32 tensor-core MMAs (3 passes each for fp32 inputs), the rest fp32
-PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
+# the peak each kernel's operations run at: flash attention's and SSD
+# chunk's products are TF32 tensor-core MMAs (3 passes each for fp32
+# inputs), the rest fp32
+PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
+        "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
 # whose sums over a 256-position chunk reach |y| ~ 200: there the bound is
@@ -128,8 +133,14 @@ PAGED_SHAPES = [(2, 4, 2, 64, 8, 8, 3), (3, 4, 4, 64, 10, 16, 2),
 # hd 36 to 256, bf16, more queries than keys under a window (rows that
 # see no key), a 4096-key causal row (drift over 128 tiles), hd 36 and 37
 # (a partial k8 step), rows of 4-byte copies (fp32 hd 37, vd 21) and of
-# element loads (bf16 hd 37, vd 21); (G, Q, H, P, N) for SSD chunk: Q 64
-# and 100, H 6, P 32, N 16 and 64, G 1, and a chunk ragged in every width
+# element loads (bf16 hd 37, vd 21); (G, Q, H, P, N, dA scale) for SSD
+# chunk: Q 64 and 100, H 6, P 32, N 16 and 64, G 1, a chunk ragged in
+# every width, then a 1024-position chunk (drift over 32 key tiles), N 20
+# and P 37 (a partial k8 step; 4-byte xw copies), P 21 and N 37 (4-byte
+# copies of every input), H 1, and dA ~ -|N(0, 1)| (the decay underflows
+# to 0 across the chunk). SSD_ORACLE_SHAPE: a 4096-position chunk, where
+# the plain version's own fp32 cumsum is off the exact sums by more than
+# the tolerance, so the kernel is held against float64 there
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -145,8 +156,12 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (2, 333, 333, 32, 4, 36, 36, True, 0, "float32"),
                 (1, 70, 70, 6, 3, 37, 21, True, 0, "float32"),
                 (1, 70, 70, 6, 3, 37, 21, True, 0, "bfloat16")]
-SSD_SHAPES = [(1, 64, 6, 32, 16), (2, 100, 6, 32, 64), (1, 64, 6, 32, 64),
-              (3, 37, 5, 72, 130), (2, 256, 80, 64, 128)]
+SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
+              (1, 64, 6, 32, 64, 0.1), (3, 37, 5, 72, 130, 0.1),
+              (2, 256, 80, 64, 128, 0.1), (2, 1024, 8, 64, 128, 0.1),
+              (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
+              (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0)]
+SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "moe_ffn": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                 "src/repro/kernels/moe_gemm.py:40"),
@@ -284,7 +299,7 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
     (("paged_attention_kernel",), "paged_attention"),
     (("flash_attention_kernel",), "flash_attention"),
-    (("ssd_chunk_kernel",), "ssd_chunk"),
+    (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
 )
 
@@ -417,24 +432,27 @@ def kernel_cases(calls):
 
 
 def agree(name, got, want, tol, what):
-    """Max |kernel - plain| over the outputs (a tensor or a tuple),
-    raising past the tolerance: rtol = atol = ``tol`` elementwise, or for
-    ssd_chunk ``tol`` times each output's largest |plain|."""
+    """(max |kernel - plain|, the largest of max |kernel - plain| / max
+    |plain|) over the outputs (a tensor or a tuple), raising past the
+    tolerance: rtol = atol = ``tol`` elementwise, or for ssd_chunk
+    ``tol`` times each output's largest |plain|."""
     import torch
     torch.cuda.synchronize()
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    worst = 0.0
+    worst = worst_rel = 0.0
     for g, w in pairs:
         g, w = g.float(), w.float()
         check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
         err = float((g - w).abs().max()) if g.numel() else 0.0
+        top = float(w.abs().max()) if w.numel() else 0.0
         if name == "ssd_chunk":
-            ok = err <= tol * float(w.abs().max())
+            ok = err <= tol * top
         else:
             ok = torch.allclose(g, w, rtol=tol, atol=tol)
         check(ok, f"{what}: max |kernel - plain| = {err:.3e}, tol {tol}")
         worst = max(worst, err)
-    return worst
+        worst_rel = max(worst_rel, err / top if top > 0 else err)
+    return worst, worst_rel
 
 
 def coverage_checks():
@@ -460,9 +478,9 @@ def coverage_checks():
 
     def held(name, shape, got, want, tol=None):
         tol = TOL[name] if tol is None else tol
-        err = agree(name, got, want, tol, f"{name} at {shape}")
+        err, rel = agree(name, got, want, tol, f"{name} at {shape}")
         out.append({"name": name, "shape": shape, "max_abs_err": err,
-                    "tol": tol})
+                    "max_err_over_max_plain": rel, "tol": tol})
 
     for E, C, d, F in MOE_SHAPES:
         x = rand((E, C, d), 0.5)
@@ -495,12 +513,34 @@ def coverage_checks():
         held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
-    for G, Q, H, P, N in SSD_SHAPES:
-        dA = -rand((G, Q, H), 0.1).abs()
+    for G, Q, H, P, N, scale in SSD_SHAPES + [SSD_ORACLE_SHAPE]:
+        dA = -rand((G, Q, H), scale).abs()
         xw, Bm, Cm = rand((G, Q, H, P)), rand((G, Q, N)), rand((G, Q, N))
-        held("ssd_chunk", [G, Q, H, P, N], ops.ssd_chunk(dA, xw, Bm, Cm),
-             ssd_mod.plain(dA, xw, Bm, Cm))
+        oracle = (G, Q, H, P, N, scale) == SSD_ORACLE_SHAPE
+        want = (ssd_float64 if oracle else ssd_mod.plain)(dA, xw, Bm, Cm)
+        held("ssd_chunk", [G, Q, H, P, N, scale],
+             ops.ssd_chunk(dA, xw, Bm, Cm), want)
+        if oracle:
+            out[-1]["against"] = "float64"
     return out
+
+
+def ssd_float64(dA, xw, Bm, Cm):
+    """The sums of ``ref.ssd_chunk_ref`` in float64, one head at a time,
+    rounded to fp32 at the end."""
+    import torch
+    dA, xw, Bm, Cm = (t.double() for t in (dA, xw, Bm, Cm))
+    Q = dA.shape[1]
+    cum = torch.cumsum(dA, dim=1)
+    keep = torch.ones(Q, Q, dtype=torch.bool, device=dA.device).tril()
+    scores = torch.einsum("gin,gjn->gij", Cm, Bm)
+    y = torch.stack([torch.einsum(
+        "gij,gjp->gip", torch.where(
+            keep, torch.exp(cum[:, :, None, h] - cum[:, None, :, h]), 0.0)
+        * scores, xw[:, :, h]) for h in range(dA.shape[2])], dim=2)
+    s = torch.einsum("gjh,gjn,gjhp->ghpn", torch.exp(cum[:, -1:] - cum), Bm,
+                     xw)
+    return y.float(), s.float()
 
 
 def offload_invariants(params, cfg, prompts):
@@ -726,10 +766,11 @@ def main() -> None:
         for line in rep["ptxas"].splitlines():
             if "registers" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    if "flash_attention" in built:   # its registers, shared memory, spills
-        print(json.dumps({"ptxas": {"flash_attention": [
-            line.strip() for line in built["flash_attention"]["ptxas"]
-            .splitlines() if line.strip()]}}), flush=True)
+    for name in ("flash_attention", "ssd_chunk"):  # registers, smem, spills
+        if name in built:
+            print(json.dumps({"ptxas": {name: [
+                line.strip() for line in built[name]["ptxas"].splitlines()
+                if line.strip()]}}), flush=True)
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,
@@ -798,7 +839,7 @@ def main() -> None:
     def hold_and_time(calls, launches_by_kernel):
         for (name, kern, plain, library, graph, nbytes, flops,
              shape) in kernel_cases(calls):
-            err = agree(name, kern(), plain(), TOL[name], name)
+            err, rel = agree(name, kern(), plain(), TOL[name], name)
             iters = 20 if graph else 10
             ms = device_ms(kern, iters, graph=graph)
             plain_ms = device_ms(plain, iters, graph=graph)
@@ -811,7 +852,8 @@ def main() -> None:
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": launches_by_kernel[name], "max_abs_err": err,
-                "tol": TOL[name], "ms": ms, "plain_ms": plain_ms,
+                "max_err_over_max_plain": rel, "tol": TOL[name],
+                "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_peak": f"{peak}, {rate / 1e12:g} TFLOP/s",

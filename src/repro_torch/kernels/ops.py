@@ -13,10 +13,11 @@ its main path went through the kernels (``reset_launch_counts`` /
 
 Kernels are built at first use: one ``nvcc`` per source, all started
 together, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), each library named by a hash of its source and flags
-so a rebuilt source never loads a stale library. They are bound with
-``ctypes`` (plain C entry points; no PyTorch headers, so a build takes
-seconds) and launch on PyTorch's current stream.
+``.gitignore``), each library named by a hash of its source, the shared
+headers and the flags, so a rebuilt source never loads a stale library.
+They are bound with ``ctypes`` (plain C entry points; no PyTorch
+headers, so a build takes seconds) and launch on PyTorch's current
+stream.
 """
 from __future__ import annotations
 
@@ -55,6 +56,8 @@ def _nvcc() -> str:
 
 def _library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -69,14 +69,15 @@ def test_port_import_pulls_in_no_jax():
 def test_port_calls_no_library_kernel():
     """The port's kernels are its own: no module calls PyTorch's fused
     attention (``chip_smoke.py`` times it only as a yardstick), and no
-    CUDA source pulls in cuBLAS or cuDNN."""
+    CUDA source or shared header pulls in cuBLAS or cuDNN."""
     py = [f for f in PORT.rglob("*.py")
           if "scaled_dot_product_attention" in f.read_text()]
     assert py == []
     cu = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert {f.stem for f in cu} == {"moe_gemm", "paged_attention",
                                     "flash_attention", "ssd_chunk"}
-    bad = [f.name for f in cu
+    cuh = sorted((PORT / "kernels" / "csrc").glob("*.cuh"))
+    bad = [f.name for f in cu + cuh
            if re.search(r"#include\s*<(cublas|cudnn)", f.read_text())]
     assert bad == []
 

@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_chunk as ssd_mod
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -306,6 +307,50 @@ def test_ssd_chunk_plain_matches_pallas(G, Q, H, P, N, bh, dtype):
                                atol=tol)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=tol,
                                atol=tol)
+
+
+def test_ssd_chunk_tf32_split_error():
+    """The precision argument for the CUDA kernel's tensor-core design,
+    on the CPU: the SSD step at Mamba2's head width (P 64, N 128) over a
+    256-position chunk with its three products (C.B^T, (decay .
+    scores).xw, the S contraction) on TF32 operands. One TF32 pass
+    misses the kernel's fp32 tolerance (2e-5 x max|plain|, unchanged);
+    the 3xTF32 split the kernel runs holds it with room (~1e-6 of the
+    largest output, the error of fp32 itself)."""
+    rng = np.random.default_rng(15)
+    G, Q, H, P, N = 1, 256, 8, 64, 128
+    dA = torch.from_numpy(-np.abs(_rand(rng, (G, Q, H), 0.1)))
+    xw = torch.from_numpy(_rand(rng, (G, Q, H, P)))
+    Bm, Cm = (torch.from_numpy(_rand(rng, (G, Q, N))) for _ in range(2))
+    want = ssd_mod.plain(dA, xw, Bm, Cm)
+
+    def ssd(passes, dtype=torch.float32):
+        a, x, b, c = (t[0].to(dtype) for t in (dA, xw, Bm, Cm))
+        cum = torch.cumsum(a, dim=0)                           # [Q, H]
+        scores = _mm_tf32(c, b.T, passes)                      # [Q, Q]
+        keep = torch.ones(Q, Q, dtype=torch.bool).tril()
+        y, s = [], []
+        for h in range(H):
+            rel = cum[:, None, h] - cum[None, :, h]
+            decay = torch.where(keep, torch.exp(rel),
+                                torch.zeros((), dtype=dtype))
+            y.append(_mm_tf32(decay * scores, x[:, h], passes))
+            w = torch.exp(cum[-1, h] - cum[:, h])
+            s.append(_mm_tf32((x[:, h] * w[:, None]).T, b, passes))
+        return torch.stack(y, dim=1)[None], torch.stack(s)[None]
+
+    oracle = ssd(0, torch.float64)
+    one, three = ssd(1), ssd(3)
+    for i, name in enumerate(("y", "s")):
+        top = float(want[i].abs().max())
+        err = {k: float((v[i].double() - oracle[i]).abs().max()) / top
+               for k, v in (("fp32", want), ("1xTF32", one),
+                            ("3xTF32", three))}
+        gap3 = float((three[i] - want[i]).abs().max())
+        gap1 = float((one[i] - want[i]).abs().max())
+        assert gap3 <= 2e-5 * top and gap1 > 2e-5 * top, (name, err)
+        assert err["1xTF32"] > 5 * 2e-5, (name, err)
+        assert err["3xTF32"] < 2e-5 / 10 and err["fp32"] < 2e-5 / 10, (name, err)
 
 
 def test_ssd_chunk_rejects_mismatched_shapes():
