@@ -21,7 +21,14 @@ It drives the port's two entry points end to end and checks them:
    16-token blocks), with every kernel's launch count reset just before
    and read just after, and checks each request's tokens against
    ``OffloadEngine.generate`` (dense KV, plain attention) and the last
-   logits for finite values of the right shape;
+   logits for finite values of the right shape. Each step's
+   host-to-device expert bytes must equal the (misses + prefetches) of
+   the trace rows it added times the stored bytes of one expert;
+4b. the same serving run with ``quant="int8"``: int8 masters and their
+   scale rows pinned, copied as they are and dequantized on the card;
+   ``ExpertStore.fetch`` (the host dequant) is never called while
+   serving or generating, server tokens == ``generate``, bytes per step
+   as above, and every resident slot bitwise the host dequant;
 5. the offload invariants on the card, each on 2 requests of 8 greedy
    tokens: ``overlap=True`` gives the tokens of ``overlap=False``,
    ``prefill_chunk=4`` those of per-token prefill, and
@@ -45,23 +52,29 @@ It drives the port's two entry points end to end and checks them:
    ``ops.flash_attention``, ``ops.ssd_chunk``) against its plain
    PyTorch version on the card, on the arguments of the main path's
    heaviest call, and times both (CUDA events after a warm-up) beside
-   the card's bound for the same work and, for flash attention, one
-   ``scaled_dot_product_attention`` call on the same inputs (a yardstick
-   the port never calls). The bound takes each kernel's operations at
-   the peak of the units it runs them on: flash attention's and SSD
-   chunk's at the TF32 tensor-core rate (with the fp32-core bound and
+   the card's bound for the same work, a one-element op timed in the same
+   20-launch graph harness (``launch_floor_ms``: what a launch costs) and,
+   for flash attention, one ``scaled_dot_product_attention`` call on the
+   same inputs (a yardstick the port never calls). Paged attention is
+   also timed at the split lengths ``SPLIT_SWEEP`` (``paged_split_sweep``:
+   what chose its ``KEYS_PER_SPLIT``). The bound takes each kernel's
+   operations at the peak of the units it runs them on: flash attention's
+   and SSD chunk's at the TF32 tensor-core rate (with the fp32-core bound and
    the three-pass 3xTF32 floor beside it), the others' at the fp32 rate;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
    heads per KV head (1 to 16), head dims up to 256 and a row with no
-   visible key (paged); ragged lengths, windows, no causal mask, values
-   narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
+   visible key, 1 and 4 rows of 2048 and 4096 keys with positions on
+   split boundaries, at 0 and at -1 (paged); ragged lengths, windows, no
+   causal mask, values narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
    (a partial k-step), rows copied 4 bytes or one element at a time
    (flash); other chunk lengths (37 to 1024), head counts (1 to 80) and
    widths, P and N off the multiples of 8 (a partial k-step, 4-byte
    copies), a strongly decaying dA (SSD), and a 4096-position chunk
-   against a float64 evaluation of the same sums.
+   against a float64 evaluation of the same sums;
+11. paged attention's batch independence: one row gives bitwise the same
+   output alone, as one of 16 rows, and with a table two blocks wider.
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -75,7 +88,8 @@ does the same with ``torch.profiler`` tracing the serving loop and one
 2 x 2048 prefill of each model, and prints a ``profile`` line for each:
 the device time by kind (expert copies host-to-device, each kernel,
 matrix products, the rest), the device's busy and idle shares of the
-traced wall time, and (serving) the copy rate. The profiler slows the
+traced wall time, and (serving, fp32 and int8) the copy rate at the
+bytes the run counts. The profiler slows the
 host, so that run's step times are not the ones to quote.
 """
 import argparse
@@ -127,6 +141,13 @@ PAGED_SHAPES = [(2, 4, 2, 64, 8, 8, 3), (3, 4, 4, 64, 10, 16, 2),
                 (1, 8, 1, 128, 6, 8, 4), (2, 6, 2, 40, 20, 8, 9),
                 (3, 15, 3, 72, 9, 4, 6), (2, 12, 1, 128, 12, 16, 4),
                 (2, 16, 1, 256, 12, 16, 5)]
+# paged rows of 2048 and 4096 keys at Mixtral widths (H 32, KV 8, hd 128,
+# 16-key blocks), 1 and 4 rows: (keys, positions) with S = the kernel's
+# split length: full rows, pos on a split boundary (S - 1: the last key of
+# split 0; S and 2S: the first key of a new split), 0 and -1
+PAGED_LONG = [(2048, ["S"]), (2048, [2047, "S-1", "S", 0]), (4096, [-1]),
+              (4096, [4095, "2S", 0, -1])]
+SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # (B, Sq, Sk, H, KV, hd, vd, causal, window, dtype) for flash attention:
 # ragged S (1, 37, 160, 333, 1000), windows 37 and 1024, no causal mask,
 # MLA widths (hd 192, vd 128), MQA and 1 to 16 query heads per KV head,
@@ -253,9 +274,11 @@ def recording(ops, seen, specs):
 def serve(srv, prompts, ops, prof=None):
     """Run the staggered workload; record each kernel wrapper's heaviest
     call (moe_ffn: most expert rows E*C; paged_attention: most visible
-    keys), its small arguments copied as they were. Returns (rids,
-    launches, per-step ms, per-step H2D bytes, recorded calls, loop ms).
-    """
+    keys), its small arguments copied as they were. Each step's
+    host-to-device expert bytes must equal (misses + prefetches) of the
+    trace rows it added times the bytes of one stored expert. Returns
+    (rids, launches, per-step ms, per-step H2D bytes, recorded calls,
+    loop ms)."""
     import torch
     seen = {}
     specs = {
@@ -267,6 +290,7 @@ def serve(srv, prompts, ops, prof=None):
                             lambda *args: tuple(a.clone() for a in args)),
     }
     rids, step_ms, step_h2d = [], [], []
+    expert_bytes = srv.engine.store.expert_nbytes((0, 0))
     with recording(ops, seen, specs):
         ops.reset_launch_counts()
         if prof is not None:
@@ -279,6 +303,7 @@ def serve(srv, prompts, ops, prof=None):
                 if at == step and len(rids) == i:
                     rids.append(srv.submit(prompts[i], max_new=NEW_TOKENS))
             h2d = sum(c.bytes_transferred for c in srv.engine.caches)
+            rows = len(srv.trace.steps)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             srv.step()
@@ -286,6 +311,11 @@ def serve(srv, prompts, ops, prof=None):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             step_h2d.append(sum(c.bytes_transferred
                                 for c in srv.engine.caches) - h2d)
+            moved = sum(len(r.misses) + len(r.prefetched)
+                        for r in srv.trace.steps[rows:])
+            check(step_h2d[-1] == moved * expert_bytes,
+                  f"step {step}: {step_h2d[-1]} H2D bytes, the trace moved "
+                  f"{moved} experts of {expert_bytes} bytes")
             step += 1
         loop_ms = (time.perf_counter() - t_loop) * 1e3
         if prof is not None:
@@ -501,6 +531,16 @@ def coverage_checks():
         held("paged_attention", [B, H, KV, hd, N, bs, T],
              ops.paged_attention(q, kp, vp, bt, pos),
              paged_mod.plain(q, kp, vp, bt, pos))
+    S = paged_mod.KEYS_PER_SPLIT
+    at = {"S": S, "S-1": S - 1, "2S": 2 * S}
+    for keys, where in PAGED_LONG:
+        pos_list = [at.get(w, w) for w in where]
+        q, kp, vp, bt, pos = paged_inputs(rand, rng, len(pos_list), keys,
+                                          pos_list)
+        held("paged_attention", [len(pos_list), 32, 8, 128, keys,
+                                  pos_list], ops.paged_attention(
+                                      q, kp, vp, bt, pos),
+             paged_mod.plain(q, kp, vp, bt, pos))
     for B, Sq, Sk, H, KV, hd, vd, causal, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q = rand((B, Sq, H, hd)).to(dtype)
@@ -525,6 +565,81 @@ def coverage_checks():
     return out
 
 
+def paged_inputs(rand, rng, B, keys, pos, extra=0):
+    """Mixtral-width paged inputs (H 32, KV 8, hd 128, 16-key blocks): B
+    rows of ``keys`` keys through random tables into a pool of
+    keys / 16 + 8 blocks, ``extra`` more table columns, positions ``pos``."""
+    import numpy as np
+    import torch
+    T, N = keys // 16, keys // 16 + 8
+    q = rand((B, 32, 128))
+    kp, vp = rand((N, 16, 8, 128)), rand((N, 16, 8, 128))
+    bt = torch.from_numpy(
+        rng.integers(0, N, (B, T + extra)).astype(np.int32)).cuda()
+    return q, kp, vp, bt, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def paged_batch_independence():
+    """The same row (pos 1000 of 4096 keys) through ``ops.paged_attention``
+    alone, as row 3 of 16 rows with other positions, and with a table two
+    blocks wider: the three outputs must be bitwise equal."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 2)
+
+    def rand(shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    pos = [int(p) for p in rng.integers(0, 4096, 16)]
+    pos[3] = 1000
+    q, kp, vp, bt, pos = paged_inputs(rand, rng, 16, 4096, pos, extra=2)
+    narrow = bt[:, :-2].contiguous()
+    batch = ops.paged_attention(q, kp, vp, narrow, pos)[3]
+    alone = ops.paged_attention(q[3:4].contiguous(), kp, vp,
+                                narrow[3:4].contiguous(),
+                                pos[3:4].contiguous())[0]
+    wide = ops.paged_attention(q, kp, vp, bt, pos)[3]
+    torch.cuda.synchronize()
+    check(torch.equal(batch, alone) and torch.equal(batch, wide),
+          "paged_attention: row 3 differs alone / in a batch of 16 / with a "
+          "wider table")
+    return {"paged_batch_independence": "bitwise", "rows": 16, "keys": 4096,
+            "pos": 1000, "wider_table_blocks": 2}
+
+
+def paged_split_sweep(calls, floor_ms):
+    """The paged kernel timed at split lengths SPLIT_SWEEP (20 launches in
+    a CUDA graph) on the main path's heaviest call and on 1 and 4 rows of
+    2048 and 4096 keys (every row full): what chose KEYS_PER_SPLIT."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as paged_mod
+    rng = np.random.default_rng(SEED + 3)
+
+    def rand(shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    q, kp, vp, bt, pos = calls["paged_attention"]
+    cases = {"main": (q, kp, vp, bt.to(torch.int32).contiguous(),
+                      pos.to(torch.int32).contiguous())}
+    for B in (1, 4):
+        for keys in (2048, 4096):
+            cases[f"{B}x{keys}"] = paged_inputs(rand, rng, B, keys,
+                                                [keys - 1] * B)
+    fn = ops._entry("paged_attention")
+    out = {"launch_floor_ms": floor_ms,
+           "kernel_split": paged_mod.KEYS_PER_SPLIT}
+    for name, args in cases.items():
+        out[name] = {f"S{S}": device_ms(
+            lambda: paged_mod.launch(fn, *args, keys_per_split=S), 20,
+            graph=True) for S in SPLIT_SWEEP}
+    return out
+
+
 def ssd_float64(dA, xw, Bm, Cm):
     """The sums of ``ref.ssd_chunk_ref`` in float64, one head at a time,
     rounded to fp32 at the end."""
@@ -541,6 +656,69 @@ def ssd_float64(dA, xw, Bm, Cm):
     s = torch.einsum("gjh,gjn,gjhp->ghpn", torch.exp(cum[:, -1:] - cum), Bm,
                      xw)
     return y.float(), s.float()
+
+
+def int8_serving(params, cfg, prompts, ops, server_kw, prof=None):
+    """The offload server with ``quant="int8"`` on the fp32 run's model
+    and workload: int8 masters and scale rows pinned, no host dequant
+    (``ExpertStore.fetch`` is never called) while serving or generating,
+    server tokens == ``generate``, each step's bytes == the trace's moved
+    experts x the stored bytes of one (checked in ``serve``), every
+    resident slot bitwise the host dequant of its expert. Returns a
+    report."""
+    import torch
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    t0 = time.perf_counter()
+    srv = ContinuousOffloadServer(params, cfg, quant="int8", **server_kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    store = srv.engine.store
+    stored = [t for k in store.keys() for pair in store.payload(k).values()
+              for t in pair]
+    check(all(t.is_pinned() for t in stored),
+          "int8 masters or scales are not in pinned host memory")
+    check({t.dtype for t in stored} == {torch.int8, torch.float32},
+          f"int8 store holds {sorted({str(t.dtype) for t in stored})}")
+    fetched = []
+    fetch = store.fetch
+    store.fetch = lambda key: fetched.append(key) or fetch(key)
+    rids, launches, step_ms, step_h2d, _, loop_ms = serve(srv, prompts, ops,
+                                                          prof)
+    for name in ("moe_ffn", "paged_attention"):
+        check(launches[name] > 0,
+              f"int8 serving: {name} never launched its kernel")
+    check(not fetched, f"int8 serving: ExpertStore.fetch called "
+                       f"{len(fetched)} times")
+    served = [srv.result(r) for r in rids]
+    for p, out in zip(prompts, served):
+        want = srv.engine.generate(p, NEW_TOKENS)
+        check(out == want, f"int8: server {out[PROMPT_LEN:]} != generate "
+                           f"{want[PROMPT_LEN:]} for prompt {p}")
+    check(not fetched, f"int8 generate: ExpertStore.fetch called "
+                       f"{len(fetched)} times")
+    store.fetch = fetch
+    torch.cuda.synchronize()
+    slots = 0
+    for c in srv.engine.caches:
+        for eid, slot in c.slot_of.items():
+            want = store.fetch((c.layer, eid))
+            for k, w in want.items():
+                check(torch.equal(c.buffers[k][slot].cpu(), w),
+                      f"int8: layer {c.layer} expert {eid} {k} slot differs "
+                      f"from the host dequant")
+            slots += 1
+    rep = {"setup_s": setup_s, "expert_master_bytes": store.total_nbytes(),
+           "expert_bytes": store.expert_nbytes((0, 0)),
+           "steps": len(step_ms), "step_ms": step_ms,
+           "h2d_expert_bytes": step_h2d, "launches": launches,
+           "loop_ms": loop_ms, "fetch_calls": 0,
+           "server_equals_generate": True, "slots_bitwise": slots,
+           "new_tokens": [o[PROMPT_LEN:] for o in served]}
+    if prof is not None:
+        rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
+    del srv, store, stored
+    gc.collect()
+    return rep
 
 
 def offload_invariants(params, cfg, prompts):
@@ -778,14 +956,14 @@ def main() -> None:
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                          device="cuda")
-    srv = ContinuousOffloadServer(
-        params, cfg, cache_slots=4, policy="lfu", prefetch="spec",
-        max_batch=4, kv_block_size=16, cache_len=PROMPT_LEN + NEW_TOKENS,
-        device="cuda")
+    server_kw = dict(cache_slots=4, policy="lfu", prefetch="spec",
+                     max_batch=4, kv_block_size=16,
+                     cache_len=PROMPT_LEN + NEW_TOKENS, device="cuda")
+    srv = ContinuousOffloadServer(params, cfg, **server_kw)
     torch.cuda.synchronize()
     store = srv.engine.store
-    pinned = all(v.is_pinned() for k in store.keys()
-                 for v in store.fetch(k).values())
+    pinned = all(v.is_pinned() and s is None for k in store.keys()
+                 for v, s in store.payload(k).values())
     check(pinned, "expert masters are not in pinned host memory")
     print(json.dumps({
         "setup_s": time.perf_counter() - t0,
@@ -808,6 +986,7 @@ def main() -> None:
         srv, prompts, ops, prof)
     print(json.dumps({"steps": len(step_ms), "step_ms": step_ms,
                       "h2d_expert_bytes": step_h2d,
+                      "h2d_equals_trace": True,
                       "launches": launches}), flush=True)
     if prof is not None:
         print(json.dumps({"profile": device_time_summary(
@@ -835,6 +1014,10 @@ def main() -> None:
     # ---- each kernel against its plain version ----------------------
     # (each run's launches were read when it ended: these do not count)
     kernels = []
+    one = torch.zeros(1, device="cuda")
+    # a one-element op in the same 20-launch graph harness: what a launch
+    # costs, beside each kernel's time and bound
+    floor_ms = device_ms(lambda: one.add_(1), 20, graph=True)
 
     def hold_and_time(calls, launches_by_kernel):
         for (name, kern, plain, library, graph, nbytes, flops,
@@ -854,7 +1037,7 @@ def main() -> None:
                 "launches": launches_by_kernel[name], "max_abs_err": err,
                 "max_err_over_max_plain": rel, "tol": TOL[name],
                 "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
+                "bound_ms": bound_ms, "launch_floor_ms": floor_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_peak": f"{peak}, {rate / 1e12:g} TFLOP/s",
                 "share_of_bound": bound_ms / ms,
@@ -879,7 +1062,19 @@ def main() -> None:
             print(json.dumps({"kernel": kernels[-1]}), flush=True)
 
     hold_and_time(calls, launches)
+    print(json.dumps({"paged_split_sweep": paged_split_sweep(calls,
+                                                             floor_ms)}),
+          flush=True)
     del srv, calls, store
+    gc.collect()
+
+    # ---- the same serving run with int8 expert masters --------------
+    prof = None
+    if args.profile:
+        act = torch.profiler.ProfilerActivity
+        prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+    print(json.dumps({"int8_serving": int8_serving(
+        params, cfg, prompts, ops, server_kw, prof)}), flush=True)
     gc.collect()
 
     # ---- the offload invariants on the card -------------------------
@@ -912,6 +1107,7 @@ def main() -> None:
                   {"flash_attention": flash_launches["flash_attention"],
                    "ssd_chunk": ssd_launches["ssd_chunk"]})
     print(json.dumps({"coverage": coverage_checks()}), flush=True)
+    print(json.dumps(paged_batch_independence()), flush=True)
     print(json.dumps({"wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,12 +2,17 @@
 (port of ``repro.core.expert_cache``).
 
 One stacked device buffer per weight matrix (``[n_slots, d, ff]`` etc.),
-a host-side slot map, and installs that are a real host->device copy
-(``buf[slot].copy_(master, non_blocking=True)`` from the store's pinned
-masters, where the JAX package updated ``buf.at[slot].set``). The copy
-is queued on the current stream ahead of the kernels that read the
-slot, so no synchronisation is needed. All decisions (hit/miss/evict)
-happen on the host, as in the reference.
+a host-side slot map, and installs that are a real host->device copy of
+the store's pinned masters as they are stored (``ExpertStore.payload``),
+where the JAX package updated ``buf.at[slot].set``: fp32 masters are
+copied into the slot; int8 masters and their scale rows are copied into
+int8 / fp32 staging buffers on the device, and the slot is written there
+by one fp32 multiply, ``float(q) * scale`` — the bits of the host
+dequant (``ExpertStore.fetch``). So the bytes moved are the bytes
+``bytes_transferred`` counts. Copies and multiply are queued on the
+current stream ahead of the kernels that read the slot, so no
+synchronisation is needed. All decisions (hit/miss/evict) happen on the
+host, as in the reference.
 
 The expert FFN reads resident experts IN PLACE through ``slots_of``
 (``ops.moe_ffn`` takes the slot buffers plus slot indices); the JAX
@@ -38,6 +43,9 @@ class ExpertCache:
     store : host-tier master copies the misses stream from.
     shapes : per-weight-matrix shapes, e.g. ``{"w1": (d, ff), ...}``.
     dtype, device : slot buffer dtype (fp32) and device.
+    staging : dict that holds the int8 installs' device staging buffers,
+        one (int8 matrix, fp32 scale row) pair per matrix name, made at
+        first use. Pass one dict to every layer's cache to share them.
 
     Counters (cumulative): ``hits``/``misses`` demand accesses,
     ``prefetches`` speculative installs actually transferred,
@@ -46,7 +54,8 @@ class ExpertCache:
 
     def __init__(self, layer: int, n_slots: int, policy: CachePolicy,
                  store: ExpertStore, shapes: Dict[str, tuple],
-                 dtype=torch.float32, device="cuda", faults=None):
+                 dtype=torch.float32, device="cuda", faults=None,
+                 staging: Optional[dict] = None):
         assert policy.capacity == n_slots
         self.layer = layer
         self.n_slots = n_slots
@@ -56,6 +65,7 @@ class ExpertCache:
         self.buffers = {k: torch.zeros((n_slots, *s), dtype=dtype,
                                        device=device)
                         for k, s in shapes.items()}
+        self.staging = staging if staging is not None else {}
         self.slot_of: Dict[int, int] = {}
         self._free: List[int] = list(range(n_slots))
         # counters
@@ -105,21 +115,45 @@ class ExpertCache:
             slot = self.slot_of.pop(victim)
             self.policy.remove(victim)
             evicted = victim
-        w = self.store.fetch((self.layer, eid))
+        key = (self.layer, eid)
         if outcome is not None and outcome.corrupt_deliveries and \
                 self.faults is not None:
-            key = (self.layer, eid)
+            # the host path: corrupt the dequantized fp32 payload, verify,
+            # refetch; a corruption that slips through (crc collision) is
+            # installed as delivered
+            w = self.store.fetch(key)
             for _ in range(outcome.corrupt_deliveries):
                 bad = self.faults.corrupt_payload(w)
                 if self.store.verify(key, bad):
-                    w = bad  # crc collision: corruption slips through
+                    w = bad
                     continue
                 self.corrupt_refetches += 1
                 w = self.store.fetch(key)
-        for k, v in w.items():
-            src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
-                np.asarray(v))
-            self.buffers[k][slot].copy_(src, non_blocking=True)
+            for k, v in w.items():
+                src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.asarray(v))
+                self.buffers[k][slot].copy_(src, non_blocking=True)
+        else:
+            for k, (v, scale) in self.store.payload(key).items():
+                dst = self.buffers[k][slot]
+                if scale is None:
+                    dst.copy_(v, non_blocking=True)
+                    continue
+                # One staging pair per matrix name serves every install
+                # of every layer: this copy, the multiply that reads it
+                # and the next install's copy are queued on one stream,
+                # so none overwrites a buffer still being read. Copies
+                # moved to a stream of their own must wait on an event
+                # recorded after the multiply before reusing it.
+                if k not in self.staging:
+                    self.staging[k] = (
+                        torch.empty(v.shape, dtype=v.dtype, device=dst.device),
+                        torch.empty(scale.shape, dtype=scale.dtype,
+                                    device=dst.device))
+                q_dev, s_dev = self.staging[k]
+                q_dev.copy_(v, non_blocking=True)
+                s_dev.copy_(scale, non_blocking=True)
+                torch.mul(q_dev, s_dev, out=dst)   # float(q) * s, in fp32
         self.slot_of[eid] = slot
         self.policy.on_insert(eid)
         self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))

@@ -1,15 +1,17 @@
 """Host-tier expert parameter store (port of ``repro.core.expert_store``).
 
-Experts live here, in host memory, as fp32 torch tensors — PINNED when
-the store feeds a CUDA device, so a cache install is a real
-asynchronous host->device DMA. The int8 per-channel quantization and
+Experts live here, in host memory, as torch tensors — fp32, or int8
+with one fp32 scale per column under ``quant="int8"`` — PINNED when the
+store feeds a CUDA device, so a cache install is a real asynchronous
+host->device DMA of the stored bytes (``payload``; the cache
+dequantizes int8 on the device). The int8 per-channel quantization and
 the CRC32 payload checksums are the JAX package's, computed with the
 same numpy code, so stored bytes, byte counts and checksums agree.
 """
 from __future__ import annotations
 
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,9 +76,17 @@ class ExpertStore:
                 for k, v in weights.items()}
         self._checksums.pop(key, None)
 
+    def payload(self, key: Key) -> Dict[str, Tuple[torch.Tensor,
+                                                   Optional[torch.Tensor]]]:
+        """The stored payload as it is, per matrix: ``(int8 tensor, its
+        [1, cols] fp32 scale row)`` under int8, ``(fp32 tensor, None)``
+        otherwise; pinned if the store is. What an install copies."""
+        return {k: (v, s) for k, (_, v, s) in self._data[key].items()}
+
     def fetch(self, key: Key) -> dict:
         """Dequantized fp32 weights (host tensors; the stored ones
-        themselves when unquantized)."""
+        themselves when unquantized). The checksum's payload, and what
+        a corrupted delivery corrupts."""
         out = {}
         for k, (kind, v, s) in self._data[key].items():
             out[k] = v.float() * s if kind == "int8" else v

@@ -165,13 +165,15 @@ class OffloadEngine:
         shapes = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
         pkw = dict(policy_kw or {})
         self.caches: List[ExpertCache] = []
+        staging: dict = {}   # int8 installs' device staging, one for all
         for l in range(cfg.num_layers):
             pol = (policy_factory(l) if policy_factory is not None
                    else make_policy(policy, self.slots[l], **pkw))
             self.caches.append(ExpertCache(l, self.slots[l], pol,
                                            self.store, shapes,
                                            device=self.device,
-                                           faults=self.faults))
+                                           faults=self.faults,
+                                           staging=staging))
 
         mb = ModelBytes.from_config(cfg)
         eb = self.store.expert_nbytes((0, 0))

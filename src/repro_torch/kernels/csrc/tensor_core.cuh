@@ -1,7 +1,7 @@
 // Pieces shared by the kernels that run fp32 products on the TF32 tensor
 // cores of Hopper (sm_90a) and feed them through cp.async rings:
-// flash_attention.cu and ssd_chunk.cu. Internal linkage, as each
-// source's own helpers.
+// flash_attention.cu and ssd_chunk.cu; paged_attention.cu takes the
+// cp.async pieces. Internal linkage, as each source's own helpers.
 #pragma once
 
 #include <cuda_runtime.h>

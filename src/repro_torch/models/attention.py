@@ -211,6 +211,9 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     k.index_put_((blk, off), k_new[:, 0].to(k.dtype))
     v.index_put_((blk, off), v_new[:, 0].to(v.dtype))
 
-    out = kops.paged_attention(q[:, 0], k, v, block_tables, positions[:, 0])
+    # pos_vec as given (the engines pass int32, the kernel's type, so the
+    # wrapper launches no conversion)
+    out = kops.paged_attention(q[:, 0], k, v, block_tables,
+                               pos_vec.reshape(B))
     out = out[:, None].to(x.dtype)
     return _out_proj(out, p["wo"]), cache

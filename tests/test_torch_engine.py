@@ -102,10 +102,14 @@ def test_generate_matches_reference(setup, kw):
     _assert_same_run(jeng, peng, margins)
 
 
+FAULTY = dict(seed=3, dma_failure_rate=0.3, corruption_rate=0.2,
+              max_retries=1)
+
+
 @pytest.mark.parametrize("quant,faults", [
     ("int8", None),
-    ("none", dict(seed=3, dma_failure_rate=0.3, corruption_rate=0.2,
-                  max_retries=1)),
+    ("none", FAULTY),
+    ("int8", FAULTY),
 ])
 def test_quantized_store_and_fault_injection_match_reference(setup, quant,
                                                              faults):

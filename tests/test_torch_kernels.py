@@ -134,6 +134,59 @@ def test_paged_attention_identity_table_is_plain_decode_attention():
                                rtol=2e-4, atol=2e-4)
 
 
+def _split_combine(q, kp, vp, bt, pos, S):
+    """The CUDA kernel's arithmetic written out: row b's visible keys
+    (0..pos, or all T * bs when pos < 0) in splits of S keys; each split
+    keeps (m, l, o) of its own keys, and the splits are combined in split
+    order: M = max m_s, out = sum o_s e^(m_s - M) / sum l_s e^(m_s - M)."""
+    B, H, hd = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    T = bt.shape[1]
+    G = H // KV
+    k = kp[bt.long()].reshape(B, T * bs, KV, hd)
+    v = vp[bt.long()].reshape(B, T * bs, KV, hd)
+    out = torch.empty(B, KV, G, hd)
+    for b in range(B):
+        p = int(pos[b])
+        n = T * bs if p < 0 else min(p + 1, T * bs)
+        qb = q[b].reshape(KV, G, hd)
+        parts = []
+        for k0 in range(0, n, S):
+            kk, vv = k[b, k0:k0 + S][:n - k0], v[b, k0:k0 + S][:n - k0]
+            sc = torch.einsum("kgd,lkd->kgl", qb, kk) / math.sqrt(hd)
+            if p < 0:
+                sc = torch.full_like(sc, -1e30)
+            m = sc.max(-1).values
+            w = torch.exp(sc - m[..., None])
+            parts.append((m, w.sum(-1), torch.einsum("kgl,lkd->kgd", w, vv)))
+        M = torch.stack([m for m, _, _ in parts]).max(0).values
+        L, O = torch.zeros_like(M), torch.zeros(KV, G, hd)
+        for m, l, o in parts:
+            e = torch.exp(m - M)
+            L, O = L + l * e, O + o * e[..., None]
+        out[b] = O / torch.clamp(L, min=1e-30)[..., None]
+    return out.reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("S", [32, 128])
+def test_paged_attention_split_combine_matches_pallas(S):
+    """Splitting a row's keys over blocks and combining their partials in
+    split order gives the Pallas kernel's output, with positions on split
+    boundaries (S - 1, S), at 0, at -1 (uniform over every key) and
+    full."""
+    rng = np.random.default_rng(S)
+    B, H, KV, hd, N, bs, T = 5, 8, 2, 64, 24, 16, 16
+    q = _rand(rng, (B, H, hd))
+    kp, vp = _rand(rng, (N, bs, KV, hd)), _rand(rng, (N, bs, KV, hd))
+    bt = rng.integers(0, N, (B, T)).astype(np.int32)
+    pos = np.array([S - 1, S, 0, -1, T * bs - 1], np.int32)
+    (jq, tq), (jk, tk), (jv, tv), (jb, tb), (jp, tpos) = map(
+        _both, (q, kp, vp, bt, pos))
+    got = _split_combine(tq, tk, tv, tb, tpos, S).numpy()
+    want = jops.paged_attention(jq, jk, jv, jb, jp, impl="pallas_interpret")
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
 def test_paged_attention_rejects_mismatched_shapes():
     q = torch.zeros(2, 4, 8)
     pool = torch.zeros(3, 4, 2, 8)
