@@ -23,17 +23,34 @@ It drives the port's two entry points end to end and checks them:
    ``OffloadEngine.generate`` (dense KV, plain attention) and the last
    logits for finite values of the right shape. Each step's
    host-to-device expert bytes must equal the (misses + prefetches) of
-   the trace rows it added times the stored bytes of one expert;
-4b. the same serving run with ``quant="int8"``: int8 masters and their
-   scale rows pinned, copied as they are and dequantized on the card;
-   ``ExpertStore.fetch`` (the host dequant) is never called while
-   serving or generating, server tokens == ``generate``, bytes per step
-   as above, and every resident slot bitwise the host dequant;
+   the trace rows it added times the stored bytes of one expert, and
+   every install must run on the compute stream (``overlap=False``) or
+   on the engine's copy stream (``overlap=True``). The same workload
+   then runs with ``overlap=True`` on the same pinned masters: the same
+   tokens, functional trace rows, ``stats()`` off the simulated-clock
+   keys and per-step bytes, every slot bitwise at the end, and both
+   runs' step times on one ``overlap_serving`` line;
+4b. the same serving runs (overlap off, then on) with ``quant="int8"``:
+   int8 masters and their scale rows pinned, copied as they are and
+   dequantized on the card; ``ExpertStore.fetch`` (the host dequant) is
+   never called while serving or generating, server tokens ==
+   ``generate``, bytes per step as above, and every resident slot
+   bitwise the host dequant;
+4c. the int8 masters once more with ``policy="learned"``,
+   ``prefetch="learned"`` and ``overlap=True``, the model trained
+   (``train_from_trace``) from the trace of step 4's first serving run:
+   tokens == ``generate``, bytes per step as above, both kernels
+   launched; its step times and cache counters beside the LFU +
+   speculative overlap-on run's;
 5. the offload invariants on the card, each on 2 requests of 8 greedy
-   tokens: ``overlap=True`` gives the tokens of ``overlap=False``,
-   ``prefill_chunk=4`` those of per-token prefill, and
-   ``faults=FaultPlan.null()`` the tokens, ``stats()`` and trace of
-   ``faults=None``;
+   tokens: ``overlap=True`` gives the tokens and every step's logits of
+   ``overlap=False``, ``prefill_chunk=4`` the tokens of per-token
+   prefill, and ``faults=FaultPlan.null()`` the tokens, ``stats()`` and
+   trace of ``faults=None``; then the race checks on a 2-slot cache:
+   ``torch.cuda._sleep`` before every install on the copy stream, and
+   before every ``ops.moe_ffn`` on the compute stream, must leave tokens
+   and logits bitwise those of ``overlap=False``, and the same sleeps
+   with the matching event wait taken out must change the logits;
 6. full-sequence prefill, Mixtral (the same weights): ``prefill`` of 2
    prompts of 2048 tokens through the default ``moe_path="auto"``
    (``moe_capacity`` without a mesh), then ``prefill(moe_path="dense")``
@@ -88,11 +105,15 @@ does the same with ``torch.profiler`` tracing the serving loop and one
 2 x 2048 prefill of each model, and prints a ``profile`` line for each:
 the device time by kind (expert copies host-to-device, each kernel,
 matrix products, the rest), the device's busy and idle shares of the
-traced wall time, and (serving, fp32 and int8) the copy rate at the
-bytes the run counts. The profiler slows the
-host, so that run's step times are not the ones to quote.
+traced wall time, and (serving, fp32 and int8, overlap off and on) the
+copy rate at the bytes the run counts and ``by_stream``: each CUDA
+stream's time by kind, the kernels on the copy stream (the int8
+dequant), and the copy time that ran beside a kernel on another stream
+against the time it ran alone. The profiler slows the host, so that
+run's step times are not the ones to quote.
 """
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import gc
@@ -183,6 +204,23 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
+# trace fields that are the run's decisions (the float64 gate sums differ
+# in their last bits between runs of other kernels, so they are left out)
+FUNCTIONAL = ("activated", "hits", "misses", "evicted", "spec_guess",
+              "prefetched")
+# stats() keys of the simulated clock, which overlap=True changes by
+# design; every other key must be equal between overlap off and on
+CLOCK_KEYS = ("transfer_busy_s", "exposed_transfer_s",
+              "exposed_transfer_frac", "dma_preempted", "sim_time_s",
+              "sim_tokens_per_s", "p99_step_s")
+# torch.cuda._sleep cycles queued before every install (copy stream) or
+# every moe_ffn (compute stream) in the race checks: ~10 ms at ~2 GHz,
+# most of one fp32 expert copy
+SLEEP_CYCLES = 20_000_000
+# the race checks' cache: 2 slots a layer, so a 2-row batch union of up to
+# 4 experts streams in 2 chunks and chunk 2's installs evict chunk 1's
+# experts, whose moe_ffn may still be queued (the last-reader event's case)
+RACE_SLOTS = 2
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "moe_ffn": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                 "src/repro/kernels/moe_gemm.py:40"),
@@ -271,16 +309,59 @@ def recording(ops, seen, specs):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """Replace ``owner.<name>`` by ``make(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def reusing(store):
+    """Servers built inside the block take ``store`` (expert masters
+    already pinned, or already quantized) instead of building their own
+    from the params."""
+    from repro_torch.core.expert_store import ExpertStore
+
+    def make(_):
+        def from_params(params, cfg, *, quant="none", pin=False):
+            check(quant == store.quant and pin == store.pin,
+                  f"reused store is quant={store.quant} pin={store.pin}, "
+                  f"the server asked for quant={quant} pin={pin}")
+            return store
+        return from_params
+    return patched(ExpertStore, "from_params", make)
+
+
+def install_streams(streams):
+    """Record, for every expert install inside the block, (the cache's
+    copy stream, the stream the install's copies were queued on)."""
+    import torch
+    from repro_torch.core.expert_cache import ExpertCache
+
+    def make(copy_in):
+        def call(self, *args, **kw):
+            streams.append((self.copy_stream, torch.cuda.current_stream()))
+            return copy_in(self, *args, **kw)
+        return call
+    return patched(ExpertCache, "_copy_in", make)
+
+
 def serve(srv, prompts, ops, prof=None):
     """Run the staggered workload; record each kernel wrapper's heaviest
     call (moe_ffn: most expert rows E*C; paged_attention: most visible
     keys), its small arguments copied as they were. Each step's
     host-to-device expert bytes must equal (misses + prefetches) of the
-    trace rows it added times the bytes of one stored expert. Returns
-    (rids, launches, per-step ms, per-step H2D bytes, recorded calls,
-    loop ms)."""
+    trace rows it added times the bytes of one stored expert. Every
+    install must run on the engine's copy stream when it has one
+    (``overlap=True``), else on the compute stream. Returns (rids,
+    launches, per-step ms, per-step H2D bytes, recorded calls, loop ms)."""
     import torch
-    seen = {}
+    seen, streams = {}, []
+    compute = torch.cuda.current_stream()
     specs = {
         "moe_ffn": (lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
                     # the slot buffers (GBs) are kept by reference
@@ -291,7 +372,7 @@ def serve(srv, prompts, ops, prof=None):
     }
     rids, step_ms, step_h2d = [], [], []
     expert_bytes = srv.engine.store.expert_nbytes((0, 0))
-    with recording(ops, seen, specs):
+    with recording(ops, seen, specs), install_streams(streams):
         ops.reset_launch_counts()
         if prof is not None:
             prof.start()
@@ -321,6 +402,16 @@ def serve(srv, prompts, ops, prof=None):
         if prof is not None:
             prof.stop()
         launches = ops.launch_counts()
+    copy = srv.engine.copy_stream
+    check((copy is not None) == srv.engine.overlap,
+          f"overlap={srv.engine.overlap} but copy stream {copy}")
+    check(bool(streams), "no expert install in the serving run")
+    # (`None != stream` is False in PyTorch: test `is None` first)
+    where = copy if copy is not None else compute
+    check((copy is None or copy != compute)
+          and all(c == copy and s == where for c, s in streams),
+          f"installs ran on {sorted({str(s) for _, s in streams})}, "
+          f"expected {where} (compute stream {compute})")
     return (rids, launches, step_ms, step_h2d,
             {k: v[1] for k, v in seen.items()}, loop_ms)
 
@@ -332,6 +423,87 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
 )
+
+
+def kind_of(name):
+    """A profiler device event's kind, from its name."""
+    if name.startswith("Memcpy HtoD"):
+        return "h2d_copy"
+    if name.startswith(("Memcpy", "Memset")):
+        return "other_copy"
+    return next((k for frags, k in KINDS if any(f in name for f in frags)),
+                "other_kernels")
+
+
+def merged(spans):
+    """Sorted, non-overlapping union of (start, end) spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(union, starts, a, b):
+    """Length of [a, b) that the merged spans ``union`` cover."""
+    i = max(bisect.bisect_right(starts, a) - 1, 0)
+    total = 0
+    while i < len(union) and union[i][0] < b:
+        total += max(0, min(union[i][1], b) - max(union[i][0], a))
+        i += 1
+    return total
+
+
+def stream_split(prof):
+    """The traced window's device activity by CUDA stream (the profiler's
+    device resource id): each stream's ms by kind; the host-to-device
+    copy time that ran while a kernel ran on another stream (the measured
+    overlap) and the copy time that ran alone; the kernels that ran on
+    the streams that carried most of the copies and no moe_ffn (the copy
+    stream: the int8 dequant multiply lands there)."""
+    from torch.autograd import DeviceType
+    by_stream = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_stream.setdefault(ev.device_resource_id, []).append(
+                (ev.time_range.start, ev.time_range.end, kind_of(ev.name),
+                 ev.name))
+    kernels = {s: [(a, b) for a, b, k, _ in v
+                   if k not in ("h2d_copy", "other_copy")]
+               for s, v in by_stream.items()}
+    h2d_total = sum(b - a for v in by_stream.values()
+                    for a, b, k, _ in v if k == "h2d_copy")
+    streams, overlap_us, alone_us = {}, 0.0, 0.0
+    for s, v in by_stream.items():
+        union = merged([iv for t, ivs in kernels.items() if t != s
+                        for iv in ivs])
+        starts = [a for a, _ in union]
+        rec = {"ms_by_kind": {}, "h2d_count": 0}
+        for a, b, k, _ in v:
+            rec["ms_by_kind"][k] = rec["ms_by_kind"].get(k, 0.0) + (b - a) / 1e3
+            if k == "h2d_copy":
+                rec["h2d_count"] += 1
+                o = covered(union, starts, a, b)
+                overlap_us += o
+                alone_us += (b - a) - o
+        h2d = rec["ms_by_kind"].get("h2d_copy", 0.0) * 1e3
+        rec["role"] = ("compute" if "moe_ffn" in rec["ms_by_kind"] else
+                       "copy" if h2d > 0.5 * h2d_total else "other")
+        if rec["role"] == "copy":
+            names = {}
+            for a, b, k, name in v:
+                if k not in ("h2d_copy", "other_copy"):
+                    names[name[:100]] = names.get(name[:100], 0.0) \
+                        + (b - a) / 1e3
+            rec["kernels_ms"] = names
+        streams[str(s)] = rec
+    return {"streams": streams, "h2d_ms": h2d_total / 1e3,
+            "h2d_concurrent_with_kernels_ms": overlap_us / 1e3,
+            "h2d_alone_ms": alone_us / 1e3,
+            "h2d_concurrent_share": overlap_us / h2d_total
+            if h2d_total else 0.0}
 
 
 def device_time_summary(prof, wall_ms, h2d_bytes=None):
@@ -350,22 +522,10 @@ def device_time_summary(prof, wall_ms, h2d_bytes=None):
         ms = ev.time_range.elapsed_us() / 1e3
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name
-        if name.startswith("Memcpy HtoD"):
-            kind = "h2d_copy"
-        elif name.startswith(("Memcpy", "Memset")):
-            kind = "other_copy"
-        else:
-            kind = next((k for frags, k in KINDS
-                         if any(f in name for f in frags)), "other_kernels")
-        kinds[kind] += ms
+        kinds[kind_of(name)] += ms
         top[name[:80]] = top.get(name[:80], 0.0) + ms
     check(bool(spans), "the profiler saw no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy_ms = busy_us / 1e3
+    busy_ms = sum(b - a for a, b in merged(spans)) / 1e3
     out = {"wall_ms": wall_ms, "device_ms_by_kind": kinds,
            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
@@ -375,6 +535,7 @@ def device_time_summary(prof, wall_ms, h2d_bytes=None):
         check(kinds["h2d_copy"] > 0, "the profiler saw no host-to-device copy")
         out["h2d_expert_bytes"] = h2d_bytes
         out["h2d_GB_per_s"] = h2d_bytes / kinds["h2d_copy"] / 1e6
+        out["by_stream"] = stream_split(prof)
     return out
 
 
@@ -658,14 +819,134 @@ def ssd_float64(dA, xw, Bm, Cm):
     return y.float(), s.float()
 
 
-def int8_serving(params, cfg, prompts, ops, server_kw, prof=None):
+def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches):
+    """A serving run's record, taken before anything else runs on the
+    server: what overlap must not change (tokens, the trace's functional
+    rows, stats() off the clock keys, repr so that NaN equals NaN; the
+    per-step H2D bytes), the clock, step times, loop time, launches and
+    cache counters. Both kernels must have launched."""
+    for name in ("moe_ffn", "paged_attention"):
+        check(launches[name] > 0,
+              f"{name}: the serving run never launched its kernel")
+    stats = srv.stats()
+    return {"tokens": [srv.result(r) for r in rids],
+            "rows": [tuple(getattr(s, f) for f in FUNCTIONAL)
+                     for s in srv.trace.steps],
+            "stats": {k: repr(v) for k, v in stats.items()
+                      if k not in CLOCK_KEYS},
+            "clock": {k: stats[k] for k in CLOCK_KEYS},
+            "step_ms": step_ms, "step_h2d": step_h2d, "loop_ms": loop_ms,
+            "launches": launches,
+            "counts": {k: stats[k] for k in ("hits", "misses", "prefetches")}}
+
+
+def overlap_run(params, cfg, prompts, ops, server_kw, store, off_srv, off,
+                prof=None):
+    """The staggered workload once more with ``overlap=True`` on the
+    masters ``store`` of the ``overlap=False`` server ``off_srv``, whose
+    run is ``off`` (``served_run``): every install on the copy stream
+    (``serve``), and the same tokens, functional trace rows, stats() off
+    the clock keys, per-step H2D bytes and, at the end, every slot
+    bitwise. Returns (report, record)."""
+    import statistics
+    import torch
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    with reusing(store):
+        srv = ContinuousOffloadServer(params, cfg, quant=store.quant,
+                                      **{**server_kw, "overlap": True})
+    rids, launches, step_ms, step_h2d, _, loop_ms = serve(srv, prompts, ops,
+                                                          prof)
+    on = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches)
+    what = f"quant={store.quant} overlap on vs off"
+    for key in ("tokens", "rows", "stats", "step_h2d"):
+        check(on[key] == off[key], f"{what}: {key} differ")
+    torch.cuda.synchronize()
+    slots = 0
+    for c_off, c_on in zip(off_srv.engine.caches, srv.engine.caches):
+        check(c_on.slot_of == c_off.slot_of,
+              f"{what}: layer {c_on.layer} slot maps differ")
+        for k, buf in c_off.buffers.items():
+            check(torch.equal(c_on.buffers[k], buf),
+                  f"{what}: layer {c_on.layer} {k} slots differ")
+        slots += len(c_on.slot_of)
+    rep = {"quant": store.quant, "steps": len(step_ms),
+           "overlap": [False, True],
+           "step_ms_median": [statistics.median(off["step_ms"]),
+                              statistics.median(step_ms)],
+           "step_ms_max": [max(off["step_ms"]), max(step_ms)],
+           "first_step_ms": [off["step_ms"][0], step_ms[0]],
+           "loop_ms": [off["loop_ms"], loop_ms],
+           "exposed_transfer_frac": [off["clock"]["exposed_transfer_frac"],
+                                     on["clock"]["exposed_transfer_frac"]],
+           "sim_time_s": [off["clock"]["sim_time_s"],
+                          on["clock"]["sim_time_s"]],
+           "h2d_expert_bytes": sum(step_h2d), "counts": on["counts"],
+           "launches": launches, "slots_bitwise": slots,
+           "equal": ["tokens", "functional_trace_rows", "stats_off_clock",
+                     "step_h2d_bytes", "slots_bitwise"]}
+    if prof is not None:
+        rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
+        split = rep["profile"]["by_stream"]["streams"].values()
+        copy = [r for r in split if r["role"] == "copy"]
+        check(len(copy) == 1, f"{what}: copy streams in the trace: {split}")
+        check(bool(copy[0].get("kernels_ms")) == (store.quant == "int8"),
+              f"{what}: kernels on the copy stream: {copy[0]}")
+    del srv
+    gc.collect()
+    return rep, on
+
+
+def learned_serving(params, cfg, prompts, ops, server_kw, store, model,
+                    lfu):
+    """The staggered workload on the masters ``store`` with
+    ``policy="learned"``, ``prefetch="learned"`` (``model``, trained from
+    the fp32 serving run's trace) and ``overlap=True``: bytes == trace
+    (``serve``), both kernels launched, server tokens == ``generate``.
+    Reports its step times and cache counters beside ``lfu``'s (the LFU +
+    speculative run with overlap on, same masters)."""
+    import statistics
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    with reusing(store):
+        srv = ContinuousOffloadServer(
+            params, cfg, quant=store.quant,
+            **{**server_kw, "policy": "learned", "prefetch": "learned",
+               "overlap": True, "learned_model": model})
+    rids, launches, step_ms, step_h2d, _, loop_ms = serve(srv, prompts, ops)
+    run = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches)
+    for p, out in zip(prompts, run["tokens"]):
+        want = srv.engine.generate(p, NEW_TOKENS)
+        check(out == want, f"learned: server {out[PROMPT_LEN:]} != generate "
+                           f"{want[PROMPT_LEN:]} for prompt {p}")
+    del srv
+    gc.collect()
+    return {"quant": store.quant, "policy": "learned",
+            "prefetch": "learned", "overlap": True,
+            "model_confidence": model.confidence,
+            "model_samples": model.meta["n_samples"],
+            "steps": len(step_ms), "server_equals_generate": True,
+            "h2d_equals_trace": True, "launches": launches,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms_max": max(step_ms), "loop_ms": loop_ms,
+            "h2d_expert_bytes": sum(step_h2d), "counts": run["counts"],
+            "lfu_spec": {"step_ms_median": statistics.median(lfu["step_ms"]),
+                         "step_ms_max": max(lfu["step_ms"]),
+                         "loop_ms": lfu["loop_ms"],
+                         "h2d_expert_bytes": sum(lfu["step_h2d"]),
+                         "counts": lfu["counts"]},
+            "new_tokens": [o[PROMPT_LEN:] for o in run["tokens"]]}
+
+
+def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler):
     """The offload server with ``quant="int8"`` on the fp32 run's model
     and workload: int8 masters and scale rows pinned, no host dequant
     (``ExpertStore.fetch`` is never called) while serving or generating,
     server tokens == ``generate``, each step's bytes == the trace's moved
     experts x the stored bytes of one (checked in ``serve``), every
-    resident slot bitwise the host dequant of its expert. Returns a
-    report."""
+    resident slot bitwise the host dequant of its expert. On the same
+    int8 masters: the run again with overlap on (``overlap_run``), then
+    the learned policy and predictor (``learned_serving``). ``profiler()``
+    gives a profiler for a serving loop, or None. Returns the three
+    reports."""
     import torch
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
     t0 = time.perf_counter()
@@ -682,14 +963,17 @@ def int8_serving(params, cfg, prompts, ops, server_kw, prof=None):
     fetched = []
     fetch = store.fetch
     store.fetch = lambda key: fetched.append(key) or fetch(key)
+    prof = profiler()
     rids, launches, step_ms, step_h2d, _, loop_ms = serve(srv, prompts, ops,
                                                           prof)
-    for name in ("moe_ffn", "paged_attention"):
-        check(launches[name] > 0,
-              f"int8 serving: {name} never launched its kernel")
+    off = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches)
+    on_rep, on = overlap_run(params, cfg, prompts, ops, server_kw, store, srv,
+                             off, profiler())
+    learned_rep = learned_serving(params, cfg, prompts, ops, server_kw, store,
+                                  model, on)
     check(not fetched, f"int8 serving: ExpertStore.fetch called "
                        f"{len(fetched)} times")
-    served = [srv.result(r) for r in rids]
+    served = off["tokens"]
     for p, out in zip(prompts, served):
         want = srv.engine.generate(p, NEW_TOKENS)
         check(out == want, f"int8: server {out[PROMPT_LEN:]} != generate "
@@ -718,41 +1002,91 @@ def int8_serving(params, cfg, prompts, ops, server_kw, prof=None):
         rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
     del srv, store, stored
     gc.collect()
-    return rep
+    return rep, on_rep, learned_rep
 
 
-def offload_invariants(params, cfg, prompts):
+def offload_invariants(params, cfg, prompts, store):
     """The offload server's invariants on the card, each against one
     reference run (overlap off, per-token prefill, no fault injector) on
     the first INVARIANT_REQUESTS prompts: overlap on and chunked prefill
-    give the same tokens; a null fault plan the same tokens, trace and
-    stats() (plus the injector's own counters, all zero). Servers are built one at a time (each pins its expert
-    masters). Raises on a mismatch."""
+    give the same tokens (overlap on: every step's logits bitwise too); a
+    null fault plan the same tokens, trace and stats() (plus the
+    injector's own counters, all zero). Then the race checks, on a cache
+    of RACE_SLOTS slots against an overlap-off run of it: overlap on with
+    ``torch.cuda._sleep`` queued on the copy stream before every install
+    (a read that skipped a slot's ready event would see the old expert),
+    and with it queued on the compute stream before every
+    ``ops.moe_ffn`` (a copy that skipped the slot's last-reader event
+    would overwrite weights still to be read; a sleep after the launch
+    would not delay the read): tokens and every step's logits bitwise the
+    reference's. Each race run has a negative control: the same sleeps
+    with that event's wait taken out of a copy of ``ExpertCache.reading``
+    (ready) or ``ExpertCache._writing`` (last reader) made here, which
+    must change the logits, so the check can fail. Servers are built one
+    at a time, on the fp32 masters ``store``. Raises on a mismatch."""
+    import torch
+    from repro_torch.core.expert_cache import ExpertCache
     from repro_torch.core.faults import FaultPlan
+    from repro_torch.kernels import ops
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
     base = dict(cache_slots=4, policy="lfu", prefetch="spec",
                 max_batch=INVARIANT_REQUESTS, kv_block_size=16,
                 cache_len=PROMPT_LEN + INVARIANT_TOKENS, device="cuda")
 
     def run(**kw):
-        srv = ContinuousOffloadServer(params, cfg, **{**base, **kw})
+        with reusing(store):
+            srv = ContinuousOffloadServer(params, cfg, **{**base, **kw})
         rids = [srv.submit(p, max_new=INVARIANT_TOKENS)
                 for p in prompts[:INVARIANT_REQUESTS]]
-        srv.run()
+        logits = []
+        while srv.pending:
+            srv.step()
+            logits.append(srv._logits.clone())
+        torch.cuda.synchronize()
         out = ([srv.result(r)[PROMPT_LEN:] for r in rids], srv.stats(),
-               srv.trace.to_json())
+               srv.trace.to_json(), logits,
+               max(len(r.activated) for r in srv.trace.steps))
         del srv
         gc.collect()
         return out
+
+    def same_logits(logits, want, name):
+        check(len(logits) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(logits, want)),
+            f"offload invariant {name}: logits differ from overlap off")
+
+    def sleep_first(fn):
+        def call(*args, **kw):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            return fn(*args, **kw)
+        return call
+
+    def without_ready_wait(_):
+        @contextlib.contextmanager
+        def reading(self, slots):
+            yield
+            for s in slots:
+                self._last_read[s].record(torch.cuda.current_stream())
+        return reading
+
+    def without_last_reader_wait(_):
+        @contextlib.contextmanager
+        def writing(self, slot):
+            with torch.cuda.stream(self.copy_stream):
+                yield
+                self._ready[slot].record(self.copy_stream)
+        return writing
 
     t0 = time.perf_counter()
     ref = run()
     for name, kw in (("overlap", dict(overlap=True)),
                      ("prefill_chunk", dict(prefill_chunk=4)),
                      ("null_fault_plan", dict(faults=FaultPlan.null()))):
-        toks, stats, trace = run(**kw)
+        toks, stats, trace, logits, _ = run(**kw)
         check(toks == ref[0], f"offload invariant {name}: tokens {toks} != "
                               f"{ref[0]}")
+        if name == "overlap":
+            same_logits(logits, ref[3], name)
         if name == "null_fault_plan":
             # equal on every key of the reference; the counters an
             # injector adds are all zero (repr: NaN equals NaN)
@@ -763,9 +1097,37 @@ def offload_invariants(params, cfg, prompts):
             check(all(v == 0 for v in extra.values()),
                   f"null fault plan: fault counters {extra}")
             check(trace == ref[2], "null fault plan: the trace differs")
+    race_ref = run(cache_slots=RACE_SLOTS)
+    check(race_ref[4] > RACE_SLOTS, f"race workload: batch unions of at "
+                                    f"most {race_ref[4]} experts, no chunks")
+    races = {"cache_slots": RACE_SLOTS, "max_union": race_ref[4],
+             "sleep_cycles": SLEEP_CYCLES}
+    for name, owner, attr, control in (
+            ("copy_stream_sleep", ExpertCache, "_copy_in",
+             ("reading", without_ready_wait)),
+            ("compute_stream_sleep", ops, "moe_ffn",
+             ("_writing", without_last_reader_wait))):
+        t1 = time.perf_counter()
+        with patched(owner, attr, sleep_first):
+            toks, _, _, logits, _ = run(overlap=True, cache_slots=RACE_SLOTS)
+            seconds = time.perf_counter() - t1
+            with patched(ExpertCache, *control):
+                _, _, _, broken, _ = run(overlap=True,
+                                         cache_slots=RACE_SLOTS)
+        check(toks == race_ref[0], f"race check {name}: tokens {toks} != "
+                                   f"{race_ref[0]}")
+        same_logits(logits, race_ref[3], name)
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(broken, race_ref[3]))
+        check(diff > 0, f"race check {name}: with the {control[0]} wait "
+                        f"taken out the logits did not change")
+        races[name] = {"seconds": seconds, "steps": len(logits),
+                       "control_without_wait_in": control[0],
+                       "control_max_abs_logit_diff": diff}
     return {"offload_invariants": ["overlap", "prefill_chunk",
                                    "null_fault_plan"],
-            "tokens": ref[0], "seconds": time.perf_counter() - t0}
+            "race_checks": races, "tokens": ref[0],
+            "seconds": time.perf_counter() - t0}
 
 
 PREFILL_SPECS = {   # heaviest prefill calls, copied as they were
@@ -925,6 +1287,7 @@ def main() -> None:
     check(Path(repro_torch.__file__).resolve().is_relative_to(SRC),
           f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
     from repro_torch.configs import get_config
+    from repro_torch.core.learned import train_from_trace
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
@@ -978,10 +1341,12 @@ def main() -> None:
                for _ in SUBMIT_AT_STEP]
 
     # ---- serve ------------------------------------------------------
-    prof = None
-    if args.profile:
+    def profiler():
         act = torch.profiler.ProfilerActivity
-        prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+        return (torch.profiler.profile(activities=[act.CPU, act.CUDA])
+                if args.profile else None)
+
+    prof = profiler()
     rids, launches, step_ms, step_h2d, calls, loop_ms = serve(
         srv, prompts, ops, prof)
     print(json.dumps({"steps": len(step_ms), "step_ms": step_ms,
@@ -991,9 +1356,14 @@ def main() -> None:
     if prof is not None:
         print(json.dumps({"profile": device_time_summary(
             prof, loop_ms, sum(step_h2d))}), flush=True)
-    for name in ("moe_ffn", "paged_attention"):
-        check(launches[name] > 0,
-              f"{name}: the main path never launched its kernel")
+    off = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches)
+    # the learned phase's model: this serving run's trace, nothing else
+    model = train_from_trace(srv.trace, cfg.num_experts)
+
+    # ---- the same run with the installs on the copy stream ----------
+    print(json.dumps({"overlap_serving": overlap_run(
+        params, cfg, prompts, ops, server_kw, store, srv, off,
+        profiler())[0]}), flush=True)
 
     # ---- outputs: finite logits, server tokens == generate tokens ---
     logits = srv._logits
@@ -1065,20 +1435,21 @@ def main() -> None:
     print(json.dumps({"paged_split_sweep": paged_split_sweep(calls,
                                                              floor_ms)}),
           flush=True)
-    del srv, calls, store
+    del srv, calls
     gc.collect()
 
-    # ---- the same serving run with int8 expert masters --------------
-    prof = None
-    if args.profile:
-        act = torch.profiler.ProfilerActivity
-        prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
-    print(json.dumps({"int8_serving": int8_serving(
-        params, cfg, prompts, ops, server_kw, prof)}), flush=True)
+    # ---- int8 expert masters: overlap off, on, the learned policy ---
+    rep, on_rep, learned_rep = int8_serving(params, cfg, prompts, ops,
+                                            server_kw, model, profiler)
+    print(json.dumps({"int8_serving": rep}), flush=True)
+    print(json.dumps({"overlap_serving": on_rep}), flush=True)
+    print(json.dumps({"learned_serving": learned_rep}), flush=True)
     gc.collect()
 
-    # ---- the offload invariants on the card -------------------------
-    print(json.dumps(offload_invariants(params, cfg, prompts)), flush=True)
+    # ---- the offload invariants and race checks on the card ---------
+    print(json.dumps(offload_invariants(params, cfg, prompts, store)),
+          flush=True)
+    del store
     gc.collect()
     torch.cuda.empty_cache()
 

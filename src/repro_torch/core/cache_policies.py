@@ -242,6 +242,97 @@ class AgedLFU(LFU):
             self._ffreq.pop(key, None)
 
 
+class LearnedPolicy(AgedLFU):
+    """Beyond paper (FlashMoE / MoE-Beyond direction): evict the key
+    with the LOWEST predicted next-window reuse probability, scored by
+    a ``repro_torch.core.learned.LearnedModel`` trained offline from trace
+    histories.
+
+    Falls back to AgedLFU scoring — victim-for-victim identical
+    (test-enforced) — whenever no model is attached or the model's
+    training-set confidence is below ``min_confidence``; the AgedLFU
+    bookkeeping is always maintained so the fallback (and the learned
+    ranking's tie-break) is exact, not approximate.
+
+    The per-key feature state mirrors training (``learned.LayerState``):
+    multi-timescale decay traces, lifetime counts and last-activation
+    step, maintained lazily (O(1) per touch). The transition feature
+    has no layer context at eviction time and is NaN — the model
+    imputes its training mean. ``persistent_counts=False`` bounds ALL
+    of it (traces included) to the resident set, matching the AgedLFU
+    contract property tests.
+    """
+
+    name = "learned"
+
+    def __init__(self, capacity: int, *, model=None,
+                 min_confidence: float = 0.05, decay: float = 0.5,
+                 age_every: int = 32, persistent_counts: bool = True):
+        super().__init__(capacity, decay=decay, age_every=age_every,
+                         persistent_counts=persistent_counts)
+        if isinstance(model, str):
+            # checkpoint path: a missing/truncated/corrupt file warns
+            # and degrades to the exact AgedLFU fallback below instead
+            # of crashing mid-serve (robustness contract, test-enforced)
+            from repro_torch.core.learned import LearnedModel
+            model = LearnedModel.load_or_none(model)
+        self.model = model
+        self.min_confidence = min_confidence
+        self._decays = tuple(getattr(model, "decays", (0.5, 0.9, 0.98)))
+        self._gamma = float(getattr(model, "gamma", 0.8))
+        self._traces: dict = {}    # key -> [value per decay]
+        self._trace_t: dict = {}   # key -> step of last trace update
+        self._cnt: dict = {}       # key -> lifetime touch count
+        self._last_act: dict = {}  # key -> step of last touch
+
+    # -- learned scoring ----------------------------------------------
+    def _model_usable(self) -> bool:
+        return self.model is not None and \
+            getattr(self.model, "confidence", 1.0) >= self.min_confidence
+
+    def _touch(self, key):
+        super()._touch(key)
+        t = self._step
+        gap = t - self._trace_t.get(key, t)
+        vals = self._traces.get(key)
+        if vals is None:
+            vals = [0.0] * len(self._decays)
+        self._traces[key] = [v * d ** gap + 1.0
+                             for v, d in zip(vals, self._decays)]
+        self._trace_t[key] = t
+        self._cnt[key] = self._cnt.get(key, 0) + 1
+        self._last_act[key] = t
+
+    def _features(self, key) -> List[float]:
+        t = self._step
+        gap = t - self._trace_t.get(key, t)
+        vals = self._traces.get(key, [0.0] * len(self._decays))
+        decayed = [v * d ** gap for v, d in zip(vals, self._decays)]
+        freq = self._cnt.get(key, 0) / max(t, 1)
+        last = self._last_act.get(key)
+        rec = self._gamma ** min(t - last, 512) if last is not None else 0.0
+        return [1.0, *decayed, freq, rec, float("nan")]
+
+    def choose_victim(self, exclude: frozenset = frozenset()):
+        if not self._model_usable():
+            return super().choose_victim(exclude)
+        cand = [k for k in self._set if k not in exclude]
+        if not cand:
+            raise RuntimeError("all cached keys pinned")
+        probs = self.model.predict([self._features(k) for k in cand])
+        # least predicted reuse first; AgedLFU score breaks float ties
+        return min(zip(cand, probs),
+                   key=lambda kp: (float(kp[1]), self._ffreq.get(kp[0], 0.0),
+                                   self._last.get(kp[0], -1)))[0]
+
+    def remove(self, key):
+        super().remove(key)
+        if not self._persistent:
+            for d in (self._traces, self._trace_t, self._cnt,
+                      self._last_act):
+                d.pop(key, None)
+
+
 class LRFU(CachePolicy):
     """Beyond-paper: LRFU (Lee et al. 2001) — each key has a CRF score
     F(k) = Σ (1/2)^(λ·(now-t_i)) over its access times; λ→0 is LFU,
@@ -351,14 +442,11 @@ POLICIES = {
     "random": RandomPolicy,
     "aged-lfu": AgedLFU,
     "lrfu": LRFU,
+    "learned": LearnedPolicy,
 }
 
 
 def make_policy(name: str, capacity: int, **kw) -> CachePolicy:
-    if name == "learned":
-        raise NotImplementedError(
-            "policy='learned' needs core/learned.py, not ported yet "
-            "(ROADMAP.md, queue A: learned predictor)")
     if name == "belady":
         return Belady(capacity, kw.pop("future"))
     if name not in POLICIES:

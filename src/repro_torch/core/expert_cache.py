@@ -9,10 +9,19 @@ copied into the slot; int8 masters and their scale rows are copied into
 int8 / fp32 staging buffers on the device, and the slot is written there
 by one fp32 multiply, ``float(q) * scale`` — the bits of the host
 dequant (``ExpertStore.fetch``). So the bytes moved are the bytes
-``bytes_transferred`` counts. Copies and multiply are queued on the
-current stream ahead of the kernels that read the slot, so no
-synchronisation is needed. All decisions (hit/miss/evict) happen on the
-host, as in the reference.
+``bytes_transferred`` counts. All decisions (hit/miss/evict) happen on
+the host, as in the reference.
+
+Streams. Without a ``copy_stream`` (the CPU, or ``overlap=False``) an
+install's copies and multiply are queued on the current stream ahead of
+the kernels that read the slot. With one (``overlap=True`` on a card:
+the engine's copy stream) every install runs there, beside compute,
+under two events a slot: *ready*, recorded after the slot's last write,
+which the compute stream waits on before ``ops.moe_ffn`` reads the slot
+(``reading``), and *last reader*, recorded after each such read, which
+the copy stream waits on before it overwrites the slot. The int8
+staging pair is written and read on the copy stream only, so stream
+order protects it.
 
 The expert FFN reads resident experts IN PLACE through ``slots_of``
 (``ops.moe_ffn`` takes the slot buffers plus slot indices); the JAX
@@ -22,6 +31,7 @@ Memory tiers (``tiers=``) are not ported yet (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +56,8 @@ class ExpertCache:
     staging : dict that holds the int8 installs' device staging buffers,
         one (int8 matrix, fp32 scale row) pair per matrix name, made at
         first use. Pass one dict to every layer's cache to share them.
+    copy_stream : CUDA stream the installs run on (see the module
+        docstring); None queues them on the current stream.
 
     Counters (cumulative): ``hits``/``misses`` demand accesses,
     ``prefetches`` speculative installs actually transferred,
@@ -55,7 +67,7 @@ class ExpertCache:
     def __init__(self, layer: int, n_slots: int, policy: CachePolicy,
                  store: ExpertStore, shapes: Dict[str, tuple],
                  dtype=torch.float32, device="cuda", faults=None,
-                 staging: Optional[dict] = None):
+                 staging: Optional[dict] = None, copy_stream=None):
         assert policy.capacity == n_slots
         self.layer = layer
         self.n_slots = n_slots
@@ -66,6 +78,16 @@ class ExpertCache:
                                        device=device)
                         for k, s in shapes.items()}
         self.staging = staging if staging is not None else {}
+        self.copy_stream = copy_stream
+        if copy_stream is not None:
+            # the zero fill above is queued on the current stream; a
+            # slot freed while the copy stream may still write it is not
+            # reused before that work is done
+            copy_stream.wait_stream(torch.cuda.current_stream(device))
+            for b in self.buffers.values():
+                b.record_stream(copy_stream)
+            self._ready = [torch.cuda.Event() for _ in range(n_slots)]
+            self._last_read = [torch.cuda.Event() for _ in range(n_slots)]
         self.slot_of: Dict[int, int] = {}
         self._free: List[int] = list(range(n_slots))
         # counters
@@ -115,6 +137,44 @@ class ExpertCache:
             slot = self.slot_of.pop(victim)
             self.policy.remove(victim)
             evicted = victim
+        with self._writing(slot):
+            self._copy_in(eid, slot, outcome)
+        self.slot_of[eid] = slot
+        self.policy.on_insert(eid)
+        self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))
+        return slot, evicted
+
+    @contextlib.contextmanager
+    def _writing(self, slot: int):
+        """Run the body's writes of ``slot`` on the copy stream, after the
+        slot's last reader and before its ready event."""
+        if self.copy_stream is None:
+            yield
+            return
+        with torch.cuda.stream(self.copy_stream):
+            self.copy_stream.wait_event(self._last_read[slot])
+            yield
+            self._ready[slot].record(self.copy_stream)
+
+    @contextlib.contextmanager
+    def reading(self, slots: Sequence[int]):
+        """Wrap a kernel that reads ``slots`` on the current stream: it
+        waits until their installs have landed, and later installs into
+        them wait until it is done."""
+        if self.copy_stream is None:
+            yield
+            return
+        stream = torch.cuda.current_stream(self.copy_stream.device)
+        for s in slots:
+            stream.wait_event(self._ready[s])
+        yield
+        for s in slots:
+            self._last_read[s].record(stream)
+
+    def _copy_in(self, eid: int, slot: int,
+                 outcome: Optional[FetchOutcome]) -> None:
+        """Queue the copies (and int8 dequant) of expert ``eid`` into
+        ``slot`` on the current stream."""
         key = (self.layer, eid)
         if outcome is not None and outcome.corrupt_deliveries and \
                 self.faults is not None:
@@ -141,10 +201,10 @@ class ExpertCache:
                     continue
                 # One staging pair per matrix name serves every install
                 # of every layer: this copy, the multiply that reads it
-                # and the next install's copy are queued on one stream,
-                # so none overwrites a buffer still being read. Copies
-                # moved to a stream of their own must wait on an event
-                # recorded after the multiply before reusing it.
+                # and the next install's copy are queued on one stream
+                # (the copy stream, where there is one, which then also
+                # owns the pair's memory), so none overwrites a buffer
+                # still being read.
                 if k not in self.staging:
                     self.staging[k] = (
                         torch.empty(v.shape, dtype=v.dtype, device=dst.device),
@@ -154,10 +214,6 @@ class ExpertCache:
                 q_dev.copy_(v, non_blocking=True)
                 s_dev.copy_(scale, non_blocking=True)
                 torch.mul(q_dev, s_dev, out=dst)   # float(q) * s, in fp32
-        self.slot_of[eid] = slot
-        self.policy.on_insert(eid)
-        self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))
-        return slot, evicted
 
     def access(self, eids: Sequence[int],
                outcomes: Optional[Dict[int, FetchOutcome]] = None

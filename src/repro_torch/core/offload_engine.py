@@ -12,13 +12,17 @@ is modeled), exactly as in the reference.
 Control plane = host Python and numpy, copied from the reference so
 traces match byte for byte: routing readback and top-k
 (``np.argsort``, never ``torch.topk``: the order on ties must match),
-``_batch_union``, ``_combine_matrix``, the policies, the clock. Data
-plane = PyTorch on ``device``: attention (the paged kernel), the
-grouped expert FFN (the moe_ffn kernel, reading the slot buffers in
-place), installs as host->device copies.
+``_batch_union``, ``_combine_matrix``, the policies and predictors
+(spec, Markov, learned), the clock. Data plane = PyTorch on
+``device``: attention (the paged kernel), the grouped expert FFN (the
+moe_ffn kernel, reading the slot buffers in place), installs as
+host->device copies. With ``overlap=True`` on a card the installs run on
+a copy stream of the engine's, beside compute, ordered by per-slot
+events (``ExpertCache``); the simulated clock is unchanged by it and
+stays the accounting of record. The host syncs (routing readback, the
+speculative guess) wait on the compute stream only.
 
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md):
-``prefetch="learned"`` / ``policy="learned"`` (``core/learned.py``) and
+Not ported yet (raises ``NotImplementedError``, see ROADMAP.md):
 ``tiers=`` (``core/memory_tiers.py``).
 """
 from __future__ import annotations
@@ -34,7 +38,8 @@ from repro_torch.core.costmodel import CostModel, HardwareProfile, ModelBytes
 from repro_torch.core.expert_cache import ExpertCache
 from repro_torch.core.expert_store import ExpertStore
 from repro_torch.core.faults import as_injector
-from repro_torch.core.prefetch import MarkovPredictor, SpeculativePrefetcher
+from repro_torch.core.prefetch import (LearnedPredictor, MarkovPredictor,
+                                       SpeculativePrefetcher)
 from repro_torch.core.trace import TraceRecorder
 from repro_torch.core.transfer_engine import TransferEngine
 from repro_torch.kernels import ops
@@ -43,21 +48,29 @@ from repro_torch.models.layers import rms_norm, sinusoidal_positions
 from repro_torch.serving.sampler import request_generator, sample_token
 
 
-def _grouped_ffn(xf, buffers, slots: Sequence[int], comb: np.ndarray):
-    """xf [B,d]; buffers: the layer cache's slot buffers w1/w3 [S,d,ff],
-    w2 [S,ff,d]; slots: the U slots to run; comb [B,U] -> y [B,d].
+def _grouped_ffn(xf, cache: ExpertCache, slots: Sequence[int],
+                 comb: np.ndarray):
+    """xf [B,d]; cache: the layer's cache, whose slot buffers hold w1/w3
+    [S,d,ff], w2 [S,ff,d]; slots: the U slots to run; comb [B,U] -> y
+    [B,d].
 
     The resident-expert FFN goes through the grouped SwiGLU kernel
-    (``ops.moe_ffn``), which reads the U experts' weights in place.
+    (``ops.moe_ffn``), which reads the U experts' weights in place, after
+    their installs (``ExpertCache.reading``).
     Capacity dispatch is the full decode batch: x broadcasts to [U,B,d]
     (decode batches are a few rows, so every expert computing every row
     is cheaper than a gather), and the combine matrix mixes each row's
     top-k outputs.
     """
     x_e = xf.float().unsqueeze(0).expand(len(slots), *xf.shape).contiguous()
-    out = ops.moe_ffn(x_e, buffers["w1"], buffers["w3"], buffers["w2"],
-                      slots)
-    comb_t = torch.from_numpy(comb).to(xf.device)
+    b = cache.buffers
+    with cache.reading(slots):
+        out = ops.moe_ffn(x_e, b["w1"], b["w3"], b["w2"], slots)
+    comb_t = torch.from_numpy(comb)
+    if xf.is_cuda:
+        # from pinned memory, so the upload does not wait for the stream
+        # (the host goes on to queue the next chunk's installs)
+        comb_t = comb_t.pin_memory().to(xf.device, non_blocking=True)
     return torch.einsum("ubd,bu->bd", out, comb_t)
 
 
@@ -110,7 +123,8 @@ class OffloadEngine:
                  policy_kw: Optional[dict] = None,
                  policy_factory: Optional[Callable[[int], CachePolicy]] = None,
                  quant: str = "none",
-                 prefetch: Optional[str] = None,  # None|"spec"|"markov"
+                 prefetch: Optional[str] = None,  # None|"spec"|"markov"|"learned"
+                 learned_model=None,  # repro_torch.core.learned.LearnedModel
                  hw: Optional[HardwareProfile] = None,
                  overlap: bool = False,
                  trace: Optional[TraceRecorder] = None,
@@ -118,14 +132,10 @@ class OffloadEngine:
                  faults=None,  # FaultPlan | FaultInjector | None
                  device="cuda"):
         assert cfg.is_moe, "offloading targets MoE experts"
-        if prefetch == "learned" or policy == "learned":
-            raise NotImplementedError(
-                "the learned predictor/policy needs core/learned.py, not "
-                "ported yet (ROADMAP.md queue A)")
-        if prefetch not in (None, "spec", "markov"):
+        if prefetch not in (None, "spec", "markov", "learned"):
             raise ValueError(
                 f"unknown prefetch={prefetch!r}: expected one of "
-                f"None, 'spec', 'markov'")
+                f"None, 'spec', 'markov', 'learned'")
         if tiers is not None:
             raise NotImplementedError(
                 "tiers= needs core/memory_tiers.py, not ported yet "
@@ -164,6 +174,13 @@ class OffloadEngine:
         d, ff = cfg.d_model, cfg.expert_d_ff
         shapes = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
         pkw = dict(policy_kw or {})
+        # overlap=True on a card: every install runs on this copy stream,
+        # beside compute (``ExpertCache`` keeps the slots' events)
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if overlap and self.device.type == "cuda"
+                            else None)
+        if policy == "learned" and learned_model is not None:
+            pkw.setdefault("model", learned_model)
         self.caches: List[ExpertCache] = []
         staging: dict = {}   # int8 installs' device staging, one for all
         for l in range(cfg.num_layers):
@@ -173,7 +190,8 @@ class OffloadEngine:
                                            self.store, shapes,
                                            device=self.device,
                                            faults=self.faults,
-                                           staging=staging))
+                                           staging=staging,
+                                           copy_stream=self.copy_stream))
 
         mb = ModelBytes.from_config(cfg)
         eb = self.store.expert_nbytes((0, 0))
@@ -197,6 +215,10 @@ class OffloadEngine:
         self.markov = (MarkovPredictor(cfg.num_layers, cfg.num_experts,
                                        cfg.num_experts_per_tok)
                        if prefetch == "markov" else None)
+        self.learned = (LearnedPredictor(cfg.num_layers, cfg.num_experts,
+                                         cfg.num_experts_per_tok,
+                                         model=learned_model)
+                        if prefetch == "learned" else None)
         self._prompt_id = 0
         self._prev_acts: Dict[int, Tuple[int, ...]] = {}
 
@@ -335,8 +357,8 @@ class OffloadEngine:
                                    cfg.num_experts)
             if scale is not None:
                 comb = (comb * scale[:, None]).astype(np.float32)
-            y = y + _grouped_ffn(x[:, 0, :], cache.buffers,
-                                 cache.slots_of(comp), comb)
+            y = y + _grouped_ffn(x[:, 0, :], cache, cache.slots_of(comp),
+                                 comb)
         h = h + y[:, None, :].to(h.dtype)
 
         # --- simulated pipeline clock for this layer ------------------
@@ -515,15 +537,19 @@ class OffloadEngine:
             step_misses += misses
             for i, d in enumerate(req_deg):
                 step_degraded[i] |= d
-            if self.markov is not None:
+            predictor = self.markov if self.markov is not None else self.learned
+            if predictor is not None:
+                if self.learned is not None:
+                    # keep the learned feature walk aligned with training
+                    self.learned.observe(l, acts)
                 if l > 0:
-                    self.markov.update(l - 1, self._prev_acts.get(l - 1, ()),
-                                       acts)
+                    predictor.update(l - 1, self._prev_acts.get(l - 1, ()),
+                                     acts)
                 if l + 1 < cfg.num_layers:
                     # predict l+1 from THIS token's layer-l set — the
                     # same-token l -> l+1 transition the table is
                     # trained on
-                    guess = self.markov.predict(l, acts)
+                    guess = predictor.predict(l, acts)
                     moved = self.caches[l + 1].prefetch(guess)
                     step_prefetch += len(moved)
                     pending[l + 1] = (guess, tuple(moved),

@@ -99,7 +99,7 @@ class ContinuousOffloadServer:
 
     def __init__(self, params, cfg, *, cache_slots=None, max_batch: int = 4,
                  cache_len: int = 256, policy: str = "lru",
-                 policy_kw: Optional[dict] = None,
+                 policy_kw: Optional[dict] = None, learned_model=None,
                  prefetch: Optional[str] = None, quant: str = "none",
                  hw: Optional[HardwareProfile] = None, overlap: bool = False,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
@@ -170,8 +170,9 @@ class ContinuousOffloadServer:
         self.trace = TraceRecorder()
         self.engine = OffloadEngine(
             params, cfg, cache_slots=cache_slots, policy=policy,
-            policy_kw=policy_kw, prefetch=prefetch, quant=quant, hw=hw,
-            overlap=overlap, trace=self.trace, faults=faults, device=device)
+            policy_kw=policy_kw, learned_model=learned_model,
+            prefetch=prefetch, quant=quant, hw=hw, overlap=overlap,
+            trace=self.trace, faults=faults, device=device)
         self.device = self.engine.device
         self.faults = self.engine.faults  # normalized FaultInjector|None
         self.request_timeout_steps = request_timeout_steps
@@ -648,7 +649,7 @@ class OffloadServer:
     module docstring)."""
 
     def __init__(self, params, cfg, *, cache_slots: int, policy: str = "lru",
-                 policy_kw: Optional[dict] = None,
+                 policy_kw: Optional[dict] = None, learned_model=None,
                  prefetch: Optional[str] = None, quant: str = "none",
                  hw: Optional[HardwareProfile] = None, overlap: bool = False,
                  cache_len: int = 512, kv_layout: str = "paged",
@@ -657,8 +658,8 @@ class OffloadServer:
         self._srv = ContinuousOffloadServer(
             params, cfg, cache_slots=cache_slots, max_batch=1,
             cache_len=cache_len, policy=policy, policy_kw=policy_kw,
-            prefetch=prefetch, quant=quant, hw=hw, overlap=overlap,
-            kv_layout=kv_layout, kv_block_size=kv_block_size,
+            learned_model=learned_model, prefetch=prefetch, quant=quant,
+            hw=hw, overlap=overlap, kv_layout=kv_layout, kv_block_size=kv_block_size,
             device=device)
         self.trace = self._srv.trace
         self.engine = self._srv.engine

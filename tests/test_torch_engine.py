@@ -1,13 +1,15 @@
 """The port's offload engine against the JAX package's, end to end on
 the CPU: the same params (JAX init, bridged), the same prompts, across
-the policy x prefetch x overlap grid. Greedy tokens, the functional
-trace rows, ``stats()`` and the simulated clock must be EQUAL — the
-control plane is the reference's numpy, so any difference is a routing
-flip, and each test asserts that the smallest router top-k margin it
+the policy x prefetch x overlap grid (the learned policy and predictor
+with the model each package trains from one trace). Greedy tokens,
+the functional trace rows, ``stats()`` and the simulated clock must be
+EQUAL — the control plane is the reference's numpy, so any difference
+is a routing flip, and each test asserts that the smallest router top-k margin it
 saw is far above fp32 noise (so a failure would be a real fault, not a
 near-tie). Then the engine's own invariants: a null fault plan equals
 no injector; deferred features raise. The servers are in
-``test_torch_serving.py``."""
+``test_torch_serving.py``, the learned module's own cases in
+``test_torch_learned.py``."""
 import dataclasses
 
 import jax
@@ -18,9 +20,13 @@ import torch
 from conftest import tiny
 from repro.core import OffloadEngine as JEngine
 from repro.core.faults import FaultPlan as JFaultPlan
+from repro.core.learned import synthetic_trace as jsynthetic_trace
+from repro.core.learned import train_from_trace as jtrain_from_trace
+from repro.data import drifting_workload
 from repro.models import transformer as jtf
 import repro_torch.configs as pcfg
 from repro_torch.core.faults import FaultPlan
+from repro_torch.core.learned import synthetic_trace, train_from_trace
 from repro_torch.core.offload_engine import OffloadEngine
 from repro_torch.models import transformer as ptf
 from repro_torch.models.layers import rms_norm
@@ -87,16 +93,40 @@ def _assert_same_run(jeng, peng, margins):
 
 
 GRID = [dict(policy=p, prefetch=f, overlap=o)
-        for p in ("lru", "lfu") for f in (None, "spec", "markov")
+        for p in ("lru", "lfu", "learned")
+        for f in (None, "spec", "markov", "learned")
         for o in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def learned_models():
+    """(JAX model, port model), each trained by its own package from one
+    drifting 2-layer, 8-expert trace: bitwise the same weights."""
+    wl = drifting_workload(num_layers=2, num_experts=8, top_k=2,
+                           n_tokens=48, seed=5)
+    jm = jtrain_from_trace(jsynthetic_trace(wl.acts), 8)
+    pm = train_from_trace(synthetic_trace(wl.acts), 8)
+    assert (pm.w == jm.w).all() and pm.confidence == jm.confidence
+    return jm, pm
+
+
+def with_models(kw, learned_models):
+    """(JAX kwargs, port kwargs): a grid case's kwargs plus each
+    package's own model where the case uses the learned policy or
+    predictor."""
+    if "learned" not in (kw["policy"], kw["prefetch"]):
+        return kw, kw
+    jm, pm = learned_models
+    return dict(kw, learned_model=jm), dict(kw, learned_model=pm)
 
 
 @pytest.mark.parametrize("kw", GRID, ids=lambda kw: "-".join(
     str(v) for v in kw.values()))
-def test_generate_matches_reference(setup, kw):
+def test_generate_matches_reference(setup, learned_models, kw):
     cfg, jp, pc, tp = setup
-    jeng = JEngine(jp, cfg, cache_slots=3, **kw)
-    peng = OffloadEngine(tp, pc, cache_slots=3, device="cpu", **kw)
+    jkw, pkw = with_models(kw, learned_models)
+    jeng = JEngine(jp, cfg, cache_slots=3, **jkw)
+    peng = OffloadEngine(tp, pc, cache_slots=3, device="cpu", **pkw)
     margins = _track_margins(peng)
     assert peng.generate(PROMPTS[0], 6) == jeng.generate(PROMPTS[0], 6)
     _assert_same_run(jeng, peng, margins)
@@ -150,10 +180,8 @@ def test_null_fault_plan_is_bit_identical(setup, kw):
 
 def test_deferred_features_raise(setup):
     _, _, pc, tp = setup
-    for kw in (dict(prefetch="learned"), dict(policy="learned"),
-               dict(tiers=object())):
-        with pytest.raises(NotImplementedError):
-            OffloadEngine(tp, pc, cache_slots=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        OffloadEngine(tp, pc, cache_slots=2, device="cpu", tiers=object())
     with pytest.raises(NotImplementedError):
         ContinuousOffloadServer(tp, pc, hbm_budget_bytes=1 << 30,
                                 device="cpu")

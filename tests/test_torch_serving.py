@@ -15,19 +15,21 @@ from repro_torch.core.offload_engine import OffloadEngine
 from repro_torch.serving.offload_serving import (ContinuousOffloadServer,
                                                  OffloadServer)
 from test_torch_engine import (GRID, PROMPTS, _assert_same_run,  # noqa: F401
-                               _one_torch_thread, _track_margins, setup)
+                               _one_torch_thread, _track_margins,
+                               learned_models, setup, with_models)
 
 
 @pytest.mark.parametrize("kw", GRID, ids=lambda kw: "-".join(
     str(v) for v in kw.values()))
-def test_continuous_server_matches_reference(setup, kw):
+def test_continuous_server_matches_reference(setup, learned_models, kw):
     """Paged KV, chunked prefill (4-token chunks as virtual rows), three
     requests through two slots."""
     cfg, jp, pc, tp = setup
+    jkw, pkw = with_models(kw, learned_models)
     skw = dict(cache_slots=3, max_batch=2, cache_len=32, kv_block_size=4,
-               prefill_chunk=4, **kw)
-    jsrv = JServer(jp, cfg, **skw)
-    psrv = ContinuousOffloadServer(tp, pc, device="cpu", **skw)
+               prefill_chunk=4)
+    jsrv = JServer(jp, cfg, **skw, **jkw)
+    psrv = ContinuousOffloadServer(tp, pc, device="cpu", **skw, **pkw)
     margins = _track_margins(psrv.engine)
     for srv in (jsrv, psrv):
         for p in PROMPTS:
