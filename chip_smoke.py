@@ -42,6 +42,27 @@ It drives the port's two entry points end to end and checks them:
    tokens == ``generate``, bytes per step as above, both kernels
    launched; its step times and cache counters beside the LFU +
    speculative overlap-on run's;
+4d. memory tiers, on the same int8 masters: ``ContinuousOffloadServer``
+   sized by one ``hbm_budget_bytes`` that the plan splits into 4 slots a
+   layer and 4 KV blocks of 16 tokens (max_batch 2, 4-token prefill
+   chunks), 3 requests of 24 seeded prompt tokens and 16 greedy tokens:
+   the pool overcommits and the younger request's KV is parked in
+   pinned host memory and resumed. Overlap off: tokens == ``generate``;
+   overlap on: the same tokens, every step's logits, functional trace
+   rows with ``miss_tiers``, tier events and ``stats()`` off the clock
+   keys, and every park and resume copy on the engine's copy stream;
+   ``_park_kv`` / ``_restore_kv`` run under
+   ``torch.cuda.set_sync_debug_mode("error")``; replay
+   (``resume_from_host=False``) gives the same tokens in more steps;
+   half the masters on the simulated disk give the same tokens with
+   disk fetches on the clock; bytes per step as above; parked bytes,
+   slot buffer bytes and KV pool bytes against the plan; then sleeps
+   before every park / resume copy and before every park's gather,
+   which must change nothing, and the same sleeps with the resume's or
+   the park's event wait taken out, which must change the logits. One
+   ``tiers`` JSON line: park / resume counts, bytes and copy times,
+   steps and step times against replay, the HBM plan beside the real
+   bytes, labelled with the card;
 5. the offload invariants on the card, each on 2 requests of 8 greedy
    tokens: ``overlap=True`` gives the tokens and every step's logits of
    ``overlap=False``, ``prefill_chunk=4`` the tokens of per-token
@@ -204,6 +225,10 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
+# the memory-tier phase: slots a layer and KV blocks the budget is built
+# for, the block length, and the workload (requests, prompt and new tokens)
+TIER_SLOTS, TIER_BLOCKS, TIER_BLOCK_SIZE = 4, 4, 16
+TIER_REQUESTS, TIER_PROMPT_LEN, TIER_TOKENS = 3, 24, 16
 # trace fields that are the run's decisions (the float64 gate sums differ
 # in their last bits between runs of other kernels, so they are left out)
 FUNCTIONAL = ("activated", "hits", "misses", "evicted", "spec_guess",
@@ -213,6 +238,8 @@ FUNCTIONAL = ("activated", "hits", "misses", "evicted", "spec_guess",
 CLOCK_KEYS = ("transfer_busy_s", "exposed_transfer_s",
               "exposed_transfer_frac", "dma_preempted", "sim_time_s",
               "sim_tokens_per_s", "p99_step_s")
+# with tiers, the stall sum follows the clock too (its last bits differ)
+TIER_CLOCK_KEYS = CLOCK_KEYS + ("tier_stall_s",)
 # torch.cuda._sleep cycles queued before every install (copy stream) or
 # every moe_ffn (compute stream) in the race checks: ~10 ms at ~2 GHz,
 # most of one fp32 expert copy
@@ -936,7 +963,271 @@ def learned_serving(params, cfg, prompts, ops, server_kw, store, model,
             "new_tokens": [o[PROMPT_LEN:] for o in run["tokens"]]}
 
 
-def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler):
+def tier_serving(params, cfg, ops, store, card):
+    """Phase 4d (see the module docstring) on the masters ``store``.
+    Every server is built, run and freed one at a time. Returns the
+    ``tiers`` report; raises on a failed check."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.core.costmodel import ModelBytes
+    from repro_torch.core.paged_kv import PagedKVCache
+    from repro_torch.serving.offload_serving import (
+        ContinuousOffloadServer, _planned_expert_bytes)
+    t_phase = time.perf_counter()
+    slot_price = _planned_expert_bytes(cfg)
+    block_price = (TIER_BLOCK_SIZE * ModelBytes.from_config(cfg)
+                   .kv_bytes_per_token * cfg.num_layers)
+    experts_part = TIER_SLOTS * cfg.num_layers * slot_price
+    budget = experts_part + TIER_BLOCKS * block_price
+    base = dict(max_batch=2, prefill_chunk=4, kv_block_size=TIER_BLOCK_SIZE,
+                policy="lfu", prefetch="spec", hbm_budget_bytes=budget,
+                tier_expert_frac=experts_part / budget + 1e-9,
+                quant=store.quant, device="cuda")
+    # what one block of the fp32 pool holds: K and V of every layer
+    real_block = (TIER_BLOCK_SIZE * cfg.num_kv_heads * cfg.head_dim * 4 * 2
+                  * cfg.num_layers)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             TIER_PROMPT_LEN)]
+               for _ in range(TIER_REQUESTS)]
+    expert_bytes = store.expert_nbytes((0, 0))
+    compute = torch.cuda.current_stream()
+
+    def no_host_sync(fn):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    def run(generate=False, **kw):
+        moves = []
+
+        def recorded(move):
+            def call(self, dst, src):
+                host = src if dst.is_cuda else dst
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                move(self, dst, src)
+                end.record()
+                moves.append(("resume" if dst.is_cuda else "park",
+                              torch.cuda.current_stream(), host.nbytes,
+                              host.is_pinned(), start, end))
+            return call
+
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        with reusing(store):
+            srv = ContinuousOffloadServer(params, cfg, **{**base, **kw})
+        torch.cuda.synchronize()
+        built = torch.cuda.memory_allocated() - mem0
+        check(srv.engine.caches[0].n_slots == TIER_SLOTS
+              and srv.paged.num_blocks == TIER_BLOCKS,
+              f"the plan gave {srv.engine.caches[0].n_slots} slots and "
+              f"{srv.paged.num_blocks} blocks")
+        srv._park_kv = no_host_sync(srv._park_kv)
+        srv._restore_kv = no_host_sync(srv._restore_kv)
+        rids = [srv.submit(p, max_new=TIER_TOKENS) for p in prompts]
+        step_ms, step_h2d, logits = [], [], []
+        with patched(PagedKVCache, "_move", recorded):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t_loop = time.perf_counter()
+            while srv.pending:
+                h2d = sum(c.bytes_transferred for c in srv.engine.caches)
+                rows = len(srv.trace.steps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(srv._logits.clone())
+                step_h2d.append(sum(c.bytes_transferred
+                                    for c in srv.engine.caches) - h2d)
+                moved = sum(len(r.misses) + len(r.prefetched)
+                            for r in srv.trace.steps[rows:])
+                check(step_h2d[-1] == moved * expert_bytes,
+                      f"tiers {kw}: step {len(step_ms)}: {step_h2d[-1]} H2D "
+                      f"bytes, the trace moved {moved} experts")
+            loop_ms = (time.perf_counter() - t_loop) * 1e3
+            launches = ops.launch_counts()
+        for name in ("moe_ffn", "paged_attention"):
+            check(launches[name] > 0, f"tiers {kw}: {name} never launched")
+        copy = srv.engine.copy_stream
+        where = copy if copy is not None else compute
+        check(all(m[1] == where for m in moves),
+              f"tiers {kw}: park/resume copies ran on "
+              f"{sorted({str(m[1]) for m in moves})}, expected {where}")
+        check(all(m[3] for m in moves), f"tiers {kw}: unpinned host KV")
+        stats = srv.stats()
+        rec = {"tokens": [srv.result(r) for r in rids],
+               "rows": [tuple(getattr(r, f) for f in FUNCTIONAL
+                              + ("miss_tiers",)) for r in srv.trace.steps],
+               "events": [dataclasses.astuple(dataclasses.replace(
+                   e, sim_time=0.0)) for e in srv.trace.tier_events],
+               "stats": {k: repr(v) for k, v in stats.items()
+                         if k not in TIER_CLOCK_KEYS},
+               "raw": stats, "logits": logits, "step_ms": step_ms,
+               "step_h2d": step_h2d, "loop_ms": loop_ms,
+               "launches": launches, "built_bytes": built,
+               "slot_bytes": sum(b.nbytes for c in srv.engine.caches
+                                 for b in c.buffers.values()),
+               "pool_bytes": sum(t.nbytes for layer in srv.state["layers"]
+                                 for t in layer.values()),
+               "staging_bytes": sum(t.nbytes for c in srv.engine.caches[:1]
+                                    for pair in c.staging.values()
+                                    for t in pair)}
+        torch.cuda.synchronize()
+        for kind in ("park", "resume"):
+            ms = [a.elapsed_time(b) for k, _, _, _, a, b in moves
+                  if k == kind]
+            nb = [n for k, _, n, _, _, _ in moves if k == kind]
+            rec[kind] = {"n": len(ms), "bytes": nb, "ms": ms,
+                         "gb_per_s": [n / m / 1e6 for n, m in zip(nb, ms)]}
+        if generate:
+            for p, out in zip(prompts, rec["tokens"]):
+                want = srv.engine.generate(p, TIER_TOKENS)
+                check(out == want, f"tiers: server {out[TIER_PROMPT_LEN:]} "
+                                   f"!= generate {want[TIER_PROMPT_LEN:]}")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    def same(a, b, what, keys=("tokens", "rows", "events", "stats",
+                                "step_h2d")):
+        for key in keys:
+            check(a[key] == b[key], f"tiers {what}: {key} differ")
+        check(len(a["logits"]) == len(b["logits"]) and all(
+            torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])),
+            f"tiers {what}: logits differ")
+
+    def sleep_first(fn):
+        def call(*args, **kw):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            return fn(*args, **kw)
+        return call
+
+    def zero_then_sleep(move):
+        # a resume's staging buffer is zeroed first, so a read before its
+        # copy lands sees zeros, not memory a like run left behind
+        def call(self, dst, src):
+            if dst.is_cuda:
+                dst.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            return move(self, dst, src)
+        return call
+
+    def change(broken, ref):
+        """max |logits - ref's| over the steps (NaN counts as infinite)."""
+        return max(float(torch.nan_to_num((a - b).abs(), nan=float("inf"))
+                         .max())
+                   for a, b in zip(broken["logits"], ref["logits"]))
+
+    def follow_unless(skip):
+        def make(follow):
+            def call(self, waiter, stream):
+                if not skip(waiter):
+                    follow(self, waiter, stream)
+            return call
+        return make
+
+    off = run(generate=True)
+    s = off["raw"]
+    check(s["tier_kv_parks"] >= 1 and s["tier_kv_resumes"] >= 1,
+          f"tiers: {s['tier_kv_parks']} parks, {s['tier_kv_resumes']} "
+          f"resumes")
+    check(off["park"]["n"] == s["tier_kv_parks"]
+          and off["resume"]["n"] == s["tier_kv_resumes"],
+          "tiers: copies do not match the parks and resumes")
+    check(sum(off["park"]["bytes"]) == s["tier_tx_kv_hbm_host_bytes"],
+          f"tiers: parked {sum(off['park']['bytes'])} pinned bytes, the "
+          f"tier counted {s['tier_tx_kv_hbm_host_bytes']}")
+    check(off["slot_bytes"] == s["tier_hbm_expert_bytes"],
+          f"tiers: slot buffers {off['slot_bytes']} B, plan "
+          f"{s['tier_hbm_expert_bytes']}")
+    check(off["pool_bytes"] == 2 * s["tier_hbm_kv_bytes"] + real_block,
+          f"tiers: KV pools {off['pool_bytes']} B != 2 x "
+          f"{s['tier_hbm_kv_bytes']} + {real_block}")
+    on = run(overlap=True)
+    same(on, off, "overlap on vs off")
+    replay = run(resume_from_host=False)
+    check(replay["tokens"] == off["tokens"], "tiers: replay tokens differ")
+    check(replay["raw"]["tier_kv_parks"] == 0, "tiers: replay parked KV")
+    check(len(replay["step_ms"]) > len(off["step_ms"]),
+          f"tiers: replay took {len(replay['step_ms'])} steps, resume "
+          f"{len(off['step_ms'])}")
+    disk = run(host_budget_bytes=store.total_nbytes() // 2)
+    d = disk["raw"]
+    check(disk["tokens"] == off["tokens"], "tiers: disk-tier tokens differ")
+    check(d["tier_expert_disk_fetches"] > 0, "tiers: no disk fetch")
+    clock_gap = ((d["sim_time_s"] - d["tier_stall_s"])
+                 - (s["sim_time_s"] - s["tier_stall_s"]))
+    check(abs(clock_gap) <= 1e-9 * s["sim_time_s"],
+          f"tiers: disk run's clock off the stall by {clock_gap} s")
+    races = {"sleep_cycles": SLEEP_CYCLES}
+    with patched(PagedKVCache, "_move", zero_then_sleep):
+        same(run(overlap=True), on, "sleep before park/resume copies")
+        with patched(PagedKVCache, "_follow",
+                     follow_unless(lambda w: w == compute)):
+            broken = run(overlap=True)
+        races["resume_without_ready_wait"] = change(broken, on)
+    with patched(PagedKVCache, "park_blocks", sleep_first):
+        same(run(overlap=True), on, "sleep before park gathers")
+        with patched(PagedKVCache, "_follow",
+                     follow_unless(lambda w: w != compute)):
+            broken = run(overlap=True)
+        races["park_without_gather_wait"] = change(broken, on)
+    for name, diff in races.items():
+        if name != "sleep_cycles":
+            check(diff != 0, f"tiers: {name}: the logits did not change")
+
+    def steps(rec):
+        return {"steps": len(rec["step_ms"]), "loop_ms": rec["loop_ms"],
+                "step_ms_median": statistics.median(rec["step_ms"]),
+                "step_ms_max": max(rec["step_ms"])}
+
+    return {
+        "card": card, "quant": store.quant, "budget_bytes": budget,
+        "plan": {"slots_per_layer": TIER_SLOTS, "kv_blocks": TIER_BLOCKS,
+                 "slot_price_bytes": slot_price,
+                 "block_price_bytes": block_price,
+                 "tier_hbm_expert_bytes": s["tier_hbm_expert_bytes"],
+                 "tier_hbm_kv_bytes": s["tier_hbm_kv_bytes"]},
+        "real": {"slot_buffer_bytes": off["slot_bytes"],
+                 "kv_pool_bytes": off["pool_bytes"],
+                 "kv_block_bytes": real_block,
+                 "memory_allocated_growth_at_build": off["built_bytes"],
+                 "growth_not_slots_or_pool": (off["built_bytes"]
+                                              - off["slot_bytes"]
+                                              - off["pool_bytes"]),
+                 "int8_staging_bytes_first_install": off["staging_bytes"]},
+        "parks": {"overlap_off": off["park"], "overlap_on": on["park"]},
+        "resumes": {"overlap_off": off["resume"],
+                    "overlap_on": on["resume"]},
+        "resume": {"overlap_off": steps(off), "overlap_on": steps(on)},
+        "replay": steps(replay),
+        "disk": {"host_budget_bytes": store.total_nbytes() // 2,
+                 "tier_expert_disk_fetches": d["tier_expert_disk_fetches"],
+                 "tier_stall_s": d["tier_stall_s"],
+                 "sim_time_s": d["sim_time_s"], **steps(disk)},
+        "sim_time_s": {"resume": s["sim_time_s"],
+                       "replay": replay["raw"]["sim_time_s"]},
+        "launches": off["launches"], "races": races,
+        "h2d_expert_bytes": sum(off["step_h2d"]),
+        "equal": ["tokens_vs_generate", "overlap_on_vs_off",
+                  "replay_tokens", "disk_tokens", "step_h2d_bytes",
+                  "sleeps_bitwise"],
+        "new_tokens": [t[TIER_PROMPT_LEN:] for t in off["tokens"]],
+        "seconds": time.perf_counter() - t_phase}
+
+
+def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler,
+                 card):
     """The offload server with ``quant="int8"`` on the fp32 run's model
     and workload: int8 masters and scale rows pinned, no host dequant
     (``ExpertStore.fetch`` is never called) while serving or generating,
@@ -944,9 +1235,9 @@ def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler):
     experts x the stored bytes of one (checked in ``serve``), every
     resident slot bitwise the host dequant of its expert. On the same
     int8 masters: the run again with overlap on (``overlap_run``), then
-    the learned policy and predictor (``learned_serving``). ``profiler()``
-    gives a profiler for a serving loop, or None. Returns the three
-    reports."""
+    the learned policy and predictor (``learned_serving``), then the
+    memory tiers (``tier_serving``). ``profiler()`` gives a profiler for
+    a serving loop, or None. Returns the four reports."""
     import torch
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
     t0 = time.perf_counter()
@@ -971,6 +1262,7 @@ def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler):
                              off, profiler())
     learned_rep = learned_serving(params, cfg, prompts, ops, server_kw, store,
                                   model, on)
+    tier_rep = tier_serving(params, cfg, ops, store, card)
     check(not fetched, f"int8 serving: ExpertStore.fetch called "
                        f"{len(fetched)} times")
     served = off["tokens"]
@@ -1002,7 +1294,7 @@ def int8_serving(params, cfg, prompts, ops, server_kw, model, profiler):
         rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
     del srv, store, stored
     gc.collect()
-    return rep, on_rep, learned_rep
+    return rep, on_rep, learned_rep, tier_rep
 
 
 def offload_invariants(params, cfg, prompts, store):
@@ -1439,11 +1731,12 @@ def main() -> None:
     gc.collect()
 
     # ---- int8 expert masters: overlap off, on, the learned policy ---
-    rep, on_rep, learned_rep = int8_serving(params, cfg, prompts, ops,
-                                            server_kw, model, profiler)
+    rep, on_rep, learned_rep, tier_rep = int8_serving(
+        params, cfg, prompts, ops, server_kw, model, profiler, card)
     print(json.dumps({"int8_serving": rep}), flush=True)
     print(json.dumps({"overlap_serving": on_rep}), flush=True)
     print(json.dumps({"learned_serving": learned_rep}), flush=True)
+    print(json.dumps({"tiers": tier_rep}), flush=True)
     gc.collect()
 
     # ---- the offload invariants and race checks on the card ---------

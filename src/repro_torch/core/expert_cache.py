@@ -27,7 +27,12 @@ The expert FFN reads resident experts IN PLACE through ``slots_of``
 (``ops.moe_ffn`` takes the slot buffers plus slot indices); the JAX
 package's ``gather`` copy of U experts per chunk is gone.
 
-Memory tiers (``tiers=``) are not ported yet (ROADMAP.md queue A).
+With a ``TieredMemoryManager`` attached (``tiers``, set by
+``OffloadEngine.attach_tiers``) every install is also a promotion the
+arbiter prices and files: the victim's eviction, the tier the master
+was served from (``last_miss_tiers``), a disk stall for a demand miss.
+The bytes still come from the store's pinned masters; the disk tier is
+simulated.
 """
 from __future__ import annotations
 
@@ -62,6 +67,9 @@ class ExpertCache:
     Counters (cumulative): ``hits``/``misses`` demand accesses,
     ``prefetches`` speculative installs actually transferred,
     ``bytes_transferred`` real store bytes moved host→device.
+    ``last_miss_tiers`` holds the serving tier of each miss of the most
+    recent ``access`` call, aligned with its returned miss list (the
+    engine copies it into the step trace).
     """
 
     def __init__(self, layer: int, n_slots: int, policy: CachePolicy,
@@ -73,6 +81,7 @@ class ExpertCache:
         self.n_slots = n_slots
         self.policy = policy
         self.store = store
+        self.tiers = None   # a TieredMemoryManager, set by attach_tiers
         self.faults = faults  # Optional[FaultInjector], shared stack-wide
         self.buffers = {k: torch.zeros((n_slots, *s), dtype=dtype,
                                        device=device)
@@ -95,6 +104,7 @@ class ExpertCache:
         self.misses = 0
         self.prefetches = 0
         self.bytes_transferred = 0
+        self.last_miss_tiers: Tuple[str, ...] = ()
         # fault-injection counters / last-call fault state
         self.fetch_failures = 0       # demand fetches abandoned (degraded)
         self.corrupt_refetches = 0    # checksum-mismatch redeliveries
@@ -107,6 +117,12 @@ class ExpertCache:
         """Resident expert ids, sorted (the trace's cache snapshot)."""
         return tuple(sorted(self.slot_of))
 
+    def expert_tier(self, eid: int) -> str:
+        """Tier the master copy of ``eid`` would be served from."""
+        if self.tiers is not None:
+            return self.tiers.expert_tier((self.layer, eid))
+        return "host"
+
     def plan_fetches(self, eids: Sequence[int]) -> Dict[int, FetchOutcome]:
         """Pre-decide the fate of each would-be demand fetch among
         ``eids`` (cached ids are hits — no fetch event is consumed).
@@ -118,14 +134,16 @@ class ExpertCache:
         out = {}
         for eid in eids:
             if eid not in self.slot_of:
-                out[eid] = self.faults.fetch_plan((self.layer, eid))
+                out[eid] = self.faults.fetch_plan(
+                    (self.layer, eid), tier=self.expert_tier(eid))
         return out
 
     def _install(self, eid: int, pinned: frozenset = frozenset(), *,
+                 demand: bool = True,
                  outcome: Optional[FetchOutcome] = None
-                 ) -> Tuple[int, Optional[int]]:
+                 ) -> Tuple[int, Optional[int], str]:
         """Fetch eid from the store into a slot. Returns
-        (slot, evicted). A caller-supplied ``outcome``
+        (slot, evicted, tier served from). A caller-supplied ``outcome``
         with corrupt deliveries exercises the REAL checksum path: the
         payload is actually corrupted, the mismatch detected, and the
         fetch redelivered."""
@@ -137,12 +155,17 @@ class ExpertCache:
             slot = self.slot_of.pop(victim)
             self.policy.remove(victim)
             evicted = victim
+            if self.tiers is not None:
+                self.tiers.expert_evicted((self.layer, victim))
+        tier = "host"
+        if self.tiers is not None:
+            tier = self.tiers.fetch_expert((self.layer, eid), demand=demand)
         with self._writing(slot):
             self._copy_in(eid, slot, outcome)
         self.slot_of[eid] = slot
         self.policy.on_insert(eid)
         self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))
-        return slot, evicted
+        return slot, evicted, tier
 
     @contextlib.contextmanager
     def _writing(self, slot: int):
@@ -223,6 +246,7 @@ class ExpertCache:
         All of ``eids`` are pinned while installing so an expert needed
         by the current token can never evict another one of them; the
         caller chunks to ≤ capacity if the working set exceeds it.
+        ``last_miss_tiers`` is left aligned with the returned misses.
 
         ``outcomes`` (from ``plan_fetches``) carries pre-planned fault
         fates: a miss whose outcome is abandoned is NOT installed — it
@@ -232,6 +256,7 @@ class ExpertCache:
         assert len(set(eids)) <= self.n_slots, "working set exceeds cache"
         pinned = frozenset(eids)
         hits, misses, evicted = [], [], []
+        miss_tiers: List[str] = []
         failed: List[int] = []
         for eid in eids:
             if eid in self.slot_of:
@@ -242,13 +267,16 @@ class ExpertCache:
                 out = outcomes.get(eid) if outcomes else None
                 if out is not None and not out.success:
                     failed.append(eid)
+                    miss_tiers.append(self.expert_tier(eid))
                     continue
-                _, ev = self._install(eid, pinned, outcome=out)
+                _, ev, tier = self._install(eid, pinned, outcome=out)
+                miss_tiers.append(tier)
                 if ev is not None:
                     evicted.append(ev)
         self.hits += len(hits)
         self.misses += len(misses)
         self.fetch_failures += len(failed)
+        self.last_miss_tiers = tuple(miss_tiers)
         self.last_failed = tuple(failed)
         self.policy.tick()
         return hits, misses, evicted
@@ -272,7 +300,7 @@ class ExpertCache:
             if out is not None and not out.success:
                 failed.append(eid)
                 continue
-            self._install(eid, outcome=out)
+            self._install(eid, demand=False, outcome=out)
             moved.append(eid)
         self.prefetches += len(moved)
         self.last_prefetch_failed = tuple(failed)

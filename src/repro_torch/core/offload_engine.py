@@ -22,8 +22,11 @@ events (``ExpertCache``); the simulated clock is unchanged by it and
 stays the accounting of record. The host syncs (routing readback, the
 speculative guess) wait on the compute stream only.
 
-Not ported yet (raises ``NotImplementedError``, see ROADMAP.md):
-``tiers=`` (``core/memory_tiers.py``).
+With ``tiers=`` (a ``repro_torch.core.memory_tiers.TieredMemoryManager``,
+or ``attach_tiers`` later) every expert master is registered with the
+arbiter, each miss's serving tier lands in the trace (``miss_tiers``)
+and the arbiter's stalls (disk-resident demand fetches, KV promotes,
+in-flight demotions) land on the simulated clock once a step.
 """
 from __future__ import annotations
 
@@ -128,7 +131,7 @@ class OffloadEngine:
                  hw: Optional[HardwareProfile] = None,
                  overlap: bool = False,
                  trace: Optional[TraceRecorder] = None,
-                 tiers=None,
+                 tiers=None,   # repro_torch.core.memory_tiers.TieredMemoryManager
                  faults=None,  # FaultPlan | FaultInjector | None
                  device="cuda"):
         assert cfg.is_moe, "offloading targets MoE experts"
@@ -136,10 +139,6 @@ class OffloadEngine:
             raise ValueError(
                 f"unknown prefetch={prefetch!r}: expected one of "
                 f"None, 'spec', 'markov', 'learned'")
-        if tiers is not None:
-            raise NotImplementedError(
-                "tiers= needs core/memory_tiers.py, not ported yet "
-                "(ROADMAP.md queue A)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -221,6 +220,26 @@ class OffloadEngine:
                         if prefetch == "learned" else None)
         self._prompt_id = 0
         self._prev_acts: Dict[int, Tuple[int, ...]] = {}
+        self.tiers = None
+        if tiers is not None:
+            self.attach_tiers(tiers)
+
+    def attach_tiers(self, tiers) -> None:
+        """Wire a ``TieredMemoryManager`` in: register every expert's
+        master copy (real store bytes) and point the per-layer caches
+        at the arbiter. Call once, before any decoding."""
+        assert self.tiers is None, "tiers already attached"
+        self.tiers = tiers
+        if tiers.trace is None:
+            tiers.trace = self.trace
+        for key in self.store.keys():
+            tiers.register_expert(key, self.store.expert_nbytes(key))
+        for c in self.caches:
+            c.tiers = tiers
+        if self.faults is not None and getattr(tiers, "queue", None) is not None:
+            # KV parks / disk spills ride the same injector (their
+            # chains never abandon — a parked snapshot is the only copy)
+            tiers.queue.faults = self.faults
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, cache_len: int):
@@ -339,6 +358,7 @@ class OffloadEngine:
         hits: List[int] = []
         misses: List[int] = []
         evicted: List[int] = []
+        miss_tiers: List[str] = []
         y = torch.zeros((B, cfg.d_model), dtype=torch.float32,
                         device=self.device)
         cap = cache.n_slots
@@ -349,6 +369,7 @@ class OffloadEngine:
             hits += h_
             misses += m_
             evicted += e_
+            miss_tiers += list(cache.last_miss_tiers)
             comp = ([e for e in chunk if e not in failed] if failed
                     else chunk)
             if not comp:
@@ -427,7 +448,10 @@ class OffloadEngine:
             spec_guess=tuple(pending_guess), prefetched=tuple(pending_moved),
             request_ids=req_ids, request_token_idx=req_tok,
             request_activated=req_act, engine_step=self._steps_done,
-            miss_tiers=(), stall_s=stall_s, inflight=inflight,
+            # tier attribution only when an arbiter is attached, so
+            # traces without one stay byte-identical
+            miss_tiers=(tuple(miss_tiers) if self.tiers is not None else ()),
+            stall_s=stall_s, inflight=inflight,
             # fault-free steps keep both empty so trace JSON stays
             # byte-identical with pre-fault output
             dropped=tuple(sorted(failed)), request_degraded=req_deg)
@@ -587,6 +611,13 @@ class OffloadEngine:
         if self.faults is not None:
             self.faults.now = self.sim_time
             self.degraded_tokens += sum(1 for d in step_degraded if d)
+        if self.tiers is not None:
+            # tier stalls (disk-resident demand fetches, in-flight
+            # demotion waits) land on top of the host-link pricing
+            # above; then the arbiter's clock catches up so background
+            # swaps complete
+            self.sim_time += self.tiers.drain_stall()
+            self.tiers.advance(self.sim_time)
         self.tokens_done += n_active
         self._steps_done += 1
         return logits, state
@@ -686,6 +717,8 @@ class OffloadEngine:
                 self.cfg.num_experts - self.cache_slots,
                 kv_tokens=kv_tokens),
         }
+        if self.tiers is not None:
+            s.update(self.tiers.stats())
         if self.faults is not None:
             # health/degradation summary (keys absent without an
             # injector so pre-fault stats stay unchanged)

@@ -21,12 +21,22 @@ by preempting/requeueing (see ``ContinuousOffloadServer``).
 The allocator is pure host state (block ids only) and is property-
 tested in isolation; pass ``cfg`` to also own the per-layer device
 pools the engine's paged decode path reads and writes.
+
+``park_blocks`` / ``restore_blocks`` move a request's blocks to host
+tensors and back (the memory tiers' KV parking, see
+``repro_torch.core.memory_tiers``). On a card both are asynchronous to
+the host and ordered by events: a park gathers on the compute stream,
+where the kernels that wrote the blocks run, into one buffer and copies
+it to pinned host memory on the copy stream; a resume copies it to the
+card on the copy stream and scatters on the compute stream, before any
+kernel reads.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class PagedKVCache:
@@ -137,6 +147,107 @@ class PagedKVCache:
             out[b, :len(t)] = t
         return out
 
+    # ------------------------------------------------ host tier moves
+    def _index(self, blocks: Sequence[int]) -> torch.Tensor:
+        """``blocks`` as an index tensor on the pools' device (uploaded
+        from pinned memory, so the host does not wait for the stream)."""
+        idx = torch.tensor(list(blocks), dtype=torch.long)
+        dev = self.state["layers"][0]["k"].device
+        if dev.type != "cuda":
+            return idx
+        return idx.pin_memory().to(dev, non_blocking=True)
+
+    def _views(self, flat: torch.Tensor, n: int) -> List[Dict]:
+        """Per-layer ``{"k", "v"}`` views ``[n, bs, kv, hd]`` of ``flat``,
+        which holds ``n`` blocks of every pool tensor, layer by layer."""
+        out, off = [], 0
+        for layer in self.state["layers"]:
+            views = {}
+            for k, t in layer.items():
+                size = n * t[0].numel()
+                views[k] = flat[off:off + size].view(n, *t.shape[1:])
+                off += size
+            out.append(views)
+        return out
+
+    def _follow(self, waiter, stream) -> None:
+        """Make ``waiter`` wait for the work queued so far on ``stream``."""
+        if waiter != stream:
+            waiter.wait_stream(stream)
+
+    def _move(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """Queue the copy of ``src`` into ``dst`` on the current stream."""
+        dst.copy_(src, non_blocking=True)
+
+    def park_blocks(self, blocks: Sequence[int],
+                    copy_stream=None) -> "KVSnapshot":
+        """Snapshot ``blocks`` (in that order) of every layer's pool into
+        one host buffer (a ``KVSnapshot``: per-layer ``{"k", "v"}``
+        views ``[n, bs, kv, hd]``), so the move is one copy.
+
+        On a card the blocks are gathered on the current (compute)
+        stream into one device buffer; ``copy_stream`` (the current
+        stream if None) waits for the gather and copies the buffer into
+        pinned host memory. Nothing waits on the host, and the caller may
+        free the blocks at once: a later write to them is queued on the
+        compute stream behind the gather. The snapshot holds the KV once
+        the copy has run; read it on the same stream (``restore_blocks``)
+        or after a synchronization."""
+        idx = self._index(blocks)
+        n = len(blocks)
+        layers = self.state["layers"]
+        pool = layers[0]["k"]
+        size = n * sum(t[0].numel() for layer in layers
+                       for t in layer.values())
+        gathered = torch.empty(size, dtype=pool.dtype, device=pool.device)
+        for views, layer in zip(self._views(gathered, n), layers):
+            for k, t in layer.items():
+                torch.index_select(t, 0, idx, out=views[k])
+        if pool.device.type != "cuda":
+            return KVSnapshot(self._views(gathered, n), gathered)
+        # Pinned buffers come from PyTorch's caching host allocator. A
+        # non-blocking copy records an event on the block for its stream,
+        # and a freed block is handed out again only once those events
+        # have completed: no later park can be given a buffer that this
+        # copy, or the resume's copy out of it, still writes or reads.
+        host = torch.empty(size, dtype=pool.dtype, pin_memory=True)
+        compute = torch.cuda.current_stream(pool.device)
+        stream = copy_stream if copy_stream is not None else compute
+        self._follow(stream, compute)
+        with torch.cuda.stream(stream):
+            self._move(host, gathered)
+        gathered.record_stream(stream)
+        return KVSnapshot(self._views(host, n), host)
+
+    def restore_blocks(self, blocks: Sequence[int], saved: "KVSnapshot",
+                       copy_stream=None) -> None:
+        """Write the snapshot ``saved`` (``park_blocks``) into ``blocks``
+        of every layer's pool, in that order.
+
+        On a card the snapshot's buffer is copied to a device staging
+        buffer on ``copy_stream`` (the current stream if None) — the
+        stream its park copied on, so that copy has landed first — and
+        the current (compute) stream waits for it, then scatters into the
+        blocks: every later kernel reads the restored KV. Nothing waits
+        on the host."""
+        idx = self._index(blocks)
+        staged = saved.flat
+        dev = self.state["layers"][0]["k"].device
+        if dev.type == "cuda":
+            compute = torch.cuda.current_stream(dev)
+            stream = copy_stream if copy_stream is not None else compute
+            with torch.cuda.stream(stream):
+                # allocated on the stream that writes it first
+                staged = torch.empty(saved.flat.shape,
+                                     dtype=saved.flat.dtype, device=dev)
+                self._move(staged, saved.flat)
+            self._follow(compute, stream)
+            staged.record_stream(compute)
+        for views, layer in zip(self._views(staged, len(blocks)),
+                                self.state["layers"]):
+            for k, t in layer.items():
+                t.index_copy_(0, idx, views[k])
+
     def check_no_aliasing(self) -> None:
         """Invariant: every allocatable block id is owned by exactly
         one live table or the free list; the sink is owned by nobody
@@ -152,3 +263,13 @@ class PagedKVCache:
             assert blk not in seen, f"block {blk} free AND {seen[blk]}"
             seen[blk] = "free"
         assert len(seen) == self.num_blocks
+
+
+class KVSnapshot(list):
+    """A parked request's KV: per-layer ``{"k", "v"}`` tensors, all views
+    of ``flat``, one buffer (pinned host memory when the pool is on a
+    card), so that a park or a resume moves it in one copy."""
+
+    def __init__(self, layers: List[Dict], flat: torch.Tensor):
+        super().__init__(layers)
+        self.flat = flat

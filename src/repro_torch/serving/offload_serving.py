@@ -29,11 +29,22 @@ traces and simulated clocks at temperature 0 (test-enforced on the CPU;
 on the card the paged kernel agrees with the dense path within fp32
 rounding, and ``chip_smoke.py`` checks the tokens).
 
-Memory tiers (``hbm_budget_bytes=``: one device byte budget split
-between expert slots and the KV pool, KV of preempted requests parked
-on the host) are not ported yet (ROADMAP.md queue A); preemption here
-replays the victim's tokens as prefill, the reference's
-``resume_from_host=False`` behaviour.
+With ``hbm_budget_bytes=`` the server sizes itself from ONE device
+byte budget instead of separate ``cache_slots``/``kv_num_blocks``
+knobs: ``repro_torch.core.memory_tiers.plan_hbm_split`` divides it
+between expert slots and the KV pool, and a ``TieredMemoryManager``
+arbitrates the HBM/host/disk hierarchy (expert masters spill to a
+simulated SSD under host pressure; demand disk misses stall the clock,
+prefetches hide the hop). Preemption then PARKS the victim's KV block
+contents in host memory and the request RESUMES from them at its parked
+position on re-admission — the same tokens as replay-as-prefill in
+fewer steps under overcommit (``resume_from_host=False`` restores the
+replay behaviour). On a card the park is a gather on the compute stream
+and a copy to pinned host memory on the engine's copy stream (the
+compute stream without one), the resume a copy back on that stream and
+a scatter on the compute stream after it (``PagedKVCache.park_blocks``
+/ ``restore_blocks``): no host wait, and the simulated clock keeps
+pricing both moves as the reference does.
 
 Long prompts need not stream one token per step: with
 ``prefill_chunk > 1`` (paged layout only) a catching-up request pushes
@@ -74,13 +85,21 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.costmodel import HardwareProfile
+from repro_torch.core.costmodel import HardwareProfile, ModelBytes
+from repro_torch.core.memory_tiers import TieredMemoryManager, plan_hbm_split
 from repro_torch.core.offload_engine import OffloadEngine
 from repro_torch.core.paged_kv import PagedKVCache
 from repro_torch.core.trace import TraceRecorder
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import request_generator, sample_token
 from repro_torch.serving.scheduler import Scheduler, make_scheduler
+
+
+def _planned_expert_bytes(cfg) -> int:
+    """HBM bytes ONE expert-cache slot pins in one layer: the fp32
+    device buffers (w1/w3/w2). Independent of host-store quantization —
+    int8 masters are dequantized on the card, the slot is always fp32."""
+    return 3 * cfg.d_model * cfg.expert_d_ff * 4
 
 
 class AdmissionRejected(RuntimeError):
@@ -110,6 +129,10 @@ class ContinuousOffloadServer:
                  scheduler="fifo", prefill_chunk: int = 1,
                  step_tokens: Optional[int] = None,
                  hbm_budget_bytes: Optional[int] = None,
+                 tier_expert_frac: float = 0.5,
+                 host_budget_bytes: Optional[int] = None,
+                 resume_from_host: bool = True,
+                 tier_lanes: int = 2,
                  faults=None,  # FaultPlan | FaultInjector | None
                  request_timeout_steps: Optional[int] = None,
                  max_queue: Optional[int] = None,
@@ -130,10 +153,15 @@ class ContinuousOffloadServer:
         if prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        if hbm_budget_bytes is not None:
-            raise NotImplementedError(
-                "hbm_budget_bytes= needs core/memory_tiers.py, not ported "
-                "yet (ROADMAP.md queue A); pass cache_slots")
+        if not 0.0 <= tier_expert_frac <= 1.0:
+            raise ValueError(f"tier_expert_frac must be in [0, 1], "
+                             f"got {tier_expert_frac}")
+        if hbm_budget_bytes is not None and hbm_budget_bytes <= 0:
+            raise ValueError(f"hbm_budget_bytes must be positive, "
+                             f"got {hbm_budget_bytes}")
+        if host_budget_bytes is not None and host_budget_bytes <= 0:
+            raise ValueError(f"host_budget_bytes must be positive, "
+                             f"got {host_budget_bytes}")
         for name, v in (("request_timeout_steps", request_timeout_steps),
                         ("max_queue", max_queue),
                         ("shed_wait_steps", shed_wait_steps)):
@@ -144,8 +172,31 @@ class ContinuousOffloadServer:
                 "chunked prefill needs paged KV (virtual rows share a "
                 "block-table row; dense KV is addressed by batch row)")
         self.cfg = cfg
+        # ---- tiered-memory arbitration (core/memory_tiers.py) --------
+        # ``hbm_budget_bytes`` replaces the independent cache_slots /
+        # kv_num_blocks sizing with ONE budget the arbiter splits
+        # (``tier_expert_frac`` of it funds expert slots, the rest the
+        # KV pool); preempted requests then park their KV in the host
+        # tier and RESUME from it instead of replaying tokens as
+        # prefill (``resume_from_host=False`` keeps iso-memory replay
+        # for comparison).
+        self.resume_from_host = resume_from_host
+        if hbm_budget_bytes is not None:
+            if kv_layout != "paged":
+                raise ValueError("the HBM arbiter needs paged KV")
+            if cache_slots is not None or kv_num_blocks is not None:
+                raise ValueError(
+                    "hbm_budget_bytes replaces cache_slots/kv_num_blocks")
+            mb = ModelBytes.from_config(cfg)
+            cache_slots, kv_num_blocks = plan_hbm_split(
+                hbm_budget_bytes, num_layers=cfg.num_layers,
+                num_experts=cfg.num_experts,
+                expert_bytes=_planned_expert_bytes(cfg),
+                kv_block_bytes=kv_block_size * mb.kv_bytes_per_token
+                * cfg.num_layers,
+                expert_frac=tier_expert_frac)
         if cache_slots is None:
-            raise ValueError("pass cache_slots")
+            raise ValueError("pass cache_slots or hbm_budget_bytes")
         self.max_batch = max_batch
         self.prefill_chunk = prefill_chunk
         # per-step token budget: every active request is guaranteed one
@@ -194,6 +245,14 @@ class ContinuousOffloadServer:
             self.state = self.paged.state
         else:
             self.state = self.engine.init_state(max_batch, cache_len)
+        self.tiers: Optional[TieredMemoryManager] = None
+        if hbm_budget_bytes is not None:
+            self.tiers = TieredMemoryManager(
+                self.engine.cost, hbm_bytes=hbm_budget_bytes,
+                host_bytes=host_budget_bytes, lanes=tier_lanes,
+                trace=self.trace)
+            self._set_hbm_plan()
+            self.engine.attach_tiers(self.tiers)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.queue: Deque[Request] = deque()
         self.finished: Dict[int, Request] = {}
@@ -276,12 +335,24 @@ class ContinuousOffloadServer:
                                       cfg=self.cfg, dtype=torch.float32,
                                       device=self.device)
             self.state = self.paged.state
+            if self.tiers is not None:
+                self._set_hbm_plan()
             return
         if n <= self.cache_len:
             return
         assert self.num_active == 0, "cannot resize KV with active requests"
         self.cache_len = n
         self.state = self.engine.init_state(self.max_batch, n)
+
+    def _set_hbm_plan(self) -> None:
+        """Tell the arbiter how HBM is split: the slot buffers' bytes,
+        and the KV pool priced as the plan prices it (the reference's
+        accounting: ``ModelBytes`` takes 2 bytes a KV element, the pool
+        holds fp32 plus a sink block)."""
+        self.tiers.set_hbm_plan(
+            sum(c.device_nbytes() for c in self.engine.caches),
+            self.engine.cost.kv_block_bytes(self.kv_block_size)
+            * self.paged.num_blocks)
 
     @property
     def num_active(self) -> int:
@@ -324,12 +395,22 @@ class ContinuousOffloadServer:
             if req.admit_step < 0:
                 req.admit_step = self.step_count
             self.slots[req.slot] = req
+            if self.tiers is not None and self.tiers.is_parked(req.rid):
+                self._restore_kv(req)
 
     def _kv_admit(self, req: Request) -> bool:
-        """Reserve blocks for a joining request's known tokens."""
+        """Reserve blocks for a joining request's known tokens.
+
+        With the tier arbiter attached, the watermark check consults
+        it: blocks whose park-demotion is still in flight (freed to
+        the allocator, bytes still being copied out over the simulated
+        clock) do not count as free, so admission cannot claim memory
+        that is not actually available yet."""
         need = self.paged.blocks_for(len(req.tokens))
         reserve = int(self.kv_watermark * self.paged.num_blocks)
         free = self.paged.free_blocks
+        if self.tiers is not None:
+            free -= self.tiers.kv_inflight_blocks(self.engine.sim_time)
         if self.num_active > 0 and need > free - reserve:
             return False
         self.paged.allocate(req.rid)
@@ -339,18 +420,51 @@ class ContinuousOffloadServer:
         return True
 
     def _preempt(self, req: Request) -> None:
-        """Evict a running request to the queue front: its KV blocks
-        are freed and its tokens (prompt + everything already sampled)
-        replay as prefill on re-admission — generated text is a pure
-        function of the tokens, so preemption costs steps, never
-        output."""
-        req.pos = 0
+        """Evict a running request to the queue front. Without the
+        tier arbiter its KV blocks are freed and its tokens (prompt +
+        everything already sampled) replay as prefill on re-admission —
+        generated text is a pure function of the tokens, so preemption
+        costs steps, never output. With the arbiter (and
+        ``resume_from_host``), the blocks' CONTENTS are parked in the
+        host tier first and the request resumes from them instead of
+        replaying — same output (bit-exact KV snapshot), far fewer
+        steps."""
+        if self.tiers is not None and self.resume_from_host and req.pos > 0:
+            self._park_kv(req)
+        else:
+            req.pos = 0
         self.paged.free_request(req.rid)
         self.slots[req.slot] = None
         req.slot = -1
         req.preemptions += 1
         self.kv_preemptions += 1
         self.queue.appendleft(req)
+
+    def _park_kv(self, req: Request) -> None:
+        """Snapshot the blocks covering ``req``'s fed tokens to the
+        host tier (``PagedKVCache.park_blocks``, on the engine's copy
+        stream; real tensor bytes). The caller then frees the blocks:
+        they stay accounted in flight until the simulated demote
+        transfer completes."""
+        blocks = self.paged.tables[req.rid][:self.paged.blocks_for(req.pos)]
+        arrays = self.paged.park_blocks(blocks, self.engine.copy_stream)
+        nbytes = sum(t.numel() * t.element_size()
+                     for layer in arrays for t in layer.values())
+        self.tiers.park_kv(req.rid, arrays, nbytes, len(blocks), req.pos,
+                           engine_step=self.step_count)
+
+    def _restore_kv(self, req: Request) -> None:
+        """Promote a parked request's KV into its freshly reserved
+        blocks (possibly different physical ids — contents are
+        scattered by the NEW table order) and resume at the parked
+        position. The promote stall lands on the engine clock at the
+        next step."""
+        arrays, pos = self.tiers.resume_kv(req.rid)
+        n = len(next(iter(arrays[0].values()))) if arrays else 0
+        if n:
+            self.paged.restore_blocks(self.paged.tables[req.rid][:n], arrays,
+                                      self.engine.copy_stream)
+        req.pos = pos
 
     def _ensure_kv(self, chunks: Optional[Dict[int, int]] = None) -> None:
         """Grow each active request's block table to cover this step's
@@ -392,7 +506,7 @@ class ContinuousOffloadServer:
     def _terminate(self, req: Request, status: str, reason: str) -> None:
         """Terminal exit OTHER than completion: timeout or shed. Frees
         every server resource the request holds (slot, KV blocks,
-        queue position) so nothing leaks and the
+        parked host snapshot, queue position) so nothing leaks and the
         drain loop always makes progress; the typed reason lands on the
         request and in the trace as a ``FaultEvent``."""
         req.done = True
@@ -406,6 +520,8 @@ class ContinuousOffloadServer:
             req.slot = -1
         elif req in self.queue:
             self.queue.remove(req)
+        if self.tiers is not None and self.tiers.is_parked(req.rid):
+            self.tiers.drop_kv(req.rid)
         self.finished[req.rid] = req
         self.trace.record_fault(kind="request", action=status,
                                 key=(req.rid,),
@@ -469,6 +585,11 @@ class ContinuousOffloadServer:
         chunks = self._plan_chunks([r for r in self.slots if r is not None])
         if self.paged is not None:
             self._ensure_kv(chunks)
+            if self.tiers is not None:
+                # growth that claimed blocks whose park-demotion is
+                # still copying out must wait for those lanes to land
+                self.tiers.note_block_claims(self.paged.free_blocks,
+                                             self.engine.sim_time)
         active = [r is not None for r in self.slots]
         if not any(active):
             return expired

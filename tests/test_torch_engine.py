@@ -7,7 +7,7 @@ EQUAL — the control plane is the reference's numpy, so any difference
 is a routing flip, and each test asserts that the smallest router top-k margin it
 saw is far above fp32 noise (so a failure would be a real fault, not a
 near-tie). Then the engine's own invariants: a null fault plan equals
-no injector; deferred features raise. The servers are in
+no injector; the memory-tier knobs raise the reference's errors. The servers are in
 ``test_torch_serving.py``, the learned module's own cases in
 ``test_torch_learned.py``."""
 import dataclasses
@@ -24,6 +24,7 @@ from repro.core.learned import synthetic_trace as jsynthetic_trace
 from repro.core.learned import train_from_trace as jtrain_from_trace
 from repro.data import drifting_workload
 from repro.models import transformer as jtf
+from repro.serving import ContinuousOffloadServer as JServer
 import repro_torch.configs as pcfg
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.learned import synthetic_trace, train_from_trace
@@ -178,10 +179,29 @@ def test_null_fault_plan_is_bit_identical(setup, kw):
     assert all(b[2][k] == 0 for k in set(b[2]) - set(a[2]))
 
 
-def test_deferred_features_raise(setup):
-    _, _, pc, tp = setup
-    with pytest.raises(NotImplementedError):
-        OffloadEngine(tp, pc, cache_slots=2, device="cpu", tiers=object())
-    with pytest.raises(NotImplementedError):
-        ContinuousOffloadServer(tp, pc, hbm_budget_bytes=1 << 30,
-                                device="cpu")
+TIER_KNOB_ERRORS = {
+    "frac_above_1": dict(cache_slots=None, hbm_budget_bytes=1 << 30,
+                         tier_expert_frac=1.5),
+    "frac_below_0": dict(cache_slots=2, tier_expert_frac=-0.1),
+    "zero_hbm_budget": dict(cache_slots=None, hbm_budget_bytes=0),
+    "negative_host_budget": dict(cache_slots=2, host_budget_bytes=-1),
+    "dense_kv_with_budget": dict(cache_slots=None, hbm_budget_bytes=1 << 30,
+                                 kv_layout="dense"),
+    "budget_and_cache_slots": dict(cache_slots=2, hbm_budget_bytes=1 << 30),
+    "budget_and_kv_blocks": dict(cache_slots=None, hbm_budget_bytes=1 << 30,
+                                 kv_num_blocks=8),
+    "no_slots_no_budget": dict(cache_slots=None),
+}
+
+
+@pytest.mark.parametrize("name", list(TIER_KNOB_ERRORS))
+def test_tier_knobs_raise_like_reference(setup, name):
+    """The memory-tier knobs are validated as the JAX server validates
+    them: the same ValueError, with the same message."""
+    cfg, jp, pc, tp = setup
+    kw = TIER_KNOB_ERRORS[name]
+    with pytest.raises(ValueError) as want:
+        JServer(jp, cfg, **kw)
+    with pytest.raises(ValueError) as got:
+        ContinuousOffloadServer(tp, pc, device="cpu", **kw)
+    assert str(got.value) == str(want.value)

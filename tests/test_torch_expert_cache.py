@@ -129,7 +129,8 @@ def test_int8_corrupt_delivery_takes_the_host_path(slips, monkeypatch):
     (cache,) = _caches(store, faults=inj)[:1]
     calls = _counting_fetch(store)
     out = FetchOutcome(key=(0, 2), success=True, fail_kinds=("corrupt",))
-    slot, _ = cache._install(2, outcome=out)
+    slot, _, tier = cache._install(2, outcome=out)
+    assert tier == "host"
     assert calls and cache.corrupt_refetches == (0 if slips else 1)
     want = store.fetch((0, 2))
     same = all(torch.equal(cache.buffers[k][slot], want[k]) for k in SHAPES)
