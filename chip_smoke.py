@@ -79,6 +79,20 @@ It drives the port's two entry points end to end and checks them:
    .generate_batch`` on the same prompts (8 greedy tokens): the engine
    feeds the prompt token by token through ``decode_step``, so its
    logits at the last prompt position are held against the prefill's;
+6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
+   width 3072) at its full published widths (d_model 5120, 128 heads of
+   hd 128, kv_lora_rank 512, rope key 64, expert d_ff 1536, vocab
+   102400), depth cut to 2 of 60 layers, fp32, once Mixtral's params and
+   masters are freed (``MemAvailable`` and the 30.2 GB of pinned masters
+   on a JSON line first): the staggered serving workload with 32 slots a
+   layer, LFU, speculative prefetch and paged latent KV — tokens ==
+   ``generate``, bytes per step exact, ``moe_ffn`` launched for every
+   layer of every step, ``paged_attention`` never (MLA's paged decode is
+   plain PyTorch, as in the JAX package), finite [4, vocab] logits — then
+   overlap on == off, a ``deepseek_serving`` line (step times, H2D bytes,
+   the smallest gap between the 6th and 7th router logit), and phase 6's
+   prefills: flash attention at q/k width 192 and v width 128 once a
+   layer, the prefill against the absorbed-latent ``decode_step``;
 7. the same for Mamba2-2.7B at its full published widths (d_model 2560,
    d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
@@ -225,6 +239,9 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
+# the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
+# widths, 32 expert slots a layer (20% of its 160 routed experts)
+DS_LAYERS, DS_SLOTS = 2, 32
 # the memory-tier phase: slots a layer and KV blocks the budget is built
 # for, the block length, and the workload (requests, prompt and new tokens)
 TIER_SLOTS, TIER_BLOCKS, TIER_BLOCK_SIZE = 4, 4, 16
@@ -377,15 +394,17 @@ def install_streams(streams):
     return patched(ExpertCache, "_copy_in", make)
 
 
-def serve(srv, prompts, ops, prof=None):
+def serve(srv, prompts, ops, prof=None, per_step=None):
     """Run the staggered workload; record each kernel wrapper's heaviest
     call (moe_ffn: most expert rows E*C; paged_attention: most visible
     keys), its small arguments copied as they were. Each step's
     host-to-device expert bytes must equal (misses + prefetches) of the
     trace rows it added times the bytes of one stored expert. Every
     install must run on the engine's copy stream when it has one
-    (``overlap=True``), else on the compute stream. Returns (rids,
-    launches, per-step ms, per-step H2D bytes, recorded calls, loop ms)."""
+    (``overlap=True``), else on the compute stream. A list ``per_step``
+    gets, after each step, (the launch counts so far, the trace rows the
+    step added: one a layer). Returns (rids, launches, per-step ms,
+    per-step H2D bytes, recorded calls, loop ms)."""
     import torch
     seen, streams = {}, []
     compute = torch.cuda.current_stream()
@@ -421,6 +440,9 @@ def serve(srv, prompts, ops, prof=None):
                                 for c in srv.engine.caches) - h2d)
             moved = sum(len(r.misses) + len(r.prefetched)
                         for r in srv.trace.steps[rows:])
+            if per_step is not None:
+                per_step.append((ops.launch_counts(),
+                                 len(srv.trace.steps) - rows))
             check(step_h2d[-1] == moved * expert_bytes,
                   f"step {step}: {step_h2d[-1]} H2D bytes, the trace moved "
                   f"{moved} experts of {expert_bytes} bytes")
@@ -846,13 +868,14 @@ def ssd_float64(dA, xw, Bm, Cm):
     return y.float(), s.float()
 
 
-def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches):
+def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
+               kernels=("moe_ffn", "paged_attention")):
     """A serving run's record, taken before anything else runs on the
     server: what overlap must not change (tokens, the trace's functional
     rows, stats() off the clock keys, repr so that NaN equals NaN; the
     per-step H2D bytes), the clock, step times, loop time, launches and
-    cache counters. Both kernels must have launched."""
-    for name in ("moe_ffn", "paged_attention"):
+    cache counters. Each of ``kernels`` must have launched."""
+    for name in kernels:
         check(launches[name] > 0,
               f"{name}: the serving run never launched its kernel")
     stats = srv.stats()
@@ -868,13 +891,13 @@ def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches):
 
 
 def overlap_run(params, cfg, prompts, ops, server_kw, store, off_srv, off,
-                prof=None):
+                prof=None, kernels=("moe_ffn", "paged_attention")):
     """The staggered workload once more with ``overlap=True`` on the
     masters ``store`` of the ``overlap=False`` server ``off_srv``, whose
-    run is ``off`` (``served_run``): every install on the copy stream
-    (``serve``), and the same tokens, functional trace rows, stats() off
-    the clock keys, per-step H2D bytes and, at the end, every slot
-    bitwise. Returns (report, record)."""
+    run is ``off`` (``served_run``, ``kernels`` launched): every install
+    on the copy stream (``serve``), and the same tokens, functional trace
+    rows, stats() off the clock keys, per-step H2D bytes and, at the end,
+    every slot bitwise. Returns (report, record)."""
     import statistics
     import torch
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
@@ -883,7 +906,8 @@ def overlap_run(params, cfg, prompts, ops, server_kw, store, off_srv, off,
                                       **{**server_kw, "overlap": True})
     rids, launches, step_ms, step_h2d, _, loop_ms = serve(srv, prompts, ops,
                                                           prof)
-    on = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches)
+    on = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
+                    kernels)
     what = f"quant={store.quant} overlap on vs off"
     for key in ("tokens", "rows", "stats", "step_h2d"):
         check(on[key] == off[key], f"{what}: {key} differ")
@@ -1558,6 +1582,172 @@ def prefill_phase(params, cfg, ops, seen, kernel, profile):
     return total, rep
 
 
+def mem_available() -> int:
+    """The host's MemAvailable (``/proc/meminfo``), in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def track_router_margins(engine, seen):
+    """Make each MoE layer call of ``engine`` append to ``seen`` the
+    smallest gap between the k-th and (k+1)-th router logit of its active
+    rows: how close the run's routing came to a tie."""
+    import torch
+    from repro_torch.models.layers import rms_norm
+    cfg = engine.cfg
+    k = cfg.num_experts_per_tok
+    moe = engine._moe_offloaded
+
+    def call(p_l, layer, h, *rest):
+        x = rms_norm(h, p_l["ln2"], cfg.norm_eps)
+        top = torch.topk((x.float() @ p_l["moe"]["router"])[:, 0], k + 1,
+                         dim=-1).values.cpu()
+        gaps = (top[:, k - 1] - top[:, k])[torch.tensor(rest[-1])]
+        seen.append(float(gaps.min()))
+        return moe(p_l, layer, h, *rest)
+
+    engine._moe_offloaded = call
+
+
+def deepseek_phase(ops, card, hold_and_time, profile):
+    """DeepSeek-V2 at its full published widths (d_model 5120, 128 heads
+    of hd 128, MLA with kv_lora_rank 512 and a 64-wide rope key, 160
+    routed experts of d_ff 1536 top-6 beside the shared SwiGLU of width
+    3072, vocab 102400), depth cut to DS_LAYERS of 60, fp32, random
+    weights drawn on the card from the seeded generator; the fp32 expert
+    masters pinned in host memory.
+
+    Offload serving: the staggered workload (4 requests, PROMPT_LEN-token
+    prompts, NEW_TOKENS greedy tokens) through ``ContinuousOffloadServer``
+    with DS_SLOTS slots a layer, LFU, speculative prefetch, max_batch 4
+    and paged latent KV in 16-token blocks (MLA's paged decode is plain
+    PyTorch, as in the JAX package: ``paged_attention`` must not launch).
+    Every step: bytes == the trace's moved experts x 94,371,840, and
+    ``moe_ffn`` launched at least once for each layer. Finite logits of
+    shape [4, vocab], overlap on == off (``overlap_run``), server tokens
+    == ``generate`` (dense multipos MLA decode). Then ``prefill_phase``:
+    flash attention at q/k width 192 and v width 128 once a layer, and
+    the prefill's logits against the absorbed decode's. Both kernels are
+    held against their plain versions at this model's heaviest calls
+    (``hold_and_time``, entries marked with the model). ``profile``
+    traces the overlap-off serving loop and one prefill. Returns the
+    serving and prefill reports."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=DS_LAYERS, dtype="float32")
+    expert_bytes = 3 * cfg.d_model * cfg.expert_d_ff * 4
+    print(json.dumps({"deepseek_memory": {
+        "mem_available_bytes": mem_available(),
+        "pinned_expert_bytes": cfg.num_layers * cfg.num_experts
+        * expert_bytes}}), flush=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         device="cuda")
+    server_kw = dict(cache_slots=DS_SLOTS, policy="lfu", prefetch="spec",
+                     max_batch=4, kv_block_size=16,
+                     cache_len=PROMPT_LEN + NEW_TOKENS, device="cuda")
+    srv = ContinuousOffloadServer(params, cfg, **server_kw)
+    torch.cuda.synchronize()
+    store = srv.engine.store
+    check(store.expert_nbytes((0, 0)) == expert_bytes,
+          f"stored expert bytes {store.expert_nbytes((0, 0))}")
+    check(all(v.is_pinned() and s is None for k in store.keys()
+              for v, s in store.payload(k).values()),
+          "deepseek: expert masters are not in pinned host memory")
+    pool = srv.paged.state["layers"][0]
+    check({k: tuple(v.shape[2:]) for k, v in pool.items()}
+          == {"latent": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_dim,)},
+          f"deepseek: KV pool {[(k, v.shape) for k, v in pool.items()]}")
+    setup = {"setup_s": time.perf_counter() - t0,
+             "expert_master_bytes": store.total_nbytes(),
+             "expert_slot_bytes": sum(c.device_nbytes()
+                                      for c in srv.engine.caches),
+             "device_bytes_allocated": torch.cuda.memory_allocated(),
+             "mem_available_bytes": mem_available()}
+    print(json.dumps({"deepseek_setup": setup}), flush=True)
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
+               for _ in SUBMIT_AT_STEP]
+    margins, per_step = [], []
+    track_router_margins(srv.engine, margins)
+    prof = None
+    if profile:
+        act = torch.profiler.ProfilerActivity
+        prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+    rids, launches, step_ms, step_h2d, calls, loop_ms = serve(
+        srv, prompts, ops, prof, per_step=per_step)
+    moe_per_step, done = [], 0
+    for i, (counts, rows) in enumerate(per_step):
+        moe_per_step.append(counts["moe_ffn"] - done)
+        done = counts["moe_ffn"]
+        check(rows == cfg.num_layers and moe_per_step[-1] >= rows,
+              f"deepseek step {i}: {moe_per_step[-1]} moe_ffn launches for "
+              f"{rows} trace rows")
+    check(launches["paged_attention"] == 0,
+          f"deepseek: paged_attention launched {launches['paged_attention']}"
+          f" times (MLA's paged decode has no kernel)")
+    off = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
+                     kernels=("moe_ffn",))
+    logits = srv._logits
+    check(tuple(logits.shape) == (4, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"deepseek: logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    on_rep, _ = overlap_run(params, cfg, prompts, ops, server_kw, store, srv,
+                            off, kernels=("moe_ffn",))
+    check(on_rep["launches"]["paged_attention"] == 0,
+          "deepseek overlap: paged_attention launched")
+    t0 = time.perf_counter()
+    for p, out in zip(prompts, off["tokens"]):
+        want = srv.engine.generate(p, NEW_TOKENS)
+        check(out == want, f"deepseek: server {out[PROMPT_LEN:]} != "
+                           f"generate {want[PROMPT_LEN:]} for prompt {p}")
+    generate_s = time.perf_counter() - t0
+    hold_and_time(calls, launches, model=cfg.name)
+    rep = {"model": cfg.name, "layers": cfg.num_layers,
+           "slots_per_layer": DS_SLOTS, "requests": len(prompts),
+           "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+           "steps": len(step_ms), "overlap": on_rep["overlap"],
+           "step_ms_median": on_rep["step_ms_median"],
+           "step_ms_max": on_rep["step_ms_max"],
+           "loop_ms": on_rep["loop_ms"],
+           "h2d_expert_bytes": sum(step_h2d), "expert_bytes": expert_bytes,
+           "experts_moved": sum(step_h2d) // expert_bytes,
+           "h2d_equals_trace": True, "launches": launches,
+           "moe_ffn_launches_per_step": moe_per_step,
+           "min_router_margin": min(margins), "counts": off["counts"],
+           "sim_time_s": off["clock"]["sim_time_s"],
+           "overlap_equal": on_rep["equal"],
+           "server_equals_generate": True, "generate_s": generate_s,
+           "new_tokens_out": [o[PROMPT_LEN:] for o in off["tokens"]],
+           "setup": setup, "card": card}
+    if prof is not None:
+        rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
+    del srv, store, calls, pool, logits, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seen = {}
+    flash, prefill_rep = prefill_phase(params, cfg, ops, seen,
+                                       "flash_attention", profile)
+    hold_and_time({"flash_attention": seen["flash_attention"][1]},
+                  {"flash_attention": flash["flash_attention"]},
+                  model=cfg.name)
+    prefill_rep["card"] = card
+    del params, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep, prefill_rep
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1681,7 +1871,7 @@ def main() -> None:
     # costs, beside each kernel's time and bound
     floor_ms = device_ms(lambda: one.add_(1), 20, graph=True)
 
-    def hold_and_time(calls, launches_by_kernel):
+    def hold_and_time(calls, launches_by_kernel, model=None):
         for (name, kern, plain, library, graph, nbytes, flops,
              shape) in kernel_cases(calls):
             err, rel = agree(name, kern(), plain(), TOL[name], name)
@@ -1705,6 +1895,8 @@ def main() -> None:
                 "share_of_bound": bound_ms / ms,
                 "library_ms": library_ms, "bytes": nbytes, "flops": flops,
                 "shape": shape})
+            if model is not None:   # the entries of a later model's phase
+                kernels[-1]["model"] = model
             if name in PEAK:   # the fp32-core bound, and 3 TF32 passes
                 kernels[-1]["bound_fp32_ms"] = max(
                     t_bytes, flops / FP32_FLOPS_PER_S) * 1e3
@@ -1754,6 +1946,12 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- DeepSeek-V2: offload serving and prefill -------------------
+    ds_serving, ds_prefill = deepseek_phase(ops, card, hold_and_time,
+                                            args.profile)
+    print(json.dumps({"deepseek_serving": ds_serving}), flush=True)
+    print(json.dumps({"prefill": ds_prefill}), flush=True)
 
     # ---- the same for Mamba2 ----------------------------------------
     mcfg = dataclasses.replace(get_config("mamba2-2.7b"),

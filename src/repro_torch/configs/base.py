@@ -212,8 +212,9 @@ def list_archs():
 def _ensure_loaded():
     # import side-effect registration (the port registers the configs
     # its slices serve)
-    from repro_torch.configs import (mamba2_2_7b, mixtral_8x7b,  # noqa: F401
-                                     qwen2_5_3b)
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_236b, llama4_scout_17b_a16e, mamba2_2_7b, mixtral_8x7b,
+        qwen1_5_0_5b, qwen1_5_32b, qwen2_5_3b, starcoder2_3b)
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,

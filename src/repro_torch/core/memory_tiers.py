@@ -40,10 +40,11 @@ prefill — see ``park_kv``/``resume_kv``.
 
 The control plane (budgets, the queue, the clock, ``TierEvent``s and
 the ``tier_*`` stats) is the reference's, unchanged, so it matches the
-JAX package exactly. The parked payload is the port's own: per-layer
-``{"k", "v"}`` host tensors (pinned when the pool is on a card; the
-server's ``PagedKVCache.park_blocks`` / ``restore_blocks`` move them
-on the engine's copy stream). All byte accounting is real (tensor
+JAX package exactly. The parked payload is the port's own: per layer,
+host copies of the pool's tensors under their keys (``{"k", "v"}`` for
+GQA, ``{"latent", "k_rope"}`` for MLA), pinned when the pool is on a
+card; the server's ``PagedKVCache.park_blocks`` / ``restore_blocks``
+move them on the engine's copy stream. All byte accounting is real (tensor
 bytes of what is actually parked / stored); all timing is simulated
 through ``CostModel``.
 """

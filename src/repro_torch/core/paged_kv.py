@@ -13,8 +13,9 @@ KV lives in ONE pool of fixed-size blocks shared by every request:
 
 A token at request-local position ``p`` lives at
 ``(table[rid][p // block_size], p % block_size)``. Attention reads K/V
-through the table (``attention.gqa_decode_paged``; the CUDA kernel in
-``kernels/csrc/paged_attention.cu``), so slot count and sequence length
+through the table (``attention.gqa_decode_paged``, the CUDA kernel in
+``kernels/csrc/paged_attention.cu``; or MLA's latent and rope key,
+``attention.mla_decode_paged``), so slot count and sequence length
 decouple: the scheduler may overcommit the pool and handle exhaustion
 by preempting/requeueing (see ``ContinuousOffloadServer``).
 
@@ -64,13 +65,11 @@ class PagedKVCache:
         # place
         self.state = None
         if cfg is not None:
-            if cfg.use_mla:
-                raise NotImplementedError(
-                    "paged MLA pools come with the MLA slice (ROADMAP.md)")
             from repro_torch.models import attention as attn
+            init = (attn.mla_paged_cache_init if cfg.use_mla
+                    else attn.gqa_paged_cache_init)
             self.state = {"layers": [
-                attn.gqa_paged_cache_init(cfg, num_blocks + 1, block_size,
-                                          dtype, device=device)
+                init(cfg, num_blocks + 1, block_size, dtype, device=device)
                 for _ in range(cfg.num_layers)]}
 
     # ----------------------------------------------------------- sizes
@@ -148,18 +147,25 @@ class PagedKVCache:
         return out
 
     # ------------------------------------------------ host tier moves
+    def _pool(self) -> torch.Tensor:
+        """One pool tensor (layer 0's first: ``k`` for GQA, ``latent``
+        for MLA), for the pools' device and dtype."""
+        return next(iter(self.state["layers"][0].values()))
+
     def _index(self, blocks: Sequence[int]) -> torch.Tensor:
         """``blocks`` as an index tensor on the pools' device (uploaded
         from pinned memory, so the host does not wait for the stream)."""
         idx = torch.tensor(list(blocks), dtype=torch.long)
-        dev = self.state["layers"][0]["k"].device
+        dev = self._pool().device
         if dev.type != "cuda":
             return idx
         return idx.pin_memory().to(dev, non_blocking=True)
 
     def _views(self, flat: torch.Tensor, n: int) -> List[Dict]:
-        """Per-layer ``{"k", "v"}`` views ``[n, bs, kv, hd]`` of ``flat``,
-        which holds ``n`` blocks of every pool tensor, layer by layer."""
+        """Per-layer views of ``flat``, one ``[n, *block shape]`` view
+        for each of the layer's pool tensors under its key (``{"k",
+        "v"}`` for GQA, ``{"latent", "k_rope"}`` for MLA): ``flat`` holds
+        ``n`` blocks of every pool tensor, layer by layer."""
         out, off = [], 0
         for layer in self.state["layers"]:
             views = {}
@@ -182,8 +188,9 @@ class PagedKVCache:
     def park_blocks(self, blocks: Sequence[int],
                     copy_stream=None) -> "KVSnapshot":
         """Snapshot ``blocks`` (in that order) of every layer's pool into
-        one host buffer (a ``KVSnapshot``: per-layer ``{"k", "v"}``
-        views ``[n, bs, kv, hd]``), so the move is one copy.
+        one host buffer (a ``KVSnapshot``: per-layer views ``[n, ...]``
+        of the pool's tensors, under their keys), so the move is one
+        copy.
 
         On a card the blocks are gathered on the current (compute)
         stream into one device buffer; ``copy_stream`` (the current
@@ -196,7 +203,7 @@ class PagedKVCache:
         idx = self._index(blocks)
         n = len(blocks)
         layers = self.state["layers"]
-        pool = layers[0]["k"]
+        pool = self._pool()
         size = n * sum(t[0].numel() for layer in layers
                        for t in layer.values())
         gathered = torch.empty(size, dtype=pool.dtype, device=pool.device)
@@ -232,7 +239,7 @@ class PagedKVCache:
         on the host."""
         idx = self._index(blocks)
         staged = saved.flat
-        dev = self.state["layers"][0]["k"].device
+        dev = self._pool().device
         if dev.type == "cuda":
             compute = torch.cuda.current_stream(dev)
             stream = copy_stream if copy_stream is not None else compute
@@ -266,7 +273,8 @@ class PagedKVCache:
 
 
 class KVSnapshot(list):
-    """A parked request's KV: per-layer ``{"k", "v"}`` tensors, all views
+    """A parked request's KV: per-layer dicts of the pool's tensors
+    (``{"k", "v"}`` for GQA, ``{"latent", "k_rope"}`` for MLA), all views
     of ``flat``, one buffer (pinned host memory when the pool is on a
     card), so that a park or a resume moves it in one copy."""
 

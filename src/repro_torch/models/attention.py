@@ -1,17 +1,23 @@
-"""GQA attention: projections, the full-sequence path (prefill), and
-decode over dense, ring (sliding-window) and paged KV caches (port of
-the GQA half of ``repro.models.attention``; MLA and cross-attention come
-with a later slice).
+"""Attention: GQA (projections, the full-sequence path, and decode over
+dense, ring (sliding-window) and paged KV caches) and MLA (DeepSeek-V2:
+the full-sequence path over K/V materialised from the latent, and the
+absorbed decode over a compressed latent cache, dense, ring or paged).
+Port of ``repro.models.attention``; cross-attention comes with a later
+slice.
 
-Conventions are the JAX package's: ``x [B, S, d]``; weights
+Conventions are the JAX package's: ``x [B, S, d]``; GQA weights
 ``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``; dense cache
-``{k,v [B, L, KV, hd]}``; paged pool ``{k,v [N, bs, KV, hd]}``. Head
-padding for a sharded model axis (``_head_padding``) is the identity
-without a mesh, so it is not ported.
+``{k,v [B, L, KV, hd]}``; paged pool ``{k,v [N, bs, KV, hd]}``. MLA
+weights ``wq [d,H,hd+rd]``, ``w_dkv [d,r]``, ``w_kr [d,rd]``,
+``latent_norm [r]``, ``w_kb/w_vb [r,H,hd]``, ``wo [H,hd,d]``; its cache
+holds the latent and the one rope key shared by every head,
+``{latent [B, L, r], k_rope [B, L, rd]}``, its pool ``{latent [N, bs,
+r], k_rope [N, bs, rd]}``. Head padding for a sharded model axis
+(``_head_padding``) is the identity without a mesh, so it is not ported.
 
 Unlike JAX, the caches are updated IN PLACE (``index_put_``): a decode
-step writes its new K/V rows into the tensors it was given and returns
-the same dict. That saves copying the whole cache or pool every step.
+step writes its new rows into the tensors it was given and returns the
+same dict. That saves copying the whole cache or pool every step.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init, rope_cos_sin
+from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
+                                       rope_cos_sin)
 
 NEG_INF = -1e30
 
@@ -48,6 +55,29 @@ def init_gqa(gen: torch.Generator, cfg, dtype, *, layers: int,
         p["bk"] = torch.zeros((L, kv, hd), dtype=dtype, device=device)
         p["bv"] = torch.zeros((L, kv, hd), dtype=dtype, device=device)
     return p
+
+
+def init_mla(gen: torch.Generator, cfg, dtype, *, layers: int,
+             device="cuda"):
+    """Stacked MLA params for ``layers`` layers (JAX init scales)."""
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    L = layers
+    res_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
+
+    def init(shape, in_dim, scale=1.0):
+        return dense_init(gen, shape, in_dim, scale=scale, dtype=dtype,
+                          device=device)
+
+    return {
+        "wq": init((L, d, H, hd + rd), d),
+        "w_dkv": init((L, d, r), d),
+        "w_kr": init((L, d, rd), d),
+        "latent_norm": torch.ones((L, r), dtype=dtype, device=device),
+        "w_kb": init((L, r, H, hd), r),
+        "w_vb": init((L, r, H, hd), r),
+        "wo": init((L, H, hd, d), H * hd, scale=res_scale),
+    }
 
 
 def _proj(x, w):
@@ -217,3 +247,167 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
                                pos_vec.reshape(B))
     out = out[:, None].to(x.dtype)
     return _out_proj(out, p["wo"]), cache
+
+
+# =====================================================================
+# MLA (DeepSeek-V2)
+# =====================================================================
+def _mla_q(p, cfg, x, positions):
+    """x [B,S,d] -> (q_nope [B,S,H,hd], q_rope [B,S,H,rd] roped)."""
+    hd, rd = cfg.head_dim, cfg.qk_rope_dim
+    q = _proj(x, p["wq"])
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos[:, :, None, :], sin[:, :, None, :])
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x, positions):
+    """x [B,S,d] -> (latent [B,S,r] rms-normed, k_rope [B,S,rd] roped:
+    one rope key shared by every head)."""
+    latent = rms_norm(x @ p["w_dkv"], p["latent_norm"], cfg.norm_eps)
+    k_rope = x @ p["w_kr"]
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos[:, :, None, :],
+                        sin[:, :, None, :])[:, :, 0, :]
+    return latent, k_rope
+
+
+def mla_full(p, cfg, x, positions, *, window: Optional[int] = None,
+             causal: bool = True):
+    """Prefill / forward path: K/V materialised per head from the latent,
+    the rope key broadcast over the heads, then the flash-attention
+    kernel with q/k width hd + rd and v width hd (its default scale
+    1/sqrt(q.shape[-1]) IS 1/sqrt(hd + rd)). x [B,S,d] -> [B,S,d]."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = _proj(latent, p["w_kb"])
+    v = _proj(latent, p["w_vb"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_rope.shape[:2], cfg.num_heads, cfg.qk_rope_dim)], dim=-1)
+    out = _sdpa(q, k, v, causal=causal, window=window)
+    return _out_proj(out, p["wo"])
+
+
+def mla_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
+    return {
+        "latent": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                              dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def _mla_attend(p, cfg, x, q_nope, q_rope, latent, k_rope, valid):
+    """The absorbed attention over a latent strip: q_nope [B,H,hd] is
+    absorbed through w_kb (q_abs [B,H,r]); scores are q_abs . latent +
+    q_rope . k_rope over sqrt(hd + rd) for the keys ``valid`` [B or 1, L]
+    leaves; the context is formed in latent space and expanded through
+    w_vb. latent [B,L,r], k_rope [B,L,rd] -> [B,1,d]."""
+    cdt = latent.dtype
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope, p["w_kb"]).float()
+    s = torch.einsum("bhr,blr->bhl", q_abs.to(cdt), latent).float()
+    s = s + torch.einsum("bhk,blk->bhl", q_rope.to(cdt), k_rope).float()
+    s = s / math.sqrt(cfg.head_dim + cfg.qk_rope_dim)
+    s = torch.where(valid[:, None, :], s,
+                    torch.full((), NEG_INF, device=x.device))
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhl,blr->bhr", w.to(cdt), latent).float()
+    out = torch.einsum("bhr,rhk->bhk", ctx.to(p["w_vb"].dtype),
+                       p["w_vb"]).float()
+    return _out_proj(out[:, None].to(x.dtype), p["wo"])
+
+
+def mla_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
+    """Absorbed decode: x [B,1,d]; cache {latent [B,L,r], k_rope
+    [B,L,rd]} — only the compressed latent and the shared rope key are
+    cached, the MLA memory win; pos an int (the same for every row).
+    Without a window this is ``mla_decode_multipos``; with one the cache
+    is a ring of L slots, as in ``gqa_decode``."""
+    B = x.shape[0]
+    if window is None:
+        return mla_decode_multipos(
+            p, cfg, x, cache,
+            torch.full((B,), int(pos), dtype=torch.long, device=x.device))
+    pos = int(pos)
+    L = cache["latent"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    slot = pos % L
+    latent[:, slot] = latent_new[:, 0].to(latent.dtype)
+    k_rope[:, slot] = k_rope_new[:, 0].to(k_rope.dtype)
+    idx = torch.arange(L, device=x.device)
+    valid = (pos - torch.remainder(pos - idx, L) >= 0)[None, :]
+    y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], latent, k_rope,
+                    valid)
+    return y, cache
+
+
+def mla_decode_multipos(p, cfg, x, cache, pos_vec):
+    """Absorbed MLA decode with a per-row position vector [B] (the
+    contract of ``gqa_decode_multipos``; windows stay on the scalar-pos
+    ring path). Row b writes its latent and rope key at slot pos_vec[b]
+    (in place) and attends to slots <= pos_vec[b]."""
+    B = x.shape[0]
+    L = cache["latent"].shape[1]
+    positions = pos_vec.reshape(B, 1).long()
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    rows = torch.arange(B, device=x.device)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    latent.index_put_((rows, positions[:, 0]),
+                      latent_new[:, 0].to(latent.dtype))
+    k_rope.index_put_((rows, positions[:, 0]),
+                      k_rope_new[:, 0].to(k_rope.dtype))
+    valid = torch.arange(L, device=x.device)[None, :] <= positions  # [B, L]
+    y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], latent, k_rope,
+                    valid)
+    return y, cache
+
+
+# =====================================================================
+# MLA paged decode (block-table latent pool)
+# =====================================================================
+def mla_paged_cache_init(cfg, num_blocks: int, block_size: int, dtype,
+                         device="cuda"):
+    """One layer's latent block pool: [N, bs, r] + [N, bs, rd]."""
+    return {
+        "latent": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank),
+                              dtype=dtype, device=device),
+        "k_rope": torch.zeros((num_blocks, block_size, cfg.qk_rope_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
+    """Absorbed MLA decode through a block table: the layout, sink-block
+    and multi-position append contracts of ``gqa_decode_paged``, with
+    the row's gathered [T*bs] strip standing in for the dense [L] latent
+    cache. Row b's latent and rope key are scattered IN PLACE to
+    (table[pos//bs], pos%bs), then the strip is gathered through the
+    table and attended as in ``mla_decode_multipos`` — with plain
+    PyTorch ops, as the JAX package runs it (it has no paged MLA
+    kernel). With T*bs equal to the dense cache's L, paged and dense
+    decode are the same arithmetic on the same values."""
+    B = x.shape[0]
+    bs = cache["latent"].shape[1]
+    positions = pos_vec.reshape(B, 1).long()
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    rows = torch.arange(B, device=x.device)
+    blk = block_tables[rows, positions[:, 0] // bs].long()
+    off = positions[:, 0] % bs
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    latent.index_put_((blk, off), latent_new[:, 0].to(latent.dtype))
+    k_rope.index_put_((blk, off), k_rope_new[:, 0].to(k_rope.dtype))
+
+    T = block_tables.shape[1]
+    tables = block_tables.long()
+    lg = latent[tables].reshape(B, T * bs, latent.shape[-1])
+    rg = k_rope[tables].reshape(B, T * bs, k_rope.shape[-1])
+    valid = torch.arange(T * bs, device=x.device)[None, :] <= positions
+    y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], lg, rg, valid)
+    return y, cache

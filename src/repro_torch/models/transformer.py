@@ -9,18 +9,26 @@ stacked on a leading ``[L]`` axis::
      "layers": {"ln1" [L,d],
                 "attn": {wq [L,d,H,hd], wk/wv [L,d,KV,hd], wo [L,H,hd,d],
                          bq/bk/bv (QKV bias only)},      # dense, moe
+                        # or, with use_mla (DeepSeek-V2):
+                        {wq [L,d,H,hd+rd], w_dkv [L,d,r], w_kr [L,d,rd],
+                         latent_norm [L,r], w_kb/w_vb [L,r,H,hd],
+                         wo [L,H,hd,d]},
                 "ln2" [L,d],                              # dense, moe
                 "mlp": {w1/w3 [L,d,ff], w2 [L,ff,d]},     # dense
                 "moe": {"router" [L,d,E],                 # moe
-                        "experts": {w1/w3 [L,E,d,ff], w2 [L,E,ff,d]}},
+                        "experts": {w1/w3 [L,E,d,ff], w2 [L,E,ff,d]},
+                        "shared": {w1/w3 [L,d,sff], w2 [L,sff,d]}},
+                                          # (num_shared_experts > 0:
+                                          # one SwiGLU, sff = n * ff)
                 "ssm": {in_z, in_xbc, in_dt, conv_w, conv_b, A_log,
                         D, dt_bias, norm, out_proj}}}      # ssm
 
 ``from_jax_params`` / ``to_jax_params`` move such a tree between numpy
 (the JAX package's params via ``np.asarray``) and torch, bit for bit.
 The JAX package scans over the stacked layers; the port loops over
-them in Python and runs eagerly. MLA, the hybrid, encdec and vlm
-families come with later slices (ROADMAP.md).
+them in Python and runs eagerly. Attention is GQA or, with
+``cfg.use_mla``, MLA (dispatched here as in the JAX package). The
+hybrid, encdec and vlm families come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -43,10 +51,6 @@ def _param_dtype(cfg) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention (mla_full, mla_decode*) is not "
-            f"ported yet (ROADMAP.md open items: MLA)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
@@ -74,8 +78,8 @@ def init_params(cfg, gen: torch.Generator, dtype=None, device="cuda"):
         layers["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype, layers=L,
                                          device=device)
     else:
-        layers["attn"] = attn.init_gqa(gen, cfg, dtype, layers=L,
-                                       device=device)
+        init_attn = attn.init_mla if cfg.use_mla else attn.init_gqa
+        layers["attn"] = init_attn(gen, cfg, dtype, layers=L, device=device)
         layers["ln2"] = torch.ones((L, d), dtype=dtype, device=device)
         if cfg.is_moe:
             layers["moe"] = moe_lib.init_moe(gen, cfg, dtype, layers=L,
@@ -134,7 +138,8 @@ def _layer(stacked, i: int):
 # =====================================================================
 def _attn_full(p, cfg, h, positions, window):
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    return h + attn.gqa_full(p["attn"], cfg, x, positions, window=window)
+    full = attn.mla_full if cfg.use_mla else attn.gqa_full
+    return h + full(p["attn"], cfg, x, positions, window=window)
 
 
 def _ffn_full(p, cfg, h, moe_path):
@@ -192,8 +197,9 @@ def prefill(params, cfg, tokens, *, moe_path: str = "auto"):
 def init_decode_state(params, cfg, batch: int, cache_len: int, *,
                       dtype=None, device="cuda"):
     """Decode state, one entry per layer: ``{"layers": [cache] * L}`` with
-    a dense KV cache ``{k,v [B,cache_len,KV,hd]}`` per attention layer or
-    an SSM state ``{ssd [B,H,P,N] fp32, conv [B,W-1,di+2N]}`` per SSM
+    a dense KV cache ``{k,v [B,cache_len,KV,hd]}`` per attention layer
+    (MLA: ``{latent [B,cache_len,r], k_rope [B,cache_len,rd]}``) or an
+    SSM state ``{ssd [B,H,P,N] fp32, conv [B,W-1,di+2N]}`` per SSM
     layer (the JAX package stacks them on [L]; the port keeps one entry
     per layer, since decode updates KV caches in place)."""
     _check_supported(cfg)
@@ -202,15 +208,16 @@ def init_decode_state(params, cfg, batch: int, cache_len: int, *,
         layers = [ssm_lib.ssm_state_init(cfg, batch, dtype, device=device)
                   for _ in range(cfg.num_layers)]
     else:
-        layers = [attn.gqa_cache_init(cfg, batch, cache_len, dtype,
-                                      device=device)
+        init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+        layers = [init(cfg, batch, cache_len, dtype, device=device)
                   for _ in range(cfg.num_layers)]
     return {"layers": layers}
 
 
 def _attn_decode(p, cfg, h, cache, pos, window):
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    y, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos, window=window)
+    decode = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+    y, cache = decode(p["attn"], cfg, x, cache, pos, window=window)
     return h + y, cache
 
 
@@ -248,7 +255,9 @@ def decode_step(params, cfg, state, token, pos: int, *,
 def _attn_decode_multipos(p, cfg, h, cache, pos_vec):
     """Per-row-position decode (continuous batching): pos_vec [B]."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    y, cache = attn.gqa_decode_multipos(p["attn"], cfg, x, cache, pos_vec)
+    decode = (attn.mla_decode_multipos if cfg.use_mla
+              else attn.gqa_decode_multipos)
+    y, cache = decode(p["attn"], cfg, x, cache, pos_vec)
     return h + y, cache
 
 
@@ -259,6 +268,6 @@ def _attn_decode_paged(p, cfg, h, cache, pos_vec, block_tables):
     Rows may share a table at distinct positions (chunked prefill's
     virtual rows) — see ``attention.gqa_decode_paged``."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    y, cache = attn.gqa_decode_paged(p["attn"], cfg, x, cache, pos_vec,
-                                     block_tables)
+    decode = attn.mla_decode_paged if cfg.use_mla else attn.gqa_decode_paged
+    y, cache = decode(p["attn"], cfg, x, cache, pos_vec, block_tables)
     return h + y, cache

@@ -110,11 +110,17 @@ def test_configs_mirror_reference_field_for_field():
     assert dataclasses.asdict(pcfg.get_config("mixtral-8x7b")) == want
     assert dataclasses.asdict(ptiny()) == dataclasses.asdict(
         tiny("mixtral-8x7b"))
-    assert pcfg.list_archs() == ["mamba2-2.7b", "mixtral-8x7b",
-                                 "qwen2.5-3b"]
+    assert pcfg.list_archs() == [
+        "deepseek-v2-236b", "llama4-scout-17b-a16e", "mamba2-2.7b",
+        "mixtral-8x7b", "qwen1.5-0.5b", "qwen1.5-32b", "qwen2.5-3b",
+        "starcoder2-3b"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+# the data-only configs of families the port runs (dense, moe) ride along
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
+                                  "deepseek-v2-236b", "qwen1.5-0.5b",
+                                  "qwen1.5-32b", "starcoder2-3b",
+                                  "llama4-scout-17b-a16e"])
 def test_new_configs_mirror_reference_field_for_field(arch):
     from repro.configs import get_config, reduced
     assert dataclasses.asdict(pcfg.get_config(arch)) == dataclasses.asdict(
@@ -150,11 +156,14 @@ def test_bridge_roundtrip_is_bitwise():
                                     cfg.expert_d_ff, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
+                                  "deepseek-v2-236b"])
 def test_dense_and_ssm_bridge_roundtrip_is_bitwise(arch):
-    """The dense family's ``mlp`` (and QKV biases, tied embeddings) and
-    the ssm family's ``ssm`` params survive the round trip bit for bit;
-    ``A_log``, ``D`` and ``dt_bias`` stay fp32 even in a bf16 model."""
+    """The dense family's ``mlp`` (and QKV biases, tied embeddings), the
+    ssm family's ``ssm`` params and DeepSeek-V2's MLA attention and
+    shared expert survive the round trip bit for bit; ``A_log``, ``D``
+    and ``dt_bias`` stay fp32 even in a bf16 model, and so does the
+    router."""
     cfg = tiny(arch)
     npt = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(3)))
     back = ptf.to_jax_params(ptf.from_jax_params(npt, device="cpu"))
@@ -165,6 +174,11 @@ def test_dense_and_ssm_bridge_roundtrip_is_bitwise(arch):
         assert a[k].tobytes() == b[k].tobytes(), k
     assert ("/layers/mlp/w1" in a) == (arch == "qwen2.5-3b")
     assert ("/layers/ssm/A_log" in a) == (arch == "mamba2-2.7b")
+    mla = {f"/layers/attn/{n}" for n in ("wq", "w_dkv", "w_kr",
+                                         "latent_norm", "w_kb", "w_vb",
+                                         "wo")}
+    assert (mla <= a.keys()) == (arch == "deepseek-v2-236b")
+    assert ("/layers/moe/shared/w1" in a) == (arch == "deepseek-v2-236b")
     bf = dataclasses.replace(cfg, dtype="bfloat16")
     tb = ptf.from_jax_params(jax.tree.map(
         np.asarray, jtf.init_params(bf, jax.random.PRNGKey(3))), device="cpu")
@@ -172,14 +186,20 @@ def test_dense_and_ssm_bridge_roundtrip_is_bitwise(arch):
         assert {tb["layers"]["ssm"][n].dtype
                 for n in ("A_log", "D", "dt_bias")} == {torch.float32}
         assert tb["layers"]["ssm"]["in_z"].dtype == torch.bfloat16
+    elif arch == "deepseek-v2-236b":
+        assert tb["layers"]["moe"]["router"].dtype == torch.float32
+        assert {t.dtype for t in tb["layers"]["attn"].values()} | {
+            tb["layers"]["moe"]["shared"]["w2"].dtype} == {torch.bfloat16}
     else:
         assert tb["layers"]["mlp"]["w1"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
+                                  "deepseek-v2-236b"])
 def test_port_init_matches_reference_tree_for_dense_and_ssm(arch):
     """The port's own init draws the JAX package's tree, shapes, dtypes
-    and (within sampling noise) scales for the other two families."""
+    and (within sampling noise) scales for the other two families, and
+    for DeepSeek-V2's MLA attention and shared expert."""
     cfg = tiny(arch, d_model=96)
     jp = dict(_leaves(jax.tree.map(np.asarray,
                                    jtf.init_params(cfg, jax.random.PRNGKey(0)))))
