@@ -93,13 +93,28 @@ It drives the port's two entry points end to end and checks them:
    the smallest gap between the 6th and 7th router logit), and phase 6's
    prefills: flash attention at q/k width 192 and v width 128 once a
    layer, the prefill against the absorbed-latent ``decode_step``;
+6c. the hybrid, encdec and vlm families at their published widths, fp32,
+   one at a time (``family_phase``): Jamba-1.5-Large (d_model 8192, 64
+   heads / 8 KV heads of hd 128, no positional encoding, dense d_ff and
+   16 experts top-2 of 24576, SSM state 128, headdim 64, 256 SSM heads,
+   chunk 128, vocab 65536) cut to 2 of 72 layers in periods of 2 (one
+   attention layer with a dense SwiGLU, one SSM layer with the MoE);
+   Whisper-tiny whole (4 + 4 layers, d_model 384, 6 heads of 64, QKV
+   biases, sinusoidal positions, vocab 51865): the encoder over 1500
+   seeded frames launches flash attention once a layer, non-causal, and
+   the decoder runs on its 448-token text context; Llama-3.2-Vision-11B
+   (d_model 4096, 32 / 8 heads, d_ff 14336, vocab 128256) cut to one
+   period of 40 layers (4 plain, 1 cross) over 1601 seeded patch
+   embeddings. Each runs phase 6's prefills and engine comparison with
+   ``enc=``; the engine launches flash attention once per cross layer
+   per decode step (one query row), and nothing else;
 7. the same for Mamba2-2.7B at its full published widths (d_model 2560,
    d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
    prompts of 512 tokens (2 chunks), then a timed prefill of 2 x 2048;
 8. each prefill's launch counts are reset before it and read after it:
-   flash attention must launch once per attention layer, SSD chunk once
-   per SSM layer;
+   flash attention must launch once per attention layer and once per
+   cross-attention layer, SSD chunk once per SSM layer;
 9. holds each kernel wrapper (``ops.moe_ffn``, ``ops.paged_attention``,
    ``ops.flash_attention``, ``ops.ssd_chunk``) against its plain
    PyTorch version on the card, on the arguments of the main path's
@@ -120,10 +135,13 @@ It drives the port's two entry points end to end and checks them:
    visible key, 1 and 4 rows of 2048 and 4096 keys with positions on
    split boundaries, at 0 and at -1 (paged); ragged lengths, windows, no
    causal mask, values narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
-   (a partial k-step), rows copied 4 bytes or one element at a time
-   (flash); other chunk lengths (37 to 1024), head counts (1 to 80) and
+   (a partial k-step), rows copied 4 bytes or one element at a time,
+   the new families' shapes: one query over 1500 keys and 77 over 1601
+   (no causal mask, no whole last key tile), 64 heads over 8 KV heads
+   (flash); other chunk lengths (37 to 1024), head counts (1 to 256) and
    widths, P and N off the multiples of 8 (a partial k-step, 4-byte
-   copies), a strongly decaying dA (SSD), and a 4096-position chunk
+   copies), a strongly decaying dA, Jamba's 256 heads at Q 128 (SSD),
+   and a 4096-position chunk
    against a float64 evaluation of the same sums;
 11. paged attention's batch independence: one row gives bitwise the same
    output alone, as one of 16 rows, and with a table two blocks wider.
@@ -137,8 +155,8 @@ before printing any result.
     python3 chip_smoke.py --profile
 
 does the same with ``torch.profiler`` tracing the serving loop and one
-2 x 2048 prefill of each model, and prints a ``profile`` line for each:
-the device time by kind (expert copies host-to-device, each kernel,
+2 x 2048 prefill of each model (Whisper: 2 x 448), and prints a
+``profile`` line for each: the device time by kind (expert copies host-to-device, each kernel,
 matrix products, the rest), the device's busy and idle shares of the
 traced wall time, and (serving, fp32 and int8, overlap off and on) the
 copy rate at the bytes the run counts and ``by_stream``: each CUDA
@@ -217,7 +235,12 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # copies of every input), H 1, and dA ~ -|N(0, 1)| (the decay underflows
 # to 0 across the chunk). SSD_ORACLE_SHAPE: a 4096-position chunk, where
 # the plain version's own fp32 cumsum is off the exact sums by more than
-# the tolerance, so the kernel is held against float64 there
+# the tolerance, so the kernel is held against float64 there. Then the
+# shapes of the hybrid, encdec and vlm phases: a decode step's Whisper
+# cross-attention (1 query over 1500 frames, MHA at hd 64), Llama-3.2-
+# Vision's cross-attention (Sq != Sk, 1601 keys: no whole last tile),
+# Jamba's self-attention (8 query heads a KV head, 64 heads) and its SSD
+# chunk (Q 128, 256 heads)
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -232,16 +255,26 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 4096, 4096, 32, 8, 128, 128, True, 0, "float32"),
                 (2, 333, 333, 32, 4, 36, 36, True, 0, "float32"),
                 (1, 70, 70, 6, 3, 37, 21, True, 0, "float32"),
-                (1, 70, 70, 6, 3, 37, 21, True, 0, "bfloat16")]
+                (1, 70, 70, 6, 3, 37, 21, True, 0, "bfloat16"),
+                (2, 1, 1500, 6, 6, 64, 64, False, 0, "float32"),
+                (1, 77, 1601, 32, 32, 128, 128, False, 0, "float32"),
+                (1, 2048, 2048, 64, 8, 128, 128, True, 0, "float32")]
 SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (1, 64, 6, 32, 64, 0.1), (3, 37, 5, 72, 130, 0.1),
               (2, 256, 80, 64, 128, 0.1), (2, 1024, 8, 64, 128, 0.1),
               (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
-              (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0)]
+              (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0),
+              (32, 128, 256, 64, 128, 0.1)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
 # the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
 # widths, 32 expert slots a layer (20% of its 160 routed experts)
 DS_LAYERS, DS_SLOTS = 2, 32
+# the phases of the other families, at published widths, cut in depth:
+# Jamba-1.5-Large 2 of 72 layers in periods of 2 (one attention layer with
+# a dense SwiGLU, one SSM layer with the 16-expert MoE), Whisper-tiny whole
+# (4 + 4 layers) on its 448-token text context, Llama-3.2-Vision-11B one
+# period (4 plain layers and 1 cross layer) of 40 layers
+JAMBA_LAYERS, WHISPER_S, VLM_LAYERS = 2, 448, 5
 # the memory-tier phase: slots a layer and KV blocks the budget is built
 # for, the block length, and the workload (requests, prompt and new tokens)
 TIER_SLOTS, TIER_BLOCKS, TIER_BLOCK_SIZE = 4, 4, 16
@@ -1447,8 +1480,9 @@ def offload_invariants(params, cfg, prompts, store):
 
 
 PREFILL_SPECS = {   # heaviest prefill calls, copied as they were
-    "flash_attention": (
-        lambda q, k, v, **kw: q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2],
+    "flash_attention": (   # by (query, key) pairs scored, times heads
+        lambda q, k, v, causal=True, window=0: q.shape[0] * q.shape[2]
+        * visible_pairs(q.shape[1], k.shape[1], causal, window),
         lambda q, k, v, **kw: (q.clone(), k.clone(), v.clone(), dict(kw))),
     "ssd_chunk": (lambda dA, xw, *_: xw.numel(),
                   lambda *args: tuple(a.clone() for a in args)),
@@ -1485,13 +1519,31 @@ def check_launches(launches, want, what):
                                       f"expected {want.get(name, 0)}")
 
 
-def engine_vs_prefill(params, cfg, toks, pre_logits):
+def cross_layers(cfg) -> int:
+    return sum(cfg.has_cross_attn(i) for i in range(cfg.num_layers))
+
+
+def prefill_launches(cfg):
+    """A prefill's launches, from the layer kinds: flash attention once
+    per attention layer and once per cross-attention layer, SSD chunk
+    once per SSM layer."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    return {"flash_attention": kinds.count("attn") + cross_layers(cfg),
+            "ssd_chunk": kinds.count("ssm")}
+
+
+def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
     """``ServingEngine(moe_path="dense").generate_batch`` on the prompts
-    ``toks`` [B, S]: its decode_step logits at the last prompt position
-    must equal ``pre_logits`` (prefill on the same prompts) within
-    PREFILL_TOL, and its first token the prefill's argmax on every row
-    whose top-2 margin exceeds twice the tolerance."""
+    ``toks`` [B, S] (and ``enc``): its decode_step logits at the last
+    prompt position must equal ``pre_logits`` (prefill on the same
+    prompts) within PREFILL_TOL, and its first token the prefill's
+    argmax on every row whose top-2 margin exceeds twice the tolerance.
+    Its launch counts, reset just before and read just after, must be
+    one flash attention per cross-attention layer per decode step (Sq =
+    1; self-attention and SSM decode are plain PyTorch) and nothing
+    else."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
     B, S = toks.shape
     eng = ServingEngine(params, cfg, cache_len=S + ENGINE_NEW,
@@ -1507,10 +1559,16 @@ def engine_vs_prefill(params, cfg, toks, pre_logits):
 
     eng._step = step_keeping_last_prompt_logits
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    outs = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW)
+    outs = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW, enc=enc)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # the engine runs S + ENGINE_NEW steps (its last one's logits unused)
+    check_launches(launches,
+                   {"flash_attention": cross_layers(cfg) * (S + ENGINE_NEW)},
+                   f"{cfg.name} engine")
     dec = last["logits"]
     V = cfg.vocab_size
     check(tuple(pre_logits.shape) == (B, V) == tuple(dec.shape),
@@ -1529,56 +1587,60 @@ def engine_vs_prefill(params, cfg, toks, pre_logits):
           f"{first.tolist()} != prefill argmax on rows with a clear margin")
     return {"prefill_vs_decode_max_abs_err": err, "tol": PREFILL_TOL,
             "first_token_rows_checked": int(sure.sum()),
-            "engine_tokens": outs, "engine_s": seconds}
+            "engine_tokens": outs, "engine_s": seconds,
+            "engine_launches": launches}
 
 
-def prefill_phase(params, cfg, ops, seen, kernel, profile):
-    """Drive ``prefill`` and ``ServingEngine`` for one model: the
-    ENGINE_S-token comparison (``moe_path="dense"``), then two
-    PREFILL_B x PREFILL_S prefills through ``moe_path="auto"`` (counted
-    and timed; the second is warm) and, with ``profile``, a third under
-    the profiler. Every prefill launches ``kernel`` once a layer and
-    nothing else. Returns (launches summed over the counted
-    runs, report)."""
+def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
+                  engine_s=ENGINE_S, prefill_s=PREFILL_S):
+    """Drive ``prefill`` and ``ServingEngine`` for one model (``enc``:
+    the cross layers' encoder states or patch embeddings): the
+    ``engine_s``-token comparison (``moe_path="dense"``), then two
+    PREFILL_B x ``prefill_s`` prefills through ``moe_path="auto"``
+    (counted and timed; the second is warm) and, with ``profile``, a
+    third under the profiler. Every prefill launches what
+    ``prefill_launches`` says and nothing else. Returns (launches summed
+    over the counted runs, report)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 1)
-    want = {kernel: cfg.num_layers}
+    want = prefill_launches(cfg)
     total = {name: 0 for name in ops.LAUNCHES}
     rep = {"model": cfg.name, "layers": cfg.num_layers}
 
     def counted(toks, what, **kw):
         logits, launches, ms, _ = prefill_run(params, cfg, toks, ops, seen,
-                                              **kw)
+                                              enc=enc, **kw)
         check_launches(launches, want, what)
         for name, n in launches.items():
             total[name] += n
         return logits, launches, ms
 
     toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (PREFILL_B, ENGINE_S))).cuda()
+        0, cfg.vocab_size, (PREFILL_B, engine_s))).cuda()
     logits, launches, ms = counted(toks, f"{cfg.name} prefill "
-                                         f"{PREFILL_B}x{ENGINE_S}",
+                                         f"{PREFILL_B}x{engine_s}",
                                    moe_path="dense")
-    rep[f"prefill_{PREFILL_B}x{ENGINE_S}"] = {
+    rep[f"prefill_{PREFILL_B}x{engine_s}"] = {
         "moe_path": "dense", "launches": launches, "ms": ms}
-    rep["engine"] = engine_vs_prefill(params, cfg, toks, logits)
+    rep["engine"] = engine_vs_prefill(params, cfg, toks, logits, enc)
 
     toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+        0, cfg.vocab_size, (PREFILL_B, prefill_s))).cuda()
     for run in ("cold", "warm"):
         logits, launches, ms = counted(
-            toks, f"{cfg.name} prefill {PREFILL_B}x{PREFILL_S}")
+            toks, f"{cfg.name} prefill {PREFILL_B}x{prefill_s}")
         check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{cfg.name}: prefill logits {tuple(logits.shape)}, finite "
               f"{bool(torch.isfinite(logits).all())}")
-        rep[f"prefill_{PREFILL_B}x{PREFILL_S}_{run}"] = {
+        rep[f"prefill_{PREFILL_B}x{prefill_s}_{run}"] = {
             "launches": launches, "ms": ms}
     if profile:
         act = torch.profiler.ProfilerActivity
         prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
-        rep["profile"] = prefill_run(params, cfg, toks, ops, {}, prof)[3]
+        rep["profile"] = prefill_run(params, cfg, toks, ops, {}, prof,
+                                     enc=enc)[3]
     return total, rep
 
 
@@ -1736,8 +1798,7 @@ def deepseek_phase(ops, card, hold_and_time, profile):
     torch.cuda.empty_cache()
 
     seen = {}
-    flash, prefill_rep = prefill_phase(params, cfg, ops, seen,
-                                       "flash_attention", profile)
+    flash, prefill_rep = prefill_phase(params, cfg, ops, seen, profile)
     hold_and_time({"flash_attention": seen["flash_attention"][1]},
                   {"flash_attention": flash["flash_attention"]},
                   model=cfg.name)
@@ -1746,6 +1807,77 @@ def deepseek_phase(ops, card, hold_and_time, profile):
     gc.collect()
     torch.cuda.empty_cache()
     return rep, prefill_rep
+
+
+def family_phase(arch, ops, card, hold_and_time, profile):
+    """One model of the hybrid, encdec or vlm family at its published
+    widths, depth cut as JAMBA_LAYERS / VLM_LAYERS say (Whisper-tiny
+    whole), fp32, random weights drawn on the card from the seeded
+    generator: ``prefill_phase`` (the engine comparison with ``enc=``,
+    exact launch counts from the layer kinds, finite logits) on
+    PREFILL_B x PREFILL_S tokens (Whisper: its WHISPER_S-token text
+    context). encdec: the encoder first runs over 1500 seeded frames,
+    launching flash attention once a layer, non-causal; vlm: 1601
+    seeded patch embeddings. The phase's heaviest flash attention and
+    SSD chunk calls are held against their plain versions and timed
+    (``hold_and_time``, entries marked with the model), then the params
+    are freed. Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import encoder_forward, init_params
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=JAMBA_LAYERS,
+                                  attn_every=JAMBA_LAYERS)
+    elif cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         device="cuda")
+    torch.cuda.synchronize()
+    setup = {"setup_s": time.perf_counter() - t0,
+             "device_bytes_allocated": torch.cuda.memory_allocated()}
+    rng = np.random.default_rng(SEED + 3)
+    seen, enc, rep = {}, None, {}
+    encoder = {name: 0 for name in ops.LAUNCHES}
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.normal(
+            size=(PREFILL_B, cfg.encoder_frames, cfg.d_model)).astype(
+                np.float32)).cuda()
+        with recording(ops, seen, PREFILL_SPECS):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            enc = encoder_forward(params, cfg, frames)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            encoder = ops.launch_counts()
+        check_launches(encoder, {"flash_attention": cfg.encoder_layers},
+                       f"{cfg.name} encoder")
+        check(tuple(enc.shape) == (PREFILL_B, cfg.encoder_frames,
+                                   cfg.d_model)
+              and bool(torch.isfinite(enc).all()),
+              f"{cfg.name}: encoder states {tuple(enc.shape)}")
+        rep["encoder"] = {"frames": cfg.encoder_frames, "ms": ms,
+                          "launches": encoder}
+    elif cfg.family == "vlm":
+        enc = torch.from_numpy(rng.normal(
+            size=(PREFILL_B, cfg.num_image_tokens, cfg.d_model)).astype(
+                np.float32)).cuda()
+    seqs = (dict(engine_s=WHISPER_S, prefill_s=WHISPER_S)
+            if cfg.family == "encdec" else {})
+    launches, prefill_rep = prefill_phase(params, cfg, ops, seen, profile,
+                                          enc=enc, **seqs)
+    rep.update(prefill_rep, setup=setup, card=card)
+    hold_and_time({k: v[1] for k, v in seen.items()},
+                  {k: launches[k] + encoder[k] for k in launches},
+                  model=cfg.name)
+    del params, seen, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
 
 
 def main() -> None:
@@ -1941,7 +2073,7 @@ def main() -> None:
     # ---- full-sequence prefill and ServingEngine: Mixtral -----------
     seen = {}
     flash_launches, rep = prefill_phase(params, cfg, ops, seen,
-                                        "flash_attention", args.profile)
+                                        args.profile)
     print(json.dumps({"prefill": rep}), flush=True)
     del params
     gc.collect()
@@ -1953,12 +2085,18 @@ def main() -> None:
     print(json.dumps({"deepseek_serving": ds_serving}), flush=True)
     print(json.dumps({"prefill": ds_prefill}), flush=True)
 
+    # ---- the hybrid, encdec and vlm families: prefill and engine ----
+    for arch in ("jamba-1.5-large-398b", "whisper-tiny",
+                 "llama-3.2-vision-11b"):
+        print(json.dumps({"prefill": family_phase(
+            arch, ops, card, hold_and_time, args.profile)}), flush=True)
+
     # ---- the same for Mamba2 ----------------------------------------
     mcfg = dataclasses.replace(get_config("mamba2-2.7b"),
                                num_layers=MAMBA_LAYERS, dtype="float32")
     mparams = init_params(
         mcfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    ssd_launches, rep = prefill_phase(mparams, mcfg, ops, seen, "ssd_chunk",
+    ssd_launches, rep = prefill_phase(mparams, mcfg, ops, seen,
                                       args.profile)
     print(json.dumps({"prefill": rep}), flush=True)
     del mparams

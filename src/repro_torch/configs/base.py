@@ -210,11 +210,11 @@ def list_archs():
 
 
 def _ensure_loaded():
-    # import side-effect registration (the port registers the configs
-    # its slices serve)
+    # import side-effect registration
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, llama4_scout_17b_a16e, mamba2_2_7b, mixtral_8x7b,
-        qwen1_5_0_5b, qwen1_5_32b, qwen2_5_3b, starcoder2_3b)
+        deepseek_v2_236b, jamba_1_5_large_398b, llama4_scout_17b_a16e,
+        llama_3_2_vision_11b, mamba2_2_7b, mixtral_8x7b, qwen1_5_0_5b,
+        qwen1_5_32b, qwen2_5_3b, starcoder2_3b, whisper_tiny)
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,

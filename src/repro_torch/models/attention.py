@@ -1,9 +1,9 @@
 """Attention: GQA (projections, the full-sequence path, and decode over
 dense, ring (sliding-window) and paged KV caches) and MLA (DeepSeek-V2:
 the full-sequence path over K/V materialised from the latent, and the
-absorbed decode over a compressed latent cache, dense, ring or paged).
-Port of ``repro.models.attention``; cross-attention comes with a later
-slice.
+absorbed decode over a compressed latent cache, dense, ring or paged)
+and cross-attention (enc-dec, VLM: MHA over precomputed K/V of the
+frontend states). Port of ``repro.models.attention``.
 
 Conventions are the JAX package's: ``x [B, S, d]``; GQA weights
 ``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``; dense cache
@@ -34,9 +34,11 @@ NEG_INF = -1e30
 
 
 def init_gqa(gen: torch.Generator, cfg, dtype, *, layers: int,
-             device="cuda"):
-    """Stacked GQA params for ``layers`` layers (JAX init scales)."""
-    d, H, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+             kv_heads: Optional[int] = None, device="cuda"):
+    """Stacked GQA params for ``layers`` layers (JAX init scales);
+    ``kv_heads`` defaults to ``cfg.num_kv_heads``."""
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    kv = cfg.num_kv_heads if kv_heads is None else kv_heads
     L = layers
     res_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
 
@@ -78,6 +80,14 @@ def init_mla(gen: torch.Generator, cfg, dtype, *, layers: int,
         "w_vb": init((L, r, H, hd), r),
         "wo": init((L, H, hd, d), H * hd, scale=res_scale),
     }
+
+
+def init_cross_attention(gen: torch.Generator, cfg, dtype, *, layers: int,
+                         device="cuda"):
+    """Cross-attention is MHA (KV heads == query heads) over the frontend
+    states."""
+    return init_gqa(gen, cfg, dtype, layers=layers, kv_heads=cfg.num_heads,
+                    device=device)
 
 
 def _proj(x, w):
@@ -411,3 +421,23 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     valid = torch.arange(T * bs, device=x.device)[None, :] <= positions
     y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], lg, rg, valid)
     return y, cache
+
+
+# =====================================================================
+# Cross-attention (enc-dec, VLM)
+# =====================================================================
+def cross_kv(p, enc):
+    """Precompute K/V over frontend states enc [B,T,d]."""
+    k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_attend(p, cfg, x, kv):
+    """x [B,S,d] queries attend over precomputed kv (no mask)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    out = _sdpa(q, kv["k"], kv["v"], causal=False, window=None)
+    return _out_proj(out, p["wo"])

@@ -1,5 +1,6 @@
-"""Shared low-level layers: init, norms, positions, the SwiGLU MLP (port
-of ``repro.models.layers``; same formulas, same fp32 internals)."""
+"""Shared low-level layers: init, norms, positions, the SwiGLU and GELU
+MLPs (port of ``repro.models.layers``; same formulas, same fp32
+internals)."""
 from __future__ import annotations
 
 import math
@@ -34,6 +35,15 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * weight.float()).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) * (x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dt)
 
 
 # ------------------------------------------------------------ positions
@@ -92,3 +102,26 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
 def swiglu(params, x):
     h = torch.nn.functional.silu(x @ params["w1"]) * (x @ params["w3"])
     return h @ params["w2"]
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  n_layers: int, dtype, *, layers: int, device="cuda"):
+    """Stacked GELU MLP params for ``layers`` layers: ``w1 [L,d,ff]``,
+    ``b1 [L,ff]``, ``w2 [L,ff,d]``, ``b2 [L,d]`` (JAX init scales, zero
+    biases; ``n_layers`` sets the residual scale)."""
+    res_scale = 1.0 / math.sqrt(2 * max(n_layers, 1))
+    L = layers
+    return {
+        "w1": dense_init(gen, (L, d_model, d_ff), d_model, dtype=dtype,
+                         device=device),
+        "b1": torch.zeros((L, d_ff), dtype=dtype, device=device),
+        "w2": dense_init(gen, (L, d_ff, d_model), d_ff, scale=res_scale,
+                         dtype=dtype, device=device),
+        "b2": torch.zeros((L, d_model), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x):
+    h = torch.nn.functional.gelu(x @ params["w1"] + params["b1"],
+                                 approximate="tanh")
+    return h @ params["w2"] + params["b2"]

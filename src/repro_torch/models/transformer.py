@@ -1,34 +1,44 @@
 """Model params, the full-sequence forward / prefill and the decode step
-of the ``dense``, ``moe`` and ``ssm`` families (port of
-``repro.models.transformer``).
+of every architecture family (port of ``repro.models.transformer``).
 
-Params are a plain dict with the JAX package's tree and layouts, layers
-stacked on a leading ``[L]`` axis::
+Params are a plain dict with the JAX package's tree and layouts. Layers
+are stacked on leading axes, in homogeneous groups::
 
-    {"embed" [V,d], "final_norm" [d], "unembed" [d,V] (untied only),
-     "layers": {"ln1" [L,d],
-                "attn": {wq [L,d,H,hd], wk/wv [L,d,KV,hd], wo [L,H,hd,d],
-                         bq/bk/bv (QKV bias only)},      # dense, moe
-                        # or, with use_mla (DeepSeek-V2):
-                        {wq [L,d,H,hd+rd], w_dkv [L,d,r], w_kr [L,d,rd],
-                         latent_norm [L,r], w_kb/w_vb [L,r,H,hd],
-                         wo [L,H,hd,d]},
-                "ln2" [L,d],                              # dense, moe
-                "mlp": {w1/w3 [L,d,ff], w2 [L,ff,d]},     # dense
-                "moe": {"router" [L,d,E],                 # moe
-                        "experts": {w1/w3 [L,E,d,ff], w2 [L,E,ff,d]},
-                        "shared": {w1/w3 [L,d,sff], w2 [L,sff,d]}},
-                                          # (num_shared_experts > 0:
-                                          # one SwiGLU, sff = n * ff)
-                "ssm": {in_z, in_xbc, in_dt, conv_w, conv_b, A_log,
-                        D, dt_bias, norm, out_proj}}}      # ssm
+  dense/moe/ssm : "layers" [L]
+  hybrid        : periods of ``attn_every``: "attn_layers" [P] and
+                  "ssm_layers", a tuple of ``attn_every - 1`` stacks [P]
+                  (position j of a period has MoE iff ``cfg.has_moe(j)``)
+  vlm           : periods of ``cross_attn_every``: "layers" [P, per]
+                  and "cross_layers" [P] (self-attention, then
+                  ``ln_c`` / ``cross``, then the FFN)
+  encdec        : "enc_layers" [Le], "enc_norm", and the decoder's
+                  "layers" [L] with cross-attention
 
+A block's leaves, each with the group's leading axes::
+
+    {"ln1" [d],
+     "attn": {wq [d,H,hd], wk/wv [d,KV,hd], wo [H,hd,d],
+              bq/bk/bv (QKV bias only)},           # kind "attn"
+             # or, with use_mla (DeepSeek-V2):
+             {wq [d,H,hd+rd], w_dkv [d,r], w_kr [d,rd], latent_norm [r],
+              w_kb/w_vb [r,H,hd], wo [H,hd,d]},
+     "ssm": {in_z, in_xbc, in_dt, conv_w, conv_b, A_log,
+             D, dt_bias, norm, out_proj},           # kind "ssm"
+     "ln_c" [d], "cross": {wq, wk/wv [d,H,hd], wo, biases},  # cross blocks
+     "ln2" [d],                                     # all but family ssm
+     "mlp": {w1/w3 [d,ff], w2 [ff,d]},              # dense SwiGLU
+            # or, encdec: GELU {w1 [d,ff], b1 [ff], w2 [ff,d], b2 [d]}
+     "moe": {"router" [d,E], "experts": {w1/w3 [E,d,ff], w2 [E,ff,d]},
+             "shared": {w1/w3 [d,sff], w2 [sff,d]}}}  # (shared: sff =
+                                                      # n * ff)
+
+plus "embed" [V,d], "final_norm" [d] and "unembed" [d,V] (untied only).
 ``from_jax_params`` / ``to_jax_params`` move such a tree between numpy
 (the JAX package's params via ``np.asarray``) and torch, bit for bit.
 The JAX package scans over the stacked layers; the port loops over
-them in Python and runs eagerly. Attention is GQA or, with
-``cfg.use_mla``, MLA (dispatched here as in the JAX package). The
-hybrid, encdec and vlm families come with later slices (ROADMAP.md).
+them in Python and runs eagerly. A block dispatches on its mixer kind
+(attention or SSM) and on the params it holds (cross-attention, MoE);
+attention is GQA or, with ``cfg.use_mla``, MLA.
 """
 from __future__ import annotations
 
@@ -40,30 +50,53 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed_init, init_swiglu, rms_norm,
+from repro_torch.models.layers import (embed_init, gelu_mlp, init_gelu_mlp,
+                                       init_swiglu, rms_norm,
                                        sinusoidal_positions, swiglu)
-
-FAMILIES = ("dense", "moe", "ssm")
 
 
 def _param_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_supported(cfg) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port runs {FAMILIES} (ROADMAP.md open items: hybrid, "
-            f"cross-attention for encdec/vlm)")
+def _init_block(gen, cfg, dtype, *, kind: str, cross: bool, layers: int,
+                use_moe: Optional[bool] = None, device="cuda"):
+    """``layers`` stacked blocks: a ``kind`` mixer ("attn" or "ssm"),
+    cross-attention if ``cross``, and (all but the ssm family) an FFN:
+    GELU for encdec, else MoE if ``use_moe`` (default ``cfg.is_moe``),
+    else SwiGLU."""
+    if use_moe is None:
+        use_moe = cfg.is_moe
+    d, L = cfg.d_model, layers
+    kw = dict(layers=L, device=device)
+    p: Dict[str, Any] = {"ln1": torch.ones((L, d), dtype=dtype,
+                                           device=device)}
+    if kind == "attn":
+        init_attn = attn.init_mla if cfg.use_mla else attn.init_gqa
+        p["attn"] = init_attn(gen, cfg, dtype, **kw)
+    else:
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype, **kw)
+    if cross:
+        p["ln_c"] = torch.ones((L, d), dtype=dtype, device=device)
+        p["cross"] = attn.init_cross_attention(gen, cfg, dtype, **kw)
+    if cfg.family != "ssm":
+        p["ln2"] = torch.ones((L, d), dtype=dtype, device=device)
+        if cfg.family == "encdec":
+            p["mlp"] = init_gelu_mlp(gen, d, cfg.d_ff, cfg.num_layers, dtype,
+                                     **kw)
+        elif use_moe:
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype, **kw)
+        else:
+            p["mlp"] = init_swiglu(gen, d, cfg.d_ff, cfg.num_layers, dtype,
+                                   **kw)
+    return p
 
 
 def init_params(cfg, gen: torch.Generator, dtype=None, device="cuda"):
-    """Random params for a dense, MoE or SSM decoder, drawn from ``gen``
-    (a generator on ``device``) with the JAX package's init scales. The
-    draws differ from JAX's: tests that compare the two bridge JAX's
-    params with ``from_jax_params`` instead."""
-    _check_supported(cfg)
+    """Random params of any family, drawn from ``gen`` (a generator on
+    ``device``) with the JAX package's tree and init scales. The draws
+    differ from JAX's: tests that compare the two bridge JAX's params
+    with ``from_jax_params`` instead."""
     dtype = dtype or _param_dtype(cfg)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     params: Dict[str, Any] = {
@@ -72,28 +105,51 @@ def init_params(cfg, gen: torch.Generator, dtype=None, device="cuda"):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, (d, V), dtype, device=device)
-    layers: Dict[str, Any] = {
-        "ln1": torch.ones((L, d), dtype=dtype, device=device)}
-    if cfg.family == "ssm":
-        layers["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype, layers=L,
-                                         device=device)
+
+    fam = cfg.family
+    if fam != "hybrid" and cfg.is_moe:
+        assert cfg.moe_every == 1, "moe_every>1 only supported for hybrid"
+    kw = dict(dtype=dtype, device=device)
+    if fam in ("dense", "moe", "ssm"):
+        params["layers"] = _init_block(
+            gen, cfg, kind="ssm" if fam == "ssm" else "attn", cross=False,
+            layers=L, **kw)
+    elif fam == "hybrid":
+        P, per = L // cfg.attn_every, cfg.attn_every - 1
+        # the FFN rhythm (dense vs MoE) must repeat with the period
+        assert cfg.attn_every % max(cfg.moe_every, 1) == 0
+        params["attn_layers"] = _init_block(
+            gen, cfg, kind="attn", cross=False, layers=P,
+            use_moe=cfg.has_moe(0), **kw)
+        params["ssm_layers"] = tuple(
+            _init_block(gen, cfg, kind="ssm", cross=False, layers=P,
+                        use_moe=cfg.has_moe(j + 1), **kw)
+            for j in range(per))
+    elif fam == "vlm":
+        P, per = L // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        plain = _init_block(gen, cfg, kind="attn", cross=False,
+                            layers=P * per, **kw)
+        params["layers"] = _tree_map(
+            lambda t: t.reshape(P, per, *t.shape[1:]), plain)
+        params["cross_layers"] = _init_block(gen, cfg, kind="attn",
+                                             cross=True, layers=P, **kw)
+    elif fam == "encdec":
+        params["enc_layers"] = _init_block(
+            gen, cfg, kind="attn", cross=False, layers=cfg.encoder_layers,
+            **kw)
+        params["enc_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        params["layers"] = _init_block(gen, cfg, kind="attn", cross=True,
+                                       layers=L, **kw)
     else:
-        init_attn = attn.init_mla if cfg.use_mla else attn.init_gqa
-        layers["attn"] = init_attn(gen, cfg, dtype, layers=L, device=device)
-        layers["ln2"] = torch.ones((L, d), dtype=dtype, device=device)
-        if cfg.is_moe:
-            layers["moe"] = moe_lib.init_moe(gen, cfg, dtype, layers=L,
-                                             device=device)
-        else:
-            layers["mlp"] = init_swiglu(gen, d, cfg.d_ff, L, dtype,
-                                        layers=L, device=device)
-    params["layers"] = layers
+        raise ValueError(f"unknown family {fam}")
     return params
 
 
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -129,8 +185,14 @@ def logits_from_hidden(params, cfg, h):
 
 
 def _layer(stacked, i: int):
-    """Layer i's params: a view of every stacked [L, ...] leaf."""
+    """Layer i's params: a view of every stacked [L, ...] leaf (of a
+    [P, per] stack: period i's [per, ...] stack)."""
     return _tree_map(lambda t: t[i], stacked)
+
+
+def _stack_len(stacked) -> int:
+    """The leading (layer) axis of a stack of blocks."""
+    return stacked["ln1"].shape[0]
 
 
 # =====================================================================
@@ -142,23 +204,40 @@ def _attn_full(p, cfg, h, positions, window):
     return h + full(p["attn"], cfg, x, positions, window=window)
 
 
+def _enc_attn_full(p, cfg, h, positions):
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    return h + attn.gqa_full(p["attn"], cfg, x, positions, window=None,
+                             causal=False)
+
+
+def _cross_full(p, cfg, h, enc):
+    x = rms_norm(h, p["ln_c"], cfg.norm_eps)
+    kv = attn.cross_kv(p["cross"], enc)
+    return h + attn.cross_attend(p["cross"], cfg, x, kv)
+
+
 def _ffn_full(p, cfg, h, moe_path):
-    """The block's FFN half: (h, aux). SSM blocks have none."""
+    """The block's FFN half: (h, aux). The ssm family's blocks have none
+    (a hybrid's SSM blocks do)."""
     if cfg.family == "ssm":
         return h, 0.0
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         y, aux = moe_lib.moe_apply(p["moe"], cfg, x, path=moe_path)
         return h + y, aux
+    if cfg.family == "encdec":
+        return h + gelu_mlp(p["mlp"], x), 0.0
     return h + swiglu(p["mlp"], x), 0.0
 
 
-def _block_full(p, cfg, h, positions, *, window, moe_path):
-    if cfg.family == "ssm":
+def _block_full(p, cfg, h, positions, *, kind, window, enc, moe_path):
+    if kind == "attn":
+        h = _attn_full(p, cfg, h, positions, window)
+    else:
         h = h + ssm_lib.ssd_full(p["ssm"], cfg,
                                  rms_norm(h, p["ln1"], cfg.norm_eps))
-    else:
-        h = _attn_full(p, cfg, h, positions, window)
+    if "cross" in p:
+        h = _cross_full(p, cfg, h, enc)
     return _ffn_full(p, cfg, h, moe_path)
 
 
@@ -169,25 +248,74 @@ def _embed(params, cfg, tokens, positions):
     return h
 
 
-def forward(params, cfg, tokens, *, window: Optional[int] = None,
+def _blocks(params, cfg):
+    """The decoder's blocks in order, as (path, kind): ``path`` is
+    (group, index, ...) into the params, the same into the decode state
+    (hybrid ``ssm_layers``: (position, period); vlm ``layers``: (period,
+    position)), and ``kind`` the block's mixer."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "ssm", "encdec"):
+        kind = "ssm" if fam == "ssm" else "attn"
+        for i in range(_stack_len(params["layers"])):
+            yield ("layers", i), kind
+    elif fam == "hybrid":
+        for i in range(_stack_len(params["attn_layers"])):
+            yield ("attn_layers", i), "attn"
+            for j in range(len(params["ssm_layers"])):
+                yield ("ssm_layers", j, i), "ssm"
+    elif fam == "vlm":
+        per = params["layers"]["ln1"].shape[1]
+        for i in range(_stack_len(params["cross_layers"])):
+            for j in range(per):
+                yield ("layers", i, j), "attn"
+            yield ("cross_layers", i), "attn"
+    else:
+        raise ValueError(f"unknown family {fam}")
+
+
+def _block_params(params, path):
+    """The params of the block at ``path`` (see ``_blocks``)."""
+    p = params[path[0]]
+    for i in path[1:]:
+        p = p[i] if isinstance(p, tuple) else _layer(p, i)
+    return p
+
+
+# =====================================================================
+# full forward (prefill)
+# =====================================================================
+def encoder_forward(params, cfg, frames):
+    """frames [B, T, d] (stub frontend output) -> encoder states."""
+    B, T, _ = frames.shape
+    pos = torch.arange(T, device=frames.device)[None, :].expand(B, T)
+    h = frames + sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
+    for i in range(_stack_len(params["enc_layers"])):
+        p = _layer(params["enc_layers"], i)
+        h = _enc_attn_full(p, cfg, h, pos)
+        h, _ = _ffn_full(p, cfg, h, "dense")
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg, tokens, *, enc=None, window: Optional[int] = None,
             moe_path: str = "auto"):
-    """tokens [B,S] -> (hidden [B,S,d] before the final norm, aux_loss
-    fp32 scalar)."""
-    _check_supported(cfg)
+    """tokens [B,S] (and, for encdec / vlm, ``enc`` [B,T,d]: encoder
+    states / patch embeddings) -> (hidden [B,S,d] before the final norm,
+    aux_loss fp32 scalar)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     h = _embed(params, cfg, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.num_layers):
-        h, a = _block_full(_layer(params["layers"], i), cfg, h, positions,
-                           window=window, moe_path=moe_path)
+    for path, kind in _blocks(params, cfg):
+        h, a = _block_full(_block_params(params, path), cfg, h, positions,
+                           kind=kind, window=window, enc=enc,
+                           moe_path=moe_path)
         aux = aux + a
     return h, aux
 
 
-def prefill(params, cfg, tokens, *, moe_path: str = "auto"):
+def prefill(params, cfg, tokens, *, enc=None, moe_path: str = "auto"):
     """Full forward returning last-position logits [B, V] (no [B,S,V])."""
-    h, _ = forward(params, cfg, tokens, moe_path=moe_path)
+    h, _ = forward(params, cfg, tokens, enc=enc, moe_path=moe_path)
     return logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
 
 
@@ -195,23 +323,52 @@ def prefill(params, cfg, tokens, *, moe_path: str = "auto"):
 # decode state and blocks
 # =====================================================================
 def init_decode_state(params, cfg, batch: int, cache_len: int, *,
-                      dtype=None, device="cuda"):
-    """Decode state, one entry per layer: ``{"layers": [cache] * L}`` with
-    a dense KV cache ``{k,v [B,cache_len,KV,hd]}`` per attention layer
-    (MLA: ``{latent [B,cache_len,r], k_rope [B,cache_len,rd]}``) or an
-    SSM state ``{ssd [B,H,P,N] fp32, conv [B,W-1,di+2N]}`` per SSM
-    layer (the JAX package stacks them on [L]; the port keeps one entry
-    per layer, since decode updates KV caches in place)."""
-    _check_supported(cfg)
+                      dtype=None, enc=None, device="cuda"):
+    """Decode state, one entry per layer, grouped as the params are:
+    ``{"layers": [cache] * L}`` (dense, moe, ssm, encdec); hybrid
+    ``{"attn_layers": [cache] * P, "ssm_layers": ([state] * P,) * per}``;
+    vlm ``{"layers": [[cache] * per] * P, "cross_layers": [cache] * P}``.
+    A cache is a dense KV cache ``{k,v [B,cache_len,KV,hd]}`` (MLA:
+    ``{latent [B,cache_len,r], k_rope [B,cache_len,rd]}``), a state the
+    SSM's ``{ssd [B,H,P,N] fp32, conv [B,W-1,di+2N]}``. encdec and vlm
+    also get ``"cross_kv"``, each cross layer's K/V over ``enc``,
+    computed once here. (The JAX package stacks the entries on their
+    layer axes; the port keeps one entry per layer, since decode updates
+    KV caches in place.)"""
     dtype = dtype or _param_dtype(cfg)
-    if cfg.family == "ssm":
-        layers = [ssm_lib.ssm_state_init(cfg, batch, dtype, device=device)
-                  for _ in range(cfg.num_layers)]
-    else:
+    fam = cfg.family
+
+    def kv():
         init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
-        layers = [init(cfg, batch, cache_len, dtype, device=device)
-                  for _ in range(cfg.num_layers)]
-    return {"layers": layers}
+        return init(cfg, batch, cache_len, dtype, device=device)
+
+    def ssm():
+        return ssm_lib.ssm_state_init(cfg, batch, dtype, device=device)
+
+    state: Dict[str, Any] = {}
+    if fam in ("dense", "moe", "encdec"):
+        state["layers"] = [kv() for _ in range(cfg.num_layers)]
+    elif fam == "ssm":
+        state["layers"] = [ssm() for _ in range(cfg.num_layers)]
+    elif fam == "hybrid":
+        P, per = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
+        state["attn_layers"] = [kv() for _ in range(P)]
+        state["ssm_layers"] = tuple([ssm() for _ in range(P)]
+                                    for _ in range(per))
+    elif fam == "vlm":
+        P = cfg.num_layers // cfg.cross_attn_every
+        per = cfg.cross_attn_every - 1
+        state["layers"] = [[kv() for _ in range(per)] for _ in range(P)]
+        state["cross_layers"] = [kv() for _ in range(P)]
+    else:
+        raise ValueError(f"unknown family {fam}")
+    # precomputed cross K/V over frontend states
+    if fam in ("encdec", "vlm"):
+        assert enc is not None, f"{fam} decode needs the frontend states"
+        stack = params["layers" if fam == "encdec" else "cross_layers"]
+        state["cross_kv"] = [attn.cross_kv(_layer(stack, i)["cross"], enc)
+                             for i in range(_stack_len(stack))]
+    return state
 
 
 def _attn_decode(p, cfg, h, cache, pos, window):
@@ -221,14 +378,18 @@ def _attn_decode(p, cfg, h, cache, pos, window):
     return h + y, cache
 
 
-def _block_decode(p, cfg, h, cache, pos, *, window, moe_path):
-    if cfg.family == "ssm":
+def _block_decode(p, cfg, h, cache, pos, *, kind, window, cross_kv,
+                  moe_path):
+    if kind == "attn":
+        h, cache = _attn_decode(p, cfg, h, cache, pos, window)
+    else:
         y, cache = ssm_lib.ssd_decode(p["ssm"], cfg,
                                       rms_norm(h, p["ln1"], cfg.norm_eps),
                                       cache)
         h = h + y
-    else:
-        h, cache = _attn_decode(p, cfg, h, cache, pos, window)
+    if "cross" in p and cross_kv is not None:
+        x = rms_norm(h, p["ln_c"], cfg.norm_eps)
+        h = h + attn.cross_attend(p["cross"], cfg, x, cross_kv)
     h, _ = _ffn_full(p, cfg, h, moe_path)
     return h, cache
 
@@ -237,18 +398,24 @@ def decode_step(params, cfg, state, token, pos: int, *,
                 window: Optional[int] = None, moe_path: str = "auto"):
     """token [B,1] int, pos an int (the same for every row) -> (logits
     [B,V], new state). KV caches are updated in place; SSM states are
-    replaced in the returned state's list."""
+    replaced in the returned state's lists."""
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.long,
                            device=token.device)
     h = _embed(params, cfg, token, positions)
-    caches = []
-    for i, cache in enumerate(state["layers"]):
-        h, cache = _block_decode(_layer(params["layers"], i), cfg, h, cache,
-                                 pos, window=window, moe_path=moe_path)
-        caches.append(cache)
-    new_state = dict(state)
-    new_state["layers"] = caches
+    # new lists (the caller's state keeps its SSM states), the same caches
+    new_state = _tree_map(lambda t: t, state)
+    cross = iter(state.get("cross_kv", ()))
+    for path, kind in _blocks(params, cfg):
+        p = _block_params(params, path)
+        caches = new_state[path[0]]
+        for i in path[1:-1]:
+            caches = caches[i]
+        at = path[-1]
+        h, caches[at] = _block_decode(
+            p, cfg, h, caches[at], pos, kind=kind, window=window,
+            cross_kv=next(cross) if "cross" in p else None,
+            moe_path=moe_path)
     return logits_from_hidden(params, cfg, h)[:, 0], new_state
 
 

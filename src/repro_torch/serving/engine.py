@@ -31,7 +31,6 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
-        tf._check_supported(cfg)
         self.params = params
         self.cfg = cfg
         self.cache_len = cache_len
@@ -45,18 +44,21 @@ class ServingEngine:
 
     def generate_batch(self, prompts: Sequence[Sequence[int]], *,
                        max_new: int, temperature: float = 0.0,
-                       top_p: float = 1.0, seed: int = 0
+                       top_p: float = 1.0, seed: int = 0, enc=None
                        ) -> List[List[int]]:
         """Left-aligned static batch; all prompts padded to equal length
         with token 0 (as in the JAX package: the prompts are synthetic; a
-        real deployment would left-pad and mask)."""
+        real deployment would left-pad and mask). ``enc`` [B, T, d]: the
+        encoder states (encdec) or patch embeddings (vlm) that the cross
+        layers attend to."""
         B = len(prompts)
         plen = max(len(p) for p in prompts)
         rows = [list(p) + [0] * (plen - len(p)) for p in prompts]
         toks = torch.tensor(rows, dtype=torch.long, device=self.device)
 
         state = tf.init_decode_state(self.params, self.cfg, B,
-                                     self.cache_len, device=self.device)
+                                     self.cache_len, enc=enc,
+                                     device=self.device)
         logits = None
         for i in range(plen):
             logits, state = self._step(state, toks[:, i:i + 1], i)

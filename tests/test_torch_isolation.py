@@ -105,22 +105,22 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 # ------------------------------------------------------------- configs
 def test_configs_mirror_reference_field_for_field():
-    from repro.configs import get_config
+    from repro.configs import get_config, list_archs
     want = dataclasses.asdict(get_config("mixtral-8x7b"))
     assert dataclasses.asdict(pcfg.get_config("mixtral-8x7b")) == want
     assert dataclasses.asdict(ptiny()) == dataclasses.asdict(
         tiny("mixtral-8x7b"))
-    assert pcfg.list_archs() == [
-        "deepseek-v2-236b", "llama4-scout-17b-a16e", "mamba2-2.7b",
-        "mixtral-8x7b", "qwen1.5-0.5b", "qwen1.5-32b", "qwen2.5-3b",
-        "starcoder2-3b"]
+    assert pcfg.list_archs() == list_archs()
+    assert len(pcfg.list_archs()) == 11
 
 
 # the data-only configs of families the port runs (dense, moe) ride along
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
                                   "deepseek-v2-236b", "qwen1.5-0.5b",
                                   "qwen1.5-32b", "starcoder2-3b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e",
+                                  "jamba-1.5-large-398b", "whisper-tiny",
+                                  "llama-3.2-vision-11b"])
 def test_new_configs_mirror_reference_field_for_field(arch):
     from repro.configs import get_config, reduced
     assert dataclasses.asdict(pcfg.get_config(arch)) == dataclasses.asdict(
@@ -134,6 +134,9 @@ def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, tuple):
+        for i, t in enumerate(tree):
+            yield from _leaves(t, f"{prefix}/{i}")
     else:
         yield prefix, tree
 
@@ -156,50 +159,78 @@ def test_bridge_roundtrip_is_bitwise():
                                     cfg.expert_d_ff, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
-                                  "deepseek-v2-236b"])
+FAMILY_ARCHS = ["qwen2.5-3b", "mamba2-2.7b", "deepseek-v2-236b",
+                "jamba-1.5-large-398b", "whisper-tiny", "llama-3.2-vision-11b"]
+# leaves that only each of these archs' trees hold: the dense family's
+# SwiGLU with QKV biases, the ssm family's mixer, MLA and the shared
+# expert, the hybrid's attention and SSM stacks (a tuple of one per
+# position of the period), the encdec's encoder and biased cross-attention
+# and GELU MLP, the vlm's cross layers
+DISTINCT = {
+    "qwen2.5-3b": {"/layers/mlp/w3", "/layers/attn/bq"},
+    "mamba2-2.7b": {"/layers/ssm/A_log"},
+    "deepseek-v2-236b": {f"/layers/attn/{n}" for n in (
+        "wq", "w_dkv", "w_kr", "latent_norm", "w_kb", "w_vb", "wo")}
+    | {"/layers/moe/shared/w1"},
+    "jamba-1.5-large-398b": {"/attn_layers/attn/wq",
+                             "/ssm_layers/0/ssm/A_log",
+                             "/ssm_layers/0/moe/experts/w1"},
+    "whisper-tiny": {"/enc_layers/attn/bq", "/enc_norm", "/layers/cross/bk",
+                     "/layers/mlp/b1"},
+    "llama-3.2-vision-11b": {"/cross_layers/cross/wq", "/cross_layers/ln_c",
+                             "/layers/mlp/w3"},
+}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_dense_and_ssm_bridge_roundtrip_is_bitwise(arch):
     """The dense family's ``mlp`` (and QKV biases, tied embeddings), the
-    ssm family's ``ssm`` params and DeepSeek-V2's MLA attention and
-    shared expert survive the round trip bit for bit; ``A_log``, ``D``
-    and ``dt_bias`` stay fp32 even in a bf16 model, and so does the
-    router."""
+    ssm family's ``ssm`` params, DeepSeek-V2's MLA attention and shared
+    expert, and the hybrid, encdec and vlm trees (tuples, [P, per]
+    stacks, cross-attention, GELU MLPs) survive the round trip bit for
+    bit; ``A_log``, ``D`` and ``dt_bias`` stay fp32 even in a bf16 model,
+    and so does the router."""
     cfg = tiny(arch)
     npt = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(3)))
-    back = ptf.to_jax_params(ptf.from_jax_params(npt, device="cpu"))
+    tp = ptf.from_jax_params(npt, device="cpu")
+    back = ptf.to_jax_params(tp)
     a, b = dict(_leaves(npt)), dict(_leaves(back))
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
         assert a[k].tobytes() == b[k].tobytes(), k
-    assert ("/layers/mlp/w1" in a) == (arch == "qwen2.5-3b")
-    assert ("/layers/ssm/A_log" in a) == (arch == "mamba2-2.7b")
-    mla = {f"/layers/attn/{n}" for n in ("wq", "w_dkv", "w_kr",
-                                         "latent_norm", "w_kb", "w_vb",
-                                         "wo")}
-    assert (mla <= a.keys()) == (arch == "deepseek-v2-236b")
-    assert ("/layers/moe/shared/w1" in a) == (arch == "deepseek-v2-236b")
+    for other, keys in DISTINCT.items():
+        assert (keys <= a.keys()) == (other == arch), other
+    if arch == "jamba-1.5-large-398b":
+        assert isinstance(tp["ssm_layers"], tuple)
     bf = dataclasses.replace(cfg, dtype="bfloat16")
     tb = ptf.from_jax_params(jax.tree.map(
         np.asarray, jtf.init_params(bf, jax.random.PRNGKey(3))), device="cpu")
-    if arch == "mamba2-2.7b":
-        assert {tb["layers"]["ssm"][n].dtype
-                for n in ("A_log", "D", "dt_bias")} == {torch.float32}
-        assert tb["layers"]["ssm"]["in_z"].dtype == torch.bfloat16
+    if arch in ("mamba2-2.7b", "jamba-1.5-large-398b"):
+        ssm = (tb["layers"] if arch == "mamba2-2.7b"
+               else tb["ssm_layers"][0])["ssm"]
+        assert {ssm[n].dtype for n in ("A_log", "D", "dt_bias")} == {
+            torch.float32}
+        assert ssm["in_z"].dtype == torch.bfloat16
+        if arch != "mamba2-2.7b":
+            assert tb["ssm_layers"][0]["moe"]["router"].dtype == \
+                torch.float32
     elif arch == "deepseek-v2-236b":
         assert tb["layers"]["moe"]["router"].dtype == torch.float32
         assert {t.dtype for t in tb["layers"]["attn"].values()} | {
             tb["layers"]["moe"]["shared"]["w2"].dtype} == {torch.bfloat16}
+    elif arch == "whisper-tiny":
+        assert {t.dtype for t in tb["layers"]["cross"].values()} | {
+            tb["enc_layers"]["mlp"]["b1"].dtype} == {torch.bfloat16}
     else:
         assert tb["layers"]["mlp"]["w1"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
-                                  "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_port_init_matches_reference_tree_for_dense_and_ssm(arch):
     """The port's own init draws the JAX package's tree, shapes, dtypes
-    and (within sampling noise) scales for the other two families, and
-    for DeepSeek-V2's MLA attention and shared expert."""
+    and (within sampling noise) scales for the other families, and for
+    DeepSeek-V2's MLA attention and shared expert."""
     cfg = tiny(arch, d_model=96)
     jp = dict(_leaves(jax.tree.map(np.asarray,
                                    jtf.init_params(cfg, jax.random.PRNGKey(0)))))
@@ -212,14 +243,15 @@ def test_port_init_matches_reference_tree_for_dense_and_ssm(arch):
     # the per-head SSM vectors are too short for a std: check their
     # supports (A = -exp(A_log) in [-16, -1], softplus(dt_bias) in
     # [1e-3, 1e-1], D = 1)
-    ranges = {"/layers/ssm/A_log": (0.0, np.log(16.0)),
-              "/layers/ssm/dt_bias": (np.log(np.expm1(1e-3)),
-                                      np.log(np.expm1(1e-1))),
-              "/layers/ssm/D": (1.0, 1.0)}
+    ranges = {"/ssm/A_log": (0.0, np.log(16.0)),
+              "/ssm/dt_bias": (np.log(np.expm1(1e-3)),
+                               np.log(np.expm1(1e-1))),
+              "/ssm/D": (1.0, 1.0)}
     for k in jp:
         assert jp[k].shape == pp[k].shape and jp[k].dtype == pp[k].dtype, k
-        if k in ranges:
-            lo, hi = ranges[k]
+        suffix = k[k.rfind("/ssm/"):] if "/ssm/" in k else None
+        if suffix in ranges:
+            lo, hi = ranges[suffix]
             assert lo - 1e-5 <= pp[k].min() and pp[k].max() <= hi + 1e-5, k
             continue
         sj, sp = float(jp[k].std()), float(pp[k].std())

@@ -248,8 +248,15 @@ def test_window_ring_decode_matches_windowed_forward():
     torch.testing.assert_close(got, want, rtol=3e-3, atol=3e-3)
 
 
-def test_unported_families_raise():
-    for arch in ("jamba-1.5-large-398b", "whisper-tiny",
-                 "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError):
-            ptf.init_params(tiny(arch), torch.Generator(), device="cpu")
+def test_unknown_family_raises():
+    """Every family of the JAX package is ported; an unknown one raises
+    ``ValueError``, as JAX's ``init_params`` does."""
+    cfg = dataclasses.replace(tiny("qwen2.5-3b"), family="diffusion")
+    with pytest.raises(ValueError):
+        ptf.init_params(cfg, torch.Generator(), device="cpu")
+    _, _, tp = _model("qwen2.5-3b")
+    for run in (lambda: ptf.forward(tp, cfg, torch.zeros((1, 4),
+                                                         dtype=torch.long)),
+                lambda: ptf.init_decode_state(tp, cfg, 1, 4, device="cpu")):
+        with pytest.raises(ValueError):
+            run()
