@@ -195,10 +195,14 @@ PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
-# whose sums over a 256-position chunk reach |y| ~ 200: there the bound is
-# max |kernel - plain| <= TOL * max |plain|
+# whose sums over a 256-position chunk reach |y| ~ 200, and the flash
+# attention backward, whose dq / dk / dv sum over up to 2048 keys or
+# queries and G heads: there the bound is max |kernel - plain| <= TOL *
+# max |plain|
 TOL = {"moe_ffn": 1e-4, "paged_attention": 2e-4, "flash_attention": 2e-4,
-       "ssd_chunk": 2e-5}
+       "ssd_chunk": 2e-5, "flash_attention_bwd": 2e-5}
+# kernels held at max |kernel - plain| <= TOL x max |plain| (each output)
+MAX_RELATIVE = ("ssd_chunk", "flash_attention_bwd")
 BF16_TOL = 2e-2     # bf16 output rounding (2^-8 relative) of values up to ~4
 # prefill vs the decode_step loop, fp32 logits: rtol = atol (flash vs
 # dense-cache attention, chunked SSD vs the recurrence: summation order)
@@ -266,6 +270,38 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0),
               (32, 128, 256, 64, 128, 0.1)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
+# (B, Sq, Sk, H, KV, hd, vd, causal, window) for the flash attention
+# backward beside the training path's calls: a window, a ragged S, one
+# query over Whisper's 1500 frames and its 448-token decoder over them,
+# the VLM's 77 queries over 1601 patches (Sq != Sk, no causal mask), MLA
+# widths (hd 192, vd 128), rows that see no key (Sq > Sk + window), MQA
+# at hd 256, widths off the multiples of 8, 64 query heads a KV head
+FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
+                    (1, 333, 333, 8, 2, 64, 64, True, 0),
+                    (2, 1, 1500, 6, 6, 64, 64, False, 0),
+                    (2, 448, 1500, 6, 6, 64, 64, False, 0),
+                    (1, 77, 1601, 32, 32, 128, 128, False, 0),
+                    (1, 300, 300, 16, 16, 192, 128, True, 0),
+                    (1, 100, 40, 4, 2, 64, 64, True, 16),
+                    (1, 200, 200, 16, 1, 256, 256, True, 37),
+                    (1, 70, 70, 6, 3, 37, 21, True, 0),
+                    (1, 40, 40, 64, 1, 32, 32, False, 0)]
+# the training phase: (arch, layers (None: all), batch, sequence, steps,
+# AdamW learning rate) at published widths, fp32, remat, under train()'s
+# cosine schedule (warm-up of one step: step 0 moves nothing). lm_batches'
+# language is a random bigram table over the whole vocabulary, so a few
+# steps can only shrink the initial logits' excess over the uniform
+# loss; at 1e-3 Mixtral's loss on batches of 2048 tokens rose on step 2
+# and ended above its first, at 1e-4 it falls
+TRAIN_RUNS = (("qwen1.5-0.5b", None, 4, 2048, 10, 1e-3),
+              ("mixtral-8x7b", 2, 1, 2048, 8, 1e-4))
+# one Qwen step through the kernels against the same step through the
+# plain version: |loss| and grad-norm differences at TRAIN_TOL relative,
+# every gradient within TRAIN_TOL x the largest |gradient|; the post-AdamW
+# params within what the two gradients explain: AdamW's first step is
+# g / (|g| + eps), so its change is at most 2 |dg| / |g| of lr, and at
+# most 2 lr where a near-zero gradient's sign differs, plus 1e-6 |p|
+TRAIN_TOL = 1e-4
 # the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
 # widths, 32 expert slots a layer (20% of its 160 routed experts)
 DS_LAYERS, DS_SLOTS = 2, 32
@@ -307,6 +343,10 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:67"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:55"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "no TPU counterpart: the JAX package trains through XLA blockwise "
+        "(src/repro/models/attention.py:146)"),
 }
 
 
@@ -502,6 +542,8 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
     (("paged_attention_kernel",), "paged_attention"),
     (("flash_attention_kernel",), "flash_attention"),
+    (("flash_bwd_rows_kernel", "flash_bwd_keys_kernel"),
+     "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
 )
@@ -637,7 +679,11 @@ def kernel_cases(calls):
     once; flops count the work these inputs need: paged attention's keys
     are the ones the call's positions make visible, flash attention's
     (query, key) pairs the ones its masks leave, SSD's the lower
-    triangle of each chunk."""
+    triangle of each chunk. The flash attention backward's flops are the
+    least autograd of the forward does per visible pair and head: S
+    again (2 hd), dP (2 vd), dV (2 vd), dQ and dK (2 hd each), 2.5 times
+    the forward's at hd = vd; its library call is SDPA's forward and
+    backward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
@@ -690,6 +736,34 @@ def kernel_cases(calls):
                 "vd": vd, "causal": causal, "window": window,
                 "dtype": str(q.dtype), "visible_pairs": pairs})
 
+    if "flash_attention_bwd" in calls:
+        q, k, v, dout, kw = calls["flash_attention_bwd"]
+        B, Sq, H, hd = q.shape
+        Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
+        causal, window = kw["causal"], kw["window"]
+        pairs = visible_pairs(Sq, Sk, causal, window)
+        library = None
+        if window == 0:   # SDPA's forward and backward: what it costs there
+            lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            ldo = dout.transpose(1, 2)
+
+            def library():
+                o = F.scaled_dot_product_attention(lq, lk, lv,
+                                                   is_causal=causal,
+                                                   enable_gqa=True)
+                return torch.autograd.grad(o, (lq, lk, lv), ldo)
+        yield ("flash_attention_bwd",
+               lambda: flash_mod.launch_bwd(
+                   ops._entry("flash_attention_bwd"), q, k, v, dout, **kw),
+               lambda: flash_mod.plain_bwd(q, k, v, dout, **kw),
+               library, False,
+               4 * (B * Sq * H * (2 * hd + vd) + 2 * B * Sk * KV * (hd + vd)),
+               2 * B * H * pairs * (3 * hd + 2 * vd),
+               {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                "vd": vd, "causal": causal, "window": window,
+                "visible_pairs": pairs})
+
     if "ssd_chunk" in calls:
         dA, xw, Bm, Cm = calls["ssd_chunk"]
         G, Q, H = dA.shape
@@ -707,8 +781,8 @@ def kernel_cases(calls):
 def agree(name, got, want, tol, what):
     """(max |kernel - plain|, the largest of max |kernel - plain| / max
     |plain|) over the outputs (a tensor or a tuple), raising past the
-    tolerance: rtol = atol = ``tol`` elementwise, or for ssd_chunk
-    ``tol`` times each output's largest |plain|."""
+    tolerance: rtol = atol = ``tol`` elementwise, or ``tol`` times each
+    output's largest |plain| for MAX_RELATIVE."""
     import torch
     torch.cuda.synchronize()
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -718,7 +792,7 @@ def agree(name, got, want, tol, what):
         check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
         err = float((g - w).abs().max()) if g.numel() else 0.0
         top = float(w.abs().max()) if w.numel() else 0.0
-        if name == "ssd_chunk":
+        if name in MAX_RELATIVE:
             ok = err <= tol * top
         else:
             ok = torch.allclose(g, w, rtol=tol, atol=tol)
@@ -730,9 +804,10 @@ def agree(name, got, want, tol, what):
 
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
-    PAGED_SHAPES, FLASH_SHAPES and SSD_SHAPES (inputs from a seeded numpy
-    generator; moe weights in E + 1 slots read in reverse order; one
-    paged row with pos -1). Raises on the first disagreement; returns
+    PAGED_SHAPES, FLASH_SHAPES, FLASH_BWD_SHAPES (the backward against
+    autograd of the plain version) and SSD_SHAPES (inputs from a seeded
+    numpy generator; moe weights in E + 1 slots read in reverse order;
+    one paged row with pos -1). Raises on the first disagreement; returns
     one record per shape."""
     import numpy as np
     import torch
@@ -796,6 +871,15 @@ def coverage_checks():
         held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
+    for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
+        q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
+        v, dout = rand((B, Sk, KV, vd)), rand((B, Sq, H, vd))
+        kw = dict(causal=causal, window=window)
+        held("flash_attention_bwd", [B, Sq, Sk, H, KV, hd, vd, causal,
+                                     window],
+             flash_mod.launch_bwd(ops._entry("flash_attention_bwd"), q, k, v,
+                                  dout, **kw),
+             flash_mod.plain_bwd(q, k, v, dout, **kw))
     for G, Q, H, P, N, scale in SSD_SHAPES + [SSD_ORACLE_SHAPE]:
         dA = -rand((G, Q, H), scale).abs()
         xw, Bm, Cm = rand((G, Q, H, P)), rand((G, Q, N)), rand((G, Q, N))
@@ -899,6 +983,53 @@ def ssd_float64(dA, xw, Bm, Cm):
     s = torch.einsum("gjh,gjn,gjhp->ghpn", torch.exp(cum[:, -1:] - cum), Bm,
                      xw)
     return y.float(), s.float()
+
+
+def flash_float64(q, k, v, dout, *, causal, window):
+    """``flash_attention.plain`` and its autograd in float64 (the plain
+    version itself computes in fp32): (out, (dq, dk, dv)), all float64."""
+    import math
+    import torch
+    q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    kk, vv = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(hd)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    return out.detach(), torch.autograd.grad(out, (q, k, v), dout.double())
+
+
+def bwd_against_float64(ops, q, k, v, dout, kw):
+    """The backward kernel and the plain version's autograd against
+    ``flash_float64`` on the first batch row of a recorded call, and the
+    forward kernel's output too (the backward recomputes O in fp32
+    because the forward's 3xTF32 O, read into D, moved dQ off by ~1e-4 x
+    max at Qwen1.5-0.5B's first layer): each error over the output's
+    max |float64|. The kernel must stay within TOL of it."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v, dout = (t[:1].contiguous() for t in (q, k, v, dout))
+    out64, want = flash_float64(q, k, v, dout, **kw)
+    got = flash_mod.launch_bwd(ops._entry("flash_attention_bwd"), q, k, v,
+                               dout, **kw)
+    plain = flash_mod.plain_bwd(q, k, v, dout, **kw)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    rep = {"forward_out": rel(ops.flash_attention(q, k, v, **kw), out64)}
+    for name, g, pl, w in zip(("dq", "dk", "dv"), got, plain, want):
+        rep[name] = {"kernel": rel(g, w), "plain": rel(pl, w)}
+        check(rep[name]["kernel"] <= TOL["flash_attention_bwd"],
+              f"flash_attention_bwd {name} vs float64: {rep[name]}")
+    return rep
 
 
 def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
@@ -1880,6 +2011,239 @@ def family_phase(arch, ops, card, hold_and_time, profile):
     return rep
 
 
+def no_backward_checks():
+    """ROADMAP.md C3 on the card: the kernels with no backward refuse an
+    input that requires grad (they would cut the gradient silently), and
+    launch nothing. Returns each refusal's message."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def t(*shape, grad=False):
+        return torch.zeros(shape, device="cuda").requires_grad_(grad)
+
+    idx = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                     device="cuda")
+    calls = {
+        "ssd_chunk": lambda: ops.ssd_chunk(t(1, 64, 2, grad=True),
+                                           t(1, 64, 2, 8), t(1, 64, 8),
+                                           t(1, 64, 8)),
+        "moe_ffn": lambda: ops.moe_ffn(t(1, 8, 64), t(1, 64, 32, grad=True),
+                                       t(1, 64, 32), t(1, 32, 64), [0]),
+        "paged_attention": lambda: ops.paged_attention(
+            t(1, 4, 64, grad=True), t(2, 16, 1, 64), t(2, 16, 1, 64),
+            idx(1, 2), idx(1)),
+    }
+    before, out = ops.launch_counts(), {}
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            out[name] = str(e)
+            continue
+        check(False, f"{name}: no error under grad on the card")
+    check(ops.launch_counts() == before, "a refused call launched")
+    return out
+
+
+def keep_first_bwd(seen):
+    """``make`` for ``patched(flash_mod, "launch_bwd", ...)``: keeps copies
+    of the first backward call's arguments in ``seen`` (every attention
+    layer of a model is called at one shape)."""
+    def make(launch_bwd):
+        def call(fn, q, k, v, dout, **kw):
+            if "flash_attention_bwd" not in seen:
+                seen["flash_attention_bwd"] = tuple(
+                    t.detach().clone() for t in (q, k, v, dout)) + (dict(kw),)
+            return launch_bwd(fn, q, k, v, dout, **kw)
+        return call
+    return make
+
+
+def train_step_compare(cfg, batch, ops, lr):
+    """One ``make_train_step`` step (AdamW at ``lr``, no schedule) from
+    the seeded params through the kernels, and the same step with
+    ``flash_attention.plain`` patched into ``attention._sdpa`` (autograd
+    of the plain version: no launch). Loss, global grad norm, every
+    gradient and the post-AdamW params must agree as TRAIN_TOL says."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import (AdamWConfig, adamw_init, global_norm,
+                                      make_train_step, train_loop)
+    from repro_torch.training.tree import leaves
+
+    def plain_sdpa(_):
+        return lambda q, k, v, *, causal, window: flash_mod.plain(
+            q, k, v, causal=causal, window=window or 0)
+
+    runs = {}
+    for route in ("kernel", "plain"):
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED), device="cuda")
+        seen = {}
+
+        def keep_grads(update):
+            def call(grads, opt_state, params, **kw):
+                seen["grads"] = [g.detach().clone() for g in leaves(grads)]
+                seen["norm"] = global_norm(grads)
+                return update(grads, opt_state, params, **kw)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(train_loop, "adamw_update",
+                                        keep_grads))
+            if route == "plain":
+                stack.enter_context(patched(attn_mod, "_sdpa", plain_sdpa))
+            step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, _, loss = step(params, adamw_init(params), batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()
+        runs[route] = (leaves(params), seen["grads"], float(seen["norm"]),
+                       float(loss), launches, ms)
+    (pk, gk, nk, lk, launch_k, ms_k), (pp, gp, np_, lp, launch_p, ms_p) = \
+        runs["kernel"], runs["plain"]
+    n_attn = prefill_launches(cfg)["flash_attention"]
+    check_launches(launch_k, {"flash_attention": 2 * n_attn,
+                              "flash_attention_bwd": n_attn},
+                   f"{cfg.name} kernel step")
+    check_launches(launch_p, {}, f"{cfg.name} plain step")
+    loss_err, norm_err = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
+    check(loss_err <= TRAIN_TOL and norm_err <= TRAIN_TOL,
+          f"kernel vs plain step: loss {lk} vs {lp}, grad norm {nk} vs {np_}")
+    g_top = max(float(g.abs().max()) for g in gp)
+    g_err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    check(g_err <= TRAIN_TOL * g_top,
+          f"kernel vs plain gradients: max |diff| {g_err:.3e}, max |g| "
+          f"{g_top:.3e}")
+    p_err, flipped = 0.0, 0
+    for a, b, ga, gb in zip(pk, pp, gk, gp):
+        d = (a - b).abs()
+        sens = 2 * ((ga - gb).abs() / gb.abs().clamp_min(1e-30) + norm_err)
+        allowed = lr * sens.clamp(max=2.0) + 1e-6 * (b.abs() + lr)
+        check(bool((d <= allowed).all()),
+              f"kernel vs plain post-AdamW params: |diff| "
+              f"{float((d - allowed).max()):.3e} over what the gradients "
+              f"explain")
+        p_err = max(p_err, float(d.max()))
+        flipped += int((d > lr).sum())
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_norm_kernel": nk, "grad_norm_plain": np_,
+            "grad_norm_rel_err": norm_err, "grad_max_abs_err": g_err,
+            "grad_max_abs": g_top, "params_max_abs_err": p_err,
+            "params_off_by_more_than_lr": flipped,
+            "params": sum(t.numel() for t in pp), "tol": TRAIN_TOL,
+            "step_ms_kernel": ms_k, "step_ms_plain": ms_p,
+            "launches_kernel": launch_k}
+
+
+def training_phase(ops, card, hold_and_time, profile):
+    """TRAIN_RUNS through ``repro_torch.training.train`` on ``lm_batches``
+    at published widths (params drawn on the card from the seed, fp32,
+    remat): every step's launches, reset just before it and read just
+    after it (in ``train``'s callback), must be exactly the forward twice
+    (once more under remat) and the backward once per attention layer,
+    and nothing else; every loss finite and the last below the first.
+    Qwen1.5-0.5B first runs ``train_step_compare``. Prints a
+    ``train_step`` line a step; holds the backward kernel against its
+    plain version at each model's call and times it (``hold_and_time``),
+    and against float64 (``bwd_against_float64``);
+    with ``profile``, traces one more Qwen step. Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step, train)
+    from repro_torch.training.train_loop import to_device
+    from repro_torch.training.tree import leaves
+
+    rep = {"card": card, "no_backward": no_backward_checks()}
+    for arch, layers, B, S, steps, lr in TRAIN_RUNS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        batches = list(lm_batches(cfg.vocab_size, B, S, steps, seed=SEED))
+        run = {"model": cfg.name, "layers": cfg.num_layers, "batch": B,
+               "seq": S, "steps": steps, "lr": lr,
+               "data_s": time.perf_counter() - t0}
+        if layers is None:
+            run["kernel_vs_plain_step"] = train_step_compare(
+                cfg, to_device(batches[0], "cuda"), ops, lr)
+            gc.collect()
+            torch.cuda.empty_cache()
+        n_attn = prefill_launches(cfg)["flash_attention"]
+        want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+        stamps, launches, seen = [], [], {}
+
+        def after_step(i, params, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts = ops.launch_counts()
+            ops.reset_launch_counts()
+            check_launches(counts, want, f"{cfg.name} train step {i}")
+            launches.append(counts)
+
+        torch.cuda.reset_peak_memory_stats()
+        with patched(flash_mod, "launch_bwd", keep_first_bwd(seen)):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, losses = train(cfg, iter(batches), steps=steps,
+                                   seed=SEED, log_every=0,
+                                   opt_cfg=AdamWConfig(lr=lr),
+                                   callback=after_step, device="cuda")
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+        for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+            print(json.dumps({"train_step": {
+                "model": cfg.name, "step": i, "ms": ms,
+                "tokens_per_s": B * S / ms * 1e3, "loss": loss,
+                "first_step_includes_init": i == 0}}), flush=True)
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"{cfg.name}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"{cfg.name}: loss did not fall: {losses}")
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        run.update(losses=losses, step_ms=step_ms, median_step_ms=steady,
+                   tokens_per_s=B * S / steady * 1e3,
+                   launches_per_step=launches[0],
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   params=sum(p.numel() for p in leaves(params)))
+        if profile and layers is None:
+            step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr))
+            opt_state = adamw_init(params)
+            batch = to_device(batches[-1], "cuda")
+            act = torch.profiler.ProfilerActivity
+            prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+            torch.cuda.synchronize()
+            prof.start()
+            t0 = time.perf_counter()
+            step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            prof.stop()
+            run["profile"] = device_time_summary(prof, ms)
+            del opt_state, step
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        run["bwd_vs_float64"] = bwd_against_float64(
+            ops, *seen["flash_attention_bwd"])
+        hold_and_time(seen, {"flash_attention_bwd": sum(
+            c["flash_attention_bwd"] for c in launches)}, model=cfg.name)
+        del seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep[cfg.name] = run
+    return rep
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2102,6 +2466,10 @@ def main() -> None:
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- training: Qwen1.5-0.5B whole, Mixtral-8x7B (2 layers) -------
+    print(json.dumps({"training": training_phase(
+        ops, card, hold_and_time, args.profile)}), flush=True)
 
     hold_and_time({k: v[1] for k, v in seen.items()},
                   {"flash_attention": flash_launches["flash_attention"],

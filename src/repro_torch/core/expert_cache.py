@@ -23,6 +23,12 @@ the copy stream waits on before it overwrites the slot. The int8
 staging pair is written and read on the copy stream only, so stream
 order protects it.
 
+Copy order. ``prefetch(defer=True)`` makes every decision at once (the
+slot, the victim, the counters, the tier's promotion) but holds the
+copies back until ``issue_prefetches``, so the engine can queue a
+layer's speculative copies behind the previous layer's demand copies
+(ROADMAP.md C4) without moving any decision the trace records.
+
 The expert FFN reads resident experts IN PLACE through ``slots_of``
 (``ops.moe_ffn`` takes the slot buffers plus slot indices); the JAX
 package's ``gather`` copy of U experts per chunk is gone.
@@ -99,6 +105,8 @@ class ExpertCache:
             self._last_read = [torch.cuda.Event() for _ in range(n_slots)]
         self.slot_of: Dict[int, int] = {}
         self._free: List[int] = list(range(n_slots))
+        # prefetch copies decided but not yet queued: (eid, slot, outcome)
+        self._held: List[Tuple[int, int, Optional[FetchOutcome]]] = []
         # counters
         self.hits = 0
         self.misses = 0
@@ -140,13 +148,14 @@ class ExpertCache:
 
     def _install(self, eid: int, pinned: frozenset = frozenset(), *,
                  demand: bool = True,
-                 outcome: Optional[FetchOutcome] = None
-                 ) -> Tuple[int, Optional[int], str]:
+                 outcome: Optional[FetchOutcome] = None,
+                 hold: bool = False) -> Tuple[int, Optional[int], str]:
         """Fetch eid from the store into a slot. Returns
         (slot, evicted, tier served from). A caller-supplied ``outcome``
         with corrupt deliveries exercises the REAL checksum path: the
         payload is actually corrupted, the mismatch detected, and the
-        fetch redelivered."""
+        fetch redelivered. ``hold``: decide now, queue the copies at the
+        next ``issue_prefetches``."""
         evicted = None
         if self._free:
             slot = self._free.pop()
@@ -160,8 +169,11 @@ class ExpertCache:
         tier = "host"
         if self.tiers is not None:
             tier = self.tiers.fetch_expert((self.layer, eid), demand=demand)
-        with self._writing(slot):
-            self._copy_in(eid, slot, outcome)
+        if hold:
+            self._held.append((eid, slot, outcome))
+        else:
+            with self._writing(slot):
+                self._copy_in(eid, slot, outcome)
         self.slot_of[eid] = slot
         self.policy.on_insert(eid)
         self.bytes_transferred += self.store.expert_nbytes((self.layer, eid))
@@ -281,13 +293,16 @@ class ExpertCache:
         self.policy.tick()
         return hits, misses, evicted
 
-    def prefetch(self, eids: Sequence[int]) -> List[int]:
+    def prefetch(self, eids: Sequence[int], *,
+                 defer: bool = False) -> List[int]:
         """Speculatively admit eids (no demand stall). Returns the ids
         actually transferred (already-cached ones are free). Under
         fault injection each transfer's fate is planned here
         (``last_prefetch_outcomes`` aligns with the returned list);
         abandoned prefetches are not installed and land in
         ``last_prefetch_failed`` — harmless, the demand path refetches.
+        ``defer``: every decision is made here, the copies are queued by
+        ``issue_prefetches``, which must run before the slots are read.
         """
         moved = []
         fates: Dict[int, FetchOutcome] = self.plan_fetches(eids)
@@ -300,13 +315,21 @@ class ExpertCache:
             if out is not None and not out.success:
                 failed.append(eid)
                 continue
-            self._install(eid, demand=False, outcome=out)
+            self._install(eid, demand=False, outcome=out, hold=defer)
             moved.append(eid)
         self.prefetches += len(moved)
         self.last_prefetch_failed = tuple(failed)
         self.last_prefetch_outcomes = {e: fates[e] for e in moved
                                        if e in fates}
         return moved
+
+    def issue_prefetches(self) -> None:
+        """Queue the copies that ``prefetch(defer=True)`` held back, in
+        the order they were decided."""
+        held, self._held = self._held, []
+        for eid, slot, outcome in held:
+            with self._writing(slot):
+                self._copy_in(eid, slot, outcome)
 
     def slots_of(self, eids: Sequence[int]) -> List[int]:
         """Slot index of each cached expert in ``eids`` (the rows of

@@ -542,7 +542,8 @@ class OffloadEngine:
                 p_next = self._layers[l + 1]
                 guess = self.spec.guess(h[act_rows], p_next["ln2"],
                                         p_next["moe"]["router"])
-                moved = self.caches[l + 1].prefetch(guess)
+                # decided now, copied after layer l's demand installs
+                moved = self.caches[l + 1].prefetch(guess, defer=True)
                 step_prefetch += len(moved)
                 pending[l + 1] = (guess, tuple(moved),
                                   dict(self.caches[l + 1]
@@ -558,6 +559,11 @@ class OffloadEngine:
             pg, pm, po = pending.get(l, ((), (), {}))
             h, acts, misses, req_deg = self._moe_offloaded(
                 p_l, l, h, pg, pm, po, prompt_ids, token_indices, active)
+            if l + 1 < cfg.num_layers:
+                # layer l+1's speculative copies queue behind layer l's
+                # demand copies (the reference's clock lets a demand
+                # transfer go ahead of queued prefetches)
+                self.caches[l + 1].issue_prefetches()
             step_misses += misses
             for i, d in enumerate(req_deg):
                 step_degraded[i] |= d

@@ -13,11 +13,17 @@ cannot see, and masks the ragged edges itself. The plain
 version repeats K/V per query head and runs ``ref.flash_attention_ref``
 (exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
 public wrapper that checks the arguments and picks between the two.
+
+The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32) has no
+Pallas counterpart: the JAX package trains through XLA blockwise
+attention. ``launch_bwd`` runs its two launches, ``plain_bwd`` (autograd
+of ``plain``) is what it is held against.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -29,6 +35,11 @@ ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
 MAX_HEAD_DIM = 256   # q/k width; v may be narrower
+# the backward's build record (``ops.build_kernels``); the same limits
+BACKWARD = SimpleNamespace(
+    SOURCE="flash_attention_bwd.cu", SYMBOL="flash_attention_bwd",
+    ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                            ctypes.c_void_p])
 
 
 def plain(q, k, v, *, causal: bool, window: int):
@@ -61,3 +72,33 @@ def launch(fn, q, k, v, *, causal: bool, window: int):
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
     return out
+
+
+def plain_bwd(q, k, v, dout, *, causal: bool, window: int):
+    """(dq, dk, dv) of ``plain`` at (q, k, v) for the output gradient
+    ``dout``, by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = plain(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def launch_bwd(fn, q, k, v, dout, *, causal: bool, window: int):
+    """Launch the backward on the current stream: its rows launch (the
+    rows' softmax stats, recomputed from q, k and v, into a scratch, and
+    dq), then its keys launch (dk, dv). Arguments are checked by the
+    caller: fp32, contiguous, on one CUDA device. Returns (dq, dk, dv);
+    raises if a launch was refused."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, vd = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((3, B, Sq, H), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+             B, Sq, Sk, H, KV, hd, vd, int(causal), window,
+             1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: cudaError {err}")
+    return dq, dk, dv

@@ -11,6 +11,15 @@ where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``reset_launch_counts`` /
 ``launch_counts``).
 
+Gradients. ``flash_attention`` is differentiable on both routes: on the
+CPU through autograd of the plain version, on a card through
+``_FlashAttention``, whose backward launches the hand-written backward
+kernel (``flash_attention_bwd``, counted on its own; fp32 only). The
+other CUDA kernels write into fresh outputs with no autograd record, so
+their CUDA routes raise when grad mode is on and an input requires grad
+(``_no_backward``) rather than silently cut the gradient; their CPU
+routes differentiate as plain PyTorch does.
+
 Kernels are built at first use: one ``nvcc`` per source, all started
 together, into ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), each library named by a hash of its source, the shared
@@ -41,7 +50,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
-            "flash_attention": flash_mod, "ssd_chunk": ssd_mod}
+            "flash_attention": flash_mod,
+            "flash_attention_bwd": flash_mod.BACKWARD, "ssd_chunk": ssd_mod}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
 
@@ -128,6 +138,15 @@ def _check_cuda(name: str, dtype, *tensors) -> None:
                              f"tensors")
 
 
+def _no_backward(name: str, why: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through this CUDA kernel,
+    which has no backward (``why`` says where one would come from)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward ({why}); call it "
+            f"under torch.no_grad() or on tensors that do not require grad")
+
+
 def _one_device(name: str, *tensors) -> torch.device:
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -163,6 +182,8 @@ def moe_ffn(x_e, w1, w3, w2, slots: Sequence[int]):
     if dev.type == "cpu":
         return moe_gemm.plain(x_e, w1, w3, w2,
                               torch.tensor(slots, dtype=torch.long))
+    _no_backward("moe_ffn", "a decode-only kernel: no backward is planned",
+                 x_e, w1, w3, w2)
     _check_cuda("moe_ffn", torch.float32, x_e, w1, w3, w2)
     fn = _entry("moe_ffn")
     # from pinned memory, so the upload does not wait for the stream
@@ -199,6 +220,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos):
                       pos)
     if dev.type == "cpu":
         return paged_mod.plain(q, k_pool, v_pool, block_tables, pos)
+    _no_backward("paged_attention", "a decode-only kernel: no backward is "
+                 "planned", q, k_pool, v_pool)
     _check_cuda("paged_attention", torch.float32, q, k_pool, v_pool)
     if H // KV > paged_mod.MAX_GROUP or hd > paged_mod.MAX_HEAD_DIM:
         raise ValueError(f"paged_attention: the CUDA kernel takes up to "
@@ -241,10 +264,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"{flash_mod.MAX_GROUP} query heads per KV head "
                          f"and head_dim <= {flash_mod.MAX_HEAD_DIM}, got "
                          f"{H // KV} and {hd}")
-    out = flash_mod.launch(_entry("flash_attention"), q, k, v,
-                           causal=causal, window=window)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    if q.dtype != torch.float32:
+        _no_backward("flash_attention", "for fp32 only: bf16 training is "
+                     "ROADMAP.md A14", q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA route of ``flash_attention``: the forward kernel, and the
+    backward kernel for (dq, dk, dv) from the saved q, k and v (it
+    recomputes the softmax and the output it needs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = flash_mod.launch(_entry("flash_attention"), q, k, v,
+                               causal=causal, window=window)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_mod.launch_bwd(
+            _entry("flash_attention_bwd"), q, k, v, dout.contiguous(),
+            causal=ctx.causal, window=ctx.window)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
 
 
 # ------------------------------------------------------------ ssd chunk
@@ -265,6 +312,7 @@ def ssd_chunk(dA, xw, Bm, Cm):
     dev = _one_device("ssd_chunk", dA, xw, Bm, Cm)
     if dev.type == "cpu":
         return ssd_mod.plain(dA, xw, Bm, Cm)
+    _no_backward("ssd_chunk", "ROADMAP.md A13 adds it", dA, xw, Bm, Cm)
     _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
     if Q > ssd_mod.MAX_CHUNK:
         raise ValueError(f"ssd_chunk: the CUDA kernel takes chunks of up "

@@ -1,6 +1,6 @@
 """Shared low-level layers: init, norms, positions, the SwiGLU and GELU
-MLPs (port of ``repro.models.layers``; same formulas, same fp32
-internals)."""
+MLPs and the chunked cross entropy (port of ``repro.models.layers``; same
+formulas, same fp32 internals)."""
 from __future__ import annotations
 
 import math
@@ -125,3 +125,33 @@ def gelu_mlp(params, x):
     h = torch.nn.functional.gelu(x @ params["w1"] + params["b1"],
                                  approximate="tanh")
     return h @ params["w2"] + params["b2"]
+
+
+# ------------------------------------------------------------- the loss
+def chunked_softmax_xent(hidden, unembed, labels, *, chunk: int = 512,
+                         norm_w=None, eps: float = 1e-5):
+    """Cross entropy over the vocab without building [B,S,V].
+
+    hidden: [B, S, d]  (before the final norm if ``norm_w`` is given)
+    unembed: [d, V]
+    labels: [B, S] int
+    Loops over ``S // chunk`` sequence chunks (one chunk if S < chunk;
+    S must split evenly, as the JAX package's reshape requires); returns
+    the mean xent, an fp32 scalar."""
+    B, S, d = hidden.shape
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if n_chunks * chunk != S:
+        raise ValueError(f"chunked_softmax_xent: {S} positions do not split "
+                         f"into {n_chunks} chunks of {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        h = hidden[:, c * chunk:(c + 1) * chunk]
+        lab = labels[:, c * chunk:(c + 1) * chunk].long()
+        if norm_w is not None:
+            h = rms_norm(h, norm_w, eps)
+        logits = (h @ unembed).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+        total = total + torch.sum(lse - picked)
+    return total / (B * S)

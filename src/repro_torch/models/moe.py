@@ -178,7 +178,7 @@ def moe_apply(p, cfg, x, *, path: str = "auto"):
     if path == "ep":
         raise NotImplementedError(
             "moe_path='ep' (expert parallelism over a device mesh) is not "
-            "ported yet (ROADMAP.md A11)")
+            "ported yet (ROADMAP.md A12)")
     if path != "auto":
         raise ValueError(f"unknown moe path {path!r}")
     T = x.shape[0] * x.shape[1]

@@ -36,23 +36,30 @@ plus "embed" [V,d], "final_norm" [d] and "unembed" [d,V] (untied only).
 ``from_jax_params`` / ``to_jax_params`` move such a tree between numpy
 (the JAX package's params via ``np.asarray``) and torch, bit for bit.
 The JAX package scans over the stacked layers; the port loops over
-them in Python and runs eagerly. A block dispatches on its mixer kind
+them in Python and runs eagerly. ``forward(remat=True)`` recomputes
+each block (hybrid, vlm: each period) in the backward pass, through
+``torch.utils.checkpoint``, where JAX wraps the scan body in
+``jax.checkpoint``; ``loss_fn`` is the training loss. A block dispatches on its mixer kind
 (attention or SSM) and on the params it holds (cross-attention, MoE);
 attention is GQA or, with ``cfg.use_mla``, MLA.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed_init, gelu_mlp, init_gelu_mlp,
-                                       init_swiglu, rms_norm,
-                                       sinusoidal_positions, swiglu)
+from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
+                                       gelu_mlp, init_gelu_mlp, init_swiglu,
+                                       rms_norm, sinusoidal_positions, swiglu)
+
+AUX_WEIGHT = 0.01
 
 
 def _param_dtype(cfg) -> torch.dtype:
@@ -282,7 +289,7 @@ def _block_params(params, path):
 
 
 # =====================================================================
-# full forward (prefill)
+# full forward (train / prefill)
 # =====================================================================
 def encoder_forward(params, cfg, frames):
     """frames [B, T, d] (stub frontend output) -> encoder states."""
@@ -296,21 +303,62 @@ def encoder_forward(params, cfg, frames):
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def forward(params, cfg, tokens, *, enc=None, window: Optional[int] = None,
-            moe_path: str = "auto"):
-    """tokens [B,S] (and, for encdec / vlm, ``enc`` [B,T,d]: encoder
-    states / patch embeddings) -> (hidden [B,S,d] before the final norm,
-    aux_loss fp32 scalar)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    h = _embed(params, cfg, tokens, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for path, kind in _blocks(params, cfg):
+def _period(path) -> int:
+    """The block's layer (dense, moe, ssm, encdec) or period (hybrid,
+    vlm) index: the unit ``forward(remat=True)`` recomputes."""
+    return path[2] if path[0] == "ssm_layers" else path[1]
+
+
+def _run_blocks(params, cfg, blocks, positions, window, enc, moe_path, h,
+                aux):
+    for path, kind in blocks:
         h, a = _block_full(_block_params(params, path), cfg, h, positions,
                            kind=kind, window=window, enc=enc,
                            moe_path=moe_path)
         aux = aux + a
     return h, aux
+
+
+def forward(params, cfg, tokens, *, enc=None, window: Optional[int] = None,
+            moe_path: str = "auto", remat: bool = False):
+    """tokens [B,S] (and, for encdec / vlm, ``enc`` [B,T,d]: encoder
+    states / patch embeddings) -> (hidden [B,S,d] before the final norm,
+    aux_loss fp32 scalar). ``remat``: keep only each block's (hybrid,
+    vlm: each period's) input for the backward pass and recompute the
+    rest there, as JAX's ``jax.checkpoint`` over the scan body does; the
+    values are bitwise those of ``remat=False``."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    h = _embed(params, cfg, tokens, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for _, blocks in itertools.groupby(_blocks(params, cfg),
+                                       key=lambda b: _period(b[0])):
+        args = (params, cfg, list(blocks), positions, window, enc, moe_path)
+        if remat:
+            h, aux = checkpoint(_run_blocks, *args, h, aux,
+                                use_reentrant=False)
+        else:
+            h, aux = _run_blocks(*args, h, aux)
+    return h, aux
+
+
+def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
+            remat: bool = True):
+    """The training loss: mean next-token xent (fp32) of ``batch``
+    ({"tokens", "labels"} [B,S] int; encdec also "frames" [B,T,d] for the
+    encoder, vlm "patches" [B,T,d]) plus AUX_WEIGHT times the MoE layers'
+    load-balance loss."""
+    enc = None
+    if cfg.family == "encdec":
+        enc = encoder_forward(params, cfg, batch["frames"])
+    elif cfg.family == "vlm":
+        enc = batch["patches"]
+    h, aux = forward(params, cfg, batch["tokens"], enc=enc,
+                     moe_path=moe_path, remat=remat)
+    xent = chunked_softmax_xent(h, unembed_matrix(params), batch["labels"],
+                                norm_w=params["final_norm"],
+                                eps=cfg.norm_eps)
+    return xent + AUX_WEIGHT * aux
 
 
 def prefill(params, cfg, tokens, *, enc=None, moe_path: str = "auto"):

@@ -57,7 +57,8 @@ def test_port_import_pulls_in_no_jax():
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch, "
             "repro_torch.core, repro_torch.serving.offload_serving, "
             "repro_torch.serving.engine, repro_torch.models.ssm, "
-            "repro_torch.models.transformer, repro_torch.kernels.ops; "
+            "repro_torch.models.transformer, repro_torch.kernels.ops, "
+            "repro_torch.training, repro_torch.data; "
             "bad = [m for m in sys.modules if m == 'repro' or "
             "m.startswith(('jax', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -75,11 +76,31 @@ def test_port_calls_no_library_kernel():
     assert py == []
     cu = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert {f.stem for f in cu} == {"moe_gemm", "paged_attention",
-                                    "flash_attention", "ssd_chunk"}
+                                    "flash_attention", "flash_attention_bwd",
+                                    "ssd_chunk"}
     cuh = sorted((PORT / "kernels" / "csrc").glob("*.cuh"))
     bad = [f.name for f in cu + cuh
            if re.search(r"#include\s*<(cublas|cudnn)", f.read_text())]
     assert bad == []
+
+
+@pytest.mark.parametrize("package", ["training", "data"])
+def test_training_and_data_stand_alone(package):
+    """The trainer and the data pipeline are the port's own copies: no
+    source of theirs imports JAX or the JAX package, and importing them
+    alone pulls in neither."""
+    files = sorted((PORT / package).glob("*.py"))
+    assert len(files) >= 2
+    assert [f.name for f in files
+            if IMPORT_RE.search(f.read_text())] == []
+    code = (f"import sys; sys.path.insert(0, 'src'); "
+            f"import repro_torch.{package}; "
+            "bad = [m for m in sys.modules if m == 'repro' or "
+            "m.startswith(('jax', 'repro.'))]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def _run_smoke(cwd):

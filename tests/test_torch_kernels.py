@@ -424,12 +424,15 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                         torch.zeros(2, 4, 1, 8),
                         torch.zeros(1, 1, dtype=torch.int32),
                         torch.zeros(1, dtype=torch.int32))
-    ops.flash_attention(torch.zeros(1, 3, 2, 8), torch.zeros(1, 3, 1, 8),
-                        torch.zeros(1, 3, 1, 8))
+    q = torch.zeros(1, 3, 2, 8, requires_grad=True)
+    out = ops.flash_attention(q, torch.zeros(1, 3, 1, 8),
+                              torch.zeros(1, 3, 1, 8))
+    out.sum().backward()   # the plain version's autograd: no launch either
     ops.ssd_chunk(torch.zeros(1, 4, 2), torch.zeros(1, 4, 2, 3),
                   torch.zeros(1, 4, 5), torch.zeros(1, 4, 5))
     assert ops.launch_counts() == {"moe_ffn": 0, "paged_attention": 0,
-                                   "flash_attention": 0, "ssd_chunk": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0, "ssd_chunk": 0}
 
 
 def test_unsupported_device_raises():

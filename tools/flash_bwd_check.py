@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Quick check of the port's flash-attention backward kernel on one GPU.
+
+    python3 tools/flash_bwd_check.py      # from the root of a checkout
+
+Builds the port's CUDA kernels (``ops.build_kernels``), prints the
+backward's ``ptxas`` report, holds ``flash_attention_bwd`` against
+autograd of the plain version at the training shapes of
+``chip_smoke.py`` (Qwen1.5-0.5B: 4 x 2048, 16 heads of 64; Mixtral: 1 x
+2048, 32 / 8 heads of 128) and at its coverage shapes, one JSON line a
+shape (max |kernel - plain| / max |plain| for dq, dk, dv), and times the
+kernel and SDPA's fp32 forward + backward at the two training shapes
+with CUDA events. The short first call for a change to the kernel,
+before ``chip_smoke.py``. Exits non-zero without a GPU or on a mismatch.
+"""
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# (B, Sq, Sk, H, KV, hd, vd, causal, window); the first two are timed
+SHAPES = [(4, 2048, 2048, 16, 16, 64, 64, True, 0),
+          (1, 2048, 2048, 32, 8, 128, 128, True, 0),
+          (2, 160, 160, 4, 2, 64, 64, True, 37),
+          (1, 333, 333, 8, 2, 64, 64, True, 0),
+          (2, 1, 1500, 6, 6, 64, 64, False, 0),
+          (1, 77, 1601, 32, 32, 128, 128, False, 0),
+          (1, 300, 300, 16, 16, 192, 128, True, 0),
+          (1, 100, 40, 4, 2, 64, 64, True, 16),
+          (1, 200, 200, 16, 1, 256, 256, True, 37),
+          (1, 70, 70, 6, 3, 37, 21, True, 0)]
+TOL = 2e-5   # max |kernel - plain| <= TOL x max |plain|, each output
+
+
+def timed_ms(fn, iters=5):
+    import torch
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main():
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        sys.exit("flash_bwd_check.py: this script needs a CUDA GPU")
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+
+    built = ops.build_kernels()
+    for line in built.get("flash_attention_bwd", {}).get("ptxas",
+                                                         "").splitlines():
+        if "registers" in line or "spill" in line:
+            print("ptxas", line.strip())
+    fn = ops._entry("flash_attention_bwd")
+    rng = np.random.default_rng(0)
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    ok = True
+    for i, (B, Sq, Sk, H, KV, hd, vd, causal, window) in enumerate(SHAPES):
+        q, k = rand(B, Sq, H, hd), rand(B, Sk, KV, hd)
+        v, dout = rand(B, Sk, KV, vd), rand(B, Sq, H, vd)
+        kw = dict(causal=causal, window=window)
+        got = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
+        want = flash_mod.plain_bwd(q, k, v, dout, **kw)
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want)]
+        rec = {"shape": [B, Sq, Sk, H, KV, hd, vd, causal, window],
+               "rel_err": rel, "ok": max(rel) <= TOL}
+        ok &= rec["ok"]
+        if i < 2:
+            rec["ms"] = timed_ms(lambda: flash_mod.launch_bwd(
+                fn, q, k, v, dout, **kw))
+            lq, lk, lv = (t.transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(o, (lq, lk, lv),
+                                           dout.transpose(1, 2))
+            rec["sdpa_fwd_bwd_ms"] = timed_ms(sdpa)
+        print(json.dumps(rec), flush=True)
+    print(torch.cuda.get_device_name(0))
+    sys.exit(0 if ok else 1)
+
+
+if __name__ == "__main__":
+    main()
