@@ -9,7 +9,7 @@ It drives the port's two entry points end to end and checks them:
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints the
    ``ptxas`` reports (registers, shared memory, spills) of flash
-   attention and SSD chunk on a JSON line each;
+   attention, its backward and SSD chunk on a JSON line each;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -112,6 +112,15 @@ It drives the port's two entry points end to end and checks them:
    d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
    prompts of 512 tokens (2 chunks), then a timed prefill of 2 x 2048;
+7b. training (``training_phase``): Qwen1.5-0.5B whole, one step through
+   the kernels against the same step through the plain attention
+   (``TRAIN_TOL``), then ``train()`` over ``TRAIN_RUNS`` for Qwen1.5-0.5B
+   and Mixtral-8x7B (2 layers): every step launches the flash forward
+   twice and its backward once per attention layer and nothing else,
+   losses finite and falling; the backward kernel held against its plain
+   version and against float64 at each model's recorded call, and
+   launched twice there for bitwise equal dq, dk and dv; the kernels with
+   no backward refuse inputs that require grad;
 8. each prefill's launch counts are reset before it and read after it:
    flash attention must launch once per attention layer and once per
    cross-attention layer, SSD chunk once per SSM layer;
@@ -126,8 +135,11 @@ It drives the port's two entry points end to end and checks them:
    also timed at the split lengths ``SPLIT_SWEEP`` (``paged_split_sweep``:
    what chose its ``KEYS_PER_SPLIT``). The bound takes each kernel's
    operations at the peak of the units it runs them on: flash attention's
-   and SSD chunk's at the TF32 tensor-core rate (with the fp32-core bound and
-   the three-pass 3xTF32 floor beside it), the others' at the fp32 rate;
+   (forward and backward) and SSD chunk's at the TF32 tensor-core rate
+   (with the fp32-core bound and the three-pass 3xTF32 floor beside it),
+   the others' at the fp32 rate. The backward is timed beside SDPA's
+   forward + backward (``library_ms``) and SDPA's backward alone
+   (``library_bwd_ms``);
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
@@ -188,10 +200,11 @@ MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
-# the peak each kernel's operations run at: flash attention's and SSD
-# chunk's products are TF32 tensor-core MMAs (3 passes each for fp32
-# inputs), the rest fp32
+# the peak each kernel's operations run at: flash attention's (forward
+# and backward) and SSD chunk's products are TF32 tensor-core MMAs (3
+# passes each for fp32 inputs), the rest fp32
 PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
+        "flash_attention_bwd": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
@@ -275,7 +288,8 @@ SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
 # query over Whisper's 1500 frames and its 448-token decoder over them,
 # the VLM's 77 queries over 1601 patches (Sq != Sk, no causal mask), MLA
 # widths (hd 192, vd 128), rows that see no key (Sq > Sk + window), MQA
-# at hd 256, widths off the multiples of 8, 64 query heads a KV head
+# at hd 256, widths off the multiples of 8, 64 query heads a KV head, and
+# a wide q/k with a narrow v (hd 160, vd 24)
 FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
                     (1, 333, 333, 8, 2, 64, 64, True, 0),
                     (2, 1, 1500, 6, 6, 64, 64, False, 0),
@@ -285,7 +299,8 @@ FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
                     (1, 100, 40, 4, 2, 64, 64, True, 16),
                     (1, 200, 200, 16, 1, 256, 256, True, 37),
                     (1, 70, 70, 6, 3, 37, 21, True, 0),
-                    (1, 40, 40, 64, 1, 32, 32, False, 0)]
+                    (1, 40, 40, 64, 1, 32, 32, False, 0),
+                    (1, 150, 150, 8, 2, 160, 24, True, 0)]
 # the training phase: (arch, layers (None: all), batch, sequence, steps,
 # AdamW learning rate) at published widths, fp32, remat, under train()'s
 # cosine schedule (warm-up of one step: step 0 moves nothing). lm_batches'
@@ -674,16 +689,17 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 def kernel_cases(calls):
     """(name, wrapper(), plain(), library() or None, graph-timed?, bytes,
-    flops, shape) for each kernel whose heaviest main-path call is in
-    ``calls``. Bytes count each input read once and each output written
-    once; flops count the work these inputs need: paged attention's keys
-    are the ones the call's positions make visible, flash attention's
-    (query, key) pairs the ones its masks leave, SSD's the lower
-    triangle of each chunk. The flash attention backward's flops are the
-    least autograd of the forward does per visible pair and head: S
-    again (2 hd), dP (2 vd), dV (2 vd), dQ and dK (2 hd each), 2.5 times
-    the forward's at hd = vd; its library call is SDPA's forward and
-    backward."""
+    flops, shape, library_bwd() or None) for each kernel whose heaviest
+    main-path call is in ``calls``. Bytes count each input read once and
+    each output written once; flops count the work these inputs need:
+    paged attention's keys are the ones the call's positions make
+    visible, flash attention's (query, key) pairs the ones its masks
+    leave, SSD's the lower triangle of each chunk. The flash attention
+    backward's flops are the least autograd of the forward does per
+    visible pair and head: S again (2 hd), dP (2 vd), dV (2 vd), dQ and
+    dK (2 hd each), 2.5 times the forward's at hd = vd; its library call
+    is SDPA's forward and backward, and ``library_bwd`` SDPA's backward
+    alone (``autograd.grad`` over a forward graph kept for it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
@@ -699,7 +715,7 @@ def kernel_cases(calls):
         yield ("moe_ffn", lambda: ops.moe_ffn(x_e, w1, w3, w2, slots),
                lambda: moe_gemm.plain(x_e, w1, w3, w2, sl), None, False,
                4 * (2 * E * C * d + 3 * E * d * F_ + E), 6 * E * C * d * F_,
-               {"E": E, "C": C, "d": d, "F": F_})
+               {"E": E, "C": C, "d": d, "F": F_}, None)
 
     if "paged_attention" in calls:
         q, kp, vp, bt, pos = calls["paged_attention"]
@@ -712,7 +728,7 @@ def kernel_cases(calls):
                4 * (2 * B * H * hd + 2 * keys * KV * hd + B * T + B),
                4 * keys * H * hd,
                {"B": B, "H": H, "KV": KV, "hd": hd, "bs": bs, "T": T,
-                "visible_keys": keys})
+                "visible_keys": keys}, None)
 
     if "flash_attention" in calls:
         q, k, v, kw = calls["flash_attention"]
@@ -734,7 +750,7 @@ def kernel_cases(calls):
                2 * B * H * pairs * (hd + vd),
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
-                "dtype": str(q.dtype), "visible_pairs": pairs})
+                "dtype": str(q.dtype), "visible_pairs": pairs}, None)
 
     if "flash_attention_bwd" in calls:
         q, k, v, dout, kw = calls["flash_attention_bwd"]
@@ -742,17 +758,26 @@ def kernel_cases(calls):
         Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
         causal, window = kw["causal"], kw["window"]
         pairs = visible_pairs(Sq, Sk, causal, window)
-        library = None
+        library = library_bwd = None
         if window == 0:   # SDPA's forward and backward: what it costs there
             lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
             ldo = dout.transpose(1, 2)
 
+            def forward():
+                return F.scaled_dot_product_attention(lq, lk, lv,
+                                                      is_causal=causal,
+                                                      enable_gqa=True)
+
             def library():
-                o = F.scaled_dot_product_attention(lq, lk, lv,
-                                                   is_causal=causal,
-                                                   enable_gqa=True)
-                return torch.autograd.grad(o, (lq, lk, lv), ldo)
+                return torch.autograd.grad(forward(), (lq, lk, lv), ldo)
+            # the graph of one forward on this stream, kept: autograd runs
+            # each backward op on its forward op's stream
+            kept = forward()
+
+            def library_bwd():
+                return torch.autograd.grad(kept, (lq, lk, lv), ldo,
+                                           retain_graph=True)
         yield ("flash_attention_bwd",
                lambda: flash_mod.launch_bwd(
                    ops._entry("flash_attention_bwd"), q, k, v, dout, **kw),
@@ -762,7 +787,7 @@ def kernel_cases(calls):
                2 * B * H * pairs * (3 * hd + 2 * vd),
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
-                "visible_pairs": pairs})
+                "visible_pairs": pairs}, library_bwd)
 
     if "ssd_chunk" in calls:
         dA, xw, Bm, Cm = calls["ssd_chunk"]
@@ -775,7 +800,7 @@ def kernel_cases(calls):
                     + G * H * P * N),
                G * (2 * tri * N + tri * H + 2 * tri * H * P + Q * H * P
                     + 2 * Q * H * P * N),
-               {"G": G, "Q": Q, "H": H, "P": P, "N": N})
+               {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
 
 def agree(name, got, want, tol, what):
@@ -1010,10 +1035,10 @@ def flash_float64(q, k, v, dout, *, causal, window):
 def bwd_against_float64(ops, q, k, v, dout, kw):
     """The backward kernel and the plain version's autograd against
     ``flash_float64`` on the first batch row of a recorded call, and the
-    forward kernel's output too (the backward recomputes O in fp32
-    because the forward's 3xTF32 O, read into D, moved dQ off by ~1e-4 x
-    max at Qwen1.5-0.5B's first layer): each error over the output's
-    max |float64|. The kernel must stay within TOL of it."""
+    forward kernel's output too (the backward forms D from its own
+    products because the forward's 3xTF32 O, read into D, moved dQ off by
+    ~1e-4 x max at Qwen1.5-0.5B's first layer): each error over the
+    output's max |float64|. The kernel must stay within TOL of it."""
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v, dout = (t[:1].contiguous() for t in (q, k, v, dout))
     out64, want = flash_float64(q, k, v, dout, **kw)
@@ -1030,6 +1055,21 @@ def bwd_against_float64(ops, q, k, v, dout, kw):
         check(rep[name]["kernel"] <= TOL["flash_attention_bwd"],
               f"flash_attention_bwd {name} vs float64: {rep[name]}")
     return rep
+
+
+def bwd_repeat_bitwise(ops, q, k, v, dout, kw):
+    """Two launches of the backward kernel on a recorded call's inputs:
+    dq, dk and dv must be bitwise equal (no atomics, every sum in a fixed
+    order)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    fn = ops._entry("flash_attention_bwd")
+    first = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
+    second = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, "flash_attention_bwd: two launches on the same inputs "
+                "differ")
+    return same
 
 
 def served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
@@ -2151,7 +2191,8 @@ def training_phase(ops, card, hold_and_time, profile):
     Qwen1.5-0.5B first runs ``train_step_compare``. Prints a
     ``train_step`` line a step; holds the backward kernel against its
     plain version at each model's call and times it (``hold_and_time``),
-    and against float64 (``bwd_against_float64``);
+    against float64 (``bwd_against_float64``), and launches it twice on
+    that call for bitwise equal outputs (``bwd_repeat_bitwise``);
     with ``profile``, traces one more Qwen step. Returns the report."""
     import numpy as np
     import torch
@@ -2235,6 +2276,8 @@ def training_phase(ops, card, hold_and_time, profile):
         torch.cuda.empty_cache()
         run["bwd_vs_float64"] = bwd_against_float64(
             ops, *seen["flash_attention_bwd"])
+        run["bwd_bitwise_repeat"] = bwd_repeat_bitwise(
+            ops, *seen["flash_attention_bwd"])
         hold_and_time(seen, {"flash_attention_bwd": sum(
             c["flash_attention_bwd"] for c in launches)}, model=cfg.name)
         del seen
@@ -2285,7 +2328,8 @@ def main() -> None:
         for line in rep["ptxas"].splitlines():
             if "registers" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    for name in ("flash_attention", "ssd_chunk"):  # registers, smem, spills
+    # registers, smem, spills
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk"):
         if name in built:
             print(json.dumps({"ptxas": {name: [
                 line.strip() for line in built[name]["ptxas"].splitlines()
@@ -2368,8 +2412,8 @@ def main() -> None:
     floor_ms = device_ms(lambda: one.add_(1), 20, graph=True)
 
     def hold_and_time(calls, launches_by_kernel, model=None):
-        for (name, kern, plain, library, graph, nbytes, flops,
-             shape) in kernel_cases(calls):
+        for (name, kern, plain, library, graph, nbytes, flops, shape,
+             library_bwd) in kernel_cases(calls):
             err, rel = agree(name, kern(), plain(), TOL[name], name)
             iters = 20 if graph else 10
             ms = device_ms(kern, iters, graph=graph)
@@ -2393,6 +2437,9 @@ def main() -> None:
                 "shape": shape})
             if model is not None:   # the entries of a later model's phase
                 kernels[-1]["model"] = model
+            if library_bwd is not None:
+                kernels[-1]["library_bwd_ms"] = device_ms(library_bwd, iters,
+                                                          graph=graph)
             if name in PEAK:   # the fp32-core bound, and 3 TF32 passes
                 kernels[-1]["bound_fp32_ms"] = max(
                     t_bytes, flops / FP32_FLOPS_PER_S) * 1e3

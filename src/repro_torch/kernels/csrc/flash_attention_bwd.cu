@@ -1,5 +1,6 @@
 // Backward of full-sequence attention (the function flash_attention.cu
-// computes), fp32, on the CUDA cores of Hopper (sm_90a), plain C interface.
+// computes), fp32, on the TF32 tensor cores of Hopper (sm_90a), plain C
+// interface.
 //
 // Replaces: nothing in Pallas. The JAX package trains through XLA blockwise
 // attention (repro.models.attention, ATTN_IMPL = "xla_blockwise") and has no
@@ -11,7 +12,8 @@
 // past Sk absent:
 //
 //   dV[j]  = sum_i P[i,j] dO[i]
-//   dS[i,j] = P[i,j] (dO[i] . v_j - D[i]),  D[i] = dO[i] . O[i]
+//   dS[i,j] = P[i,j] (dP[i,j] - D[i]),  dP[i,j] = dO[i] . v_j,
+//   D[i] = sum_j P[i,j] dP[i,j]  (= dO[i] . O[i])
 //   dQ[i]  = scale * sum_j dS[i,j] k_j,  dK[j] = scale * sum_i dS[i,j] q_i
 //
 // summed over the G = H / KV query heads of a KV head for dK and dV. A
@@ -19,85 +21,249 @@
 // (only Sq > Sk under a window) is uniform over all Sk keys, as in the
 // forward: its P is 1 / Sk everywhere, so it feeds dV and nothing else.
 //
-// Two launches from this source, in order on one stream:
-//  (1) rows: one block per (batch row, KV head, tile of query positions),
-//      its 64 rows G heads x 64 / G positions as in the forward. Pass 1 walks
-//      the visible key tiles once for each row's max m and denominator l
-//      (the online softmax, in log2 units) and its output O = P.V in fp32,
-//      so D = dO . O comes from the same P as dS: the forward's output is
-//      not read (its 3xTF32 error, ~2.5e-5 of max |O| at Qwen1.5-0.5B's
-//      first layer, would reach dQ through D at ~7e-5 of max |dQ|, where
-//      the P-weighted mean key is large against dQ). Pass 2 walks the tiles
-//      again for P = exp2(s - m) / l, dP, dS and dQ, kept in registers.
-//      m, 1 / l and D go to a scratch [3, B, Sq, H] for (2).
-//  (2) keys: one block per (batch row, KV head, tile of 32 keys) walks the
-//      query tiles that can see its keys, every G head of the group in the
-//      same block, recomputes S, P, dP and dS from the stats, and keeps dK
-//      and dV in registers: each key is written by one block, no atomics.
+// Two launches from this source, in order on one stream, no atomics:
+//  (1) rows: one block of 4 warps per (batch row, KV head, tile of query
+//      positions), its 64 rows G heads x 64 / G positions as in the
+//      forward, warp w rows 16w .. 16w + 15. Q and dO are staged once; K/V
+//      tiles of 16 keys stream through a two-stage cp.async ring, twice.
+//      Pass 1 computes S = Q.K^T and dP = dO.V^T for each row's max m,
+//      denominator l (online softmax, log2 units) and l D = sum exp2(s - m)
+//      dP, rescaled as l is. Pass 2 computes S and dP again (the same
+//      instructions on the same data: bitwise the same), P = exp2(s - m) / l,
+//      dS = P (dP - D) and dQ += dS.K. m, 1 / l and D go to the
+//      [3, B, Sq, H]-sized scratch, laid out [3][B][KV][Sq][G] so that 32
+//      (position, head) rows of a group are 32 consecutive floats, for (2).
+//  (2) keys: one block of 4 warps per (batch row, KV head, 32 keys), K and
+//      V staged once; the (position, head) rows that can see those keys,
+//      every G head of the group, stream through a two-stage cp.async ring
+//      in tiles of 32 (Q, dO and the rows' m, 1 / l, D). Warp w takes keys
+//      16 (w & 1) .. + 15 and rows 16 (w >> 1) .. + 15 of each tile. With
+//      the keys as the M rows it computes S^T = K.Q^T and dP^T = V.dO^T,
+//      then P^T and dS^T, and dV += P^T.dO, dK += dS^T.Q in registers; the
+//      two row streams' dK and dV are summed in shared memory at the end, so
+//      each key is written by one block. Two streams halve the longest walk:
+//      under a causal mask the first keys see every row, and with one stream
+//      of 64 keys a block Mixtral's call (B 1, KV 8) is 256 blocks, one wave
+//      on the card, as long as its longest block (PERF.md, section 6).
+//  Both launches issue the longest row or key range first.
 //
-// What bounds it on this card: operations. Per visible (query, key) pair
-// and head the two launches do 2*(hd + vd) (pass 1: S, O) + 2*(2*hd + vd)
-// (S, dP, dQ) + 2*(2*hd + 2*vd) (S, dP, dV, dK) flops, 10 hd + 8 vd in
-// all, on plain fp32 FMA units (67 TFLOP/s): autograd of the forward needs
-// S and dP (2 hd + 2 vd) and dQ, dK, dV (4 hd + 2 vd), so the rest is the
-// price of keeping no [Sq, Sk] matrix and no forward state but q, k, v.
-// Each thread holds a 4 x 2 patch of the 64 x 32 score tile (8 FMAs for
-// 6 shared loads a step) and a 4 x w/16 (O, dQ) or 4 x w/32 (dK, dV) patch
-// of the accumulators. Tiles are staged with plain loads between barriers,
-// no cp.async ring, and no tensor cores: a first kernel that is right.
-// wgmma with 3xTF32 splits, as the forward uses, is the way to the rate.
+// D comes from the kernel's own products. Since sum_j dS[i,j] must be 0, an
+// error e in D[i] reaches dQ[i] as e * sum_j P[i,j] k_j, which is large
+// where the keys share a large common part (Qwen1.5's k bias). D = sum P dP
+// from the same 3xTF32 S and dP that form dS cancels to fp32 rounding; D =
+// dO . O with the forward's O (its own S, another sum order) misses 2e-5 x
+// max |dQ| (tests/test_torch_flash_bwd_numerics.py).
 //
-// Shared memory rows are padded to an odd number of words, so the 16 key
-// (or query) rows a half-warp reads at one column hit 16 distinct banks.
-// At hd = vd = 256 a block takes 215 KB (one block an SM); at 128, 117 KB;
-// at 64, 68 KB.
+// What bounds it on this card: operations. Autograd of the forward needs
+// S and dP (2 hd + 2 vd flops a visible (query, key) pair and head) and
+// dQ, dK, dV (4 hd + 2 vd): 85.9 GFLOP at both training calls of
+// chip_smoke.py (Qwen1.5-0.5B: B 4, S 2048, H = KV = 16, hd 64, causal;
+// Mixtral: B 1, S 2048, H 32, KV 8, hd 128), 0.174 ms at the 495 TFLOP/s
+// of the TF32 tensor cores, 0.521 ms as the 3xTF32 floor, 1.283 ms on the
+// 67 TFLOP/s fp32 cores. This kernel executes 10 hd + 8 vd a pair and head
+// (S and dP three times, once in each pass and once in the keys launch):
+// the price of keeping no [Sq, Sk] matrix, no forward state but q, k, v,
+// and no atomics. mma.sync issues from each warp with its operands in
+// registers, so the hi / lo splits (five integer and float operations an
+// operand) and the fragment loads share the issue slots with the MMAs.
+//
+// What the design does about it:
+//  * Every product is mma.sync.m16n8k8 TF32 with fp32 accumulators, each
+//    fp32 operand split hi + lo (3xTF32: lo.hi + hi.lo + hi.hi; one TF32
+//    pass misses fp32 tolerance), as in the forward (tensor_core.cuh).
+//  * The tensor cores truncate as they accumulate. S and dP keep the
+//    small terms (lo.hi + hi.lo) in their own accumulator, added at the end
+//    (and two short dependency chains a k-step instead of one of three);
+//    dQ, dK and dV sum each 16-key or 16-row tile from zero and add it to
+//    the running sum in fp32, which rounds to nearest: one accumulator over
+//    thousands of rows drifts toward zero (PERF.md, section 6).
+//  * P and dS never touch shared memory: the m16n8 accumulator of S (rows)
+//    or S^T (keys) is the A operand of the next product in registers, A
+//    slot t carrying column 2t and slot t + 4 column 2t + 1, and the B tile
+//    is read at rows 2t and 2t + 1 to match.
+//  * Q, K, V and dO tiles are read both along a row (S, dP: lane (g, t)
+//    reads row g, column t) and down a column (dQ, dK, dV: rows 2t, 2t + 1,
+//    column g). Rows are padded to 4 mod 8 words, which puts both patterns
+//    of a warp on 32 distinct banks; every fragment is one 4-byte load.
+//    Columns past hd (or vd) up to the next multiple of 8 are zeroed once.
+//  * Tiles arrive by cp.async (16-byte copies; 8 or 4 bytes where a row is
+//    not 16-byte aligned): tile j + 1 loads while tile j computes. Keys past
+//    Sk and dead rows are zero-filled by the copy (src-size 0).
+//  * Tiles that every row of a warp sees whole skip the per-element masks.
+//  * Occupancy: each launch stages 96 rows of stride(hd) + stride(vd)
+//    floats (the keys launch also 768 bytes of row stats): 99.8 KB at
+//    hd = vd = 128, two blocks an SM; 51.8 KB at 64; 195.8 KB at 256, one.
+//    The width is a template bound (<= 64/128/256) so the dQ accumulator
+//    (rows: hd / 8 fragments of 4 floats a lane) and dK + dV (keys: twice
+//    that, 128 floats a lane at 128) stay in registers. ptxas (-Xptxas -v,
+//    sm_90a; chip_smoke.py prints it), registers for hd <= 64/128/256:
+//    rows 128/200/242, keys 153/232/255; no spills and no stack at 64 and
+//    128, so hd 64 runs four rows blocks (16 warps) and three keys blocks
+//    an SM, hd 128 two of each. At 256 (coverage shapes only: MQA and MLA
+//    widths) the keys kernel's 256 accumulator floats a lane spill (568
+//    bytes stored, 312 bytes of stack).
+//
+// What is left: wgmma + TMA. TF32 wgmma needs both operands K-major in
+// shared memory, and dQ, dK and dV contract over the key or row axis, so
+// each would need a transposed tile. Cutting the executed work below
+// 10 hd + 8 vd needs an LSE output from the forward, or dQ by atomics.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;   // query rows a tile: G heads x kRows / G positions
-constexpr int kKeys = 32;   // keys a tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // rows launch: query rows a block
+constexpr int kTile = 16;           // rows launch: keys a ring stage
+constexpr int kKeys = 32;           // keys launch: keys a block (2 x 16)
+constexpr int kRowTile = 32;        // keys launch: rows a ring stage
+static_assert(kRows + 2 * kTile == kKeys + 2 * kRowTile,
+              "both launches stage 96 rows");
+constexpr int kStages = 2;
 constexpr int kMaxHd = 256;
 constexpr int kMaxG = kRows;
-constexpr int kPS = kKeys + 1;  // row stride of the P and dS tiles
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__host__ __device__ __forceinline__ int pad(int w) { return w | 1; }
+// shared-memory row stride (floats) for rows of w: 4 mod 8 words, so a
+// warp's row reads (row g, column t: words 4g' + t) and column reads (rows
+// 2t and 2t + 1, column g: words 8t' + g) hit 32 distinct banks; a
+// multiple of 4 keeps 16-byte copies aligned
+__host__ __device__ __forceinline__ int stride(int w) {
+  return ((w + 7) & ~7) + 4;
+}
 
 struct Shape {
-  int B, Sq, Sk, H, KV, G, BP, hd, vd, causal, window;
+  int B, Sq, Sk, H, KV, G, BP, hd, vd, causal, window, vec;
   float scale;
 };
 
-// dynamic shared memory (floats): Q [kRows][pad(hd)], dO [kRows][pad(vd)],
-// K [kKeys][pad(hd)], V [kKeys][pad(vd)], P and dS [kRows][kPS], and the
-// rows' m, 1 / l, D [3][kRows]
+// dynamic shared memory (floats). rows: Q [kRows][sq], dO [kRows][sv],
+// K [kStages][kTile][sq], V [kStages][kTile][sv]. keys: K [kKeys][sq],
+// V [kKeys][sv], Q [kStages][kRowTile][sq], dO [kStages][kRowTile][sv],
+// the rows' m, 1 / l, D [kStages][3][kRowTile]
 size_t smem_bytes(int hd, int vd) {
   return sizeof(float) *
-         (static_cast<size_t>(kRows + kKeys) * (pad(hd) + pad(vd)) +
-          2 * kRows * kPS + 3 * kRows);
+         (static_cast<size_t>(kKeys + kStages * kRowTile) *
+              (stride(hd) + stride(vd)) +
+          kStages * 3 * kRowTile);
 }
 
-struct Smem {
-  float *q, *dout, *k, *v, *p, *ds, *m, *il, *d;
-  int sq, sv;
-  __device__ Smem(float* base, int hd, int vd) : sq(pad(hd)), sv(pad(vd)) {
-    q = base;
-    dout = q + kRows * sq;
-    k = dout + kRows * sv;
-    v = k + kKeys * sq;
-    p = v + kKeys * sv;
-    ds = p + kRows * kPS;
-    m = ds + kRows * kPS;
-    il = m + kRows;
-    d = il + kRows;
+// Rows [0, nrows) of w floats into dst (stride ds) by cp.async; row r comes
+// from src(r), or is zero where src(r) is null. vec: bytes a copy (16, 8
+// or 4; every source row and pointer aligned to it).
+template <typename Src>
+__device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
+                                          int w, int vec, const float* base,
+                                          Src src) {
+  const int per = vec / 4;
+  const int cpr = w / per;  // copies a row
+  for (int i = threadIdx.x; i < nrows * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i - r * cpr) * per;
+    const float* s = src(r);
+    float* d = dst + r * ds + c;
+    const float* from = s ? s + c : base;
+    if (vec == 16)
+      cp_async<16>(d, from, s != nullptr);
+    else if (vec == 8)
+      cp_async<8>(d, from, s != nullptr);
+    else
+      cp_async<4>(d, from, s != nullptr);
   }
-};
+}
+
+// zero columns [w, w rounded up to 8) of nrows rows: the last k-step or
+// n-tile reads them, no copy writes them
+__device__ __forceinline__ void zero_pad(float* buf, int nrows, int ds,
+                                         int w) {
+  const int extra = ((w + 7) & ~7) - w;
+  for (int i = threadIdx.x; i < nrows * extra; i += kThreads)
+    buf[(i / extra) * ds + w + i % extra] = 0.f;
+}
+
+// acc[j] = A.B^T (j < 2), 3xTF32: the warp's 16 rows of A against 16 rows
+// of B (two n-tiles of 8) over nks k-steps of 8 columns; a and b point at
+// row g, column t of their tiles (lane (g, t)), k slot t is column 8kk + t
+// and slot t + 4 column 8kk + t + 4. The small terms (lo.hi + hi.lo) have
+// their own accumulator, added at the end: a k-step's three products form
+// two short dependency chains instead of one of three, and the small sum
+// is not truncated against the large one.
+__device__ __forceinline__ void dot_nt(float (&acc)[2][4], const float* a,
+                                       int sa, const float* b, int sb,
+                                       int nks) {
+  float small[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = small[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < nks; ++kk) {
+    const float* ak = a + 8 * kk;
+    uint32_t ah[4], al[4];
+    frag<true>(ak[0], ah[0], al[0]);
+    frag<true>(ak[8 * sa], ah[1], al[1]);
+    frag<true>(ak[4], ah[2], al[2]);
+    frag<true>(ak[8 * sa + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* bk = b + 8 * j * sb + 8 * kk;
+      uint32_t bh[2], bl[2];
+      frag<true>(bk[0], bh[0], bl[0]);
+      frag<true>(bk[4], bh[1], bl[1]);
+      mma(small[j], al, bh);
+      mma(small[j], ah, bl);
+      mma(acc[j], ah, bh);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+}
+
+// acc[n] += C.B[:, 8n .. 8n + 7] for n < nt (NT a bound): C is the warp's
+// 16 x 16 block held in two m16n8 accumulators c[j] (rows g and g + 8,
+// columns 8j + 2t and 8j + 2t + 1), taken as the A operand of two k-steps
+// with slot t = column 8j + 2t and slot t + 4 = column 8j + 2t + 1; b points
+// at row 2t, column g of B, whose rows match C's 16 columns. Each n-tile is
+// summed from zero and then added to acc[n] in fp32: the tensor cores
+// truncate as they accumulate, so a sum over thousands of rows kept in
+// one accumulator drifts toward zero.
+template <int NT>
+__device__ __forceinline__ void dot_acc(float (&acc)[NT][4],
+                                        const float (&c)[2][4], const float* b,
+                                        int sb, int nt) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    frag<true>(c[j][0], ah[j][0], al[j][0]);
+    frag<true>(c[j][2], ah[j][1], al[j][1]);
+    frag<true>(c[j][1], ah[j][2], al[j][2]);
+    frag<true>(c[j][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n < nt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* bj = b + 8 * j * sb + 8 * n;
+        uint32_t bh[2], bl[2];
+        frag<true>(bj[0], bh[0], bl[0]);
+        frag<true>(bj[sb], bh[1], bl[1]);
+        mma3<true, true>(part, ah[j], al[j], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
 
 // row r of a query tile starting at position q0: head kvh * G + r / BP,
 // position q0 + r % BP; live iff r / BP < G and the position < Sq
@@ -108,56 +274,6 @@ __device__ __forceinline__ bool row_live(const Shape& sh, int q0, int r,
   return head_in_group < sh.G && pos < sh.Sq;
 }
 
-// the query tile's rows of src [B, Sq, H, w] into dst (stride ds); dead
-// rows are zero
-__device__ void load_rows(float* dst, int ds, const float* __restrict__ src,
-                          int w, const Shape& sh, int b, int kvh, int q0) {
-  for (int i = threadIdx.x; i < kRows * w; i += kThreads) {
-    const int r = i / w, c = i - r * w;
-    int hg, pos;
-    float x = 0.f;
-    if (row_live(sh, q0, r, hg, pos))
-      x = src[((static_cast<size_t>(b) * sh.Sq + pos) * sh.H + kvh * sh.G +
-               hg) * w + c];
-    dst[r * ds + c] = x;
-  }
-}
-
-// keys k0 .. k0 + kKeys - 1 of src [B, Sk, KV, w] into dst; keys past Sk
-// are zero
-__device__ void load_keys(float* dst, int ds, const float* __restrict__ src,
-                          int w, const Shape& sh, int b, int kvh, int k0) {
-  for (int i = threadIdx.x; i < kKeys * w; i += kThreads) {
-    const int j = i / w, c = i - j * w;
-    dst[j * ds + c] =
-        k0 + j < sh.Sk
-            ? src[((static_cast<size_t>(b) * sh.Sk + k0 + j) * sh.KV + kvh) *
-                      w + c]
-            : 0.f;
-  }
-}
-
-// acc[i][j] = a[4 ty + i] . b[2 tx + j] over w columns: this thread's 4 x 2
-// patch of a 64 x 32 product of row tiles (Q.K^T, dO.V^T)
-__device__ __forceinline__ void dot_tile(float (&acc)[4][2], const float* a,
-                                         int sa, const float* b, int sb,
-                                         int w, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-  const float* a0 = a + 4 * ty * sa;
-  const float* b0 = b + 2 * tx * sb;
-#pragma unroll 4
-  for (int c = 0; c < w; ++c) {
-    const float y0 = b0[c], y1 = b0[sb + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = a0[i * sa + c];
-      acc[i][0] = fmaf(x, y0, acc[i][0]);
-      acc[i][1] = fmaf(x, y1, acc[i][1]);
-    }
-  }
-}
-
 // 0: visible; 1: masked (NEG_INF, no gradient); 2: past Sk (no part)
 __device__ __forceinline__ int key_state(const Shape& sh, int pos, int key) {
   if (key >= sh.Sk) return 2;
@@ -166,10 +282,9 @@ __device__ __forceinline__ int key_state(const Shape& sh, int pos, int key) {
   return 0;
 }
 
-// scores in log2 units, as the online softmax keeps them
-__device__ __forceinline__ float score2(const Shape& sh, int state, float s) {
-  return state == 0 ? s * sh.scale * kLog2e
-                    : (state == 1 ? kNegInf : -CUDART_INF_F);
+// a score in log2 units, as the online softmax keeps them
+__device__ __forceinline__ float score2(int state, float s, float sc) {
+  return state == 0 ? s * sc : (state == 1 ? kNegInf : -CUDART_INF_F);
 }
 
 // the key tiles [lo, hi] that query positions [q0, q_last] can see; every
@@ -183,303 +298,398 @@ __device__ __forceinline__ void key_range(const Shape& sh, int q0,
     k_lo = 0;
     k_hi = sh.Sk - 1;
   }
-  lo = k_lo / kKeys;
-  hi = k_hi / kKeys;
+  lo = k_lo / kTile;
+  hi = k_hi / kTile;
 }
 
-// sum over the 16 lanes of a half-warp (one ty)
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
 }
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-// (1) rows: stats and dQ. HC: O and dQ columns a thread, tx + 16 c
-// (hd <= 16 HC)
-template <int HC>
-__global__ void __launch_bounds__(kThreads)
+// (1) rows: the stats and dQ. HT: dQ n-tiles a lane (hd, vd <= 8 HT)
+template <int HT>
+__global__ void __launch_bounds__(kThreads, HT <= 8 ? 4 : (HT <= 16 ? 2 : 1))
 flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ dout, float* __restrict__ dq,
                       float* __restrict__ stats, Shape sh) {
   extern __shared__ __align__(16) float smem[];
-  Smem s(smem, sh.hd, sh.vd);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.y / sh.KV, kvh = blockIdx.y % sh.KV;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * sh.BP;  // longest first
-  const int q_last = min(q0 + sh.BP, sh.Sq) - 1;
-  load_rows(s.q, s.sq, q, sh.hd, sh, b, kvh, q0);
-  load_rows(s.dout, s.sv, dout, sh.vd, sh, b, kvh, q0);
+  const int sq = stride(sh.hd), sv = stride(sh.vd);
+  float* qs = smem;                       // [kRows][sq]
+  float* dos = qs + kRows * sq;           // [kRows][sv]
+  float* ks = dos + kRows * sv;           // [kStages][kTile][sq]
+  float* vs = ks + kStages * kTile * sq;  // [kStages][kTile][sv]
 
-  int hg[4], pos[4];
-  bool live[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) live[i] = row_live(sh, q0, 4 * ty + i, hg[i], pos[i]);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // mma group, lane in the group
+  const int bkv = sh.B * sh.KV;
+  const int b = (blockIdx.x % bkv) / sh.KV, kvh = blockIdx.x % sh.KV;
+  const int nqt = (sh.Sq + sh.BP - 1) / sh.BP;
+  const int q0 = (nqt - 1 - blockIdx.x / bkv) * sh.BP;  // longest first
+  const int q_last = min(q0 + sh.BP, sh.Sq) - 1;
+  const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
+  const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
+  const float* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
+                    static_cast<size_t>(kvh) * sh.hd;
+  const float* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
+                    static_cast<size_t>(kvh) * sh.vd;
+
+  zero_pad(qs, kRows, sq, sh.hd);
+  zero_pad(dos, kRows, sv, sh.vd);
+  zero_pad(ks, kStages * kTile, sq, sh.hd);
+  zero_pad(vs, kStages * kTile, sv, sh.vd);
+  // (batch, position, head) rows of a [B, Sq, H, w] tensor
+  auto head_row = [&](const float* base, int w, int r) -> const float* {
+    int hg, pos;
+    return row_live(sh, q0, r, hg, pos)
+               ? base + ((static_cast<size_t>(b) * sh.Sq + pos) * sh.H +
+                         kvh * sh.G + hg) * w
+               : nullptr;
+  };
+  copy_rows(qs, sq, kRows, sh.hd, sh.vec, q,
+            [&](int r) { return head_row(q, sh.hd, r); });
+  copy_rows(dos, sv, kRows, sh.vd, sh.vec, dout,
+            [&](int r) { return head_row(dout, sh.vd, r); });
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * kTile;
+    copy_rows(ks + stage * kTile * sq, sq, kTile, sh.hd, sh.vec, k,
+              [&](int j) -> const float* {
+                return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
+              });
+    copy_rows(vs + stage * kTile * sv, sv, kTile, sh.vd, sh.vec, v,
+              [&](int j) -> const float* {
+                return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
+              });
+  };
 
   int t_lo, t_hi;
   key_range(sh, q0, q_last, t_lo, t_hi);
+  const int nt = t_hi - t_lo + 1;
+  load_tile(t_lo, 0);
+  cp_commit();  // group: Q, dO and the first tile
 
-  // pass 1: each row's max, denominator (log2 units) and unnormalised
-  // output o = sum exp2(s - m) v, rescaled as m grows
-  float m[4], l[4];
-  float acc[4][HC];  // o in pass 1, dQ in pass 2
+  // this lane's two rows (h = 0: row g, h = 1: row g + 8 of the warp)
+  const int row0 = warp * 16 + g;
+  int hg[2], pos[2];
+  bool live[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int h = 0; h < 2; ++h) live[h] = row_live(sh, q0, row0 + 8 * h, hg[h], pos[h]);
+  float m[2] = {kNegInf, kNegInf};  // running max, quad-uniform
+  float l[2] = {0.f, 0.f};          // this lane's part of the denominator
+  float d[2] = {0.f, 0.f};          // pass 1: this lane's part of l D; pass 2: D
+  float il[2] = {0.f, 0.f};
+  float acc[HT][4];
 #pragma unroll
-    for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
-  }
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kKeys;
+  for (int n = 0; n < HT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int nks_q = (sh.hd + 7) / 8, nks_v = (sh.vd + 7) / 8;
+  const float* qw = qs + row0 * sq + t;
+  const float* dow = dos + row0 * sv + t;
+  const float sc = sh.scale * kLog2e;
+
+  for (int i = 0; i < 2 * nt; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < 2 * nt) load_tile(t_lo + (i + 1) % nt, stage ^ 1);
+    cp_commit();  // (empty on the last tile: keeps wait_group 1 uniform)
+    cp_wait<1>();
     __syncthreads();
-    load_keys(s.k, s.sq, k, sh.hd, sh, b, kvh, k0);
-    load_keys(s.v, s.sv, v, sh.vd, sh, b, kvh, k0);
-    __syncthreads();
-    float sc[4][2];
-    dot_tile(sc, s.q, s.sq, s.k, s.sq, sh.hd, ty, tx);
+    const int k0 = (t_lo + i % nt) * kTile;
+    const float* kt = ks + stage * kTile * sq;
+    const float* vt = vs + stage * kTile * sv;
+
+    // S = Q.K^T, dP = dO.V^T: this warp's 16 rows x 16 keys; s[j][e] is
+    // row g + 8 (e >> 1), key k0 + 8j + 2t + (e & 1)
+    float s[2][4], dp[2][4];
+    dot_nt(s, qw, sq, kt + g * sq + t, sq, nks_q);
+    dot_nt(dp, dow, sv, vt + g * sv + t, sv, nks_v);
+    const int k_end = k0 + kTile - 1;
+    const bool whole = __all_sync(
+        kFull, k_end < sh.Sk &&
+                   (!sh.causal || k_end <= min(pos[0], pos[1])) &&
+                   (sh.window == 0 || max(pos[0], pos[1]) - k0 < sh.window));
+    unsigned vis = 0;  // bit 4j + e: s[j][e] visible
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[2];
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int st =
+            whole ? 0 : key_state(sh, pos[e >> 1], k0 + 8 * j + 2 * t + (e & 1));
+        s[j][e] = score2(st, s[j][e], sc);
+        vis |= (st == 0 ? 1u : 0u) << (4 * j + e);
+      }
+
+    if (i < nt) {  // pass 1: m, l and l D, online
+      float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        x[j] = score2(sh, key_state(sh, pos[i], k0 + 2 * tx + j), sc[i][j]);
-      const float m_new = fmaxf(m[i], half_max(fmaxf(x[0], x[1])));
-      const float corr = exp2f(m[i] - m_new);
-      const float p0 = exp2f(x[0] - m_new), p1 = exp2f(x[1] - m_new);
-      l[i] = l[i] * corr + p0 + p1;
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < HC; ++c) acc[i][c] *= corr;
-      s.p[(4 * ty + i) * kPS + 2 * tx] = p0;
-      s.p[(4 * ty + i) * kPS + 2 * tx + 1] = p1;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kKeys; ++j) {
-      float x[4];
+        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = s.p[(4 * ty + i) * kPS + j];
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mt[h]));
+        const float corr = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= corr;
+        d[h] *= corr;
+      }
 #pragma unroll
-      for (int c = 0; c < HC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < sh.vd) {
-          const float y = s.v[j * s.sv + col];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(x[i], y, acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - m[e >> 1]);
+          l[e >> 1] += p;
+          d[e >> 1] = fmaf(p, dp[j][e], d[e >> 1]);
+        }
+      if (i == nt - 1) {  // the row's stats, for pass 2 and the keys launch
+        const size_t plane = static_cast<size_t>(sh.B) * sh.Sq * sh.H;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          il[h] = 1.f / quad_sum(l[h]);
+          d[h] = quad_sum(d[h]) * il[h];
+          if (live[h] && t == 0) {
+            const size_t at =
+                ((static_cast<size_t>(b) * sh.KV + kvh) * sh.Sq + pos[h]) *
+                    sh.G + hg[h];
+            stats[at] = m[h];
+            stats[plane + at] = il[h];
+            stats[2 * plane + at] = d[h];
+          }
         }
       }
-    }
-  }
-  float il[4], dd[4];
+    } else {  // pass 2: dS = P (dP - D), dQ += dS.K
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    il[i] = 1.f / half_sum(l[i]);
-    // D = dO . O over the row, O = o / l
-    float part = 0.f;
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < sh.vd)
-        part = fmaf(s.dout[(4 * ty + i) * s.sv + col], acc[i][c], part);
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = exp2f(s[j][e] - m[h]) * il[h];
+          s[j][e] = (vis >> (4 * j + e)) & 1u ? p * (dp[j][e] - d[h]) : 0.f;
+        }
+      dot_acc<HT>(acc, s, kt + 2 * t * sq + g, sq, nks_q);
     }
-    dd[i] = half_sum(part) * il[i];
-    if (live[i] && tx == 0) {
-      const size_t at =
-          (static_cast<size_t>(b) * sh.Sq + pos[i]) * sh.H + kvh * sh.G + hg[i];
-      const size_t plane = static_cast<size_t>(sh.B) * sh.Sq * sh.H;
-      stats[at] = m[i];
-      stats[plane + at] = il[i];
-      stats[2 * plane + at] = dd[i];
-    }
+    __syncthreads();  // the next tile's copies overwrite this stage
   }
+  cp_wait<0>();
 
-  // pass 2: P, dP, dS and dQ += dS.K
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    float* row = dq + ((static_cast<size_t>(b) * sh.Sq + pos[h]) * sh.H +
+                       kvh * sh.G + hg[h]) * sh.hd;
 #pragma unroll
-    for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kKeys;
-    __syncthreads();
-    load_keys(s.k, s.sq, k, sh.hd, sh, b, kvh, k0);
-    load_keys(s.v, s.sv, v, sh.vd, sh, b, kvh, k0);
-    __syncthreads();
-    float sc[4][2], dp[4][2];
-    dot_tile(sc, s.q, s.sq, s.k, s.sq, sh.hd, ty, tx);
-    dot_tile(dp, s.dout, s.sv, s.v, s.sv, sh.vd, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int st = key_state(sh, pos[i], k0 + 2 * tx + j);
-        const float p = exp2f(score2(sh, st, sc[i][j]) - m[i]) * il[i];
-        s.ds[(4 * ty + i) * kPS + 2 * tx + j] =
-            st == 0 ? p * (dp[i][j] - dd[i]) : 0.f;
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kKeys; ++j) {
-      float x[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = s.ds[(4 * ty + i) * kPS + j];
-#pragma unroll
-      for (int c = 0; c < HC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < sh.hd) {
-          const float y = s.k[j * s.sq + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(x[i], y, acc[i][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!live[i]) continue;
-    float* row = dq + ((static_cast<size_t>(b) * sh.Sq + pos[i]) * sh.H +
-                       kvh * sh.G + hg[i]) * sh.hd;
-#pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < sh.hd) row[col] = acc[i][c] * sh.scale;
+    for (int n = 0; n < HT; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < sh.hd) row[col] = acc[n][2 * h] * sh.scale;
+      if (col + 1 < sh.hd) row[col + 1] = acc[n][2 * h + 1] * sh.scale;
     }
   }
 }
 
-// (2) keys: dK and dV. KC: columns a thread, cx + 32 c (hd, vd <= 32 KC)
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
+// (2) keys: dK and dV. HT: dK and dV n-tiles a lane (hd, vd <= 8 HT).
+// Warp w takes keys 16 (w & 1) .. + 15 of the block's 32 and rows
+// 16 (w >> 1) .. + 15 of each 32-row tile: two row streams, whose dK and
+// dV are summed in shared memory at the end.
+template <int HT>
+__global__ void __launch_bounds__(kThreads, HT <= 8 ? 3 : (HT <= 16 ? 2 : 1))
 flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ dout,
                       const float* __restrict__ stats, float* __restrict__ dk,
                       float* __restrict__ dv, Shape sh) {
   extern __shared__ __align__(16) float smem[];
-  Smem s(smem, sh.hd, sh.vd);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int ky = tid >> 5, cx = tid & 31;  // keys 4 ky .. 4 ky + 3
-  const int b = blockIdx.y / sh.KV, kvh = blockIdx.y % sh.KV;
-  const int k0 = blockIdx.x * kKeys;  // small k0 sees the most rows: first
+  const int sq = stride(sh.hd), sv = stride(sh.vd);
+  float* ks = smem;                            // [kKeys][sq]
+  float* vs = ks + kKeys * sq;                 // [kKeys][sv]
+  float* qs = vs + kKeys * sv;                 // [kStages][kRowTile][sq]
+  float* dos = qs + kStages * kRowTile * sq;   // [kStages][kRowTile][sv]
+  float* sts = dos + kStages * kRowTile * sv;  // [kStages][3][kRowTile]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp & 1, rs = warp >> 1;  // key group, row stream
+  const int bkv = sh.B * sh.KV;
+  const int b = (blockIdx.x % bkv) / sh.KV, kvh = blockIdx.x % sh.KV;
+  const int k0 = (blockIdx.x / bkv) * kKeys;  // small k0 sees the most rows
   const int k_last = min(k0 + kKeys, sh.Sk) - 1;
-  load_keys(s.k, s.sq, k, sh.hd, sh, b, kvh, k0);
-  load_keys(s.v, s.sv, v, sh.vd, sh, b, kvh, k0);
+  const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
+  const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
+  const float* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
+                    static_cast<size_t>(kvh) * sh.hd;
+  const float* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
+                    static_cast<size_t>(kvh) * sh.vd;
+
+  zero_pad(ks, kKeys, sq, sh.hd);
+  zero_pad(vs, kKeys, sv, sh.vd);
+  zero_pad(qs, kStages * kRowTile, sq, sh.hd);
+  zero_pad(dos, kStages * kRowTile, sv, sh.vd);
+  copy_rows(ks, sq, kKeys, sh.hd, sh.vec, k, [&](int j) -> const float* {
+    return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
+  });
+  copy_rows(vs, sv, kKeys, sh.vd, sh.vec, v, [&](int j) -> const float* {
+    return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
+  });
 
   // the positions that can see these keys; all of them from the first row
-  // that sees no key at all (it is uniform over every key)
+  // that sees no key at all (it is uniform over every key). Row rho of the
+  // walk is position rho / G, head rho % G of the group.
   const int p_lo = sh.causal ? k0 : 0;
   int p_hi = sh.window > 0 ? min(sh.Sq - 1, k_last + sh.window - 1)
                            : sh.Sq - 1;
   if (sh.window > 0 && sh.Sk + sh.window - 1 <= sh.Sq - 1) p_hi = sh.Sq - 1;
+  const int rho0 = p_lo * sh.G;
+  const int rho_end = p_lo <= p_hi ? (p_hi + 1) * sh.G : rho0;
+  const int nsteps = (rho_end - rho0 + kRowTile - 1) / kRowTile;
   const size_t plane = static_cast<size_t>(sh.B) * sh.Sq * sh.H;
+  const float* stb =
+      stats + (static_cast<size_t>(b) * sh.KV + kvh) * sh.Sq * sh.G;
+  auto load_rows = [&](int step, int stage) {
+    const int first = rho0 + step * kRowTile;
+    auto row = [&](const float* base, int w, int r) -> const float* {
+      const int rho = first + r;
+      if (rho >= rho_end) return nullptr;
+      const int pos = rho / sh.G;
+      return base + ((static_cast<size_t>(b) * sh.Sq + pos) * sh.H +
+                     kvh * sh.G + rho - pos * sh.G) * w;
+    };
+    copy_rows(qs + stage * kRowTile * sq, sq, kRowTile, sh.hd, sh.vec, q,
+              [&](int r) { return row(q, sh.hd, r); });
+    copy_rows(dos + stage * kRowTile * sv, sv, kRowTile, sh.vd, sh.vec, dout,
+              [&](int r) { return row(dout, sh.vd, r); });
+    for (int i = threadIdx.x; i < 3 * kRowTile; i += kThreads) {
+      const int c = i / kRowTile, rho = first + i - c * kRowTile;
+      const bool ok = rho < rho_end;
+      cp_async<4>(sts + stage * 3 * kRowTile + i,
+                  ok ? stb + c * plane + rho : stats, ok);
+    }
+  };
+  if (nsteps > 0) load_rows(0, 0);
+  cp_commit();  // group: K, V and the first row tile
 
-  float ak[4][KC], av[4][KC];
+  const int kw0 = k0 + 16 * kg;  // this warp's keys kw0 .. kw0 + 15
+  const int key[2] = {kw0 + g, kw0 + g + 8};
+  const float* kw = ks + (16 * kg + g) * sq + t;
+  const float* vw = vs + (16 * kg + g) * sv + t;
+  float ak[HT][4], av[HT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < HT; ++n)
 #pragma unroll
-    for (int c = 0; c < KC; ++c) ak[i][c] = av[i][c] = 0.f;
-  for (int t = p_lo / sh.BP; t <= p_hi / sh.BP && p_lo <= p_hi; ++t) {
-    const int q0 = t * sh.BP;
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  const int nks_q = (sh.hd + 7) / 8, nks_v = (sh.vd + 7) / 8;
+  const float sc = sh.scale * kLog2e;
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int stage = step & 1;
+    if (step + 1 < nsteps) load_rows(step + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    load_rows(s.q, s.sq, q, sh.hd, sh, b, kvh, q0);
-    load_rows(s.dout, s.sv, dout, sh.vd, sh, b, kvh, q0);
-    for (int r = tid; r < kRows; r += kThreads) {
-      int hg, pos;
-      float mm = 0.f, ii = 0.f, dd = 0.f;  // dead rows: P = 0
-      if (row_live(sh, q0, r, hg, pos)) {
-        const size_t at =
-            (static_cast<size_t>(b) * sh.Sq + pos) * sh.H + kvh * sh.G + hg;
-        mm = stats[at];
-        ii = stats[plane + at];
-        dd = stats[2 * plane + at];
-      }
-      s.m[r] = mm;
-      s.il[r] = ii;
-      s.d[r] = dd;
-    }
-    __syncthreads();
-    float sc[4][2], dp[4][2];
-    dot_tile(sc, s.q, s.sq, s.k, s.sq, sh.hd, ty, tx);
-    dot_tile(dp, s.dout, s.sv, s.v, s.sv, sh.vd, ty, tx);
+    // this warp's 16 rows of the tile, and their m, 1 / l, D
+    const float* qt = qs + (stage * kRowTile + 16 * rs) * sq;
+    const float* dot = dos + (stage * kRowTile + 16 * rs) * sv;
+    const float* mrow = sts + stage * 3 * kRowTile + 16 * rs;
+    const int first = rho0 + step * kRowTile + 16 * rs;
+
+    // S^T = K.Q^T, dP^T = V.dO^T: this warp's 16 keys x 16 rows; s[j][e]
+    // is key g + 8 (e >> 1), row 8j + 2t + (e & 1)
+    float s[2][4], dp[2][4];
+    dot_nt(s, kw, sq, qt + g * sq + t, sq, nks_q);
+    dot_nt(dp, vw, sv, dot + g * sv + t, sv, nks_v);
+    // rows past rho_end are zero (q, dO, m, 1 / l, D): P = 0, dS = 0
+    const int pos_first = first / sh.G;
+    const int pos_last = (min(first + 16, rho_end) - 1) / sh.G;
+    const bool whole = kw0 + 15 < sh.Sk &&
+                       (!sh.causal || kw0 + 15 <= pos_first) &&
+                       (sh.window == 0 || pos_last - kw0 < sh.window);
+    int rpos[4];  // position of rows 2t, 2t + 1, 8 + 2t, 9 + 2t; -1: dead
+    if (!whole) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      int hg, pos;
-      row_live(sh, q0, r, hg, pos);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int st = key_state(sh, pos, k0 + 2 * tx + j);
-        const float p = exp2f(score2(sh, st, sc[i][j]) - s.m[r]) * s.il[r];
-        s.p[r * kPS + 2 * tx + j] = p;
-        s.ds[r * kPS + 2 * tx + j] = st == 0 ? p * (dp[i][j] - s.d[r]) : 0.f;
-      }
-    }
-    __syncthreads();
-    // dV += P^T.dO, dK += dS^T.Q over the tile's rows
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      float pp[4], dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pp[i] = s.p[r * kPS + 4 * ky + i];
-        dsv[i] = s.ds[r * kPS + 4 * ky + i];
-      }
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const int col = cx + 32 * c;
-        if (col < sh.vd) {
-          const float y = s.dout[r * s.sv + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) av[i][c] = fmaf(pp[i], y, av[i][c]);
-        }
-        if (col < sh.hd) {
-          const float y = s.q[r * s.sq + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ak[i][c] = fmaf(dsv[i], y, ak[i][c]);
-        }
+      for (int c = 0; c < 4; ++c) {
+        const int rho = first + 8 * (c >> 1) + 2 * t + (c & 1);
+        rpos[c] = rho < rho_end ? rho / sh.G : -1;
       }
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t + (e & 1);
+        const int c = 2 * j + (e & 1);
+        const int st =
+            whole ? 0 : (rpos[c] < 0 ? 2 : key_state(sh, rpos[c], key[e >> 1]));
+        const float p = exp2f(score2(st, s[j][e], sc) - mrow[r]) *
+                        mrow[kRowTile + r];
+        s[j][e] = p;
+        dp[j][e] = st == 0 ? p * (dp[j][e] - mrow[2 * kRowTile + r]) : 0.f;
+      }
+    // dV += P^T.dO, dK += dS^T.Q over the warp's 16 rows
+    dot_acc<HT>(av, s, dot + 2 * t * sv + g, sv, nks_v);
+    dot_acc<HT>(ak, dp, qt + 2 * t * sq + g, sq, nks_q);
+    __syncthreads();  // the next tile's copies overwrite this stage
   }
+  cp_wait<0>();
+
+  // stream 1's dK and dV through the ring's space to stream 0, which adds
+  // them (a fixed order) and stores: [4 (nks_q + nks_v) values][2 key
+  // groups][32 lanes], at most 64 (hd + vd + 16) floats: the ring holds
+  // 64 (stride(hd) + stride(vd))
+  __syncthreads();
+  float* part = qs;
+  auto at = [&](int i) { return (i * 2 + kg) * 32 + lane; };
+  if (rs == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ky + i;
-    if (key >= sh.Sk) continue;
-    const size_t row = (static_cast<size_t>(b) * sh.Sk + key) * sh.KV + kvh;
+    for (int n = 0; n < HT; ++n)
 #pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const int col = cx + 32 * c;
-      if (col < sh.hd) dk[row * sh.hd + col] = ak[i][c] * sh.scale;
-      if (col < sh.vd) dv[row * sh.vd + col] = av[i][c];
+      for (int e = 0; e < 4; ++e) {
+        if (n < nks_q) part[at(4 * n + e)] = ak[n][e];
+        if (n < nks_v) part[at(4 * (nks_q + n) + e)] = av[n][e];
+      }
+  }
+  __syncthreads();
+  if (rs == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= sh.Sk) continue;
+    const size_t row =
+        (static_cast<size_t>(b) * sh.Sk + key[h]) * sh.KV + kvh;
+#pragma unroll
+    for (int n = 0; n < HT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e, i = 4 * n + 2 * h + e;
+        if (col < sh.hd)
+          dk[row * sh.hd + col] = (ak[n][2 * h + e] + part[at(i)]) * sh.scale;
+        if (col < sh.vd)
+          dv[row * sh.vd + col] = av[n][2 * h + e] + part[at(4 * nks_q + i)];
+      }
     }
   }
 }
 
-template <int W>
+template <int HT>
 cudaError_t launch(const Shape& sh, cudaStream_t stream, const float* q,
                    const float* k, const float* v, const float* dout,
                    float* dq, float* dk, float* dv, float* stats) {
   const size_t smem = smem_bytes(sh.hd, sh.vd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_rows_kernel<W / 16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_bwd_rows_kernel<HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_keys_kernel<W / 32>,
+  err = cudaFuncSetAttribute(flash_bwd_keys_kernel<HT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 rows_grid((sh.Sq + sh.BP - 1) / sh.BP, sh.B * sh.KV);
-  flash_bwd_rows_kernel<W / 16><<<rows_grid, kThreads, smem, stream>>>(
+  const int bkv = sh.B * sh.KV;
+  const int rows_grid = bkv * ((sh.Sq + sh.BP - 1) / sh.BP);
+  flash_bwd_rows_kernel<HT><<<rows_grid, kThreads, smem, stream>>>(
       q, k, v, dout, dq, stats, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 keys_grid((sh.Sk + kKeys - 1) / kKeys, sh.B * sh.KV);
-  flash_bwd_keys_kernel<W / 32><<<keys_grid, kThreads, smem, stream>>>(
+  const int keys_grid = bkv * ((sh.Sk + kKeys - 1) / kKeys);
+  flash_bwd_keys_kernel<HT><<<keys_grid, kThreads, smem, stream>>>(
       q, k, v, dout, stats, dk, dv, sh);
   return cudaGetLastError();
 }
@@ -515,12 +725,20 @@ extern "C" int flash_attention_bwd(const float* q, const float* k,
   sh.causal = causal;
   sh.window = window;
   sh.scale = scale;
+  // the widest copy every row of q, k, v and dout stays aligned to; fp32
+  // rows and pointers are 4-byte aligned, so at least 4
+  sh.vec = copy_bytes(q, sizeof(float) * hd);
+  const int vecs[3] = {copy_bytes(k, sizeof(float) * hd),
+                       copy_bytes(v, sizeof(float) * vd),
+                       copy_bytes(dout, sizeof(float) * vd)};
+  for (int x : vecs) sh.vec = x < sh.vec ? x : sh.vec;
+  if (sh.vec == 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err;
   if (hd <= 64)
-    err = launch<64>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+    err = launch<8>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
   else if (hd <= 128)
-    err = launch<128>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+    err = launch<16>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
   else
-    err = launch<256>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+    err = launch<32>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
   return static_cast<int>(err);
 }

@@ -14,8 +14,9 @@ version repeats K/V per query head and runs ``ref.flash_attention_ref``
 (exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
 public wrapper that checks the arguments and picks between the two.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32) has no
-Pallas counterpart: the JAX package trains through XLA blockwise
+The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32, every
+product 3xTF32 on the tensor cores, tiles through ``cp.async`` rings) has
+no Pallas counterpart: the JAX package trains through XLA blockwise
 attention. ``launch_bwd`` runs its two launches, ``plain_bwd`` (autograd
 of ``plain``) is what it is held against.
 """

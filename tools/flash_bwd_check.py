@@ -8,10 +8,13 @@ backward's ``ptxas`` report, holds ``flash_attention_bwd`` against
 autograd of the plain version at the training shapes of
 ``chip_smoke.py`` (Qwen1.5-0.5B: 4 x 2048, 16 heads of 64; Mixtral: 1 x
 2048, 32 / 8 heads of 128) and at its coverage shapes, one JSON line a
-shape (max |kernel - plain| / max |plain| for dq, dk, dv), and times the
-kernel and SDPA's fp32 forward + backward at the two training shapes
-with CUDA events. The short first call for a change to the kernel,
-before ``chip_smoke.py``. Exits non-zero without a GPU or on a mismatch.
+shape (max |kernel - plain| / max |plain| for dq, dk, dv). At the two
+training shapes it also launches the kernel twice and checks that dq, dk
+and dv are bitwise equal, and times the kernel, SDPA's fp32 forward +
+backward and SDPA's backward alone (``autograd.grad`` over a retained
+forward graph) with CUDA events. The short first call for a change to
+the kernel, before ``chip_smoke.py``. Exits non-zero without a GPU, on a
+mismatch or on a second launch that differs.
 """
 import json
 import sys
@@ -28,7 +31,8 @@ SHAPES = [(4, 2048, 2048, 16, 16, 64, 64, True, 0),
           (1, 300, 300, 16, 16, 192, 128, True, 0),
           (1, 100, 40, 4, 2, 64, 64, True, 16),
           (1, 200, 200, 16, 1, 256, 256, True, 37),
-          (1, 70, 70, 6, 3, 37, 21, True, 0)]
+          (1, 70, 70, 6, 3, 37, 21, True, 0),
+          (1, 150, 150, 8, 2, 160, 24, True, 0)]
 TOL = 2e-5   # max |kernel - plain| <= TOL x max |plain|, each output
 
 
@@ -81,17 +85,26 @@ def main():
                "rel_err": rel, "ok": max(rel) <= TOL}
         ok &= rec["ok"]
         if i < 2:
+            again = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
+            rec["bitwise_repeat"] = all(torch.equal(a, b)
+                                        for a, b in zip(got, again))
+            ok &= rec["bitwise_repeat"]
             rec["ms"] = timed_ms(lambda: flash_mod.launch_bwd(
                 fn, q, k, v, dout, **kw))
             lq, lk, lv = (t.transpose(1, 2).requires_grad_()
                           for t in (q, k, v))
+            ldo = dout.transpose(1, 2)
+
+            def forward():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=causal, enable_gqa=True)
 
             def sdpa():
-                o = F.scaled_dot_product_attention(
-                    lq, lk, lv, is_causal=causal, enable_gqa=True)
-                return torch.autograd.grad(o, (lq, lk, lv),
-                                           dout.transpose(1, 2))
+                return torch.autograd.grad(forward(), (lq, lk, lv), ldo)
             rec["sdpa_fwd_bwd_ms"] = timed_ms(sdpa)
+            o = forward()
+            rec["sdpa_bwd_ms"] = timed_ms(lambda: torch.autograd.grad(
+                o, (lq, lk, lv), ldo, retain_graph=True))
         print(json.dumps(rec), flush=True)
     print(torch.cuda.get_device_name(0))
     sys.exit(0 if ok else 1)
