@@ -121,6 +121,28 @@ It drives the port's two entry points end to end and checks them:
    version and against float64 at each model's recorded call, and
    launched twice there for bitwise equal dq, dk and dv; the kernels with
    no backward refuse inputs that require grad;
+7c. the port's entry points as a user calls them (``launch_phase``):
+   ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B whole, 3
+   steps of 4 x 2048 with ``--ckpt`` (the published bf16 config is
+   refused on the card, ROADMAP A14; the run patches the config's dtype to
+   float32): exact flash launches a step, a finite final loss, and the
+   checkpoint loaded into an ``init_params`` tree equal to the trained
+   params; ``repro_torch.launch.serve.main`` at its own reduced sizes
+   (offload LFU + speculative prefetch, with ``--overlap``, with
+   ``--quant int8``, and ``--mode device``) with the launches the code
+   implies, and once as ``python -m repro_torch.launch.serve`` in a
+   subprocess, which must print the in-process run's tokens; the paper's
+   pipeline (``repro_torch.examples.offload_paper_pipeline``) at
+   Mixtral-8x7B's full widths, 2 of 32 layers: 20 training steps at lr
+   3e-4 (the reference script's 100 at 2e-3, cut: 2e-3 diverges at these
+   widths), then the LRU trace, the four policies,
+   speculative prefetch and the overlap deployment on the reference's 3
+   prompts (24 new tokens, 4 slots a layer) on masters pinned once, with
+   every engine's tokens equal, spec P == R, H2D bytes exact and
+   ``moe_ffn`` launched once a layer a step; a ``pipeline`` JSON line of
+   the card's decode step times beside the simulated A6000 clock; then
+   ``quickstart`` and ``serve_batch`` at their own sizes (LRU tokens ==
+   LFU tokens; continuous batching == solo);
 8. each prefill's launch counts are reset before it and read after it:
    flash attention must launch once per attention layer and once per
    cross-attention layer, SSD chunk once per SSM layer;
@@ -182,9 +204,13 @@ import bisect
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -349,6 +375,25 @@ SLEEP_CYCLES = 20_000_000
 # 4 experts streams in 2 chunks and chunk 2's installs evict chunk 1's
 # experts, whose moe_ffn may still be queued (the last-reader event's case)
 RACE_SLOTS = 2
+# the launch phase (7c): the train CLI on Qwen1.5-0.5B whole (the published
+# config with fp32 weights: bf16 training on the card is ROADMAP A14), the
+# serve CLI at its own reduced sizes (its prompt is 8 tokens), the paper's
+# pipeline at Mixtral-8x7B's full widths cut to 2 of 32 layers, its
+# training cut from the reference script's 100 steps to 20 and its
+# learning rate from 2e-3 to 3e-4: at d_model 4096 the loss rose at 2e-3
+# (100 steps: 11.23 -> peaks near 16.6 -> 11.81) and 1e-3 (-> 11.63), and
+# fell at 3e-4 (-> 11.12) and 1e-4 (-> 11.19) (tools/pipeline_lr_sweep.py)
+LAUNCH_TRAIN = ["--arch", "qwen1.5-0.5b", "--steps", "3", "--batch", "4",
+                "--seq", "2048"]
+LAUNCH_SERVE = ["--arch", "mixtral-8x7b", "--policy", "lfu", "--prefetch",
+                "spec", "--cache-slots", "4", "--tokens", "16", "--layers",
+                "2", "--d-model", "256"]
+SERVE_RUNS = (("lfu_spec", LAUNCH_SERVE),
+              ("lfu_spec_overlap", LAUNCH_SERVE + ["--overlap"]),
+              ("lfu_spec_int8", LAUNCH_SERVE + ["--quant", "int8"]),
+              ("device", ["--mode", "device", "--arch", "qwen2.5-3b"]))
+SERVE_PROMPT_LEN = 8
+PIPELINE_LAYERS, PIPELINE_STEPS, PIPELINE_LR = 2, 20, 3e-4
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "moe_ffn": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                 "src/repro/kernels/moe_gemm.py:40"),
@@ -2181,6 +2226,47 @@ def train_step_compare(cfg, batch, ops, lr):
             "launches_kernel": launch_k}
 
 
+def counted_steps(want, what, stamps, launches, kept):
+    """``make`` for ``patched(<module>, "train", ...)``: the module's
+    ``train`` runs with a callback that checks each step's launches (set
+    to 0 just before the call and after each step, read after each step)
+    against ``want`` exactly, and stamps each step's end on the host
+    clock after a synchronize (``stamps[0]``: the call's start, so step
+    0 includes the params' init). ``kept["params"]`` gets the trained
+    params."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def make(train):
+        def call(*args, **kw):
+            def after_step(i, params, loss):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                counts = ops.launch_counts()
+                ops.reset_launch_counts()
+                check_launches(counts, want, f"{what} train step {i}")
+                launches.append(counts)
+
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            stamps.append(time.perf_counter())
+            params, losses = train(*args, callback=after_step, **kw)
+            kept["params"] = params
+            return params, losses
+        return call
+    return make
+
+
+def step_summary(stamps, batch_tokens):
+    """Per-step ms from ``counted_steps``' stamps, and the median of the
+    steps after the first (which includes the init) in ms and tokens/s."""
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    rest = sorted(ms[1:]) or ms
+    median = rest[len(rest) // 2]
+    return {"step_ms": ms, "median_step_ms": median,
+            "tokens_per_s": batch_tokens / median * 1e3}
+
+
 def training_phase(ops, card, hold_and_time, profile):
     """TRAIN_RUNS through ``repro_torch.training.train`` on ``lm_batches``
     at published widths (params drawn on the card from the seed, fp32,
@@ -2221,27 +2307,16 @@ def training_phase(ops, card, hold_and_time, profile):
             torch.cuda.empty_cache()
         n_attn = prefill_launches(cfg)["flash_attention"]
         want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
-        stamps, launches, seen = [], [], {}
-
-        def after_step(i, params, loss):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            counts = ops.launch_counts()
-            ops.reset_launch_counts()
-            check_launches(counts, want, f"{cfg.name} train step {i}")
-            launches.append(counts)
-
+        stamps, launches, seen, kept = [], [], {}, {}
         torch.cuda.reset_peak_memory_stats()
         with patched(flash_mod, "launch_bwd", keep_first_bwd(seen)):
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            params, losses = train(cfg, iter(batches), steps=steps,
-                                   seed=SEED, log_every=0,
-                                   opt_cfg=AdamWConfig(lr=lr),
-                                   callback=after_step, device="cuda")
-        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
-        for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+            params, losses = counted_steps(
+                want, cfg.name, stamps, launches, kept)(train)(
+                cfg, iter(batches), steps=steps, seed=SEED, log_every=0,
+                opt_cfg=AdamWConfig(lr=lr), device="cuda")
+        kept.clear()
+        summary = step_summary(stamps, B * S)
+        for i, (ms, loss) in enumerate(zip(summary["step_ms"], losses)):
             print(json.dumps({"train_step": {
                 "model": cfg.name, "step": i, "ms": ms,
                 "tokens_per_s": B * S / ms * 1e3, "loss": loss,
@@ -2250,9 +2325,7 @@ def training_phase(ops, card, hold_and_time, profile):
               f"{cfg.name}: losses {losses}")
         check(losses[-1] < losses[0],
               f"{cfg.name}: loss did not fall: {losses}")
-        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-        run.update(losses=losses, step_ms=step_ms, median_step_ms=steady,
-                   tokens_per_s=B * S / steady * 1e3,
+        run.update(losses=losses, **summary,
                    launches_per_step=launches[0],
                    peak_device_bytes=torch.cuda.max_memory_allocated(),
                    params=sum(p.numel() for p in leaves(params)))
@@ -2285,6 +2358,441 @@ def training_phase(ops, card, hold_and_time, profile):
         torch.cuda.empty_cache()
         rep[cfg.name] = run
     return rep
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def timed_decode(runs):
+    """``make`` for ``patched(OffloadEngine, "decode_tokens", ...)``: each
+    engine's decode steps' wall ms (synchronized before and after) go to
+    a list of their own in ``runs``, one list an engine, in the order the
+    engines first decode."""
+    import torch
+
+    def make(decode_tokens):
+        def call(self, *args, **kw):
+            if self._steps_done == 0:
+                runs.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode_tokens(self, *args, **kw)
+            torch.cuda.synchronize()
+            runs[-1].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+    return make
+
+
+def train_cli_run(ops, card):
+    """(a) ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B
+    whole. The published config is bf16, and the card refuses to train
+    it (the flash kernel's backward is fp32 only, A14): that refusal is
+    checked first. Then the same argv with the config's dtype patched to
+    float32: every step launches the flash forward twice (remat) and its
+    backward once per layer and nothing else; the printed final loss is
+    finite; the checkpoint loads with ``load_checkpoint`` into an
+    ``init_params`` tree of the config (the file's keys exactly, shapes,
+    dtypes, finite, ``step`` 3) and equals the trained params bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import load_checkpoint
+    from repro_torch.training.tree import flatten
+
+    rep = {"card": card, "argv": LAUNCH_TRAIN}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "qwen.npz")
+        argv = LAUNCH_TRAIN + ["--ckpt", path]
+        try:
+            captured(train_cli.main, argv)
+            check(False, "train CLI: bf16 Qwen trained on the card")
+        except NotImplementedError as e:
+            check("A14" in str(e), f"train CLI bf16: {e}")
+            rep["bf16_refusal"] = str(e)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def fp32(get):
+            return lambda arch: dataclasses.replace(get(arch),
+                                                    dtype="float32")
+
+        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                                  dtype="float32")
+        L = prefill_launches(cfg)["flash_attention"]
+        stamps, launches, kept = [], [], {}
+        with patched(train_cli, "get_config", fp32), patched(
+                train_cli, "train",
+                counted_steps({"flash_attention": 2 * L,
+                               "flash_attention_bwd": L}, "train CLI",
+                              stamps, launches, kept)):
+            _, text = captured(train_cli.main, argv)
+        m = re.search(r"final loss (\S+) \(start (\S+)\)", text)
+        check(m is not None and f"saved {path}" in text,
+              f"train CLI printed {text!r}")
+        last, first = float(m.group(1)), float(m.group(2))
+        check(np.isfinite(last) and np.isfinite(first),
+              f"train CLI losses {first} -> {last}")
+        check(len(launches) == 3, f"train CLI ran {len(launches)} steps")
+        rep.update(step_summary(stamps, 4 * 2048), loss_first=first,
+                   loss_last=last, launches_per_step=launches[0],
+                   ckpt_bytes=os.path.getsize(path))
+        like = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED + 1), device="cuda")
+        with np.load(path) as z:
+            keys = sorted(k for k in z.files if k != "__meta__")
+        tree, step = load_checkpoint(path, like)
+        trained = dict(flatten(kept.pop("params")))
+        check(step == 3, f"checkpoint step {step}")
+        check(keys == sorted(k for k, _ in flatten(like)),
+              "checkpoint keys differ from the init tree's")
+        for (k, t), (_, ref) in zip(flatten(tree), flatten(like)):
+            check(t.shape == ref.shape and t.dtype == ref.dtype
+                  and t.device == ref.device, f"checkpoint {k}")
+            check(bool(torch.isfinite(t).all()), f"checkpoint {k} finite")
+            check(torch.equal(t, trained[k]),
+                  f"checkpoint {k} != the trained params")
+        rep["ckpt_leaves"] = len(keys)
+        del like, tree, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def serve_cli_runs(ops):
+    """(b) ``repro_torch.launch.serve.main`` in-process at the CLI's own
+    reduced sizes (``SERVE_RUNS``), launch counts set to 0 before each
+    run and read after it. An offload run is one ``OffloadServer``
+    request: every known token (the 8-token prompt, then each of the
+    ``--tokens`` new ones, the last included, as ``generate`` does) is
+    one engine step (``max_batch`` 1, per-token prefill); each step runs
+    each layer's paged attention once and its MoE once, a batch-1 union
+    of top-2 experts, which 4 slots hold in one chunk: one ``moe_ffn``.
+    So (8 + tokens) x layers launches of each. Device mode (a dense
+    ``ServingEngine``) launches none. Then one subprocess ``python -m
+    repro_torch.launch.serve`` (``PYTHONPATH=src``): exit 0, ``hit_rate``
+    printed, and the in-process run's tokens."""
+    import torch
+    from repro_torch.launch import serve as serve_cli
+
+    rep = {}
+    for name, argv in SERVE_RUNS:
+        offload = "--mode" not in argv
+        layers = int(argv[argv.index("--layers") + 1]) if offload else 0
+        new = int(argv[argv.index("--tokens") + 1]) if offload else 0
+        steps = SERVE_PROMPT_LEN + new
+        want = ({"moe_ffn": steps * layers, "paged_attention": steps * layers}
+                if offload else {})
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, text = captured(serve_cli.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check_launches(launches, want, f"serve CLI {name}")
+        tokens = [line for line in text.splitlines()
+                  if line.startswith("tokens:")]
+        check(len(tokens) == (1 if offload else 2),
+              f"serve CLI {name} printed {text!r}")
+        if offload:
+            check(re.search(rf"^\s+decode_steps\s+{steps}$", text, re.M)
+                  is not None and re.search(r"^\s+hit_rate\s", text, re.M)
+                  is not None, f"serve CLI {name}: stats {text!r}")
+        rep[name] = {"argv": argv, "seconds": seconds, "launches": launches,
+                     "tokens": tokens}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *LAUNCH_SERVE], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0 and "hit_rate" in r.stdout,
+          f"python -m repro_torch.launch.serve: exit {r.returncode}\n"
+          f"{r.stderr[-3000:]}")
+    tokens = [line for line in r.stdout.splitlines()
+              if line.startswith("tokens:")]
+    check(tokens == rep["lfu_spec"]["tokens"],
+          f"subprocess tokens {tokens} != in-process "
+          f"{rep['lfu_spec']['tokens']}")
+    rep["subprocess"] = {"seconds": time.perf_counter() - t0,
+                         "tokens_equal_in_process": True}
+    return rep
+
+
+def pipeline_run(ops, card, hold_and_time):
+    """(c) The paper's pipeline (``repro_torch.examples.
+    offload_paper_pipeline``) at Mixtral-8x7B's full widths, 2 of 32
+    layers, fp32. Stage 1: ``train_model`` (dense MoE path, batch 8 x 64,
+    ``PIPELINE_LR``, ``PIPELINE_STEPS`` steps): each step launches the flash
+    forward twice and its backward once per layer and nothing else,
+    losses finite and the last below the first. The optimizer state goes
+    with ``train``'s return; the trained params stay on the card. Then
+    the expert masters are pinned once and shared by every engine
+    (``reusing``), and stages 2-5 run as the reference script runs them
+    (its 3 prompts of 4 tokens, 24 new tokens, 4 slots a layer), then the
+    deployed engine's configuration with overlap off (the measured
+    overlap comparison). Every engine decodes 3 x (4 + 24) batch-1 steps
+    (``generate`` feeds each known token, the last new one included) and
+    each step calls ``_grouped_ffn`` once a layer (a top-2 union in 4
+    slots is one chunk): 168 ``moe_ffn`` launches an engine and nothing
+    else. Checks: the same greedy tokens from every engine; spec P == R;
+    each engine's H2D bytes == (misses + prefetches) x the stored bytes
+    of one expert; the overlap engine's installs on its copy stream and
+    its ``stats()`` off the clock keys equal the overlap-off engine's.
+    Holds ``moe_ffn`` against its plain version at the stages' call.
+    Returns the ``pipeline`` report: the card's decode step times beside
+    the simulated A6000 clock (``CostModel``) of each engine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import HardwareProfile
+    from repro_torch.core.expert_store import ExpertStore
+    from repro_torch.core.offload_engine import OffloadEngine
+    from repro_torch.examples import offload_paper_pipeline as pipe
+    from repro_torch.training.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=PIPELINE_LAYERS, dtype="float32")
+    L = cfg.num_layers
+    B, S = 8, 64
+    stamps, launches, kept = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    with patched(pipe, "train", counted_steps(
+            {"flash_attention": 2 * L, "flash_attention_bwd": L},
+            "pipeline", stamps, launches, kept)):
+        params, losses = pipe.train_model(cfg, steps=PIPELINE_STEPS,
+                                          batch=B, seq=S, lr=PIPELINE_LR,
+                                          seed=SEED, device="cuda")
+    kept.clear()
+    check(len(losses) == PIPELINE_STEPS and all(np.isfinite(losses)),
+          f"pipeline losses {losses}")
+    check(losses[-1] < losses[0], f"pipeline loss did not fall: {losses}")
+    check(not any(t.requires_grad for t in leaves(params)),
+          "trained params require grad")
+    train_rep = {"steps": PIPELINE_STEPS, "batch": B, "seq": S,
+                 "lr": PIPELINE_LR,
+                 "moe_path": "dense", "losses": losses,
+                 "loss_first": losses[0], "loss_last": losses[-1],
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 **step_summary(stamps, B * S)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    need = sum(t.numel() * 4 for k, t in params["layers"]["moe"][
+        "experts"].items())
+    avail = mem_available()
+    check(avail > need + (8 << 30),
+          f"MemAvailable {avail} B: too little to pin {need} B of masters")
+    t0 = time.perf_counter()
+    store = ExpertStore.from_params(params, cfg, quant="none", pin=True)
+    pin_s = time.perf_counter() - t0
+    eb = store.expert_nbytes((0, 0))
+    sized = (params, cfg, pipe.PROMPTS, pipe.NEW, pipe.SLOTS)
+    per_engine = len(pipe.PROMPTS) * (len(pipe.PROMPTS[0]) + pipe.NEW) * L
+    runs, streams, seen, stage_launches = [], [], {}, {}
+    specs = {"moe_ffn": (lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
+                         lambda x_e, w1, w3, w2, slots: (
+                             x_e.clone(), w1, w3, w2, list(slots)))}
+
+    def stage(name, fn, engines):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_launches[name] = ops.launch_counts()
+        check_launches(stage_launches[name], {"moe_ffn": engines * per_engine},
+                       f"pipeline {name}")
+        return out
+
+    def off():   # the deployed configuration with overlap off
+        eng = OffloadEngine(params, cfg, cache_slots=pipe.SLOTS,
+                            policy="lfu", prefetch="spec",
+                            hw=HardwareProfile.a6000_pcie4(), device="cuda")
+        return {"tokens": [eng.generate(p, pipe.NEW) for p in pipe.PROMPTS],
+                "stats": pipe.plain_values(eng.stats())}
+
+    t_stages = time.perf_counter()
+    with reusing(store), patched(OffloadEngine, "decode_tokens",
+                                 timed_decode(runs)), \
+            recording(ops, seen, specs):
+        trace = stage("lru_trace", lambda: pipe.lru_trace(
+            *sized, device="cuda"), 1)
+        table = stage("compare_policies", lambda: pipe.compare_policies(
+            *sized, device="cuda"), len(pipe.POLICIES))
+        spec = stage("speculative", lambda: pipe.speculative(
+            *sized, device="cuda"), 1)
+        with install_streams(streams):
+            dep = stage("deployed", lambda: pipe.deployed(
+                *sized, device="cuda"), 1)
+        dep_off = stage("deployed_overlap_off", off, 1)
+    stages_s = time.perf_counter() - t_stages
+    named = ([("lru_trace", trace)]
+             + [(p, table[p]) for p in pipe.POLICIES]
+             + [("speculative", spec), ("deployed", dep),
+                ("deployed_overlap_off", dep_off)])
+    check(len(runs) == len(named) and all(
+        len(r) == per_engine // L for r in runs),
+        f"decode steps an engine: {[len(r) for r in runs]}")
+    for name, r in named:
+        check(r["tokens"] == trace["tokens"],
+              f"pipeline {name}: tokens {r['tokens']} != the LRU run's "
+              f"{trace['tokens']}")
+    s_spec = spec["stats"]
+    check(abs(s_spec["spec_precision"] - s_spec["spec_recall"]) < 1e-9,
+          f"spec P {s_spec['spec_precision']} != R {s_spec['spec_recall']}")
+    for name, r in named[1:]:
+        s = r["stats"]
+        check(s["bytes_transferred"] == (s["misses"] + s["prefetches"]) * eb,
+              f"pipeline {name}: {s['bytes_transferred']} H2D bytes, "
+              f"(misses + prefetches) x {eb} = "
+              f"{(s['misses'] + s['prefetches']) * eb}")
+    # (`None != stream` is False in PyTorch: test `is None` first)
+    check(bool(streams) and all(c is not None and c == q == streams[0][0]
+                                for c, q in streams),
+          "deployed: installs not on the engine's copy stream")
+    for k, v in dep_off["stats"].items():
+        check(k in CLOCK_KEYS or dep["stats"][k] == v,
+              f"deployed: stats()[{k}] overlap on {dep['stats'][k]} != "
+              f"off {v}")
+
+    def card_ms(ms):   # one token a decode step (batch 1)
+        med = sorted(ms)[len(ms) // 2]
+        return {"median_step_ms": med, "mean_step_ms": sum(ms) / len(ms),
+                "max_step_ms": max(ms), "tokens_per_s": 1e3 / med,
+                "run_tokens_per_s": len(ms) / sum(ms) * 1e3,
+                "decode_steps": len(ms)}
+
+    def row(r, ms):
+        s = r["stats"]
+        return {"hit_rate": s["hit_rate"],
+                "cache_precision": s["cache_precision"],
+                "cache_recall": s["cache_recall"],
+                "sim_tokens_per_s": s["sim_tokens_per_s"],
+                "sim_clock": "costmodel_a6000",
+                "h2d_bytes": s["bytes_transferred"],
+                "misses": s["misses"], "prefetches": s["prefetches"],
+                **card_ms(ms)}
+
+    rows = {name: row(r, ms) for (name, r), ms in zip(named, runs)}
+    hold_and_time({k: v[1] for k, v in seen.items()},
+                  {"moe_ffn": sum(c["moe_ffn"]
+                                  for c in stage_launches.values())},
+                  model=f"{cfg.name} (pipeline, trained, 2 layers)")
+    del seen, store, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "model": cfg.name, "layers": L,
+        "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
+                   "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+                   "experts": cfg.num_experts,
+                   "top_k": cfg.num_experts_per_tok,
+                   "expert_d_ff": cfg.expert_d_ff, "vocab": cfg.vocab_size},
+        "reduced": {"layers": f"{L} of 32",
+                    "train_steps": f"{PIPELINE_STEPS} of 100",
+                    "lr": f"{PIPELINE_LR} (the reference's 2e-3 diverges "
+                          f"at d_model 4096)"},
+        "train": train_rep, "pin_s": pin_s, "expert_bytes": eb,
+        "stages_s": stages_s,
+        "temporal_locality": trace["temporal_locality"],
+        "random_locality": trace["random_locality"],
+        "histograms": trace["histograms"], "render": trace["render"],
+        "tokens": trace["tokens"],
+        "policies": {p: rows[p] for p in pipe.POLICIES},
+        "lru_trace": rows["lru_trace"],
+        "speculative": {"spec_precision": s_spec["spec_precision"],
+                        "spec_recall": s_spec["spec_recall"],
+                        **rows["speculative"]},
+        "overlap": {"on": rows["deployed"],
+                    "off_same_policy": rows["deployed_overlap_off"],
+                    "reference_compare": "deployed (lfu+spec+overlap) vs "
+                                         "speculative (lru+spec)",
+                    "exposed_transfer_frac_on":
+                        dep["stats"]["exposed_transfer_frac"],
+                    "exposed_transfer_frac_off":
+                        dep_off["stats"]["exposed_transfer_frac"]},
+        "launches": stage_launches,
+        "phase_s": time.perf_counter() - t_phase}
+
+
+def examples_runs(ops):
+    """(d) ``quickstart.main`` and ``serve_batch.main`` at their own
+    sizes, launch counts set to 0 before each and read after.
+    quickstart: 80 train steps (4 layers: the flash forward 8 and its
+    backward 4 a step), then an LRU and an LFU ``OffloadServer`` of 4 + 24
+    steps, each a paged attention and a ``moe_ffn`` a layer; its LRU and
+    LFU tokens must be equal. serve_batch: the dense engine launches
+    nothing; the solo server (3 layers) (3 + 8) + (4 + 8) + (1 + 8) steps;
+    the continuous server its ``decode_steps`` (a union of two rows' top-2
+    fits its 4 slots: one ``moe_ffn`` a layer); its outputs must equal the
+    solo server's."""
+    import torch
+    from repro_torch.examples import quickstart, serve_batch
+
+    rep = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    qs, text = captured(quickstart.main, [])
+    torch.cuda.synchronize()
+    served = qs["served"]
+    check(served["lru"]["tokens"] == served["lfu"]["tokens"],
+          f"quickstart: LRU {served['lru']['tokens']} != LFU "
+          f"{served['lfu']['tokens']}")
+    serving = 2 * (len(quickstart.PROMPT) + 24) * 4
+    check_launches(ops.launch_counts(), {
+        "flash_attention": 80 * 8, "flash_attention_bwd": 80 * 4,
+        "moe_ffn": serving, "paged_attention": serving}, "quickstart")
+    rep["quickstart"] = {
+        "seconds": time.perf_counter() - t0, "launches": ops.launch_counts(),
+        "loss_first": qs["losses"][0], "loss_last": qs["losses"][-1],
+        "tokens": served["lru"]["tokens"],
+        "hit_rate": {p: r["stats"]["hit_rate"] for p, r in served.items()}}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sb, text = captured(serve_batch.main, [])
+    torch.cuda.synchronize()
+    cont, solo = sb["continuous"], sb["solo"]
+    check(cont["outs"] == solo["outs"],
+          f"serve_batch: continuous {cont['outs']} != solo {solo['outs']}")
+    steps = sum(len(p) + serve_batch.NEW for p in serve_batch.PROMPTS)
+    check(solo["stats"]["decode_steps"] == steps,
+          f"serve_batch: solo {solo['stats']['decode_steps']} steps")
+    n = 3 * (steps + cont["stats"]["decode_steps"])
+    check_launches(ops.launch_counts(), {"moe_ffn": n, "paged_attention": n},
+                   "serve_batch")
+    rep["serve_batch"] = {
+        "seconds": time.perf_counter() - t0, "launches": ops.launch_counts(),
+        "outs": solo["outs"], "dense": sb["dense"],
+        "continuous_steps": cont["stats"]["decode_steps"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def launch_phase(ops, card, hold_and_time):
+    """7c: the port's entry points as a user calls them: the train CLI
+    (``train_cli_run``), the serve CLI in-process and as ``python -m``
+    (``serve_cli_runs``), the paper's pipeline at full widths
+    (``pipeline_run``) and the two other examples (``examples_runs``).
+    Returns (the ``pipeline`` report, the rest)."""
+    t0 = time.perf_counter()
+    rep = {"card": card, "train_cli": train_cli_run(ops, card),
+           "serve_cli": serve_cli_runs(ops)}
+    pipeline = pipeline_run(ops, card, hold_and_time)
+    rep["examples"] = examples_runs(ops)
+    rep["phase_s"] = time.perf_counter() - t0
+    return pipeline, rep
 
 
 def main() -> None:
@@ -2517,6 +3025,11 @@ def main() -> None:
     # ---- training: Qwen1.5-0.5B whole, Mixtral-8x7B (2 layers) -------
     print(json.dumps({"training": training_phase(
         ops, card, hold_and_time, args.profile)}), flush=True)
+
+    # ---- the CLIs, the paper's pipeline and the examples ------------
+    pipeline, rep = launch_phase(ops, card, hold_and_time)
+    print(json.dumps({"pipeline": pipeline}), flush=True)
+    print(json.dumps({"launch": rep}), flush=True)
 
     hold_and_time({k: v[1] for k, v in seen.items()},
                   {"flash_attention": flash_launches["flash_attention"],

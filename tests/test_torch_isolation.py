@@ -58,7 +58,9 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.core, repro_torch.serving.offload_serving, "
             "repro_torch.serving.engine, repro_torch.models.ssm, "
             "repro_torch.models.transformer, repro_torch.kernels.ops, "
-            "repro_torch.training, repro_torch.data; "
+            "repro_torch.training, repro_torch.data, "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.examples.offload_paper_pipeline; "
             "bad = [m for m in sys.modules if m == 'repro' or "
             "m.startswith(('jax', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
