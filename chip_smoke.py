@@ -9,7 +9,7 @@ It drives the port's two entry points end to end and checks them:
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints the
    ``ptxas`` reports (registers, shared memory, spills) of flash
-   attention, its backward and SSD chunk on a JSON line each;
+   attention, SSD chunk and their backwards on a JSON line each;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -114,13 +114,16 @@ It drives the port's two entry points end to end and checks them:
    prompts of 512 tokens (2 chunks), then a timed prefill of 2 x 2048;
 7b. training (``training_phase``): Qwen1.5-0.5B whole, one step through
    the kernels against the same step through the plain attention
-   (``TRAIN_TOL``), then ``train()`` over ``TRAIN_RUNS`` for Qwen1.5-0.5B
-   and Mixtral-8x7B (2 layers): every step launches the flash forward
-   twice and its backward once per attention layer and nothing else,
-   losses finite and falling; the backward kernel held against its plain
-   version and against float64 at each model's recorded call, and
-   launched twice there for bitwise equal dq, dk and dv; the kernels with
-   no backward refuse inputs that require grad;
+   (``TRAIN_TOL``), then ``train()`` over ``TRAIN_RUNS`` for Qwen1.5-0.5B,
+   Mixtral-8x7B (2 layers), Mamba2-2.7B whole (64 layers at its published
+   widths) and a reduced Jamba hybrid (attention and SSM layers): every
+   step launches the flash forward twice and its backward once per
+   attention layer, the SSD chunk forward twice and its backward once per
+   SSM layer, and nothing else; losses finite and falling; each backward
+   kernel held against its plain version and against float64 at each
+   model's recorded call, and launched twice there for bitwise equal
+   gradients; the kernels with no backward refuse inputs that require
+   grad;
 7c. the port's entry points as a user calls them (``launch_phase``):
    ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B whole, 3
    steps of 4 x 2048 with ``--ckpt`` (the published bf16 config is
@@ -147,21 +150,23 @@ It drives the port's two entry points end to end and checks them:
    flash attention must launch once per attention layer and once per
    cross-attention layer, SSD chunk once per SSM layer;
 9. holds each kernel wrapper (``ops.moe_ffn``, ``ops.paged_attention``,
-   ``ops.flash_attention``, ``ops.ssd_chunk``) against its plain
-   PyTorch version on the card, on the arguments of the main path's
-   heaviest call, and times both (CUDA events after a warm-up) beside
-   the card's bound for the same work, a one-element op timed in the same
-   20-launch graph harness (``launch_floor_ms``: what a launch costs) and,
-   for flash attention, one ``scaled_dot_product_attention`` call on the
-   same inputs (a yardstick the port never calls). Paged attention is
-   also timed at the split lengths ``SPLIT_SWEEP`` (``paged_split_sweep``:
-   what chose its ``KEYS_PER_SPLIT``). The bound takes each kernel's
-   operations at the peak of the units it runs them on: flash attention's
-   (forward and backward) and SSD chunk's at the TF32 tensor-core rate
-   (with the fp32-core bound and the three-pass 3xTF32 floor beside it),
-   the others' at the fp32 rate. The backward is timed beside SDPA's
-   forward + backward (``library_ms``) and SDPA's backward alone
-   (``library_bwd_ms``);
+   ``ops.flash_attention``, ``ops.ssd_chunk``) and the two backward
+   kernels against its plain PyTorch version on the card, on the
+   arguments of the main path's heaviest call, and times both (CUDA
+   events after a warm-up) beside the card's bound for the same work, a
+   one-element op timed in the same 20-launch graph harness
+   (``launch_floor_ms``: what a launch costs) and, for flash attention,
+   one ``scaled_dot_product_attention`` call on the same inputs (a
+   yardstick the port never calls). Paged attention is also timed at the
+   split lengths ``SPLIT_SWEEP`` (``paged_split_sweep``: what chose its
+   ``KEYS_PER_SPLIT``). The bound takes each kernel's operations at the
+   peak of the units it runs them on: flash attention's (forward and
+   backward) and SSD chunk's at the TF32 tensor-core rate (with the
+   fp32-core bound and the three-pass 3xTF32 floor beside it), the
+   others' (the SSD backward's included) at the fp32 rate. The flash
+   backward is timed beside SDPA's forward + backward (``library_ms``)
+   and SDPA's backward alone (``library_bwd_ms``); the SSD backward also
+   at Jamba's published SSD shape, off the path;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
@@ -176,7 +181,9 @@ It drives the port's two entry points end to end and checks them:
    widths, P and N off the multiples of 8 (a partial k-step, 4-byte
    copies), a strongly decaying dA, Jamba's 256 heads at Q 128 (SSD),
    and a 4096-position chunk
-   against a float64 evaluation of the same sums;
+   against a float64 evaluation of the same sums; the SSD backward at
+   every SSD chunk shape with seeded output gradients (the 4096-position
+   chunk against float64);
 11. paged attention's batch independence: one row gives bitwise the same
    output alone, as one of 16 rows, and with a table two blocks wider.
 
@@ -232,16 +239,17 @@ TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
 PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "flash_attention_bwd": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
+# (the SSD backward, ssd_chunk_bwd, runs its products on the fp32 cores)
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
-# whose sums over a 256-position chunk reach |y| ~ 200, and the flash
-# attention backward, whose dq / dk / dv sum over up to 2048 keys or
-# queries and G heads: there the bound is max |kernel - plain| <= TOL *
-# max |plain|
+# whose sums over a 256-position chunk reach |y| ~ 200, and the two
+# backwards, whose gradients sum over up to 2048 keys or queries and G
+# heads (flash) or over a chunk's pairs and all its heads (SSD): there the
+# bound is max |kernel - plain| <= TOL * max |plain|
 TOL = {"moe_ffn": 1e-4, "paged_attention": 2e-4, "flash_attention": 2e-4,
-       "ssd_chunk": 2e-5, "flash_attention_bwd": 2e-5}
+       "ssd_chunk": 2e-5, "flash_attention_bwd": 2e-5, "ssd_chunk_bwd": 2e-5}
 # kernels held at max |kernel - plain| <= TOL x max |plain| (each output)
-MAX_RELATIVE = ("ssd_chunk", "flash_attention_bwd")
+MAX_RELATIVE = ("ssd_chunk", "flash_attention_bwd", "ssd_chunk_bwd")
 BF16_TOL = 2e-2     # bf16 output rounding (2^-8 relative) of values up to ~4
 # prefill vs the decode_step loop, fp32 logits: rtol = atol (flash vs
 # dense-cache attention, chunked SSD vs the recurrence: summation order)
@@ -309,6 +317,10 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0),
               (32, 128, 256, 64, 128, 0.1)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
+# Jamba-1.5-Large's published SSD call (G, Q, H, P, N): 2 x 2048 tokens in
+# chunks of 128, 256 heads of 64, state 128; the SSD backward is timed
+# there off the path (the hybrid trains on the card only reduced, below)
+JAMBA_SSD_SHAPE = (32, 128, 256, 64, 128)
 # (B, Sq, Sk, H, KV, hd, vd, causal, window) for the flash attention
 # backward beside the training path's calls: a window, a ragged S, one
 # query over Whisper's 1500 frames and its 448-token decoder over them,
@@ -334,8 +346,25 @@ FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
 # steps can only shrink the initial logits' excess over the uniform
 # loss; at 1e-3 Mixtral's loss on batches of 2048 tokens rose on step 2
 # and ended above its first, at 1e-4 it falls
+#
+# Mamba2-2.7B whole: 64 layers, 2.7 B params, ~43 GB of fp32 params, grads
+# and AdamW moments. The hybrid cannot train at Jamba's published widths
+# on one card: layer i is MoE iff i % 2 == 1 and attention iff i %
+# attn_every == 0 (attn_every even), so any cut that holds an SSM layer
+# also holds a 16-expert SSM + MoE layer, 16 x 3 x 8192 x 24576 = 9.66 B
+# params, 155 GB at 16 bytes a param in fp32 with AdamW: twice the card.
+# So it trains reduced (a dict: ``reduced()``'s arguments; attention every
+# second layer, chunks of 64), and its SSD backward is timed at the
+# published shape (JAMBA_SSD_SHAPE) as a kernel call.
 TRAIN_RUNS = (("qwen1.5-0.5b", None, 4, 2048, 10, 1e-3),
-              ("mixtral-8x7b", 2, 1, 2048, 8, 1e-4))
+              ("mixtral-8x7b", 2, 1, 2048, 8, 1e-4),
+              ("mamba2-2.7b", None, 2, 2048, 8, 1e-4),
+              ("jamba-1.5-large-398b", {"layers": 4, "d_model": 512}, 2,
+               512, 8, 1e-3))
+# the run that first takes one step through the kernels against the same
+# step through the plain versions: both routes' params and grads stay
+# live, which Qwen1.5-0.5B's 0.46 B params allow and Mamba2's 2.7 B not
+STEP_COMPARE_ARCH = "qwen1.5-0.5b"
 # one Qwen step through the kernels against the same step through the
 # plain version: |loss| and grad-norm differences at TRAIN_TOL relative,
 # every gradient within TRAIN_TOL x the largest |gradient|; the post-AdamW
@@ -407,6 +436,10 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "no TPU counterpart: the JAX package trains through XLA blockwise "
         "(src/repro/models/attention.py:146)"),
+    "ssd_chunk_bwd": (
+        "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "no TPU counterpart: the JAX package trains through the XLA SSD "
+        "step (src/repro/models/ssm.py:22)"),
 }
 
 
@@ -605,6 +638,7 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("flash_bwd_rows_kernel", "flash_bwd_keys_kernel"),
      "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
+    (("ssd_bwd_",), "ssd_chunk_bwd"),
     (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
 )
 
@@ -744,7 +778,11 @@ def kernel_cases(calls):
     visible pair and head: S again (2 hd), dP (2 vd), dV (2 vd), dQ and
     dK (2 hd each), 2.5 times the forward's at hd = vd; its library call
     is SDPA's forward and backward, and ``library_bwd`` SDPA's backward
-    alone (``autograd.grad`` over a forward graph kept for it)."""
+    alone (``autograd.grad`` over a forward graph kept for it). The SSD
+    backward's flops are its products: a head's U and state term (2 Q P N
+    each), dxw and dM (2 P a visible pair each), and a chunk's scores, dC
+    and dB (2 N a visible pair each); its bytes read dA, xw, Bm, Cm, dY,
+    dS once and write the four gradients."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
@@ -847,6 +885,19 @@ def kernel_cases(calls):
                     + 2 * Q * H * P * N),
                {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
+    if "ssd_chunk_bwd" in calls:
+        args = calls["ssd_chunk_bwd"]
+        G, Q, H = args[0].shape
+        P, N = args[1].shape[3], args[2].shape[2]
+        tri = Q * (Q + 1) // 2
+        yield ("ssd_chunk_bwd",
+               lambda: ssd_mod.launch_bwd(ops._entry("ssd_chunk_bwd"), *args),
+               lambda: ssd_mod.plain_bwd(*args), None, False,
+               4 * (2 * G * Q * H + 3 * G * Q * H * P + 4 * G * Q * N
+                    + G * H * P * N),
+               G * (H * (4 * Q * P * N + 4 * tri * P) + 6 * tri * N),
+               {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
+
 
 def agree(name, got, want, tol, what):
     """(max |kernel - plain|, the largest of max |kernel - plain| / max
@@ -875,10 +926,11 @@ def agree(name, got, want, tol, what):
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
     PAGED_SHAPES, FLASH_SHAPES, FLASH_BWD_SHAPES (the backward against
-    autograd of the plain version) and SSD_SHAPES (inputs from a seeded
-    numpy generator; moe weights in E + 1 slots read in reverse order;
-    one paged row with pos -1). Raises on the first disagreement; returns
-    one record per shape."""
+    autograd of the plain version) and SSD_SHAPES, forward and backward
+    (inputs from a seeded numpy generator; moe weights in E + 1 slots read
+    in reverse order; one paged row with pos -1; the SSD steps at
+    SSD_ORACLE_SHAPE against float64). Raises on the first disagreement;
+    returns one record per shape."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
@@ -957,6 +1009,17 @@ def coverage_checks():
         want = (ssd_float64 if oracle else ssd_mod.plain)(dA, xw, Bm, Cm)
         held("ssd_chunk", [G, Q, H, P, N, scale],
              ops.ssd_chunk(dA, xw, Bm, Cm), want)
+        if oracle:
+            out[-1]["against"] = "float64"
+    for G, Q, H, P, N, scale in SSD_SHAPES + [SSD_ORACLE_SHAPE]:
+        args = (-rand((G, Q, H), scale).abs(), rand((G, Q, H, P)),
+                rand((G, Q, N)), rand((G, Q, N)), rand((G, Q, H, P)),
+                rand((G, H, P, N)))
+        oracle = (G, Q, H, P, N, scale) == SSD_ORACLE_SHAPE
+        want = (ssd_bwd_float64 if oracle else ssd_mod.plain_bwd)(*args)
+        held("ssd_chunk_bwd", [G, Q, H, P, N, scale],
+             ssd_mod.launch_bwd(ops._entry("ssd_chunk_bwd"), *args),
+             tuple(w.float() for w in want))
         if oracle:
             out[-1]["against"] = "float64"
     return out
@@ -1053,6 +1116,52 @@ def ssd_float64(dA, xw, Bm, Cm):
     s = torch.einsum("gjh,gjn,gjhp->ghpn", torch.exp(cum[:, -1:] - cum), Bm,
                      xw)
     return y.float(), s.float()
+
+
+def ssd_bwd_float64(dA, xw, Bm, Cm, dY, dS):
+    """Autograd of ``ssd_float64``'s sums, kept in float64 (the exponent
+    masked above the diagonal, as the plain version masks it): the four
+    input gradients, float64."""
+    import torch
+    leaves = [t.detach().double().requires_grad_() for t in (dA, xw, Bm, Cm)]
+    a, x, b, c = leaves
+    Q = a.shape[1]
+    cum = torch.cumsum(a, dim=1)
+    keep = torch.ones(Q, Q, dtype=torch.bool, device=a.device).tril()
+    scores = torch.einsum("gin,gjn->gij", c, b)
+    y = torch.stack([torch.einsum("gij,gjp->gip", torch.exp(torch.where(
+        keep, cum[:, :, None, h] - cum[:, None, :, h], -float("inf")))
+        * scores, x[:, :, h]) for h in range(a.shape[2])], dim=2)
+    s = torch.einsum("gjh,gjn,gjhp->ghpn", torch.exp(cum[:, -1:] - cum), b, x)
+    return torch.autograd.grad((y, s), leaves, (dY.double(), dS.double()))
+
+
+def ssd_bwd_checks(ops, args):
+    """The SSD backward kernel and the plain version's autograd against
+    ``ssd_bwd_float64`` on a recorded call (each error over the gradient's
+    max |float64|; the kernel must stay within TOL), and two launches of
+    the kernel, which must give bitwise equal gradients (no atomics)."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    fn = ops._entry("ssd_chunk_bwd")
+    got = ssd_mod.launch_bwd(fn, *args)
+    again = ssd_mod.launch_bwd(fn, *args)
+    plain = ssd_mod.plain_bwd(*args)
+    want = ssd_bwd_float64(*args)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    rep = {}
+    for name, g, pl, w in zip(("d_dA", "d_xw", "d_Bm", "d_Cm"), got, plain,
+                              want):
+        rep[name] = {"kernel": rel(g, w), "plain": rel(pl, w)}
+        check(rep[name]["kernel"] <= TOL["ssd_chunk_bwd"],
+              f"ssd_chunk_bwd {name} vs float64: {rep[name]}")
+    rep["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(rep["bitwise_repeat"], "ssd_chunk_bwd: two launches on the same "
+                                 "inputs differ")
+    return rep
 
 
 def flash_float64(q, k, v, dout, *, causal, window):
@@ -2097,9 +2206,10 @@ def family_phase(arch, ops, card, hold_and_time, profile):
 
 
 def no_backward_checks():
-    """ROADMAP.md C3 on the card: the kernels with no backward refuse an
-    input that requires grad (they would cut the gradient silently), and
-    launch nothing. Returns each refusal's message."""
+    """ROADMAP.md C3 on the card: the decode-only kernels, which have no
+    backward, refuse an input that requires grad (they would cut the
+    gradient silently), and launch nothing. Returns each refusal's
+    message."""
     import torch
     from repro_torch.kernels import ops
 
@@ -2109,9 +2219,6 @@ def no_backward_checks():
     idx = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
                                      device="cuda")
     calls = {
-        "ssd_chunk": lambda: ops.ssd_chunk(t(1, 64, 2, grad=True),
-                                           t(1, 64, 2, 8), t(1, 64, 8),
-                                           t(1, 64, 8)),
         "moe_ffn": lambda: ops.moe_ffn(t(1, 8, 64), t(1, 64, 32, grad=True),
                                        t(1, 64, 32), t(1, 32, 64), [0]),
         "paged_attention": lambda: ops.paged_attention(
@@ -2140,6 +2247,20 @@ def keep_first_bwd(seen):
                 seen["flash_attention_bwd"] = tuple(
                     t.detach().clone() for t in (q, k, v, dout)) + (dict(kw),)
             return launch_bwd(fn, q, k, v, dout, **kw)
+        return call
+    return make
+
+
+def keep_first_ssd_bwd(seen):
+    """``make`` for ``patched(ssd_mod, "launch_bwd", ...)``: keeps copies of
+    the first SSD backward call's arguments in ``seen`` (every SSM layer of
+    a model is called at one shape)."""
+    def make(launch_bwd):
+        def call(fn, *args):
+            if "ssd_chunk_bwd" not in seen:
+                seen["ssd_chunk_bwd"] = tuple(t.detach().clone()
+                                              for t in args)
+            return launch_bwd(fn, *args)
         return call
     return make
 
@@ -2269,22 +2390,27 @@ def step_summary(stamps, batch_tokens):
 
 def training_phase(ops, card, hold_and_time, profile):
     """TRAIN_RUNS through ``repro_torch.training.train`` on ``lm_batches``
-    at published widths (params drawn on the card from the seed, fp32,
-    remat): every step's launches, reset just before it and read just
-    after it (in ``train``'s callback), must be exactly the forward twice
-    (once more under remat) and the backward once per attention layer,
-    and nothing else; every loss finite and the last below the first.
-    Qwen1.5-0.5B first runs ``train_step_compare``. Prints a
-    ``train_step`` line a step; holds the backward kernel against its
-    plain version at each model's call and times it (``hold_and_time``),
-    against float64 (``bwd_against_float64``), and launches it twice on
-    that call for bitwise equal outputs (``bwd_repeat_bitwise``);
-    with ``profile``, traces one more Qwen step. Returns the report."""
+    at published widths (the hybrid reduced, see TRAIN_RUNS; params drawn
+    on the card from the seed, fp32, remat): every step's launches, reset
+    just before it and read just after it (in ``train``'s callback), must
+    be exactly the flash forward twice (once more under remat) and its
+    backward once per attention layer, the SSD chunk forward twice and its
+    backward once per SSM layer, and nothing else; every loss finite and
+    the last below the first. STEP_COMPARE_ARCH first runs
+    ``train_step_compare``. Prints a ``train_step`` line a step and a
+    ``train_summary`` line a run (median step, tokens/s, peak device
+    bytes); holds each backward kernel against its plain version at each
+    model's first call and times it (``hold_and_time``), against float64
+    (``bwd_against_float64``, ``ssd_bwd_checks``), and launches it twice
+    on that call for bitwise equal outputs; times the SSD backward at
+    JAMBA_SSD_SHAPE off the path; with ``profile``, traces one more step
+    of each whole model. Returns the report."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
     from repro_torch.data import lm_batches
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd_chunk as ssd_mod
     from repro_torch.training import (AdamWConfig, adamw_init,
                                       make_train_step, train)
     from repro_torch.training.train_loop import to_device
@@ -2292,24 +2418,30 @@ def training_phase(ops, card, hold_and_time, profile):
 
     rep = {"card": card, "no_backward": no_backward_checks()}
     for arch, layers, B, S, steps, lr in TRAIN_RUNS:
-        cfg = dataclasses.replace(get_config(arch), dtype="float32")
-        if layers is not None:
+        cfg = get_config(arch)
+        if isinstance(layers, dict):
+            cfg = reduced(cfg, **layers)
+        elif layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, dtype="float32")
         t0 = time.perf_counter()
         batches = list(lm_batches(cfg.vocab_size, B, S, steps, seed=SEED))
-        run = {"model": cfg.name, "layers": cfg.num_layers, "batch": B,
-               "seq": S, "steps": steps, "lr": lr,
-               "data_s": time.perf_counter() - t0}
-        if layers is None:
+        run = {"model": cfg.name, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+               "lr": lr, "data_s": time.perf_counter() - t0}
+        if arch == STEP_COMPARE_ARCH:
             run["kernel_vs_plain_step"] = train_step_compare(
                 cfg, to_device(batches[0], "cuda"), ops, lr)
             gc.collect()
             torch.cuda.empty_cache()
-        n_attn = prefill_launches(cfg)["flash_attention"]
-        want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+        kinds = prefill_launches(cfg)
+        n_attn, n_ssm = kinds["flash_attention"], kinds["ssd_chunk"]
+        want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+                "ssd_chunk": 2 * n_ssm, "ssd_chunk_bwd": n_ssm}
         stamps, launches, seen, kept = [], [], {}, {}
         torch.cuda.reset_peak_memory_stats()
-        with patched(flash_mod, "launch_bwd", keep_first_bwd(seen)):
+        with patched(flash_mod, "launch_bwd", keep_first_bwd(seen)), \
+                patched(ssd_mod, "launch_bwd", keep_first_ssd_bwd(seen)):
             params, losses = counted_steps(
                 want, cfg.name, stamps, launches, kept)(train)(
                 cfg, iter(batches), steps=steps, seed=SEED, log_every=0,
@@ -2329,6 +2461,12 @@ def training_phase(ops, card, hold_and_time, profile):
                    launches_per_step=launches[0],
                    peak_device_bytes=torch.cuda.max_memory_allocated(),
                    params=sum(p.numel() for p in leaves(params)))
+        print(json.dumps({"train_summary": {
+            "model": cfg.name, "layers": cfg.num_layers, "batch": B,
+            "seq": S, "median_step_ms": summary["median_step_ms"],
+            "tokens_per_s": summary["tokens_per_s"],
+            "peak_device_bytes": run["peak_device_bytes"],
+            "params": run["params"], "card": card}}), flush=True)
         if profile and layers is None:
             step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr))
             opt_state = adamw_init(params)
@@ -2347,16 +2485,38 @@ def training_phase(ops, card, hold_and_time, profile):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        run["bwd_vs_float64"] = bwd_against_float64(
-            ops, *seen["flash_attention_bwd"])
-        run["bwd_bitwise_repeat"] = bwd_repeat_bitwise(
-            ops, *seen["flash_attention_bwd"])
-        hold_and_time(seen, {"flash_attention_bwd": sum(
-            c["flash_attention_bwd"] for c in launches)}, model=cfg.name)
+        if "flash_attention_bwd" in seen:
+            run["bwd_vs_float64"] = bwd_against_float64(
+                ops, *seen["flash_attention_bwd"])
+            run["bwd_bitwise_repeat"] = bwd_repeat_bitwise(
+                ops, *seen["flash_attention_bwd"])
+        if "ssd_chunk_bwd" in seen:
+            run["ssd_bwd_checks"] = ssd_bwd_checks(ops, seen["ssd_chunk_bwd"])
+        check(sorted(seen) == sorted(k for k in ("flash_attention_bwd",
+                                                 "ssd_chunk_bwd") if want[k]),
+              f"{cfg.name}: backward calls recorded {sorted(seen)}")
+        hold_and_time(seen, {k: sum(c[k] for c in launches) for k in seen},
+                      model=cfg.name)
         del seen
         gc.collect()
         torch.cuda.empty_cache()
         rep[cfg.name] = run
+    # the SSD backward at Jamba's published SSD call, off the path (seeded
+    # inputs, dA < 0): held against its plain version and timed
+    rng = np.random.default_rng(SEED + 5)
+    G, Q, H, P, N = JAMBA_SSD_SHAPE
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    args = (-0.1 * rand(G, Q, H).abs(), rand(G, Q, H, P), rand(G, Q, N),
+            rand(G, Q, N), rand(G, Q, H, P), rand(G, H, P, N))
+    rep["ssd_bwd_jamba_shape"] = hold_and_time(
+        {"ssd_chunk_bwd": args}, None,
+        model="jamba-1.5-large-398b published SSD shape, off the path")
+    del args
+    torch.cuda.empty_cache()
     return rep
 
 
@@ -2837,7 +2997,8 @@ def main() -> None:
             if "registers" in line:
                 print(f"ptxas {name}: {line.strip()}")
     # registers, smem, spills
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                 "ssd_chunk_bwd"):
         if name in built:
             print(json.dumps({"ptxas": {name: [
                 line.strip() for line in built[name]["ptxas"].splitlines()
@@ -2920,6 +3081,11 @@ def main() -> None:
     floor_ms = device_ms(lambda: one.add_(1), 20, graph=True)
 
     def hold_and_time(calls, launches_by_kernel, model=None):
+        """Hold and time each kernel of ``calls`` (``kernel_cases``); its
+        record goes into the ``kernels`` line with the main path's
+        launches, or, with ``launches_by_kernel`` None (a call off the
+        path), onto a ``kernel_off_path`` line only. Returns the records."""
+        recs = []
         for (name, kern, plain, library, graph, nbytes, flops, shape,
              library_bwd) in kernel_cases(calls):
             err, rel = agree(name, kern(), plain(), TOL[name], name)
@@ -2931,10 +3097,12 @@ def main() -> None:
             peak, rate = PEAK.get(name, FP32_PEAK)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
             bound_ms = max(t_bytes, t_ops) * 1e3
-            kernels.append({
+            rec = {
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
-                "launches": launches_by_kernel[name], "max_abs_err": err,
+                "launches": (None if launches_by_kernel is None
+                             else launches_by_kernel[name]),
+                "max_abs_err": err,
                 "max_err_over_max_plain": rel, "tol": TOL[name],
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "launch_floor_ms": floor_ms,
@@ -2942,16 +3110,16 @@ def main() -> None:
                 "bound_peak": f"{peak}, {rate / 1e12:g} TFLOP/s",
                 "share_of_bound": bound_ms / ms,
                 "library_ms": library_ms, "bytes": nbytes, "flops": flops,
-                "shape": shape})
+                "shape": shape}
             if model is not None:   # the entries of a later model's phase
-                kernels[-1]["model"] = model
+                rec["model"] = model
             if library_bwd is not None:
-                kernels[-1]["library_bwd_ms"] = device_ms(library_bwd, iters,
-                                                          graph=graph)
+                rec["library_bwd_ms"] = device_ms(library_bwd, iters,
+                                                  graph=graph)
             if name in PEAK:   # the fp32-core bound, and 3 TF32 passes
-                kernels[-1]["bound_fp32_ms"] = max(
+                rec["bound_fp32_ms"] = max(
                     t_bytes, flops / FP32_FLOPS_PER_S) * 1e3
-                kernels[-1]["bound_3xtf32_ms"] = max(
+                rec["bound_3xtf32_ms"] = max(
                     t_bytes, 3 * flops / rate) * 1e3
             if args.profile and library is not None:
                 # name the kernels the library call ran
@@ -2961,10 +3129,16 @@ def main() -> None:
                 library()
                 torch.cuda.synchronize()
                 prof.stop()
-                kernels[-1]["library_kernels"] = sorted(
+                rec["library_kernels"] = sorted(
                     {ev.name[:100] for ev in prof.events()
                      if ev.device_type == DeviceType.CUDA})
-            print(json.dumps({"kernel": kernels[-1]}), flush=True)
+            recs.append(rec)
+            if launches_by_kernel is None:
+                print(json.dumps({"kernel_off_path": rec}), flush=True)
+            else:
+                kernels.append(rec)
+                print(json.dumps({"kernel": rec}), flush=True)
+        return recs
 
     hold_and_time(calls, launches)
     print(json.dumps({"paged_split_sweep": paged_split_sweep(calls,

@@ -11,14 +11,15 @@ where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``reset_launch_counts`` /
 ``launch_counts``).
 
-Gradients. ``flash_attention`` is differentiable on both routes: on the
-CPU through autograd of the plain version, on a card through
-``_FlashAttention``, whose backward launches the hand-written backward
-kernel (``flash_attention_bwd``, counted on its own; fp32 only). The
-other CUDA kernels write into fresh outputs with no autograd record, so
-their CUDA routes raise when grad mode is on and an input requires grad
-(``_no_backward``) rather than silently cut the gradient; their CPU
-routes differentiate as plain PyTorch does.
+Gradients. ``flash_attention`` and ``ssd_chunk`` are differentiable on
+both routes: on the CPU through autograd of the plain version, on a card
+through ``_FlashAttention`` and ``_SsdChunk``, whose backwards launch the
+hand-written backward kernels (``flash_attention_bwd`` and
+``ssd_chunk_bwd``, each counted on its own; fp32 only). The decode-only
+kernels (``moe_ffn``, ``paged_attention``) write into fresh outputs with
+no autograd record, so their CUDA routes raise when grad mode is on and
+an input requires grad (``_no_backward``) rather than silently cut the
+gradient; their CPU routes differentiate as plain PyTorch does.
 
 Kernels are built at first use: one ``nvcc`` per source, all started
 together, into ``build/kernels/`` at the root of the checkout (listed in
@@ -51,7 +52,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
             "flash_attention": flash_mod,
-            "flash_attention_bwd": flash_mod.BACKWARD, "ssd_chunk": ssd_mod}
+            "flash_attention_bwd": flash_mod.BACKWARD, "ssd_chunk": ssd_mod,
+            "ssd_chunk_bwd": ssd_mod.BACKWARD}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
 
@@ -312,14 +314,33 @@ def ssd_chunk(dA, xw, Bm, Cm):
     dev = _one_device("ssd_chunk", dA, xw, Bm, Cm)
     if dev.type == "cpu":
         return ssd_mod.plain(dA, xw, Bm, Cm)
-    _no_backward("ssd_chunk", "ROADMAP.md A13 adds it", dA, xw, Bm, Cm)
     _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
     if Q > ssd_mod.MAX_CHUNK:
-        raise ValueError(f"ssd_chunk: the CUDA kernel takes chunks of up "
+        raise ValueError(f"ssd_chunk: the CUDA kernels take chunks of up "
                          f"to {ssd_mod.MAX_CHUNK} positions, got {Q}")
-    out = ssd_mod.launch(_entry("ssd_chunk"), dA, xw, Bm, Cm)
-    LAUNCHES["ssd_chunk"] += 1
-    return out
+    return _SsdChunk.apply(dA, xw, Bm, Cm)
+
+
+class _SsdChunk(torch.autograd.Function):
+    """The CUDA route of ``ssd_chunk``: the forward kernel, and the
+    backward kernel for the four input gradients from the saved inputs
+    (it recomputes the scores and decays it needs). A gradient of an
+    unused output arrives as zeros (autograd materialises it)."""
+
+    @staticmethod
+    def forward(ctx, dA, xw, Bm, Cm):
+        out = ssd_mod.launch(_entry("ssd_chunk"), dA, xw, Bm, Cm)
+        LAUNCHES["ssd_chunk"] += 1
+        ctx.save_for_backward(dA, xw, Bm, Cm)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        grads = ssd_mod.launch_bwd(_entry("ssd_chunk_bwd"),
+                                   *ctx.saved_tensors, dy.contiguous(),
+                                   ds.contiguous())
+        LAUNCHES["ssd_chunk_bwd"] += 1
+        return grads
 
 
 def reset_launch_counts() -> None:

@@ -72,15 +72,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 def ssd_chunk_ref(dA, xw, Bm, Cm):
     """dA [G,Q,H]; xw [G,Q,H,P]; Bm/Cm [G,Q,N] -> (Y_intra [G,Q,H,P],
     S_chunk [G,H,P,N]), both fp32: the SSD intra-chunk step with the
-    decay matrix materialised as [G,Q,Q,H]."""
+    decay matrix materialised as [G,Q,Q,H].
+
+    The decay masks its exponent (-inf above the diagonal), not its
+    value. The values are the same; but where a chunk decays by more
+    than e^88, exp(rel) above the diagonal is inf, and autograd of a
+    value mask multiplies it by the mask's zero: NaN in d dA. The JAX
+    reference masks the value."""
     dA, xw, Bm, Cm = dA.float(), xw.float(), Bm.float(), Cm.float()
     Q = dA.shape[1]
     cum = torch.cumsum(dA, dim=1)
     rel = cum[:, :, None, :] - cum[:, None, :, :]           # [G,Q,Q,H]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=dA.device))
-    decay = torch.where(mask[None, :, :, None], torch.exp(rel),
-                        torch.zeros((), device=dA.device))
+    decay = torch.exp(torch.where(mask[None, :, :, None], rel,
+                                  torch.full((), -math.inf,
+                                             device=dA.device)))
     scores = torch.einsum("gin,gjn->gij", Cm, Bm)
     y = torch.einsum("gijh,gij,gjhp->gihp", decay, scores, xw)
     decay_end = torch.exp(cum[:, -1:, :] - cum)              # [G,Q,H]

@@ -11,19 +11,32 @@ chunk of every sequence, so the decay matrix never reaches device
 memory. The plain version is ``ref.ssd_chunk_ref``, which materialises
 ``[G, Q, Q, H]``. ``ops.ssd_chunk`` is the public wrapper that checks
 the arguments and picks between the two.
+
+The backward (``csrc/ssd_chunk_bwd.cu``, ``BACKWARD``; fp32 on the fp32
+cores, six launches, no atomics) has no Pallas counterpart: the JAX
+package trains through the XLA version of the step. ``launch_bwd`` runs
+it, ``plain_bwd`` (autograd of ``plain``) is what it is held against.
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
-from repro_torch.kernels.ref import ssd_chunk_ref as plain  # noqa: F401
+from repro_torch.kernels.ref import ssd_chunk_ref as plain
 
 SOURCE = "ssd_chunk.cu"
 SYMBOL = "ssd_chunk_f32"
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MAX_CHUNK = 4096     # Q: the block keeps the chunk's cumsum in shared memory
+# the backward's build record (``ops.build_kernels``); the same chunk limit
+BACKWARD = SimpleNamespace(
+    SOURCE="ssd_chunk_bwd.cu", SYMBOL="ssd_chunk_bwd_f32",
+    ARGTYPES=[ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+BWD_TILE = 64        # the backward's tiles: positions and N columns
+BWD_PART = 132       # floats of d dA sums a (tile pair, head)
+BWD_BLOCKS = 512     # blocks the head groups and head splits aim for
 
 
 def launch(fn, dA, xw, Bm, Cm):
@@ -44,3 +57,50 @@ def launch(fn, dA, xw, Bm, Cm):
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: cudaError {err}")
     return y, s
+
+
+def plain_bwd(dA, xw, Bm, Cm, dY, dS):
+    """(d dA, d xw, d Bm, d Cm) of ``plain`` at (dA, xw, Bm, Cm) for the
+    output gradients (dY, dS), by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (dA, xw, Bm, Cm)]
+        return torch.autograd.grad(plain(*leaves), leaves, (dY, dS))
+
+
+def bwd_split(G, Q, H, N):
+    """(head groups of the pairs launch, head splits of the dB launch):
+    as many as bring each launch to about BWD_BLOCKS blocks, at most H.
+    They fix the order of the sums over heads, so they depend on the
+    shape alone."""
+    nT = -(-Q // BWD_TILE)
+    pairs = nT * (nT + 1) // 2
+    n_tiles = nT * -(-N // BWD_TILE)
+    return (min(H, max(1, -(-BWD_BLOCKS // (G * pairs)))),
+            min(H, max(1, -(-BWD_BLOCKS // (G * n_tiles)))))
+
+
+def launch_bwd(fn, dA, xw, Bm, Cm, dY, dS):
+    """Launch the backward on the current stream. Arguments are checked
+    by the caller: fp32, contiguous, on one CUDA device, Q <= MAX_CHUNK.
+    Returns (d dA, d xw, d Bm, d Cm); raises if a launch was refused."""
+    G, Q, H = dA.shape
+    P, N = xw.shape[-1], Bm.shape[-1]
+    nT = -(-Q // BWD_TILE)
+    Qp, pairs = nT * BWD_TILE, nT * (nT + 1) // 2
+    groups, splits = bwd_split(G, Q, H, N)
+    f32 = dict(dtype=torch.float32, device=dA.device)
+    outs = [torch.empty_like(t) for t in (dA, xw, Bm, Cm)]
+    scratch = [torch.empty((2, G, H, Qp), **f32),         # cum, hi and lo
+               torch.empty((G, Qp, Qp), **f32),           # C . B^T
+               torch.empty((G, groups, Qp, Qp), **f32),   # score gradient
+               torch.empty((G, H, Qp), **f32),            # T
+               torch.empty((G, H, pairs, BWD_PART), **f32),
+               torch.empty((G, splits, Qp, N), **f32)]    # dB partials
+    stream = torch.cuda.current_stream(dA.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (dA, xw, Bm, Cm, dY, dS, *outs,
+                                      *scratch)),
+             G, Q, H, P, N, groups, splits, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ssd_chunk_bwd kernel launch failed: cudaError {err}")
+    return tuple(outs)

@@ -10,10 +10,10 @@ Example:
       [--device cpu]
 
 The checkpoint is the flat ``.npz`` both packages read
-(``repro_torch.training.checkpoint``). On a card, training takes what
-the kernels' backwards allow: fp32 attention (bf16 under grad raises,
-ROADMAP A14) and no SSM layer (``ops.ssd_chunk`` raises under grad,
-ROADMAP A13); those errors propagate.
+(``repro_torch.training.checkpoint``). On a card, attention and SSM
+layers differentiate through their backward kernels; flash attention has
+no bf16 backward (under grad it raises, ROADMAP A14), and that error
+propagates.
 """
 from __future__ import annotations
 

@@ -79,7 +79,7 @@ def test_port_calls_no_library_kernel():
     cu = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert {f.stem for f in cu} == {"moe_gemm", "paged_attention",
                                     "flash_attention", "flash_attention_bwd",
-                                    "ssd_chunk"}
+                                    "ssd_chunk", "ssd_chunk_bwd"}
     cuh = sorted((PORT / "kernels" / "csrc").glob("*.cuh"))
     bad = [f.name for f in cu + cuh
            if re.search(r"#include\s*<(cublas|cudnn)", f.read_text())]

@@ -432,7 +432,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                   torch.zeros(1, 4, 5), torch.zeros(1, 4, 5))
     assert ops.launch_counts() == {"moe_ffn": 0, "paged_attention": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "ssd_chunk": 0}
+                                   "flash_attention_bwd": 0, "ssd_chunk": 0,
+                                   "ssd_chunk_bwd": 0}
 
 
 def test_unsupported_device_raises():

@@ -490,14 +490,16 @@ def test_train_step_launches_per_layer(remat, monkeypatch):
     L = cfg.num_layers
     assert kops.launch_counts() == {
         "moe_ffn": 0, "paged_attention": 0, "ssd_chunk": 0,
-        "flash_attention": 2 * L if remat else L, "flash_attention_bwd": L}
+        "ssd_chunk_bwd": 0, "flash_attention": 2 * L if remat else L,
+        "flash_attention_bwd": L}
 
 
 def test_cuda_routes_without_backward_raise_under_grad(monkeypatch):
     """C3: on the card, a kernel with no backward refuses inputs that
     require grad (it would cut the gradient silently); under no_grad or
     without requires_grad the same call goes on to the launch. bf16
-    flash attention has no backward either."""
+    flash attention has no backward either. ``ssd_chunk`` has one: under
+    grad its route goes on to the launch."""
     monkeypatch.setattr(kops, "_one_device",
                         lambda name, *t: torch.device("cuda"))
     monkeypatch.setattr(kops, "_entry", _no_build)
@@ -507,9 +509,10 @@ def test_cuda_routes_without_backward_raise_under_grad(monkeypatch):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
         return x.requires_grad_(grad)
 
+    with pytest.raises(_Launched, match="ssd_chunk"):
+        kops.ssd_chunk(t(2, 4, 3, grad=True), t(2, 4, 3, 5), t(2, 4, 6),
+                       t(2, 4, 6))
     calls = {
-        "ssd_chunk": lambda g: kops.ssd_chunk(t(2, 4, 3, grad=g), t(2, 4, 3, 5),
-                                              t(2, 4, 6), t(2, 4, 6)),
         "moe_ffn": lambda g: kops.moe_ffn(t(2, 3, 8), t(2, 8, 16, grad=g),
                                           t(2, 8, 16), t(2, 16, 8), [1, 0]),
         "paged_attention": lambda g: kops.paged_attention(
