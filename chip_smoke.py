@@ -160,10 +160,10 @@ It drives the port's two entry points end to end and checks them:
    yardstick the port never calls). Paged attention is also timed at the
    split lengths ``SPLIT_SWEEP`` (``paged_split_sweep``: what chose its
    ``KEYS_PER_SPLIT``). The bound takes each kernel's operations at the
-   peak of the units it runs them on: flash attention's (forward and
-   backward) and SSD chunk's at the TF32 tensor-core rate (with the
+   peak of the units it runs them on: flash attention's and SSD chunk's
+   (forward and backward) at the TF32 tensor-core rate (with the
    fp32-core bound and the three-pass 3xTF32 floor beside it), the
-   others' (the SSD backward's included) at the fp32 rate. The flash
+   others' at the fp32 rate. The flash
    backward is timed beside SDPA's forward + backward (``library_ms``)
    and SDPA's backward alone (``library_bwd_ms``); the SSD backward also
    at Jamba's published SSD shape, off the path;
@@ -203,8 +203,10 @@ traced wall time, and (serving, fp32 and int8, overlap off and on) the
 copy rate at the bytes the run counts and ``by_stream``: each CUDA
 stream's time by kind, the kernels on the copy stream (the int8
 dequant), and the copy time that ran beside a kernel on another stream
-against the time it ran alone. The profiler slows the host, so that
-run's step times are not the ones to quote.
+against the time it ran alone; and one training step of each whole
+model, Mamba2-2.7B's with the host stacks and a ``glue`` line naming the
+ops behind its elementwise adds and fills. The profiler slows the host,
+so that run's step times are not the ones to quote.
 """
 import argparse
 import bisect
@@ -233,13 +235,13 @@ MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
-# the peak each kernel's operations run at: flash attention's (forward
-# and backward) and SSD chunk's products are TF32 tensor-core MMAs (3
+# the peak each kernel's operations run at: flash attention's and SSD
+# chunk's products, forward and backward, are TF32 tensor-core MMAs (3
 # passes each for fp32 inputs), the rest fp32
 PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "flash_attention_bwd": ("tf32 tensor cores", TF32_FLOPS_PER_S),
-        "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
-# (the SSD backward, ssd_chunk_bwd, runs its products on the fp32 cores)
+        "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S),
+        "ssd_chunk_bwd": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
 # whose sums over a 256-position chunk reach |y| ~ 200, and the two
@@ -365,6 +367,9 @@ TRAIN_RUNS = (("qwen1.5-0.5b", None, 4, 2048, 10, 1e-3),
 # step through the plain versions: both routes' params and grads stay
 # live, which Qwen1.5-0.5B's 0.46 B params allow and Mamba2's 2.7 B not
 STEP_COMPARE_ARCH = "qwen1.5-0.5b"
+# the run whose profiled step (``--profile``) also records the host stacks
+# and names the ops behind its elementwise adds and fills (``glue_sources``)
+GLUE_ARCH = "mamba2-2.7b"
 # one Qwen step through the kernels against the same step through the
 # plain version: |loss| and grad-norm differences at TRAIN_TOL relative,
 # every gradient within TRAIN_TOL x the largest |gradient|; the post-AdamW
@@ -755,6 +760,45 @@ def device_time_summary(prof, wall_ms, h2d_bytes=None):
         out["h2d_GB_per_s"] = h2d_bytes / kinds["h2d_copy"] / 1e6
         out["by_stream"] = stream_split(prof)
     return out
+
+
+GLUE = (("add", "CUDAFunctor_add"), ("fill", "FillFunctor"))
+
+
+def glue_sources(prof, top=12):
+    """The host ops behind a traced step's elementwise adds and fills
+    (``GLUE``: the device kernels whose names hold those fragments): each
+    such kernel charged to the op that launched it, that op's nearest
+    autograd node (a ``...Backward0``, or the engine's own accumulation)
+    and the innermost frame of the port's code on its Python stack (the
+    profiler run with ``with_stack``; the autograd engine's ops have no
+    Python frame). The ``top`` entries by device ms for each kind, with
+    their kernel counts."""
+    from torch.autograd import DeviceType
+    out = {kind: {} for kind, _ in GLUE}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        for k in ev.kernels:
+            kind = next((kd for kd, frag in GLUE if frag in k.name), None)
+            if kind is None:
+                continue
+            node, up = None, ev.cpu_parent
+            while up is not None and node is None:
+                if "Backward" in up.name or "autograd" in up.name:
+                    node = up.name
+                up = up.cpu_parent
+            frame = next((f for f in (ev.stack or [])
+                          if "repro_torch" in f), None)
+            key = f"{ev.name} | {node or '-'} | {frame or '-'}"
+            rec = out[kind].setdefault(key, [0.0, 0])
+            rec[0] += k.duration / 1e3
+            rec[1] += 1
+    return {kind: {"device_ms": sum(ms for ms, _ in d.values()),
+                   "top": [{"op": key, "device_ms": ms, "kernels": n}
+                           for key, (ms, n) in sorted(
+                               d.items(), key=lambda kv: -kv[1][0])[:top]]}
+            for kind, d in out.items()}
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -2404,7 +2448,9 @@ def training_phase(ops, card, hold_and_time, profile):
     (``bwd_against_float64``, ``ssd_bwd_checks``), and launches it twice
     on that call for bitwise equal outputs; times the SSD backward at
     JAMBA_SSD_SHAPE off the path; with ``profile``, traces one more step
-    of each whole model. Returns the report."""
+    of each whole model, GLUE_ARCH's with the host stacks, and prints a
+    ``glue`` line: the ops behind its elementwise adds and fills
+    (``glue_sources``). Returns the report."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
@@ -2472,7 +2518,9 @@ def training_phase(ops, card, hold_and_time, profile):
             opt_state = adamw_init(params)
             batch = to_device(batches[-1], "cuda")
             act = torch.profiler.ProfilerActivity
-            prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+            glue = arch == GLUE_ARCH
+            prof = torch.profiler.profile(activities=[act.CPU, act.CUDA],
+                                          with_stack=glue)
             torch.cuda.synchronize()
             prof.start()
             t0 = time.perf_counter()
@@ -2481,6 +2529,10 @@ def training_phase(ops, card, hold_and_time, profile):
             ms = (time.perf_counter() - t0) * 1e3
             prof.stop()
             run["profile"] = device_time_summary(prof, ms)
+            if glue:
+                run["glue"] = glue_sources(prof)
+                print(json.dumps({"glue": {"model": cfg.name,
+                                           **run["glue"]}}), flush=True)
             del opt_state, step
         del params
         gc.collect()

@@ -15,7 +15,8 @@ Gradients. ``flash_attention`` and ``ssd_chunk`` are differentiable on
 both routes: on the CPU through autograd of the plain version, on a card
 through ``_FlashAttention`` and ``_SsdChunk``, whose backwards launch the
 hand-written backward kernels (``flash_attention_bwd`` and
-``ssd_chunk_bwd``, each counted on its own; fp32 only). The decode-only
+``ssd_chunk_bwd``, each counted on its own; fp32 only, every product in
+3xTF32 on the tensor cores, as their forwards). The decode-only
 kernels (``moe_ffn``, ``paged_attention``) write into fresh outputs with
 no autograd record, so their CUDA routes raise when grad mode is on and
 an input requires grad (``_no_backward``) rather than silently cut the

@@ -12,10 +12,15 @@ memory. The plain version is ``ref.ssd_chunk_ref``, which materialises
 ``[G, Q, Q, H]``. ``ops.ssd_chunk`` is the public wrapper that checks
 the arguments and picks between the two.
 
-The backward (``csrc/ssd_chunk_bwd.cu``, ``BACKWARD``; fp32 on the fp32
-cores, six launches, no atomics) has no Pallas counterpart: the JAX
-package trains through the XLA version of the step. ``launch_bwd`` runs
-it, ``plain_bwd`` (autograd of ``plain``) is what it is held against.
+The backward (``csrc/ssd_chunk_bwd.cu``, ``BACKWARD``) has no Pallas
+counterpart: the JAX package trains through the XLA version of the step.
+It runs every product on the TF32 tensor cores in 3xTF32, as the forward
+does, from ``cp.async``-fed tiles, each 32-deep stage of a contraction
+summed from zero and added in fp32 (the tensor cores truncate as they
+accumulate); it is bound by issue slots under the tensor cores' rate, and
+``wgmma`` + TMA would take the operand splits off them. Seven launches,
+no atomics, bitwise repeatable. ``launch_bwd`` runs it and allocates its
+scratch, ``plain_bwd`` (autograd of ``plain``) is what it is held against.
 """
 from __future__ import annotations
 

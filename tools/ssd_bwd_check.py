@@ -12,10 +12,12 @@ shapes of ``chip_smoke.py``, one JSON line a shape (max |kernel - plain|
 / max |plain| for d dA, d xw, d Bm, d Cm; seeded inputs, dA < 0). At the
 first two it also holds the kernel and the plain version against a
 float64 evaluation, launches the kernel twice for bitwise equal outputs,
-times both with CUDA events, and times each of the kernel's six launches
-with ``torch.profiler``. The short first call for a change to the kernel,
-before ``chip_smoke.py``. Exits non-zero without a GPU, on a mismatch or
-on a second launch that differs.
+times both with CUDA events, and times each of the kernel's launches
+(``ssd_bwd_<name>_kernel``) with ``torch.profiler``, each beside its
+TFLOP/s: the useful operations of its products at that shape (the
+launches without a product print none). The short first call for a change
+to the kernel, before ``chip_smoke.py``. Exits non-zero without a GPU, on
+a mismatch or on a second launch that differs.
 """
 import json
 import re
@@ -32,6 +34,18 @@ SHAPES = [(16, 256, 80, 64, 128, 0.1), (32, 128, 256, 64, 128, 0.1),
           (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0),
           (1, 4096, 2, 64, 128, 0.1)]
 TOL = 2e-5   # max |kernel - plain| <= TOL x max |plain|, each gradient
+
+
+def launch_flops(G, Q, H, P, N):
+    """The useful operations of each launch's products (2 a multiply-add;
+    the causal ones over the Q (Q + 1) / 2 pairs at or below the
+    diagonal): scores C.B^T; dxw U = dS.B and M^T dY; pairs dM = dY.xw^T;
+    dbdc dC, dB and dB's state term."""
+    tri = Q * (Q + 1) // 2
+    return {"scores": 2 * G * tri * N,
+            "dxw": 2 * G * H * (Q * P * N + tri * P),
+            "pairs": 2 * G * H * tri * P,
+            "dbdc": 2 * G * (2 * tri * N + H * Q * P * N)}
 
 
 def timed_ms(fn, iters=10):
@@ -113,13 +127,23 @@ def main():
                 for _ in range(3):
                     ssd_mod.launch_bwd(fn, *args)
                 torch.cuda.synchronize()
-            per = {}
+            # each launch's mean over the events the trace kept (a trace
+            # may keep fewer than the three calls made)
+            seen = {}
             for ev in prof.events():
                 if ev.device_type == DeviceType.CUDA and "ssd_bwd" in ev.name:
-                    name = re.search(r"ssd_bwd_\w+", ev.name).group(0)
-                    per[name] = per.get(name, 0.0) + \
-                        ev.time_range.elapsed_us() / 3e3
+                    name = re.search(r"ssd_bwd_(\w+?)_kernel",
+                                     ev.name).group(1)
+                    us, n = seen.get(name, (0.0, 0))
+                    seen[name] = (us + ev.time_range.elapsed_us(), n + 1)
+            per = {name: us / n / 1e3 for name, (us, n) in seen.items()}
             rec["launch_ms"] = per
+            rec["launch_events"] = {name: n for name, (_, n) in seen.items()}
+            flops = launch_flops(G, Q, H, P, N)
+            rec["launch_tflops"] = {name: flops[name] / ms / 1e9
+                                    for name, ms in per.items()
+                                    if name in flops}
+            rec["tflops"] = sum(flops.values()) / rec["ms"] / 1e9
         print(json.dumps(rec), flush=True)
         del got, want, args
         torch.cuda.empty_cache()
