@@ -113,24 +113,25 @@ It drives the port's two entry points end to end and checks them:
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
    prompts of 512 tokens (2 chunks), then a timed prefill of 2 x 2048;
 7b. training (``training_phase``): Qwen1.5-0.5B whole, one step through
-   the kernels against the same step through the plain attention
-   (``TRAIN_TOL``), then ``train()`` over ``TRAIN_RUNS`` for Qwen1.5-0.5B,
-   Mixtral-8x7B (2 layers), Mamba2-2.7B whole (64 layers at its published
-   widths) and a reduced Jamba hybrid (attention and SSM layers): every
-   step launches the flash forward twice and its backward once per
-   attention layer, the SSD chunk forward twice and its backward once per
-   SSM layer, and nothing else; losses finite and falling; each backward
-   kernel held against its plain version and against float64 at each
-   model's recorded call, and launched twice there for bitwise equal
-   gradients; the kernels with no backward refuse inputs that require
-   grad;
+   the kernels against the same step through the plain attention, in
+   fp32 and in bf16 (``STEP_TOL``), then ``train()`` over ``TRAIN_RUNS``
+   for Qwen1.5-0.5B (fp32), Qwen2.5-3B whole in its published bf16 (16
+   query heads over 2 KV heads of 128), Mixtral-8x7B (2 layers),
+   Mamba2-2.7B whole (64 layers at its published widths) and a reduced
+   Jamba hybrid (attention and SSM layers): every step launches the flash
+   forward twice and its backward once per attention layer, the SSD chunk
+   forward twice and its backward once per SSM layer, and nothing else;
+   losses finite and falling; each backward kernel held against its plain
+   version and against float64 at each model's recorded call, and
+   launched twice there for bitwise equal gradients; the kernels with no
+   backward refuse inputs that require grad;
 7c. the port's entry points as a user calls them (``launch_phase``):
-   ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B whole, 3
-   steps of 4 x 2048 with ``--ckpt`` (the published bf16 config is
-   refused on the card, ROADMAP A14; the run patches the config's dtype to
-   float32): exact flash launches a step, a finite final loss, and the
-   checkpoint loaded into an ``init_params`` tree equal to the trained
-   params; ``repro_torch.launch.serve.main`` at its own reduced sizes
+   ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B whole in
+   its published bf16, 3 steps of 4 x 2048 with ``--ckpt``: exact flash
+   launches a step, a finite final loss, the checkpoint loaded into an
+   ``init_params`` tree equal to the trained params bitwise, and the flash
+   backward held at its recorded bf16 call as in 7b;
+   ``repro_torch.launch.serve.main`` at its own reduced sizes
    (offload LFU + speculative prefetch, with ``--overlap``, with
    ``--quant int8``, and ``--mode device``) with the launches the code
    implies, and once as ``python -m repro_torch.launch.serve`` in a
@@ -165,8 +166,10 @@ It drives the port's two entry points end to end and checks them:
    fp32-core bound and the three-pass 3xTF32 floor beside it), the
    others' at the fp32 rate. The flash
    backward is timed beside SDPA's forward + backward (``library_ms``)
-   and SDPA's backward alone (``library_bwd_ms``); the SSD backward also
-   at Jamba's published SSD shape, off the path;
+   and SDPA's backward alone (``library_bwd_ms``), in the call's dtype
+   (bf16 calls are bound at the bf16 tensor-core rate, with the work at
+   the kernel's TF32 passes beside it, ``bound_passes_ms``); the SSD
+   backward also at Jamba's published SSD shape, off the path;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
    contraction slices, widths that take the 4-byte loads, other query
@@ -181,9 +184,12 @@ It drives the port's two entry points end to end and checks them:
    widths, P and N off the multiples of 8 (a partial k-step, 4-byte
    copies), a strongly decaying dA, Jamba's 256 heads at Q 128 (SSD),
    and a 4096-position chunk
-   against a float64 evaluation of the same sums; the SSD backward at
-   every SSD chunk shape with seeded output gradients (the 4096-position
-   chunk against float64);
+   against a float64 evaluation of the same sums; the flash backward at
+   every FLASH_BWD_SHAPES shape in fp32 and in bf16 (bf16: against the
+   fp32 plain version on the same values at BF16_TOL, against float64 at
+   BF16_F64_TOL, launched twice for bitwise equal gradients); the SSD
+   backward at every SSD chunk shape with seeded output gradients (the
+   4096-position chunk against float64);
 11. paged attention's batch independence: one row gives bitwise the same
    output alone, as one of 16 rows, and with a table two blocks wider.
 
@@ -235,6 +241,7 @@ MAMBA_LAYERS = 8                    # of 64: bounds the token-by-token engine
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12           # H100 SXM, TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12           # H100 SXM, bf16 tensor cores, dense
 # the peak each kernel's operations run at: flash attention's and SSD
 # chunk's products, forward and backward, are TF32 tensor-core MMAs (3
 # passes each for fp32 inputs), the rest fp32
@@ -243,6 +250,8 @@ PEAK = {"flash_attention": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "ssd_chunk": ("tf32 tensor cores", TF32_FLOPS_PER_S),
         "ssd_chunk_bwd": ("tf32 tensor cores", TF32_FLOPS_PER_S)}
 FP32_PEAK = ("fp32 cores", FP32_FLOPS_PER_S)
+# a call on bf16 inputs: the least time for its work is at the bf16 rate
+BF16_PEAK = ("bf16 tensor cores", BF16_FLOPS_PER_S)
 # kernel vs plain, fp32: rtol = atol (summation order), except ssd_chunk,
 # whose sums over a 256-position chunk reach |y| ~ 200, and the two
 # backwards, whose gradients sum over up to 2048 keys or queries and G
@@ -253,6 +262,10 @@ TOL = {"moe_ffn": 1e-4, "paged_attention": 2e-4, "flash_attention": 2e-4,
 # kernels held at max |kernel - plain| <= TOL x max |plain| (each output)
 MAX_RELATIVE = ("ssd_chunk", "flash_attention_bwd", "ssd_chunk_bwd")
 BF16_TOL = 2e-2     # bf16 output rounding (2^-8 relative) of values up to ~4
+# the bf16 flash backward against float64: max |kernel - float64| <= this
+# x max |float64|, each of dq, dk, dv: one rounding to bf16 at the store
+# (at most half an ulp, 2^-8 of a value) over the fp32 kernel's 2e-5
+BF16_F64_TOL = 2.0 ** -8
 # prefill vs the decode_step loop, fp32 logits: rtol = atol (flash vs
 # dense-cache attention, chunked SSD vs the recurrence: summation order)
 PREFILL_TOL = 3e-3
@@ -342,12 +355,18 @@ FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
                     (1, 40, 40, 64, 1, 32, 32, False, 0),
                     (1, 150, 150, 8, 2, 160, 24, True, 0)]
 # the training phase: (arch, layers (None: all), batch, sequence, steps,
-# AdamW learning rate) at published widths, fp32, remat, under train()'s
+# AdamW learning rate, dtype) at published widths, remat, under train()'s
 # cosine schedule (warm-up of one step: step 0 moves nothing). lm_batches'
 # language is a random bigram table over the whole vocabulary, so a few
 # steps can only shrink the initial logits' excess over the uniform
 # loss; at 1e-3 Mixtral's loss on batches of 2048 tokens rose on step 2
 # and ended above its first, at 1e-4 it falls
+#
+# Qwen2.5-3B whole in its published bf16 (hf:Qwen/Qwen2.5-3B: 36 layers, d
+# 2048, 16 query heads over 2 KV heads of 128, d_ff 11008, vocab 151936,
+# tied embeddings, QKV bias; 3.09 B params): 6.2 GB of bf16 params, 6.2
+# GB of bf16 grads and 24.7 GB of fp32 AdamW moments. The others train in
+# fp32.
 #
 # Mamba2-2.7B whole: 64 layers, 2.7 B params, ~43 GB of fp32 params, grads
 # and AdamW moments. The hybrid cannot train at Jamba's published widths
@@ -358,25 +377,37 @@ FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
 # So it trains reduced (a dict: ``reduced()``'s arguments; attention every
 # second layer, chunks of 64), and its SSD backward is timed at the
 # published shape (JAMBA_SSD_SHAPE) as a kernel call.
-TRAIN_RUNS = (("qwen1.5-0.5b", None, 4, 2048, 10, 1e-3),
-              ("mixtral-8x7b", 2, 1, 2048, 8, 1e-4),
-              ("mamba2-2.7b", None, 2, 2048, 8, 1e-4),
+TRAIN_RUNS = (("qwen1.5-0.5b", None, 4, 2048, 10, 1e-3, "float32"),
+              ("qwen2.5-3b", None, 2, 2048, 6, 3e-4, "bfloat16"),
+              ("mixtral-8x7b", 2, 1, 2048, 8, 1e-4, "float32"),
+              ("mamba2-2.7b", None, 2, 2048, 8, 1e-4, "float32"),
               ("jamba-1.5-large-398b", {"layers": 4, "d_model": 512}, 2,
-               512, 8, 1e-3))
+               512, 8, 1e-3, "float32"))
 # the run that first takes one step through the kernels against the same
-# step through the plain versions: both routes' params and grads stay
-# live, which Qwen1.5-0.5B's 0.46 B params allow and Mamba2's 2.7 B not
+# step through the plain versions, in each of STEP_TOL's dtypes: both
+# routes' params and grads stay live, which Qwen1.5-0.5B's 0.46 B params
+# allow and Mamba2's 2.7 B or Qwen2.5-3B's 3.09 B (with AdamW) not
 STEP_COMPARE_ARCH = "qwen1.5-0.5b"
 # the run whose profiled step (``--profile``) also records the host stacks
 # and names the ops behind its elementwise adds and fills (``glue_sources``)
 GLUE_ARCH = "mamba2-2.7b"
 # one Qwen step through the kernels against the same step through the
-# plain version: |loss| and grad-norm differences at TRAIN_TOL relative,
-# every gradient within TRAIN_TOL x the largest |gradient|; the post-AdamW
-# params within what the two gradients explain: AdamW's first step is
-# g / (|g| + eps), so its change is at most 2 |dg| / |g| of lr, and at
-# most 2 lr where a near-zero gradient's sign differs, plus 1e-6 |p|
-TRAIN_TOL = 1e-4
+# plain version, by dtype: (loss and grad-norm differences, relative;
+# every gradient's difference over the largest |gradient|; the post-AdamW
+# params' share of |p| beside what the two gradients explain: AdamW's
+# first step is g / (|g| + eps), so its change is at most 2 |dg| / |g| of
+# lr, and at most 2 lr where a near-zero gradient's sign differs). fp32:
+# summation order, 1e-4, 1e-4, 1e-6. bf16: both routes compute the
+# attention in fp32 and round its output and dq, dk, dv to bf16 once, so
+# they differ where the two fp32 values round to neighbouring bf16 values
+# (one ulp, at most 2^-7 of a value), and every bf16 op after it rounds
+# again, so a flip moves later roundings too: loss and norm within 2^-8
+# (half an ulp), each gradient within 2^-5 x the largest (four ulps of
+# the largest: through Qwen1.5-0.5B's 24 layers the differences reach a
+# few ulps everywhere; 1.84% of the largest read on an H100), the params
+# within one bf16 ulp of |p| (2^-7) beside what the gradients explain
+STEP_TOL = {"float32": (1e-4, 1e-4, 1e-6),
+            "bfloat16": (2.0 ** -8, 2.0 ** -5, 2.0 ** -7)}
 # the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
 # widths, 32 expert slots a layer (20% of its 160 routed experts)
 DS_LAYERS, DS_SLOTS = 2, 32
@@ -410,8 +441,8 @@ SLEEP_CYCLES = 20_000_000
 # experts, whose moe_ffn may still be queued (the last-reader event's case)
 RACE_SLOTS = 2
 # the launch phase (7c): the train CLI on Qwen1.5-0.5B whole (the published
-# config with fp32 weights: bf16 training on the card is ROADMAP A14), the
-# serve CLI at its own reduced sizes (its prompt is 8 tokens), the paper's
+# config, bf16), the serve CLI at its own reduced sizes (its prompt is 8
+# tokens), the paper's
 # pipeline at Mixtral-8x7B's full widths cut to 2 of 32 layers, its
 # training cut from the reference script's 100 steps to 20 and its
 # learning rate from 2e-3 to 3e-4: at d_model 4096 the loss rose at 2e-3
@@ -644,7 +675,8 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
      "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("ssd_bwd_",), "ssd_chunk_bwd"),
-    (("gemm", "xmma", "cutlass", "cublas"), "matmul"),
+    # cuBLAS's bf16 products on Hopper are "nvjet_*" kernels
+    (("gemm", "xmma", "cutlass", "cublas", "nvjet"), "matmul"),
 )
 
 
@@ -822,7 +854,10 @@ def kernel_cases(calls):
     visible pair and head: S again (2 hd), dP (2 vd), dV (2 vd), dQ and
     dK (2 hd each), 2.5 times the forward's at hd = vd; its library call
     is SDPA's forward and backward, and ``library_bwd`` SDPA's backward
-    alone (``autograd.grad`` over a forward graph kept for it). The SSD
+    alone (``autograd.grad`` over a forward graph kept for it), in the
+    call's dtype. The backward's plain version runs in fp32 on the call's
+    values (bf16 widened), and its bytes are the call's dtype's; the
+    shape records the dtype. The SSD
     backward's flops are its products: a head's U and state term (2 Q P N
     each), dxw and dM (2 P a visible pair each), and a chunk's scores, dC
     and dB (2 N a visible pair each); its bytes read dA, xw, Bm, Cm, dY,
@@ -908,13 +943,15 @@ def kernel_cases(calls):
         yield ("flash_attention_bwd",
                lambda: flash_mod.launch_bwd(
                    ops._entry("flash_attention_bwd"), q, k, v, dout, **kw),
-               lambda: flash_mod.plain_bwd(q, k, v, dout, **kw),
+               lambda: flash_mod.plain_bwd(q.float(), k.float(), v.float(),
+                                           dout.float(), **kw),
                library, False,
-               4 * (B * Sq * H * (2 * hd + vd) + 2 * B * Sk * KV * (hd + vd)),
+               q.element_size() * (B * Sq * H * (2 * hd + vd)
+                                   + 2 * B * Sk * KV * (hd + vd)),
                2 * B * H * pairs * (3 * hd + 2 * vd),
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
-                "visible_pairs": pairs}, library_bwd)
+                "dtype": str(q.dtype), "visible_pairs": pairs}, library_bwd)
 
     if "ssd_chunk" in calls:
         dA, xw, Bm, Cm = calls["ssd_chunk"]
@@ -941,6 +978,18 @@ def kernel_cases(calls):
                     + G * H * P * N),
                G * (H * (4 * Q * P * N + 4 * tri * P) + 6 * tri * N),
                {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
+
+
+def tf32_pass_flops(name, shape, flops):
+    """``flops`` at the number of TF32 tensor-core passes the kernel gives
+    each product: three for fp32 operands (3xTF32); the flash backward on
+    bf16 inputs, which widen to TF32 exactly, one for S and dP (both
+    operands inputs) and two for dQ, dK and dV (P or dS is fp32, split)."""
+    if name != "flash_attention_bwd" or shape["dtype"] != "torch.bfloat16":
+        return 3 * flops
+    per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
+    hd, vd = shape["hd"], shape["vd"]
+    return per * (hd + vd + 2 * (2 * hd + vd))
 
 
 def agree(name, got, want, tol, what):
@@ -970,7 +1019,9 @@ def agree(name, got, want, tol, what):
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
     PAGED_SHAPES, FLASH_SHAPES, FLASH_BWD_SHAPES (the backward against
-    autograd of the plain version) and SSD_SHAPES, forward and backward
+    autograd of the plain version, in fp32 and in bf16; bf16 also against
+    float64 and launched twice for bitwise equal gradients) and
+    SSD_SHAPES, forward and backward
     (inputs from a seeded numpy generator; moe weights in E + 1 slots read
     in reverse order; one paged row with pos -1; the SSD steps at
     SSD_ORACLE_SHAPE against float64). Raises on the first disagreement;
@@ -1037,15 +1088,25 @@ def coverage_checks():
         held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
-    for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
-        q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
-        v, dout = rand((B, Sk, KV, vd)), rand((B, Sq, H, vd))
-        kw = dict(causal=causal, window=window)
-        held("flash_attention_bwd", [B, Sq, Sk, H, KV, hd, vd, causal,
-                                     window],
-             flash_mod.launch_bwd(ops._entry("flash_attention_bwd"), q, k, v,
-                                  dout, **kw),
-             flash_mod.plain_bwd(q, k, v, dout, **kw))
+    for dt in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
+            q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
+            v, dout = rand((B, Sk, KV, vd)), rand((B, Sq, H, vd))
+            q, k, v, dout = (t.to(getattr(torch, dt)) for t in (q, k, v, dout))
+            kw = dict(causal=causal, window=window)
+            shape = [B, Sq, Sk, H, KV, hd, vd, causal, window]
+            got = flash_mod.launch_bwd(ops._entry("flash_attention_bwd"), q,
+                                       k, v, dout, **kw)
+            # bf16: against the fp32 plain version on the same values
+            held("flash_attention_bwd", shape + [dt], got,
+                 flash_mod.plain_bwd(q.float(), k.float(), v.float(),
+                                     dout.float(), **kw),
+                 BF16_TOL if dt == "bfloat16" else None)
+            if dt == "bfloat16":
+                out[-1]["vs_float64"] = bwd_against_float64(ops, q, k, v,
+                                                            dout, kw)
+                out[-1]["bitwise_repeat"] = bwd_repeat_bitwise(ops, q, k, v,
+                                                               dout, kw)
     for G, Q, H, P, N, scale in SSD_SHAPES + [SSD_ORACLE_SHAPE]:
         dA = -rand((G, Q, H), scale).abs()
         xw, Bm, Cm = rand((G, Q, H, P)), rand((G, Q, N)), rand((G, Q, N))
@@ -1236,21 +1297,30 @@ def bwd_against_float64(ops, q, k, v, dout, kw):
     forward kernel's output too (the backward forms D from its own
     products because the forward's 3xTF32 O, read into D, moved dQ off by
     ~1e-4 x max at Qwen1.5-0.5B's first layer): each error over the
-    output's max |float64|. The kernel must stay within TOL of it."""
+    output's max |float64|. The kernel must stay within TOL of it, or
+    within BF16_F64_TOL on bf16 inputs (float64 and the plain version,
+    in fp32, on the same bf16 values)."""
+    import torch
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v, dout = (t[:1].contiguous() for t in (q, k, v, dout))
     out64, want = flash_float64(q, k, v, dout, **kw)
     got = flash_mod.launch_bwd(ops._entry("flash_attention_bwd"), q, k, v,
                                dout, **kw)
-    plain = flash_mod.plain_bwd(q, k, v, dout, **kw)
+    check(all(g.dtype == q.dtype for g in got),
+          f"flash_attention_bwd: gradients in {[g.dtype for g in got]}")
+    plain = flash_mod.plain_bwd(q.float(), k.float(), v.float(),
+                                dout.float(), **kw)
+    tol = (BF16_F64_TOL if q.dtype == torch.bfloat16
+           else TOL["flash_attention_bwd"])
 
     def rel(a, b):
         return float((a.double() - b).abs().max() / b.abs().max())
 
-    rep = {"forward_out": rel(ops.flash_attention(q, k, v, **kw), out64)}
+    rep = {"dtype": str(q.dtype), "tol": tol,
+           "forward_out": rel(ops.flash_attention(q, k, v, **kw), out64)}
     for name, g, pl, w in zip(("dq", "dk", "dv"), got, plain, want):
         rep[name] = {"kernel": rel(g, w), "plain": rel(pl, w)}
-        check(rep[name]["kernel"] <= TOL["flash_attention_bwd"],
+        check(rep[name]["kernel"] <= tol,
               f"flash_attention_bwd {name} vs float64: {rep[name]}")
     return rep
 
@@ -2313,8 +2383,9 @@ def train_step_compare(cfg, batch, ops, lr):
     """One ``make_train_step`` step (AdamW at ``lr``, no schedule) from
     the seeded params through the kernels, and the same step with
     ``flash_attention.plain`` patched into ``attention._sdpa`` (autograd
-    of the plain version: no launch). Loss, global grad norm, every
-    gradient and the post-AdamW params must agree as TRAIN_TOL says."""
+    of the plain version: no launch), in ``cfg``'s dtype. Loss, global
+    grad norm, every gradient and the post-AdamW params must agree as
+    STEP_TOL says for that dtype."""
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.models import attention as attn_mod
@@ -2362,19 +2433,22 @@ def train_step_compare(cfg, batch, ops, lr):
                               "flash_attention_bwd": n_attn},
                    f"{cfg.name} kernel step")
     check_launches(launch_p, {}, f"{cfg.name} plain step")
+    tol, g_tol, p_tol = STEP_TOL[cfg.dtype]
     loss_err, norm_err = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
-    check(loss_err <= TRAIN_TOL and norm_err <= TRAIN_TOL,
+    check(loss_err <= tol and norm_err <= tol,
           f"kernel vs plain step: loss {lk} vs {lp}, grad norm {nk} vs {np_}")
     g_top = max(float(g.abs().max()) for g in gp)
-    g_err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    check(g_err <= TRAIN_TOL * g_top,
-          f"kernel vs plain gradients: max |diff| {g_err:.3e}, max |g| "
-          f"{g_top:.3e}")
+    g_err = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(gk, gp))
+    check(g_err <= g_tol * g_top,
+          f"kernel vs plain gradients ({cfg.dtype}): max |diff| "
+          f"{g_err:.3e}, max |g| {g_top:.3e}")
     p_err, flipped = 0.0, 0
     for a, b, ga, gb in zip(pk, pp, gk, gp):
+        a, b, ga, gb = a.float(), b.float(), ga.float(), gb.float()
         d = (a - b).abs()
         sens = 2 * ((ga - gb).abs() / gb.abs().clamp_min(1e-30) + norm_err)
-        allowed = lr * sens.clamp(max=2.0) + 1e-6 * (b.abs() + lr)
+        allowed = lr * sens.clamp(max=2.0) + p_tol * (b.abs() + lr)
         check(bool((d <= allowed).all()),
               f"kernel vs plain post-AdamW params: |diff| "
               f"{float((d - allowed).max()):.3e} over what the gradients "
@@ -2386,7 +2460,8 @@ def train_step_compare(cfg, batch, ops, lr):
             "grad_norm_rel_err": norm_err, "grad_max_abs_err": g_err,
             "grad_max_abs": g_top, "params_max_abs_err": p_err,
             "params_off_by_more_than_lr": flipped,
-            "params": sum(t.numel() for t in pp), "tol": TRAIN_TOL,
+            "params": sum(t.numel() for t in pp), "dtype": cfg.dtype,
+            "tol": STEP_TOL[cfg.dtype],
             "step_ms_kernel": ms_k, "step_ms_plain": ms_p,
             "launches_kernel": launch_k}
 
@@ -2435,16 +2510,18 @@ def step_summary(stamps, batch_tokens):
 def training_phase(ops, card, hold_and_time, profile):
     """TRAIN_RUNS through ``repro_torch.training.train`` on ``lm_batches``
     at published widths (the hybrid reduced, see TRAIN_RUNS; params drawn
-    on the card from the seed, fp32, remat): every step's launches, reset
+    on the card from the seed, in each run's dtype, remat): every step's
+    launches, reset
     just before it and read just after it (in ``train``'s callback), must
     be exactly the flash forward twice (once more under remat) and its
     backward once per attention layer, the SSD chunk forward twice and its
     backward once per SSM layer, and nothing else; every loss finite and
     the last below the first. STEP_COMPARE_ARCH first runs
-    ``train_step_compare``. Prints a ``train_step`` line a step and a
-    ``train_summary`` line a run (median step, tokens/s, peak device
-    bytes); holds each backward kernel against its plain version at each
-    model's first call and times it (``hold_and_time``), against float64
+    ``train_step_compare`` in each of STEP_TOL's dtypes. Prints a
+    ``train_step`` line a step and a ``train_summary`` line a run (median
+    step, tokens/s, peak device bytes); holds each backward kernel
+    against its plain version at each model's first call and times it
+    (``hold_and_time``), against float64
     (``bwd_against_float64``, ``ssd_bwd_checks``), and launches it twice
     on that call for bitwise equal outputs; times the SSD backward at
     JAMBA_SSD_SHAPE off the path; with ``profile``, traces one more step
@@ -2463,23 +2540,25 @@ def training_phase(ops, card, hold_and_time, profile):
     from repro_torch.training.tree import leaves
 
     rep = {"card": card, "no_backward": no_backward_checks()}
-    for arch, layers, B, S, steps, lr in TRAIN_RUNS:
+    for arch, layers, B, S, steps, lr, dtype in TRAIN_RUNS:
         cfg = get_config(arch)
         if isinstance(layers, dict):
             cfg = reduced(cfg, **layers)
         elif layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
-        cfg = dataclasses.replace(cfg, dtype="float32")
+        cfg = dataclasses.replace(cfg, dtype=dtype)
         t0 = time.perf_counter()
         batches = list(lm_batches(cfg.vocab_size, B, S, steps, seed=SEED))
         run = {"model": cfg.name, "layers": cfg.num_layers,
-               "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
-               "lr": lr, "data_s": time.perf_counter() - t0}
+               "d_model": cfg.d_model, "dtype": dtype, "batch": B, "seq": S,
+               "steps": steps, "lr": lr, "data_s": time.perf_counter() - t0}
         if arch == STEP_COMPARE_ARCH:
-            run["kernel_vs_plain_step"] = train_step_compare(
-                cfg, to_device(batches[0], "cuda"), ops, lr)
-            gc.collect()
-            torch.cuda.empty_cache()
+            for dt in STEP_TOL:
+                run[f"kernel_vs_plain_step_{dt}"] = train_step_compare(
+                    dataclasses.replace(cfg, dtype=dt),
+                    to_device(batches[0], "cuda"), ops, lr)
+                gc.collect()
+                torch.cuda.empty_cache()
         kinds = prefill_launches(cfg)
         n_attn, n_ssm = kinds["flash_attention"], kinds["ssd_chunk"]
         want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
@@ -2496,7 +2575,7 @@ def training_phase(ops, card, hold_and_time, profile):
         summary = step_summary(stamps, B * S)
         for i, (ms, loss) in enumerate(zip(summary["step_ms"], losses)):
             print(json.dumps({"train_step": {
-                "model": cfg.name, "step": i, "ms": ms,
+                "model": cfg.name, "dtype": dtype, "step": i, "ms": ms,
                 "tokens_per_s": B * S / ms * 1e3, "loss": loss,
                 "first_step_includes_init": i == 0}}), flush=True)
         check(len(losses) == steps and all(np.isfinite(losses)),
@@ -2508,8 +2587,8 @@ def training_phase(ops, card, hold_and_time, profile):
                    peak_device_bytes=torch.cuda.max_memory_allocated(),
                    params=sum(p.numel() for p in leaves(params)))
         print(json.dumps({"train_summary": {
-            "model": cfg.name, "layers": cfg.num_layers, "batch": B,
-            "seq": S, "median_step_ms": summary["median_step_ms"],
+            "model": cfg.name, "layers": cfg.num_layers, "dtype": dtype,
+            "batch": B, "seq": S, "median_step_ms": summary["median_step_ms"],
             "tokens_per_s": summary["tokens_per_s"],
             "peak_device_bytes": run["peak_device_bytes"],
             "params": run["params"], "card": card}}), flush=True)
@@ -2601,50 +2680,38 @@ def timed_decode(runs):
     return make
 
 
-def train_cli_run(ops, card):
+def train_cli_run(ops, card, hold_and_time):
     """(a) ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B
-    whole. The published config is bf16, and the card refuses to train
-    it (the flash kernel's backward is fp32 only, A14): that refusal is
-    checked first. Then the same argv with the config's dtype patched to
-    float32: every step launches the flash forward twice (remat) and its
-    backward once per layer and nothing else; the printed final loss is
-    finite; the checkpoint loads with ``load_checkpoint`` into an
-    ``init_params`` tree of the config (the file's keys exactly, shapes,
-    dtypes, finite, ``step`` 3) and equals the trained params bitwise."""
+    whole in its published dtype, bf16: every step launches the flash
+    forward twice (remat) and its backward once per layer and nothing
+    else; the printed final loss is finite; the checkpoint loads with
+    ``load_checkpoint`` into an ``init_params`` tree of the config (the
+    file's keys exactly, shapes, dtypes, finite, ``step`` 3) and equals
+    the trained params bitwise (bf16 leaves are stored as fp32, which
+    holds them exactly). The run's first flash backward call is held
+    against its plain version and timed (``hold_and_time``), against
+    float64, and launched twice for bitwise equal gradients."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch import train as train_cli
     from repro_torch.models.transformer import init_params
     from repro_torch.training import load_checkpoint
     from repro_torch.training.tree import flatten
 
     rep = {"card": card, "argv": LAUNCH_TRAIN}
+    cfg = get_config("qwen1.5-0.5b")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "qwen.npz")
         argv = LAUNCH_TRAIN + ["--ckpt", path]
-        try:
-            captured(train_cli.main, argv)
-            check(False, "train CLI: bf16 Qwen trained on the card")
-        except NotImplementedError as e:
-            check("A14" in str(e), f"train CLI bf16: {e}")
-            rep["bf16_refusal"] = str(e)
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        def fp32(get):
-            return lambda arch: dataclasses.replace(get(arch),
-                                                    dtype="float32")
-
-        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
-                                  dtype="float32")
         L = prefill_launches(cfg)["flash_attention"]
-        stamps, launches, kept = [], [], {}
-        with patched(train_cli, "get_config", fp32), patched(
-                train_cli, "train",
-                counted_steps({"flash_attention": 2 * L,
-                               "flash_attention_bwd": L}, "train CLI",
-                              stamps, launches, kept)):
+        stamps, launches, kept, seen = [], [], {}, {}
+        with patched(train_cli, "train",
+                     counted_steps({"flash_attention": 2 * L,
+                                    "flash_attention_bwd": L}, "train CLI",
+                                   stamps, launches, kept)), \
+                patched(flash_mod, "launch_bwd", keep_first_bwd(seen)):
             _, text = captured(train_cli.main, argv)
         m = re.search(r"final loss (\S+) \(start (\S+)\)", text)
         check(m is not None and f"saved {path}" in text,
@@ -2653,8 +2720,9 @@ def train_cli_run(ops, card):
         check(np.isfinite(last) and np.isfinite(first),
               f"train CLI losses {first} -> {last}")
         check(len(launches) == 3, f"train CLI ran {len(launches)} steps")
-        rep.update(step_summary(stamps, 4 * 2048), loss_first=first,
-                   loss_last=last, launches_per_step=launches[0],
+        rep.update(step_summary(stamps, 4 * 2048), dtype=cfg.dtype,
+                   loss_first=first, loss_last=last,
+                   launches_per_step=launches[0],
                    ckpt_bytes=os.path.getsize(path))
         like = init_params(cfg, torch.Generator(device="cuda").manual_seed(
             SEED + 1), device="cuda")
@@ -2673,6 +2741,17 @@ def train_cli_run(ops, card):
                   f"checkpoint {k} != the trained params")
         rep["ckpt_leaves"] = len(keys)
         del like, tree, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    call = seen["flash_attention_bwd"]
+    check(call[0].dtype == torch.bfloat16,
+          f"train CLI: the flash backward ran on {call[0].dtype}")
+    rep["bwd_vs_float64"] = bwd_against_float64(ops, *call)
+    rep["bwd_bitwise_repeat"] = bwd_repeat_bitwise(ops, *call)
+    hold_and_time(seen, {"flash_attention_bwd": sum(
+        c["flash_attention_bwd"] for c in launches)},
+        model=f"{cfg.name} (train CLI)")
+    del seen, call
     gc.collect()
     torch.cuda.empty_cache()
     return rep
@@ -2999,7 +3078,7 @@ def launch_phase(ops, card, hold_and_time):
     (``pipeline_run``) and the two other examples (``examples_runs``).
     Returns (the ``pipeline`` report, the rest)."""
     t0 = time.perf_counter()
-    rep = {"card": card, "train_cli": train_cli_run(ops, card),
+    rep = {"card": card, "train_cli": train_cli_run(ops, card, hold_and_time),
            "serve_cli": serve_cli_runs(ops)}
     pipeline = pipeline_run(ops, card, hold_and_time)
     rep["examples"] = examples_runs(ops)
@@ -3140,13 +3219,15 @@ def main() -> None:
         recs = []
         for (name, kern, plain, library, graph, nbytes, flops, shape,
              library_bwd) in kernel_cases(calls):
-            err, rel = agree(name, kern(), plain(), TOL[name], name)
+            bf16 = shape.get("dtype") == "torch.bfloat16"
+            tol = BF16_TOL if bf16 else TOL[name]
+            err, rel = agree(name, kern(), plain(), tol, name)
             iters = 20 if graph else 10
             ms = device_ms(kern, iters, graph=graph)
             plain_ms = device_ms(plain, iters, graph=graph)
             library_ms = (device_ms(library, iters, graph=graph)
                           if library is not None else None)
-            peak, rate = PEAK.get(name, FP32_PEAK)
+            peak, rate = BF16_PEAK if bf16 else PEAK.get(name, FP32_PEAK)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
             bound_ms = max(t_bytes, t_ops) * 1e3
             rec = {
@@ -3155,7 +3236,7 @@ def main() -> None:
                 "launches": (None if launches_by_kernel is None
                              else launches_by_kernel[name]),
                 "max_abs_err": err,
-                "max_err_over_max_plain": rel, "tol": TOL[name],
+                "max_err_over_max_plain": rel, "tol": tol,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "launch_floor_ms": floor_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3168,11 +3249,12 @@ def main() -> None:
             if library_bwd is not None:
                 rec["library_bwd_ms"] = device_ms(library_bwd, iters,
                                                   graph=graph)
-            if name in PEAK:   # the fp32-core bound, and 3 TF32 passes
+            if name in PEAK:   # the fp32-core bound, and the TF32 passes
                 rec["bound_fp32_ms"] = max(
                     t_bytes, flops / FP32_FLOPS_PER_S) * 1e3
-                rec["bound_3xtf32_ms"] = max(
-                    t_bytes, 3 * flops / rate) * 1e3
+                rec["bound_passes_ms"] = max(
+                    t_bytes, tf32_pass_flops(name, shape, flops)
+                    / TF32_FLOPS_PER_S) * 1e3
             if args.profile and library is not None:
                 # name the kernels the library call ran
                 prof = torch.profiler.profile(

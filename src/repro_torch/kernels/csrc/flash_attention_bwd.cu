@@ -1,6 +1,6 @@
 // Backward of full-sequence attention (the function flash_attention.cu
-// computes), fp32, on the TF32 tensor cores of Hopper (sm_90a), plain C
-// interface.
+// computes), fp32 or bf16, on the TF32 tensor cores of Hopper (sm_90a),
+// plain C interface.
 //
 // Replaces: nothing in Pallas. The JAX package trains through XLA blockwise
 // attention (repro.models.attention, ATTN_IMPL = "xla_blockwise") and has no
@@ -103,14 +103,39 @@
 //    widths) the keys kernel's 256 accumulator floats a lane spill (568
 //    bytes stored, 312 bytes of stack).
 //
+// bf16 inputs and outputs (training a published config in its own dtype):
+//  * The same two launches, templated on the element type. Shared memory
+//    stays fp32: a bf16 row is widened as it is copied in (exact: a bf16
+//    value is a TF32 value), so every fragment load, bank pattern, stride
+//    and occupancy figure above holds unchanged.
+//  * The widening takes the copy out of cp.async: bf16 tiles are loaded
+//    into registers (16, 8 or 4 bytes a load where every row and pointer
+//    is aligned to it, one element where a row is only 2-byte aligned,
+//    e.g. hd 37) and stored widened. The ring keeps its two stages, so tile
+//    j + 1 is still copied before tile j is computed, but each thread now
+//    waits for its own loads: the other warps and blocks of the SM, not
+//    the copy engine, hide that latency.
+//  * Q, K, V and dO have no lo part, so S = Q.K^T and dP = dO.V^T (and S^T,
+//    dP^T) take one TF32 pass each, and dQ, dK, dV two (P and dS are fp32,
+//    still split hi + lo; their B operand is a widened input): the 10 hd +
+//    8 vd flops executed a pair and head cost 14 hd + 10 vd of MMA passes,
+//    against 30 hd + 24 vd in fp32.
+//  * dQ, dK and dV accumulate in fp32 exactly as in fp32 (dK and dV summed
+//    over the G heads and both row streams in fp32), and each is rounded to
+//    bf16 once, at the store. No atomics: bitwise repeatable. The stats
+//    scratch stays fp32.
+//
 // What is left: wgmma + TMA. TF32 wgmma needs both operands K-major in
 // shared memory, and dQ, dK and dV contract over the key or row axis, so
 // each would need a transposed tile. Cutting the executed work below
 // 10 hd + 8 vd needs an LSE output from the forward, or dQ by atomics.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -155,9 +180,11 @@ size_t smem_bytes(int hd, int vd) {
           kStages * 3 * kRowTile);
 }
 
-// Rows [0, nrows) of w floats into dst (stride ds) by cp.async; row r comes
+// Rows [0, nrows) of w elements into dst (fp32, stride ds); row r comes
 // from src(r), or is zero where src(r) is null. vec: bytes a copy (16, 8
-// or 4; every source row and pointer aligned to it).
+// or 4, and 2 for bf16; every source row and pointer aligned to it).
+// fp32 rows go by cp.async (complete at cp_wait); bf16 rows are loaded
+// and stored widened (complete when the call returns).
 template <typename Src>
 __device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
                                           int w, int vec, const float* base,
@@ -178,6 +205,49 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
   }
 }
 
+// two bf16 packed in a word (element 0 in the low half) as floats
+__device__ __forceinline__ float2 widen2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+template <typename Src>
+__device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
+                                          int w, int vec,
+                                          const __nv_bfloat16* /*base*/,
+                                          Src src) {
+  const int per = vec / 2;
+  const int cpr = w / per;  // loads a row
+  for (int i = threadIdx.x; i < nrows * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i - r * cpr) * per;
+    const __nv_bfloat16* s = src(r);
+    float* d = dst + r * ds + c;  // 4 x per bytes aligned: ds % 4 == 0
+    if (vec == 16) {
+      const uint4 u = s ? *reinterpret_cast<const uint4*>(s + c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+      const float2 a = widen2(u.x), b = widen2(u.y), e = widen2(u.z),
+                   f = widen2(u.w);
+      reinterpret_cast<float4*>(d)[0] = make_float4(a.x, a.y, b.x, b.y);
+      reinterpret_cast<float4*>(d)[1] = make_float4(e.x, e.y, f.x, f.y);
+    } else if (vec == 8) {
+      const uint2 u = s ? *reinterpret_cast<const uint2*>(s + c)
+                        : make_uint2(0u, 0u);
+      const float2 a = widen2(u.x), b = widen2(u.y);
+      *reinterpret_cast<float4*>(d) = make_float4(a.x, a.y, b.x, b.y);
+    } else if (vec == 4) {
+      *reinterpret_cast<float2*>(d) =
+          widen2(s ? *reinterpret_cast<const uint32_t*>(s + c) : 0u);
+    } else {
+      *d = s ? __bfloat162float(s[c]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);  // round to nearest even, once
+}
+
 // zero columns [w, w rounded up to 8) of nrows rows: the last k-step or
 // n-tile reads them, no copy writes them
 __device__ __forceinline__ void zero_pad(float* buf, int nrows, int ds,
@@ -193,7 +263,9 @@ __device__ __forceinline__ void zero_pad(float* buf, int nrows, int ds,
 // and slot t + 4 column 8kk + t + 4. The small terms (lo.hi + hi.lo) have
 // their own accumulator, added at the end: a k-step's three products form
 // two short dependency chains instead of one of three, and the small sum
-// is not truncated against the large one.
+// is not truncated against the large one. Without kSplit both operands
+// are widened bf16 (TF32 already): one pass.
+template <bool kSplit>
 __device__ __forceinline__ void dot_nt(float (&acc)[2][4], const float* a,
                                        int sa, const float* b, int sb,
                                        int nks) {
@@ -206,25 +278,29 @@ __device__ __forceinline__ void dot_nt(float (&acc)[2][4], const float* a,
   for (int kk = 0; kk < nks; ++kk) {
     const float* ak = a + 8 * kk;
     uint32_t ah[4], al[4];
-    frag<true>(ak[0], ah[0], al[0]);
-    frag<true>(ak[8 * sa], ah[1], al[1]);
-    frag<true>(ak[4], ah[2], al[2]);
-    frag<true>(ak[8 * sa + 4], ah[3], al[3]);
+    frag<kSplit>(ak[0], ah[0], al[0]);
+    frag<kSplit>(ak[8 * sa], ah[1], al[1]);
+    frag<kSplit>(ak[4], ah[2], al[2]);
+    frag<kSplit>(ak[8 * sa + 4], ah[3], al[3]);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const float* bk = b + 8 * j * sb + 8 * kk;
       uint32_t bh[2], bl[2];
-      frag<true>(bk[0], bh[0], bl[0]);
-      frag<true>(bk[4], bh[1], bl[1]);
-      mma(small[j], al, bh);
-      mma(small[j], ah, bl);
+      frag<kSplit>(bk[0], bh[0], bl[0]);
+      frag<kSplit>(bk[4], bh[1], bl[1]);
+      if constexpr (kSplit) {
+        mma(small[j], al, bh);
+        mma(small[j], ah, bl);
+      }
       mma(acc[j], ah, bh);
     }
   }
+  if constexpr (kSplit) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+      for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+  }
 }
 
 // acc[n] += C.B[:, 8n .. 8n + 7] for n < nt (NT a bound): C is the warp's
@@ -234,8 +310,9 @@ __device__ __forceinline__ void dot_nt(float (&acc)[2][4], const float* a,
 // at row 2t, column g of B, whose rows match C's 16 columns. Each n-tile is
 // summed from zero and then added to acc[n] in fp32: the tensor cores
 // truncate as they accumulate, so a sum over thousands of rows kept in
-// one accumulator drifts toward zero.
-template <int NT>
+// one accumulator drifts toward zero. Without kLoB, B is a widened bf16
+// input: two passes (lo.hi + hi.hi).
+template <int NT, bool kLoB>
 __device__ __forceinline__ void dot_acc(float (&acc)[NT][4],
                                         const float (&c)[2][4], const float* b,
                                         int sb, int nt) {
@@ -255,9 +332,9 @@ __device__ __forceinline__ void dot_acc(float (&acc)[NT][4],
       for (int j = 0; j < 2; ++j) {
         const float* bj = b + 8 * j * sb + 8 * n;
         uint32_t bh[2], bl[2];
-        frag<true>(bj[0], bh[0], bl[0]);
-        frag<true>(bj[sb], bh[1], bl[1]);
-        mma3<true, true>(part, ah[j], al[j], bh, bl);
+        frag<kLoB>(bj[0], bh[0], bl[0]);
+        frag<kLoB>(bj[sb], bh[1], bl[1]);
+        mma3<true, kLoB>(part, ah[j], al[j], bh, bl);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
@@ -311,13 +388,15 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-// (1) rows: the stats and dQ. HT: dQ n-tiles a lane (hd, vd <= 8 HT)
-template <int HT>
+// (1) rows: the stats and dQ. T: the element type of q, k, v, dout and dq
+// (float or __nv_bfloat16); HT: dQ n-tiles a lane (hd, vd <= 8 HT)
+template <typename T, int HT>
 __global__ void __launch_bounds__(kThreads, HT <= 8 ? 4 : (HT <= 16 ? 2 : 1))
-flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout, float* __restrict__ dq,
-                      float* __restrict__ stats, Shape sh) {
+flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      T* __restrict__ dq, float* __restrict__ stats,
+                      Shape sh) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int sq = stride(sh.hd), sv = stride(sh.vd);
   float* qs = smem;                       // [kRows][sq]
@@ -334,17 +413,17 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_last = min(q0 + sh.BP, sh.Sq) - 1;
   const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
   const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
-  const float* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
-                    static_cast<size_t>(kvh) * sh.hd;
-  const float* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
-                    static_cast<size_t>(kvh) * sh.vd;
+  const T* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
+                static_cast<size_t>(kvh) * sh.hd;
+  const T* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
+                static_cast<size_t>(kvh) * sh.vd;
 
   zero_pad(qs, kRows, sq, sh.hd);
   zero_pad(dos, kRows, sv, sh.vd);
   zero_pad(ks, kStages * kTile, sq, sh.hd);
   zero_pad(vs, kStages * kTile, sv, sh.vd);
   // (batch, position, head) rows of a [B, Sq, H, w] tensor
-  auto head_row = [&](const float* base, int w, int r) -> const float* {
+  auto head_row = [&](const T* base, int w, int r) -> const T* {
     int hg, pos;
     return row_live(sh, q0, r, hg, pos)
                ? base + ((static_cast<size_t>(b) * sh.Sq + pos) * sh.H +
@@ -358,11 +437,11 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_tile = [&](int tile, int stage) {
     const int k0 = tile * kTile;
     copy_rows(ks + stage * kTile * sq, sq, kTile, sh.hd, sh.vec, k,
-              [&](int j) -> const float* {
+              [&](int j) -> const T* {
                 return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
               });
     copy_rows(vs + stage * kTile * sv, sv, kTile, sh.vd, sh.vec, v,
-              [&](int j) -> const float* {
+              [&](int j) -> const T* {
                 return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
               });
   };
@@ -404,8 +483,8 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S = Q.K^T, dP = dO.V^T: this warp's 16 rows x 16 keys; s[j][e] is
     // row g + 8 (e >> 1), key k0 + 8j + 2t + (e & 1)
     float s[2][4], dp[2][4];
-    dot_nt(s, qw, sq, kt + g * sq + t, sq, nks_q);
-    dot_nt(dp, dow, sv, vt + g * sv + t, sv, nks_v);
+    dot_nt<kSplit>(s, qw, sq, kt + g * sq + t, sq, nks_q);
+    dot_nt<kSplit>(dp, dow, sv, vt + g * sv + t, sv, nks_v);
     const int k_end = k0 + kTile - 1;
     const bool whole = __all_sync(
         kFull, k_end < sh.Sk &&
@@ -469,7 +548,7 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = exp2f(s[j][e] - m[h]) * il[h];
           s[j][e] = (vis >> (4 * j + e)) & 1u ? p * (dp[j][e] - d[h]) : 0.f;
         }
-      dot_acc<HT>(acc, s, kt + 2 * t * sq + g, sq, nks_q);
+      dot_acc<HT, kSplit>(acc, s, kt + 2 * t * sq + g, sq, nks_q);
     }
     __syncthreads();  // the next tile's copies overwrite this stage
   }
@@ -478,13 +557,13 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
-    float* row = dq + ((static_cast<size_t>(b) * sh.Sq + pos[h]) * sh.H +
-                       kvh * sh.G + hg[h]) * sh.hd;
+    T* row = dq + ((static_cast<size_t>(b) * sh.Sq + pos[h]) * sh.H +
+                   kvh * sh.G + hg[h]) * sh.hd;
 #pragma unroll
     for (int n = 0; n < HT; ++n) {
       const int col = 8 * n + 2 * t;
-      if (col < sh.hd) row[col] = acc[n][2 * h] * sh.scale;
-      if (col + 1 < sh.hd) row[col + 1] = acc[n][2 * h + 1] * sh.scale;
+      if (col < sh.hd) store(row + col, acc[n][2 * h] * sh.scale);
+      if (col + 1 < sh.hd) store(row + col + 1, acc[n][2 * h + 1] * sh.scale);
     }
   }
 }
@@ -492,14 +571,14 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // (2) keys: dK and dV. HT: dK and dV n-tiles a lane (hd, vd <= 8 HT).
 // Warp w takes keys 16 (w & 1) .. + 15 of the block's 32 and rows
 // 16 (w >> 1) .. + 15 of each 32-row tile: two row streams, whose dK and
-// dV are summed in shared memory at the end.
-template <int HT>
+// dV are summed in shared memory at the end. T as in (1).
+template <typename T, int HT>
 __global__ void __launch_bounds__(kThreads, HT <= 8 ? 3 : (HT <= 16 ? 2 : 1))
-flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ stats, float* __restrict__ dk,
-                      float* __restrict__ dv, Shape sh) {
+flash_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ stats, T* __restrict__ dk,
+                      T* __restrict__ dv, Shape sh) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int sq = stride(sh.hd), sv = stride(sh.vd);
   float* ks = smem;                            // [kKeys][sq]
@@ -517,19 +596,19 @@ flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_last = min(k0 + kKeys, sh.Sk) - 1;
   const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
   const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
-  const float* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
-                    static_cast<size_t>(kvh) * sh.hd;
-  const float* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
-                    static_cast<size_t>(kvh) * sh.vd;
+  const T* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
+                static_cast<size_t>(kvh) * sh.hd;
+  const T* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
+                static_cast<size_t>(kvh) * sh.vd;
 
   zero_pad(ks, kKeys, sq, sh.hd);
   zero_pad(vs, kKeys, sv, sh.vd);
   zero_pad(qs, kStages * kRowTile, sq, sh.hd);
   zero_pad(dos, kStages * kRowTile, sv, sh.vd);
-  copy_rows(ks, sq, kKeys, sh.hd, sh.vec, k, [&](int j) -> const float* {
+  copy_rows(ks, sq, kKeys, sh.hd, sh.vec, k, [&](int j) -> const T* {
     return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
   });
-  copy_rows(vs, sv, kKeys, sh.vd, sh.vec, v, [&](int j) -> const float* {
+  copy_rows(vs, sv, kKeys, sh.vd, sh.vec, v, [&](int j) -> const T* {
     return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
   });
 
@@ -548,7 +627,7 @@ flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
       stats + (static_cast<size_t>(b) * sh.KV + kvh) * sh.Sq * sh.G;
   auto load_rows = [&](int step, int stage) {
     const int first = rho0 + step * kRowTile;
-    auto row = [&](const float* base, int w, int r) -> const float* {
+    auto row = [&](const T* base, int w, int r) -> const T* {
       const int rho = first + r;
       if (rho >= rho_end) return nullptr;
       const int pos = rho / sh.G;
@@ -596,8 +675,8 @@ flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S^T = K.Q^T, dP^T = V.dO^T: this warp's 16 keys x 16 rows; s[j][e]
     // is key g + 8 (e >> 1), row 8j + 2t + (e & 1)
     float s[2][4], dp[2][4];
-    dot_nt(s, kw, sq, qt + g * sq + t, sq, nks_q);
-    dot_nt(dp, vw, sv, dot + g * sv + t, sv, nks_v);
+    dot_nt<kSplit>(s, kw, sq, qt + g * sq + t, sq, nks_q);
+    dot_nt<kSplit>(dp, vw, sv, dot + g * sv + t, sv, nks_v);
     // rows past rho_end are zero (q, dO, m, 1 / l, D): P = 0, dS = 0
     const int pos_first = first / sh.G;
     const int pos_last = (min(first + 16, rho_end) - 1) / sh.G;
@@ -626,8 +705,8 @@ flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dp[j][e] = st == 0 ? p * (dp[j][e] - mrow[2 * kRowTile + r]) : 0.f;
       }
     // dV += P^T.dO, dK += dS^T.Q over the warp's 16 rows
-    dot_acc<HT>(av, s, dot + 2 * t * sv + g, sv, nks_v);
-    dot_acc<HT>(ak, dp, qt + 2 * t * sq + g, sq, nks_q);
+    dot_acc<HT, kSplit>(av, s, dot + 2 * t * sv + g, sv, nks_v);
+    dot_acc<HT, kSplit>(ak, dp, qt + 2 * t * sq + g, sq, nks_q);
     __syncthreads();  // the next tile's copies overwrite this stage
   }
   cp_wait<0>();
@@ -661,53 +740,91 @@ flash_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * n + 2 * t + e, i = 4 * n + 2 * h + e;
         if (col < sh.hd)
-          dk[row * sh.hd + col] = (ak[n][2 * h + e] + part[at(i)]) * sh.scale;
+          store(dk + row * sh.hd + col,
+                (ak[n][2 * h + e] + part[at(i)]) * sh.scale);
         if (col < sh.vd)
-          dv[row * sh.vd + col] = av[n][2 * h + e] + part[at(4 * nks_q + i)];
+          store(dv + row * sh.vd + col,
+                av[n][2 * h + e] + part[at(4 * nks_q + i)]);
       }
     }
   }
 }
 
-template <int HT>
-cudaError_t launch(const Shape& sh, cudaStream_t stream, const float* q,
-                   const float* k, const float* v, const float* dout,
-                   float* dq, float* dk, float* dv, float* stats) {
+template <typename T, int HT>
+cudaError_t launch(const Shape& sh, cudaStream_t stream, const void* q_,
+                   const void* k_, const void* v_, const void* dout_,
+                   void* dq_, void* dk_, void* dv_, float* stats) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dout = static_cast<const T*>(dout_);
   const size_t smem = smem_bytes(sh.hd, sh.vd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_rows_kernel<HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_rows_kernel<T, HT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_keys_kernel<HT>,
+  err = cudaFuncSetAttribute(flash_bwd_keys_kernel<T, HT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int bkv = sh.B * sh.KV;
   const int rows_grid = bkv * ((sh.Sq + sh.BP - 1) / sh.BP);
-  flash_bwd_rows_kernel<HT><<<rows_grid, kThreads, smem, stream>>>(
-      q, k, v, dout, dq, stats, sh);
+  flash_bwd_rows_kernel<T, HT><<<rows_grid, kThreads, smem, stream>>>(
+      q, k, v, dout, static_cast<T*>(dq_), stats, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int keys_grid = bkv * ((sh.Sk + kKeys - 1) / kKeys);
-  flash_bwd_keys_kernel<HT><<<keys_grid, kThreads, smem, stream>>>(
-      q, k, v, dout, stats, dk, dv, sh);
+  flash_bwd_keys_kernel<T, HT><<<keys_grid, kThreads, smem, stream>>>(
+      q, k, v, dout, stats, static_cast<T*>(dk_), static_cast<T*>(dv_), sh);
   return cudaGetLastError();
+}
+
+// the widest copy every row of q, k, v and dout stays aligned to (16, 8 or
+// 4 bytes); 0 for none. bf16 rows may be 2-byte aligned only (hd 37): then
+// 2, one element a load
+template <typename T>
+int row_copy_bytes(const void* q, const void* k, const void* v,
+                   const void* dout, int hd, int vd) {
+  int vec = copy_bytes(q, sizeof(T) * hd);
+  const int vecs[3] = {copy_bytes(k, sizeof(T) * hd),
+                       copy_bytes(v, sizeof(T) * vd),
+                       copy_bytes(dout, sizeof(T) * vd)};
+  for (int x : vecs) vec = x < vec ? x : vec;
+  if (vec == 0 && sizeof(T) == 2) {
+    const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(dout);
+    if (any % 2 == 0) vec = 2;
+  }
+  return vec;
+}
+
+template <typename T>
+cudaError_t dispatch(const Shape& sh, cudaStream_t stream, const void* q,
+                     const void* k, const void* v, const void* dout,
+                     void* dq, void* dk, void* dv, float* stats) {
+  if (sh.hd <= 64)
+    return launch<T, 8>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+  if (sh.hd <= 128)
+    return launch<T, 16>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+  return launch<T, 32>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
 }
 
 }  // namespace
 
 // q, dq [B,Sq,H,hd]; k, dk [B,Sk,KV,hd]; v, dv [B,Sk,KV,vd]; dout
-// [B,Sq,H,vd]; stats a scratch of 3 * B * Sq * H floats. fp32, contiguous,
-// on the device; H % KV == 0, H / KV <= 64, hd <= 256, vd <= hd. window 0
-// means unbounded. Launches on `stream`, does not synchronise, returns
+// [B,Sq,H,vd]: all of one type (bf16 != 0: bfloat16, else fp32); stats a
+// fp32 scratch of 3 * B * Sq * H floats. Contiguous, on the device;
+// H % KV == 0, H / KV <= 64, hd <= 256, vd <= hd. window 0 means
+// unbounded. Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
-extern "C" int flash_attention_bwd(const float* q, const float* k,
-                                   const float* v, const float* dout,
-                                   float* dq, float* dk, float* dv,
-                                   float* stats, int B, int Sq, int Sk, int H,
-                                   int KV, int hd, int vd, int causal,
-                                   int window, float scale,
-                                   cudaStream_t stream) {
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* dout, void* dq,
+                                   void* dk, void* dv, float* stats, int bf16,
+                                   int B, int Sq, int Sk, int H, int KV,
+                                   int hd, int vd, int causal, int window,
+                                   float scale, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || hd <= 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || hd > kMaxHd ||
       vd <= 0 || vd > hd || window < 0)
@@ -725,20 +842,12 @@ extern "C" int flash_attention_bwd(const float* q, const float* k,
   sh.causal = causal;
   sh.window = window;
   sh.scale = scale;
-  // the widest copy every row of q, k, v and dout stays aligned to; fp32
-  // rows and pointers are 4-byte aligned, so at least 4
-  sh.vec = copy_bytes(q, sizeof(float) * hd);
-  const int vecs[3] = {copy_bytes(k, sizeof(float) * hd),
-                       copy_bytes(v, sizeof(float) * vd),
-                       copy_bytes(dout, sizeof(float) * vd)};
-  for (int x : vecs) sh.vec = x < sh.vec ? x : sh.vec;
+  sh.vec = bf16 ? row_copy_bytes<__nv_bfloat16>(q, k, v, dout, hd, vd)
+                : row_copy_bytes<float>(q, k, v, dout, hd, vd);
   if (sh.vec == 0) return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err;
-  if (hd <= 64)
-    err = launch<8>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
-  else if (hd <= 128)
-    err = launch<16>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
-  else
-    err = launch<32>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
+  const cudaError_t err =
+      bf16 ? dispatch<__nv_bfloat16>(sh, stream, q, k, v, dout, dq, dk, dv,
+                                     stats)
+           : dispatch<float>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
   return static_cast<int>(err);
 }

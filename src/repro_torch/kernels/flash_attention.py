@@ -14,11 +14,13 @@ version repeats K/V per query head and runs ``ref.flash_attention_ref``
 (exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
 public wrapper that checks the arguments and picks between the two.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32, every
-product 3xTF32 on the tensor cores, tiles through ``cp.async`` rings) has
-no Pallas counterpart: the JAX package trains through XLA blockwise
-attention. ``launch_bwd`` runs its two launches, ``plain_bwd`` (autograd
-of ``plain``) is what it is held against.
+The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 or
+bf16, every product on the TF32 tensor cores, 3xTF32 for fp32 operands,
+tiles through ``cp.async`` rings, bf16 widened as it is staged, fp32
+sums, bf16 gradients rounded once) has no Pallas counterpart: the JAX
+package trains through XLA blockwise attention. ``launch_bwd`` runs its
+two launches, ``plain_bwd`` (autograd of ``plain``) is what it is held
+against.
 """
 from __future__ import annotations
 
@@ -39,8 +41,8 @@ MAX_HEAD_DIM = 256   # q/k width; v may be narrower
 # the backward's build record (``ops.build_kernels``); the same limits
 BACKWARD = SimpleNamespace(
     SOURCE="flash_attention_bwd.cu", SYMBOL="flash_attention_bwd",
-    ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                            ctypes.c_void_p])
+    ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                             ctypes.c_void_p])
 
 
 def plain(q, k, v, *, causal: bool, window: int):
@@ -88,8 +90,9 @@ def launch_bwd(fn, q, k, v, dout, *, causal: bool, window: int):
     """Launch the backward on the current stream: its rows launch (the
     rows' softmax stats, recomputed from q, k and v, into a scratch, and
     dq), then its keys launch (dk, dv). Arguments are checked by the
-    caller: fp32, contiguous, on one CUDA device. Returns (dq, dk, dv);
-    raises if a launch was refused."""
+    caller: one dtype (fp32 or bf16, dout's too), contiguous, on one
+    CUDA device. Returns (dq, dk, dv) in q's dtype; raises if a launch
+    was refused."""
     B, Sq, H, hd = q.shape
     Sk, KV, vd = k.shape[1], k.shape[2], v.shape[-1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -97,7 +100,8 @@ def launch_bwd(fn, q, k, v, dout, *, causal: bool, window: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-             B, Sq, Sk, H, KV, hd, vd, int(causal), window,
+             int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, vd,
+             int(causal), window,
              1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(

@@ -15,8 +15,9 @@ Gradients. ``flash_attention`` and ``ssd_chunk`` are differentiable on
 both routes: on the CPU through autograd of the plain version, on a card
 through ``_FlashAttention`` and ``_SsdChunk``, whose backwards launch the
 hand-written backward kernels (``flash_attention_bwd`` and
-``ssd_chunk_bwd``, each counted on its own; fp32 only, every product in
-3xTF32 on the tensor cores, as their forwards). The decode-only
+``ssd_chunk_bwd``, each counted on its own; every product on the TF32
+tensor cores, 3xTF32 for fp32 operands, as their forwards; flash
+attention in fp32 or bf16, SSD chunk in fp32). The decode-only
 kernels (``moe_ffn``, ``paged_attention``) write into fresh outputs with
 no autograd record, so their CUDA routes raise when grad mode is on and
 an input requires grad (``_no_backward``) rather than silently cut the
@@ -267,16 +268,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"{flash_mod.MAX_GROUP} query heads per KV head "
                          f"and head_dim <= {flash_mod.MAX_HEAD_DIM}, got "
                          f"{H // KV} and {hd}")
-    if q.dtype != torch.float32:
-        _no_backward("flash_attention", "for fp32 only: bf16 training is "
-                     "ROADMAP.md A14", q, k, v)
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The CUDA route of ``flash_attention``: the forward kernel, and the
-    backward kernel for (dq, dk, dv) from the saved q, k and v (it
-    recomputes the softmax and the output it needs)."""
+    backward kernel for (dq, dk, dv) in q's dtype from the saved q, k and
+    v (it recomputes the softmax and the output it needs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -11,9 +11,9 @@ Example:
 
 The checkpoint is the flat ``.npz`` both packages read
 (``repro_torch.training.checkpoint``). On a card, attention and SSM
-layers differentiate through their backward kernels; flash attention has
-no bf16 backward (under grad it raises, ROADMAP A14), and that error
-propagates.
+layers differentiate through their backward kernels, a published config
+in its own dtype (bf16: the flash kernels take it; the SSM path computes
+its SSD step in fp32, as JAX does), with AdamW's moments in fp32.
 """
 from __future__ import annotations
 

@@ -497,9 +497,9 @@ def test_train_step_launches_per_layer(remat, monkeypatch):
 def test_cuda_routes_without_backward_raise_under_grad(monkeypatch):
     """C3: on the card, a kernel with no backward refuses inputs that
     require grad (it would cut the gradient silently); under no_grad or
-    without requires_grad the same call goes on to the launch. bf16
-    flash attention has no backward either. ``ssd_chunk`` has one: under
-    grad its route goes on to the launch."""
+    without requires_grad the same call goes on to the launch.
+    ``ssd_chunk`` and ``flash_attention`` have one, the latter in fp32
+    and in bf16 (A14): under grad their routes go on to the launch."""
     monkeypatch.setattr(kops, "_one_device",
                         lambda name, *t: torch.device("cuda"))
     monkeypatch.setattr(kops, "_entry", _no_build)
@@ -530,7 +530,7 @@ def test_cuda_routes_without_backward_raise_under_grad(monkeypatch):
             call(False)
     q = t(1, 4, 2, 8).to(torch.bfloat16).requires_grad_()
     k = t(1, 4, 2, 8).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(_Launched, match="flash_attention"):
         kops.flash_attention(q, k, k)
 
 

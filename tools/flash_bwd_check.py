@@ -7,23 +7,27 @@ Builds the port's CUDA kernels (``ops.build_kernels``), prints the
 backward's ``ptxas`` report, holds ``flash_attention_bwd`` against
 autograd of the plain version at the training shapes of
 ``chip_smoke.py`` (Qwen1.5-0.5B: 4 x 2048, 16 heads of 64; Mixtral: 1 x
-2048, 32 / 8 heads of 128) and at its coverage shapes, one JSON line a
-shape (max |kernel - plain| / max |plain| for dq, dk, dv). At the two
-training shapes it also launches the kernel twice and checks that dq, dk
-and dv are bitwise equal, and times the kernel, SDPA's fp32 forward +
-backward and SDPA's backward alone (``autograd.grad`` over a retained
-forward graph) with CUDA events. The short first call for a change to
-the kernel, before ``chip_smoke.py``. Exits non-zero without a GPU, on a
-mismatch or on a second launch that differs.
+2048, 32 / 8 heads of 128; Qwen2.5-3B: 2 x 2048, 16 / 2 heads of 128)
+and at its coverage shapes, in fp32 and in bf16, one JSON line a shape
+and dtype (max |kernel - plain| / max |plain| for dq, dk, dv; bf16
+against the fp32 plain version on the same bf16 values, and against
+float64). At the training shapes it also launches the kernel twice and
+checks that dq, dk and dv are bitwise equal, and times the kernel,
+SDPA's forward + backward and SDPA's backward alone (``autograd.grad``
+over a retained forward graph) in the same dtype with CUDA events. The
+short first call for a change to the kernel, before ``chip_smoke.py``.
+Exits non-zero without a GPU, on a mismatch or on a second launch that
+differs.
 """
 import json
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# (B, Sq, Sk, H, KV, hd, vd, causal, window); the first two are timed
+# (B, Sq, Sk, H, KV, hd, vd, causal, window); the first three are timed
 SHAPES = [(4, 2048, 2048, 16, 16, 64, 64, True, 0),
           (1, 2048, 2048, 32, 8, 128, 128, True, 0),
+          (2, 2048, 2048, 16, 2, 128, 128, True, 0),
           (2, 160, 160, 4, 2, 64, 64, True, 37),
           (1, 333, 333, 8, 2, 64, 64, True, 0),
           (2, 1, 1500, 6, 6, 64, 64, False, 0),
@@ -34,6 +38,11 @@ SHAPES = [(4, 2048, 2048, 16, 16, 64, 64, True, 0),
           (1, 70, 70, 6, 3, 37, 21, True, 0),
           (1, 150, 150, 8, 2, 160, 24, True, 0)]
 TOL = 2e-5   # max |kernel - plain| <= TOL x max |plain|, each output
+# bf16: within BF16_TOL x max of the fp32 plain version on the same bf16
+# values, and within BF16_F64_TOL x max of float64 (one bf16 rounding at
+# the store, 2^-9 relative, plus the fp32 kernel's 2e-5)
+BF16_TOL, BF16_F64_TOL = 2e-2, 2.0 ** -8
+TIMED = 3
 
 
 def timed_ms(fn, iters=5):
@@ -48,6 +57,29 @@ def timed_ms(fn, iters=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def grads_float64(q, k, v, dout, *, causal, window):
+    """(dq, dk, dv) of the attention ``flash_mod.plain`` computes, by
+    autograd in float64 (the plain version itself computes in fp32)."""
+    import math
+    import torch
+    with torch.enable_grad():
+        q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+        Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[3]
+        G = q.shape[2] // k.shape[2]
+        kk, vv = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(hd)
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Sk, device=q.device)[None, :]
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= kp <= qp
+        if window > 0:
+            keep &= qp - kp < window
+        p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+        return torch.autograd.grad(out, (q, k, v), dout.double())
 
 
 def main():
@@ -72,19 +104,33 @@ def main():
         return torch.from_numpy(
             rng.normal(size=shape).astype(np.float32)).cuda()
 
+    def rel_err(got, want):
+        return [float((a.double() - b.double()).abs().max()
+                      / b.double().abs().max()) for a, b in zip(got, want)]
+
     ok = True
-    for i, (B, Sq, Sk, H, KV, hd, vd, causal, window) in enumerate(SHAPES):
+    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
+             for s in SHAPES]
+    for (B, Sq, Sk, H, KV, hd, vd, causal, window), dtype in cases:
         q, k = rand(B, Sq, H, hd), rand(B, Sk, KV, hd)
         v, dout = rand(B, Sk, KV, vd), rand(B, Sq, H, vd)
+        q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
         kw = dict(causal=causal, window=window)
         got = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
-        want = flash_mod.plain_bwd(q, k, v, dout, **kw)
-        rel = [float((a - b).abs().max() / b.abs().max())
-               for a, b in zip(got, want)]
+        want = flash_mod.plain_bwd(q.float(), k.float(), v.float(),
+                                   dout.float(), **kw)
+        rel = rel_err(got, want)
+        bf16 = dtype == torch.bfloat16
         rec = {"shape": [B, Sq, Sk, H, KV, hd, vd, causal, window],
-               "rel_err": rel, "ok": max(rel) <= TOL}
+               "dtype": str(dtype), "rel_err": rel,
+               "ok": (all(g.dtype == dtype for g in got)
+                      and max(rel) <= (BF16_TOL if bf16 else TOL))}
+        if bf16 and B * Sq * Sk * H <= 2 ** 28:   # float64 fits the card
+            rec["rel_err_float64"] = rel_err(got, grads_float64(q, k, v,
+                                                                dout, **kw))
+            rec["ok"] &= max(rec["rel_err_float64"]) <= BF16_F64_TOL
         ok &= rec["ok"]
-        if i < 2:
+        if SHAPES.index(tuple(rec["shape"])) < TIMED:
             again = flash_mod.launch_bwd(fn, q, k, v, dout, **kw)
             rec["bitwise_repeat"] = all(torch.equal(a, b)
                                         for a, b in zip(got, again))
