@@ -79,6 +79,25 @@ It drives the port's two entry points end to end and checks them:
    .generate_batch`` on the same prompts (8 greedy tokens): the engine
    feeds the prompt token by token through ``decode_step``, so its
    logits at the last prompt position are held against the prefill's;
+6a. the distributed paths at world size 1: one NCCL process group
+   (``tcp://127.0.0.1`` on a port free at run time) and a (1, 1)
+   ("data", "model") mesh on the card, the rules of the published archs
+   (``sharding_rules``), the params cut by ``shard_params``. On the same
+   Mixtral weights: (a) one MoE layer on 2 x 2048 seeded tokens, where
+   ``moe_apply`` takes the expert-parallel path (its two
+   ``all_to_all_single`` exchanges timed by CUDA events), bitwise
+   ``moe_capacity`` without a mesh, both timed; (b) the tensor-parallel
+   ``prefill`` of 2 x 2048 tokens (the rank's heads, all-reduces after
+   ``wo`` and the FFNs, the embedding and logits gathered, EP in the
+   MoE layers), bitwise ``prefill`` without a mesh, flash attention
+   launched once a layer, its call held and timed (a ``kernels`` entry
+   of its own); then, on DeepSeek-V2's weights at the end of 6b, (c) 8
+   greedy ``decode_step``s of 2 rows with the latent and rope-key caches
+   cut by ``shard_decode_state`` (sequence-sharded, the softmax combined
+   across the model ranks) against the unsharded caches: tokens equal,
+   logits within 1e-5 x max. One ``distributed`` JSON line (world size,
+   NCCL version, the three results, their times and the phase's
+   seconds); then the group is destroyed;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
    width 3072) at its full published widths (d_model 5120, 128 heads of
    hd 128, kv_lora_rank 512, rope key 64, expert d_ff 1536, vocab
@@ -411,6 +430,12 @@ STEP_TOL = {"float32": (1e-4, 1e-4, 1e-6),
 # the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
 # widths, 32 expert slots a layer (20% of its 160 routed experts)
 DS_LAYERS, DS_SLOTS = 2, 32
+# the distributed phase at world size 1: one MoE layer of Mixtral-8x7B on
+# EP_B x EP_S tokens (4096: what ``moe_apply`` needs to take EP); the MLA
+# decode of DeepSeek-V2 (DS_LAYERS), MLA_B rows over MLA_STEPS greedy
+# steps in a cache of MLA_CACHE slots, its logits within MLA_TOL x max
+EP_B, EP_S = 2, 2048
+MLA_B, MLA_STEPS, MLA_CACHE, MLA_TOL = 2, 8, 16, 1e-5
 # the phases of the other families, at published widths, cut in depth:
 # Jamba-1.5-Large 2 of 72 layers in periods of 2 (one attention layer with
 # a dense SwiGLU, one SSM layer with the 16-expert MoE), Whisper-tiny whole
@@ -2112,7 +2137,7 @@ def track_router_margins(engine, seen):
     engine._moe_offloaded = call
 
 
-def deepseek_phase(ops, card, hold_and_time, profile):
+def deepseek_phase(ops, card, hold_and_time, profile, mesh):
     """DeepSeek-V2 at its full published widths (d_model 5120, 128 heads
     of hd 128, MLA with kv_lora_rank 512 and a 64-wide rope key, 160
     routed experts of d_ff 1536 top-6 beside the shared SwiGLU of width
@@ -2133,8 +2158,10 @@ def deepseek_phase(ops, card, hold_and_time, profile):
     the prefill's logits against the absorbed decode's. Both kernels are
     held against their plain versions at this model's heaviest calls
     (``hold_and_time``, entries marked with the model). ``profile``
-    traces the overlap-off serving loop and one prefill. Returns the
-    serving and prefill reports."""
+    traces the overlap-off serving loop and one prefill. Last, on the same
+    params, the distributed phase's MLA decode on ``mesh``
+    (``mla_decode_check``). Returns the serving, prefill and MLA decode
+    reports."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2242,10 +2269,218 @@ def deepseek_phase(ops, card, hold_and_time, profile):
                   {"flash_attention": flash["flash_attention"]},
                   model=cfg.name)
     prefill_rep["card"] = card
+    t0 = time.perf_counter()
+    mla = mla_decode_check(params, cfg, mesh)
+    mla["s"] = time.perf_counter() - t0
     del params, seen
     gc.collect()
     torch.cuda.empty_cache()
-    return rep, prefill_rep
+    return rep, prefill_rep, mla
+
+
+def open_mesh():
+    """One NCCL process group of world size 1 (``tcp://127.0.0.1`` on a
+    port free at run time) and its (1, 1) ("data", "model") mesh on the
+    card."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def mesh_rules(arch, mesh):
+    """The published arch's rules (its full depth: the depth cut would
+    make ``sharding_rules`` take Mixtral for a tiny, replicated model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import sharding_rules
+    return sharding_rules(get_config(arch), mesh)
+
+
+def ep_check(params, cfg, mesh):
+    """(a) One MoE layer of Mixtral-8x7B at its published widths, fp32,
+    on EP_B x EP_S seeded tokens: ``moe_apply`` under the mesh takes the
+    expert-parallel path (``moe_ep_shardmap``, counted), whose two
+    ``all_to_all_single`` exchanges are timed by CUDA events; its output
+    and aux must equal ``moe_capacity`` without a mesh bitwise (one rank:
+    the same dispatch, capacity and products; the exchanges move the
+    buffers unchanged). Both are timed (``device_ms``)."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import _layer
+    rules = mesh_rules("mixtral-8x7b", mesh)
+    check(rules["experts_mode"] == "ep", f"rules {rules}")
+    p = _layer(params["layers"], 0)["moe"]
+    local = shd.shard_params(p, mesh, rules)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 7))
+    want, want_aux = moe_lib.moe_capacity(p, cfg, x)
+    ep_calls, exchanges = [], []
+
+    def counted(ep):
+        def call(*a, **kw):
+            ep_calls.append(1)
+            return ep(*a, **kw)
+        return call
+
+    def timed(exchange):
+        def call(t, axis):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = exchange(t, axis)
+            ev[1].record()
+            exchanges.append((ev, t.numel() * t.element_size()))
+            return out
+        return call
+
+    with shd.sharding_ctx(mesh, rules), \
+            patched(moe_lib, "moe_ep_shardmap", counted), \
+            patched(moe_lib, "_exchange", timed):
+        got, aux = moe_lib.moe_apply(local, cfg, x)
+    torch.cuda.synchronize()
+    check(len(ep_calls) == 1 and len(exchanges) == 2,
+          f"EP: moe_ep_shardmap called {len(ep_calls)} times, "
+          f"{len(exchanges)} exchanges")
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want) and torch.equal(aux, want_aux),
+          f"EP != moe_capacity at one rank: max |diff| {err}, aux "
+          f"{float(aux)} vs {float(want_aux)}")
+
+    def ep():
+        with shd.sharding_ctx(mesh, rules):
+            moe_lib.moe_apply(local, cfg, x)
+    return {"tokens": EP_B * EP_S, "experts": cfg.num_experts,
+            "top_k": cfg.num_experts_per_tok, "bitwise": True,
+            "max_abs_diff": err,
+            "ep_ms": device_ms(ep, 3, graph=False),
+            "capacity_ms": device_ms(lambda: moe_lib.moe_capacity(p, cfg, x),
+                                     3, graph=False),
+            "exchange_ms": [ev[0].elapsed_time(ev[1])
+                            for ev, _ in exchanges],
+            "exchange_bytes": [n for _, n in exchanges]}
+
+
+def tp_prefill_check(params, cfg, mesh, ops, seen):
+    """(b) Mixtral-8x7B (``cfg``'s layers) under the mesh: ``prefill`` of
+    PREFILL_B x PREFILL_S seeded tokens through the tensor-parallel path
+    (the rank's heads, one all-reduce after ``wo`` and after each FFN,
+    the embedding and the logits gathered; the MoE takes EP), counted
+    (flash attention once a layer, nothing else) and timed, against
+    ``prefill`` without a mesh: bitwise at one rank (the same products;
+    the collectives leave a single rank's values as they are)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import prefill
+    rules = mesh_rules("mixtral-8x7b", mesh)
+    local = shd.shard_params(params, mesh, rules)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with shd.sharding_ctx(mesh, rules):
+        logits, launches, ms, _ = prefill_run(local, cfg, toks, ops, seen)
+    check_launches(launches, {"flash_attention": cfg.num_layers},
+                   "tensor-parallel prefill")
+    err = float((logits - want).abs().max())
+    check(torch.equal(logits, want),
+          f"tensor-parallel prefill != prefill at one rank: max |diff| "
+          f"{err}")
+    return {"tokens": [PREFILL_B, PREFILL_S], "layers": cfg.num_layers,
+            "launches": launches, "bitwise": True, "max_abs_diff": err,
+            "mesh_ms": ms, "plain_ms": plain_ms}
+
+
+def mla_decode_check(params, cfg, mesh):
+    """(c) DeepSeek-V2 at its published widths (``cfg``'s layers): MLA_B
+    rows, MLA_STEPS greedy ``decode_step``s from seeded first tokens,
+    once with the unsharded caches and once under the mesh with the
+    latent and rope-key caches cut by ``shard_decode_state``
+    (sequence-sharded: the rank's block is the whole cache at one rank,
+    and the softmax goes through the cross-rank combine). Tokens equal,
+    logits within MLA_TOL x max. Then one more step under the mesh counts
+    its collectives, and one ``psum`` of a [MLA_B, d] residual is timed
+    alone."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import shard_decode_state
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import decode_step, init_decode_state
+    rules = mesh_rules("deepseek-v2-236b", mesh)
+    check(rules.get("mla_seq_shard", True), f"rules {rules}")
+    local = shd.shard_params(params, mesh, rules)
+    first = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, (MLA_B, 1))).cuda()
+
+    def run(p, state):
+        tok, toks, logits = first, [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(MLA_STEPS):
+            lg, state = decode_step(p, cfg, state, tok, pos)
+            tok = lg.argmax(dim=-1, keepdim=True)
+            toks.append(tok)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MLA_STEPS
+        return torch.cat(toks, 1), torch.stack(logits), state, ms
+
+    want_toks, want, _, plain_ms = run(
+        params, init_decode_state(params, cfg, MLA_B, MLA_CACHE,
+                                  device="cuda"))
+    with shd.sharding_ctx(mesh, rules):
+        state = shard_decode_state(
+            init_decode_state(local, cfg, MLA_B, MLA_CACHE, device="cuda"),
+            mesh, rules)
+        toks, logits, state, ms = run(local, state)
+    # what a mesh step adds at one rank: its collectives, each timed
+    # alone on a decode row's residual [MLA_B, d] (host wall, synced)
+    calls = []
+
+    def counting(fn):
+        def call(*a, **kw):
+            calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+
+    with shd.sharding_ctx(mesh, rules), patched(shd, "psum", counting), \
+            patched(shd, "pmax", counting), \
+            patched(shd, "all_gather", counting):
+        decode_step(local, cfg, state, toks[:, -1:], MLA_STEPS)
+    r = torch.zeros((MLA_B, cfg.d_model), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        shd.psum(r, "model", mesh)
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t0) * 1e3 / 50
+    shapes = [tuple(v.shape) for v in state["layers"][0].values()]
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    check(torch.equal(toks, want_toks),
+          f"MLA decode under the mesh: tokens {toks.tolist()} != "
+          f"{want_toks.tolist()}")
+    check(err <= MLA_TOL * scale,
+          f"MLA decode under the mesh: max |diff| {err} > {MLA_TOL} x {scale}")
+    return {"rows": MLA_B, "steps": MLA_STEPS, "cache": MLA_CACHE,
+            "layers": cfg.num_layers, "cache_shapes": shapes,
+            "tokens_equal": True, "tokens": toks.tolist(),
+            "max_abs_diff": err, "max_abs_logit": scale,
+            "step_ms": ms, "plain_step_ms": plain_ms,
+            "collectives_per_step": {n: calls.count(n) for n in set(calls)},
+            "psum_ms": psum_ms}
 
 
 def family_phase(arch, ops, card, hold_and_time, profile):
@@ -3302,15 +3537,39 @@ def main() -> None:
     flash_launches, rep = prefill_phase(params, cfg, ops, seen,
                                         args.profile)
     print(json.dumps({"prefill": rep}), flush=True)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    # ---- DeepSeek-V2: offload serving and prefill -------------------
-    ds_serving, ds_prefill = deepseek_phase(ops, card, hold_and_time,
-                                            args.profile)
-    print(json.dumps({"deepseek_serving": ds_serving}), flush=True)
-    print(json.dumps({"prefill": ds_prefill}), flush=True)
+    # ---- the distributed paths at world size 1 (NCCL) ---------------
+    import torch.distributed as dist
+    mesh = open_mesh()
+    try:
+        t0 = time.perf_counter()
+        ep = ep_check(params, cfg, mesh)
+        ep["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_seen = {}
+        tp = tp_prefill_check(params, cfg, mesh, ops, tp_seen)
+        hold_and_time({"flash_attention": tp_seen["flash_attention"][1]},
+                      {"flash_attention": tp["launches"]["flash_attention"]},
+                      model=f"{cfg.name} tensor-parallel (1x1 mesh)")
+        tp["s"] = time.perf_counter() - t0
+        del params, tp_seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- DeepSeek-V2: offload serving, prefill, MLA decode ------
+        ds_serving, ds_prefill, mla = deepseek_phase(
+            ops, card, hold_and_time, args.profile, mesh)
+        print(json.dumps({"deepseek_serving": ds_serving}), flush=True)
+        print(json.dumps({"prefill": ds_prefill}), flush=True)
+        print(json.dumps({"distributed": {
+            "world_size": dist.get_world_size(), "backend": "nccl",
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+            "mesh": {"data": 1, "model": 1}, "ep_moe": ep,
+            "tp_prefill": tp, "mla_decode": mla,
+            "phase_s": ep["s"] + tp["s"] + mla["s"], "card": card}}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
 
     # ---- the hybrid, encdec and vlm families: prefill and engine ----
     for arch in ("jamba-1.5-large-398b", "whisper-tiny",

@@ -12,8 +12,22 @@ weights ``wq [d,H,hd+rd]``, ``w_dkv [d,r]``, ``w_kr [d,rd]``,
 ``latent_norm [r]``, ``w_kb/w_vb [r,H,hd]``, ``wo [H,hd,d]``; its cache
 holds the latent and the one rope key shared by every head,
 ``{latent [B, L, r], k_rope [B, L, rd]}``, its pool ``{latent [N, bs,
-r], k_rope [N, bs, rd]}``. Head padding for a sharded model axis
-(``_head_padding``) is the identity without a mesh, so it is not ported.
+r], k_rope [N, bs, rd]}``.
+
+Under a device mesh (``repro_torch.models.sharding``) the params are
+``shard_params``' output, the rank's slice of every weight, and ``x``
+the rank's batch rows; the projections,
+``gqa_full``, ``mla_full``, ``gqa_decode`` and ``mla_decode`` then run on
+the rank's heads and sum ``wo``'s partial products over the model axis
+(one all-reduce). GQA head counts are zero-padded up to a multiple of
+the model axis as the JAX package pads them (``_head_padding``): exact,
+because the padded rows of ``wo`` are zero. Where the KV heads do not
+split, a rank takes the KV heads its query heads group with. The decode
+caches are split as ``launch.specs.decode_state_pspecs`` says: KV heads
+where they divide, else (GQA, and always for MLA's latent) the
+sequence, and then every rank scores its own keys and the softmax is
+combined across the model ranks (max, then sums of the exponentials and
+of the context). Without a mesh all of this is the identity.
 
 Unlike JAX, the caches are updated IN PLACE (``index_put_``): a decode
 step writes its new rows into the tensors it was given and returns the
@@ -27,10 +41,85 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        rope_cos_sin)
 
 NEG_INF = -1e30
+
+
+# =====================================================================
+# head padding and the rank's heads under a mesh
+# =====================================================================
+def _head_padding(H: int, KV: int):
+    """Padded (Hp, KVp) for even model-axis sharding (see
+    sharding.padded_count). KV pads to Hp when grouping breaks (MHA)."""
+    Hp = shd.padded_count(H)
+    KVp = KV if Hp % KV == 0 and (Hp // KV) * KV == Hp else Hp
+    if Hp % KVp != 0:
+        KVp = Hp
+    return Hp, KVp
+
+
+def _pad_heads(w, target: int, axis: int):
+    """Zero heads appended along ``axis`` up to ``target``."""
+    if w.shape[axis] == target:
+        return w
+    shape = list(w.shape)
+    shape[axis] = target - w.shape[axis]
+    return torch.cat([w, w.new_zeros(shape)], dim=axis)
+
+
+def _axis_size() -> int:
+    m = shd.model_axis()
+    return shd.axis_size(m) if m else 1
+
+
+def _split_heads(n: int):
+    """(this rank's heads of ``n``, split): a contiguous block of
+    ``n / model`` when the model axis divides ``n``, else every head
+    (the spec is sanitized to replicated)."""
+    m = shd.model_axis()
+    if m is None or n % _axis_size():
+        return list(range(n)), False
+    size = n // _axis_size()
+    lo = shd.axis_index(m) * size
+    return list(range(lo, lo + size)), True
+
+
+def _gqa_heads(H: int, KV: int):
+    """(Hp, KVp, q heads, kv heads, split) of this rank: its block of the
+    padded query heads, and the padded KV heads they group with — their
+    block when the grouping divides it evenly, else one KV head per
+    query head."""
+    Hp, KVp = _head_padding(H, KV)
+    q, split = _split_heads(Hp)
+    G = Hp // KVp
+    of = [h // G for h in q]
+    uniq = sorted(set(of))
+    per = len(q) // len(uniq)
+    if len(q) % len(uniq) == 0 and of == [uniq[j // per]
+                                          for j in range(len(q))]:
+        return Hp, KVp, q, uniq, split
+    return Hp, KVp, q, of, split
+
+
+def _rank_heads(w, axis: int, n_pad: int, idx, cut: bool):
+    """The heads ``idx`` (of ``n_pad``) of ``shard_params``' slice ``w``
+    along ``axis``: ``w`` itself where its spec split the heads (``cut``:
+    it is the rank's block), else every head, zero-padded to ``n_pad``
+    and narrowed to ``idx``."""
+    if cut or list(idx) == list(range(w.shape[axis])):
+        return w
+    w = _pad_heads(w, n_pad, axis)
+    return w.index_select(axis, torch.as_tensor(idx, device=w.device))
+
+
+def _out_heads(out, wo, split: bool):
+    """The rank's heads through its rows of ``wo``, summed over the model
+    axis when the heads are split."""
+    y = _out_proj(out, wo)
+    return shd.psum(y, shd.model_axis()) if split else y
 
 
 def init_gqa(gen: torch.Generator, cfg, dtype, *, layers: int,
@@ -104,8 +193,32 @@ def _out_proj(out, wo):
         B, S, -1)
 
 
+def _rank_qkv(p, cfg, kv_idx=None):
+    """(the rank's q/k/v/o weights and biases under a mesh, split):
+    ``_gqa_heads``'s heads, ``kv_idx`` overriding its KV heads; ``p`` as
+    is without a mesh."""
+    if shd.model_axis() is None:
+        return p, False
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    Hp, KVp, q, kv, split = _gqa_heads(H, KV)
+    kv = kv if kv_idx is None else kv_idx
+    # where param_pspecs' spec survives sanitize_spec
+    cut_q = shd.model_split(H)
+    cut_kv = shd.active_rules().get("shard_kv", True) and shd.model_split(KV)
+    out = dict(p)
+    for name, ax in (("wq", 1), ("bq", 0)):
+        if name in p:
+            out[name] = _rank_heads(p[name], ax, Hp, q, cut_q)
+    for name, ax in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in p:
+            out[name] = _rank_heads(p[name], ax, KVp, kv, cut_kv)
+    out["wo"] = _rank_heads(p["wo"], 0, Hp, q, cut_q)
+    return out, split
+
+
 def _project_qkv(p, cfg, x, positions, *, rope: bool):
-    """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] (roped if requested)."""
+    """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] (roped if requested).
+    Under a mesh, pass ``_rank_qkv``'s weights: the rank's heads."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -129,54 +242,132 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int]):
 
 def gqa_full(p, cfg, x, positions, *, window: Optional[int] = None,
              causal: bool = True):
-    """x [B,S,d], positions [B,S] -> [B,S,d]."""
+    """x [B,S,d], positions [B,S] -> [B,S,d]. Under a mesh: the rank's
+    (padded) heads, then one all-reduce after ``wo``."""
+    p, split = _rank_qkv(p, cfg)
     q, k, v = _project_qkv(p, cfg, x, positions, rope=True)
     out = _sdpa(q, k, v, causal=causal, window=window)
-    return _out_proj(out, p["wo"])
+    return _out_heads(out, p["wo"], split)
 
 
 # =====================================================================
 # GQA decode with a dense KV cache (full or ring / sliding window)
 # =====================================================================
 def gqa_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    """{k, v [batch, cache_len, KVp, hd]}: KVp the KV heads padded as
+    under the active mesh (``_head_padding``; KV without one)."""
+    _, kv = _head_padding(cfg.num_heads, cfg.num_kv_heads)
+    shape = (batch, cache_len, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _refuse_mesh(what: str):
+    if shd.active_mesh() is not None:
+        raise NotImplementedError(
+            f"{what} under a device mesh is not ported yet (ROADMAP.md A18); "
+            f"decode_step's dense caches are")
+
+
+def _cache_keys(L_local: int, split_seq: bool):
+    """(global positions of the rank's cache slots [L_local], the cache's
+    global length): its block of the sequence when ``split_seq``."""
+    m = shd.model_axis()
+    lo = shd.axis_index(m) * L_local if split_seq else 0
+    L = L_local * shd.axis_size(m) if split_seq else L_local
+    return lo, L
+
+
+def _write_slot(caches, news, pos: int, lo: int, L: int, window):
+    """Write the new rows at the slot of ``pos`` (``pos % L`` in a ring)
+    where this rank holds it (slots lo .. lo + local length). Without a
+    ring a ``pos`` past the cache's L slots raises, as the unsharded
+    ``index_put_`` does."""
+    if window is None and pos >= L:
+        raise IndexError(f"position {pos} is out of bounds for a cache of "
+                         f"{L} slots")
+    slot = pos % L if window is not None else pos
+    if lo <= slot < lo + caches[0].shape[1]:
+        for c, n in zip(caches, news):
+            c[:, slot - lo] = n.to(c.dtype)
+
+
+def _valid_keys(pos: int, lo: int, L_local: int, L: int, window, device):
+    """[L_local] mask of the rank's slots that hold a position <= pos
+    (ring: slot i holds ``pos - ((pos - i) mod L)``)."""
+    idx = lo + torch.arange(L_local, device=device)
+    if window is None:
+        return idx <= pos
+    return pos - torch.remainder(pos - idx, L) >= 0
+
+
+def _attend(s, values, split_seq: bool):
+    """Softmax over the last dim of the scores ``s`` (fp32, masked) and
+    the weighted sum ``values(w)``. With the keys split over the model
+    axis, every rank holds a block: the row maxima are combined (max),
+    then the sums of the exponentials and the unnormalised context
+    (one sum)."""
+    if not split_seq:
+        return values(torch.softmax(s, dim=-1))
+    m = shd.model_axis()
+    mx = shd.pmax(s.amax(dim=-1, keepdim=True), m)
+    e = torch.exp(s - mx)
+    ctx = values(e)
+    both = shd.psum(torch.cat([ctx, e.sum(dim=-1, keepdim=True)], dim=-1),
+                    m)
+    return both[..., :-1] / both[..., -1:]
+
+
 def gqa_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     """x [B,1,d]; cache {k,v [B,L,kv,hd]}; pos an int (the same for every
-    row). Without a window the cache holds positions 0..L-1 and this is
-    ``gqa_decode_multipos``. With a window the cache is a ring of L
-    slots: position ``pos`` writes slot ``pos % L`` (in place) and the
-    step attends to every slot written so far, the last L positions
-    (slot i holds position ``pos - ((pos - i) mod L)``)."""
+    row). Without a window the cache holds positions 0..L-1 (and, without
+    a mesh, this is ``gqa_decode_multipos``). With a window the cache is
+    a ring of L slots: position ``pos`` writes slot ``pos % L`` (in
+    place) and the step attends to every slot written so far, the last L
+    positions (slot i holds position ``pos - ((pos - i) mod L)``).
+
+    Under a mesh: the rank's heads and cache block. The cache holds the
+    rank's KV heads where the padded KV count divides the model axis,
+    else its block of the sequence with every KV head (each rank then
+    projects every KV head for its write, scores every query head
+    against its own keys, and the softmax is combined across the model
+    ranks); the context of the rank's query heads goes through its rows
+    of ``wo``, summed over the model axis."""
     B = x.shape[0]
-    if window is None:
+    m = shd.model_axis()
+    if window is None and m is None:
         return gqa_decode_multipos(
             p, cfg, x, cache,
             torch.full((B,), int(pos), dtype=torch.long, device=x.device))
     pos = int(pos)
-    L = cache["k"].shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hp, KVp, q_idx, kv_idx, split = _gqa_heads(H, KV)
+    shard_kv = m is not None and bool(shd.active_rules().get("shard_kv"))
+    split_seq = shard_kv and KVp % _axis_size() != 0
+    all_kv = split_seq or not shard_kv     # the cache holds every KV head
+    pr, _ = _rank_qkv(p, cfg, list(range(KVp)) if all_kv else None)
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=True)
+    q, k_new, v_new = _project_qkv(pr, cfg, x, positions, rope=True)
     k, v = cache["k"], cache["v"]
-    slot = pos % L
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-
-    H, KV, hd = q.shape[2], k.shape[2], cfg.head_dim
-    G = H // KV
-    qf = q.reshape(B, KV, G, hd).to(k.dtype)
+    lo, L = _cache_keys(k.shape[1], split_seq)
+    _write_slot((k, v), (k_new[:, 0], v_new[:, 0]), pos, lo, L, window)
+    valid = _valid_keys(pos, lo, k.shape[1], L, window, x.device)
+    if split_seq and split:            # every query head meets these keys
+        q = shd.all_gather(q, m, dim=2)
+    if all_kv and not split_seq and kv_idx != list(range(k.shape[2])):
+        sel = torch.as_tensor(kv_idx, device=x.device)   # the rank's KV heads
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    nq, nk = q.shape[2], k.shape[2]
+    qf = q.reshape(B, nk, nq // nk, hd).to(k.dtype)
     s = torch.einsum("bkgh,blkh->bkgl", qf, k).float() / math.sqrt(hd)
-    idx = torch.arange(L, device=x.device)
-    valid = pos - torch.remainder(pos - idx, L) >= 0
     s = torch.where(valid[None, None, None, :], s,
                     torch.full((), NEG_INF, device=x.device))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype), v).float()
-    out = out.reshape(B, 1, H, hd).to(x.dtype)
-    return _out_proj(out, p["wo"]), cache
+    out = _attend(s, lambda w: torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype),
+                                            v).float(), split_seq)
+    out = out.reshape(B, 1, nq, hd)
+    if split_seq and split:            # back to the rank's query heads
+        out = out[:, :, q_idx[0]:q_idx[-1] + 1]
+    return _out_heads(out.to(x.dtype), pr["wo"], split), cache
 
 
 def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
@@ -186,6 +377,7 @@ def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
     its K/V at slot pos_vec[b] (in place) and attends to slots
     <= pos_vec[b]. Plain PyTorch: the JAX package has no kernel on this
     path either (``OffloadEngine.generate`` runs it)."""
+    _refuse_mesh("gqa_decode_multipos")
     B = x.shape[0]
     L = cache["k"].shape[1]
     positions = pos_vec.reshape(B, 1).long()
@@ -215,7 +407,8 @@ def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
 def gqa_paged_cache_init(cfg, num_blocks: int, block_size: int, dtype,
                          device="cuda"):
     """One layer's K/V block pool: [N, bs, kv, hd] (vs dense [B, L, kv, hd])."""
-    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    _, kv = _head_padding(cfg.num_heads, cfg.num_kv_heads)
+    shape = (num_blocks, block_size, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -239,6 +432,7 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     touch a live request's block. Two live rows at the SAME cell remain
     undefined.
     """
+    _refuse_mesh("gqa_decode_paged")
     B = x.shape[0]
     bs = cache["k"].shape[1]
     positions = pos_vec.reshape(B, 1).long()
@@ -289,15 +483,16 @@ def mla_full(p, cfg, x, positions, *, window: Optional[int] = None,
     the rope key broadcast over the heads, then the flash-attention
     kernel with q/k width hd + rd and v width hd (its default scale
     1/sqrt(q.shape[-1]) IS 1/sqrt(hd + rd)). x [B,S,d] -> [B,S,d]."""
+    split = shd.model_split(cfg.num_heads)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     k_nope = _proj(latent, p["w_kb"])
     v = _proj(latent, p["w_vb"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        *k_rope.shape[:2], cfg.num_heads, cfg.qk_rope_dim)], dim=-1)
+        *k_rope.shape[:2], q.shape[2], cfg.qk_rope_dim)], dim=-1)
     out = _sdpa(q, k, v, causal=causal, window=window)
-    return _out_proj(out, p["wo"])
+    return _out_heads(out, p["wo"], split)
 
 
 def mla_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
@@ -309,50 +504,75 @@ def mla_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
     }
 
 
-def _mla_attend(p, cfg, x, q_nope, q_rope, latent, k_rope, valid):
+def _mla_attend(p, cfg, x, q_nope, q_rope, latent, k_rope, valid, *,
+                split: bool = False, split_seq: bool = False):
     """The absorbed attention over a latent strip: q_nope [B,H,hd] is
     absorbed through w_kb (q_abs [B,H,r]); scores are q_abs . latent +
     q_rope . k_rope over sqrt(hd + rd) for the keys ``valid`` [B or 1, L]
     leaves; the context is formed in latent space and expanded through
-    w_vb. latent [B,L,r], k_rope [B,L,rd] -> [B,1,d]."""
+    w_vb. latent [B,L,r], k_rope [B,L,rd] -> [B,1,d].
+
+    Under a mesh ``split`` says the rank holds a block of the heads (its
+    ``wo`` rows summed over the model axis) and ``split_seq`` that the
+    strip is its block of the sequence: the queries of every head
+    (gathered where the heads are split) score the rank's keys, the
+    softmax is combined across the model ranks (``_attend``), and the
+    rank's heads of the context [B, H, r] go on through ``w_vb``."""
     cdt = latent.dtype
+    m = shd.model_axis()
+    gather = split and split_seq
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope, p["w_kb"]).float()
+    if gather:                         # every head meets these keys
+        q_abs = shd.all_gather(q_abs, m, dim=1)
+        q_rope = shd.all_gather(q_rope.contiguous(), m, dim=1)
     s = torch.einsum("bhr,blr->bhl", q_abs.to(cdt), latent).float()
     s = s + torch.einsum("bhk,blk->bhl", q_rope.to(cdt), k_rope).float()
     s = s / math.sqrt(cfg.head_dim + cfg.qk_rope_dim)
     s = torch.where(valid[:, None, :], s,
                     torch.full((), NEG_INF, device=x.device))
-    w = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhl,blr->bhr", w.to(cdt), latent).float()
+    ctx = _attend(s, lambda w: torch.einsum("bhl,blr->bhr", w.to(cdt),
+                                            latent).float(), split_seq)
+    if gather:                         # back to the rank's heads
+        h = p["w_vb"].shape[1]
+        ctx = ctx.narrow(1, shd.axis_index(m) * h, h)
     out = torch.einsum("bhr,rhk->bhk", ctx.to(p["w_vb"].dtype),
                        p["w_vb"]).float()
-    return _out_proj(out[:, None].to(x.dtype), p["wo"])
+    return _out_heads(out[:, None].to(x.dtype), p["wo"], split)
 
 
 def mla_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     """Absorbed decode: x [B,1,d]; cache {latent [B,L,r], k_rope
     [B,L,rd]} — only the compressed latent and the shared rope key are
     cached, the MLA memory win; pos an int (the same for every row).
-    Without a window this is ``mla_decode_multipos``; with one the cache
-    is a ring of L slots, as in ``gqa_decode``."""
+    Without a window (and without a mesh) this is
+    ``mla_decode_multipos``; with one the cache is a ring of L slots, as
+    in ``gqa_decode``.
+
+    Under a mesh: the rank's heads, and the latent and rope-key caches
+    hold the rank's block of the sequence (``mla_seq_shard``, the
+    default; else the whole cache). Only the rank that holds slot
+    ``pos`` writes it, and ``_mla_attend`` combines the softmax across
+    the model ranks."""
     B = x.shape[0]
-    if window is None:
+    m = shd.model_axis()
+    if window is None and m is None:
         return mla_decode_multipos(
             p, cfg, x, cache,
             torch.full((B,), int(pos), dtype=torch.long, device=x.device))
     pos = int(pos)
-    L = cache["latent"].shape[1]
+    split = shd.model_split(cfg.num_heads)
+    split_seq = m is not None and bool(
+        shd.active_rules().get("mla_seq_shard", True))
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
     latent, k_rope = cache["latent"], cache["k_rope"]
-    slot = pos % L
-    latent[:, slot] = latent_new[:, 0].to(latent.dtype)
-    k_rope[:, slot] = k_rope_new[:, 0].to(k_rope.dtype)
-    idx = torch.arange(L, device=x.device)
-    valid = (pos - torch.remainder(pos - idx, L) >= 0)[None, :]
+    lo, L = _cache_keys(latent.shape[1], split_seq)
+    _write_slot((latent, k_rope), (latent_new[:, 0], k_rope_new[:, 0]),
+                pos, lo, L, window)
+    valid = _valid_keys(pos, lo, latent.shape[1], L, window, x.device)
     y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], latent, k_rope,
-                    valid)
+                    valid[None], split=split, split_seq=split_seq)
     return y, cache
 
 
@@ -361,6 +581,7 @@ def mla_decode_multipos(p, cfg, x, cache, pos_vec):
     contract of ``gqa_decode_multipos``; windows stay on the scalar-pos
     ring path). Row b writes its latent and rope key at slot pos_vec[b]
     (in place) and attends to slots <= pos_vec[b]."""
+    _refuse_mesh("mla_decode_multipos")
     B = x.shape[0]
     L = cache["latent"].shape[1]
     positions = pos_vec.reshape(B, 1).long()
@@ -402,6 +623,7 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     PyTorch ops, as the JAX package runs it (it has no paged MLA
     kernel). With T*bs equal to the dense cache's L, paged and dense
     decode are the same arithmetic on the same values."""
+    _refuse_mesh("mla_decode_paged")
     B = x.shape[0]
     bs = cache["latent"].shape[1]
     positions = pos_vec.reshape(B, 1).long()

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import sharding as shd
+
 
 # ---------------------------------------------------------------- init
 def dense_init(gen: torch.Generator, shape, in_dim: Optional[int] = None,
@@ -102,6 +104,17 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
 def swiglu(params, x):
     h = torch.nn.functional.silu(x @ params["w1"]) * (x @ params["w3"])
     return h @ params["w2"]
+
+
+def swiglu_tp(params, x, d_ff: int):
+    """``swiglu`` under the active mesh: column-parallel ``w1``/``w3``
+    and row-parallel ``w2`` over the model axis where it divides
+    ``d_ff`` (``params`` from ``shard_params``: the rank's ff block; one
+    all-reduce after ``w2``), else whole. ``swiglu`` itself without a
+    mesh."""
+    if not shd.model_split(d_ff):
+        return swiglu(params, x)
+    return shd.psum(swiglu(params, x), shd.model_axis())
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,

@@ -1,0 +1,365 @@
+"""Logical-axis sharding over a ``torch.distributed`` device mesh (port
+of ``repro.models.sharding``).
+
+The JAX package names tensor dims with logical axes ("batch", "heads",
+"vocab", ...); a launcher installs a mesh and rules that map each name
+to a mesh axis, and XLA's partitioner inserts the collectives. The port
+keeps the same context and the same rules, but the collectives are
+explicit: every rank holds the slice of each tensor that its spec gives
+it (``shard_params``), and the model code takes that slice as its
+params: under a mesh every function's params are ``shard_params``'
+output (a weight whose spec splits nothing is whole). It calls
+``psum`` / ``pmax`` / ``all_gather`` over a named mesh axis where the
+partitioner put an all-reduce or an all-gather. The tensors stay plain ``torch.Tensor``s
+(no DTensor), so the ctypes kernels take them as they are.
+
+A spec is a plain tuple with one entry per dim: ``None`` (replicated), a
+mesh-axis name, or a tuple of names (the dim split over their product,
+row-major). The rules (``padded_count``, ``logical_to_spec``,
+``sanitize_spec``, ``_spec_for``, ``param_pspecs``) are the JAX
+package's, entry for entry.
+
+``constrain`` is not ported: it asks XLA's partitioner to lay a value out
+a given way and has no effect of its own, and here every function
+already computes on the rank's slice and says where it communicates.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+dims (``repro_torch.launch.mesh.make_mesh``). The rules read it through
+``mesh_dim_names`` and ``size(i)`` only, so any object with those two
+(a stand-in for the production mesh, say) works for them; the
+collectives need the real mesh (``get_group``, ``get_local_rank``).
+With no context installed nothing here is called by the model code.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+_CTX = {"mesh": None, "rules": {}}
+
+
+def set_sharding(mesh, rules: dict) -> None:
+    _CTX["mesh"] = mesh
+    _CTX["rules"] = dict(rules)
+
+
+def clear_sharding() -> None:
+    _CTX["mesh"] = None
+    _CTX["rules"] = {}
+
+
+@contextmanager
+def sharding_ctx(mesh, rules: dict):
+    old = (_CTX["mesh"], _CTX["rules"])
+    set_sharding(mesh, rules)
+    try:
+        yield
+    finally:
+        _CTX["mesh"], _CTX["rules"] = old
+
+
+def active_mesh():
+    return _CTX["mesh"]
+
+
+def active_rules() -> dict:
+    return _CTX["rules"]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh with named dims."""
+    return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+
+
+def padded_count(n: int) -> int:
+    """Round a head count up to the model-axis size so it shards
+    evenly (zero-padded heads; exact because wo's padded rows are 0).
+    Identity when no mesh/model rule is active or n already divides."""
+    mesh = _CTX["mesh"]
+    m = _CTX["rules"].get("model")
+    if mesh is None or m is None or not _CTX["rules"].get("pad_heads", True):
+        return n
+    size = axis_sizes(mesh)[m]
+    return -(-n // size) * size
+
+
+def logical_to_spec(*axes) -> tuple:
+    rules = _CTX["rules"]
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def entry_axes(axis) -> Tuple[str, ...]:
+    """A spec entry as a tuple of mesh-axis names."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def sanitize_spec(spec: tuple, shape, mesh) -> tuple:
+    """Drop mesh axes from dims they don't evenly divide (jit arg
+    shardings require exact divisibility)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for dim, axis in zip(shape, parts):
+        if axis is None:
+            out.append(None)
+            continue
+        total = 1
+        for a in entry_axes(axis):
+            total *= sizes[a]
+        out.append(axis if dim % total == 0 else None)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------
+# Parameter partition specs, derived from param-tree key paths.
+# ---------------------------------------------------------------------
+def _spec_for(path: str, ndim: int, rules: dict) -> tuple:
+    """Map a parameter path (joined key names) + rank to a spec.
+
+    Stacked (scanned) parameter trees have extra leading layer dims; the
+    returned spec is padded with leading Nones to match ``ndim``.
+    """
+    m = rules.get("model")
+    ep = rules.get("experts_mode", "ep")
+    name = path.split("/")[-1]
+
+    def base() -> tuple:
+        # attention
+        if name in ("wq", "wk", "wv"):
+            return (None, m, None) if name == "wq" or rules.get("shard_kv", True) \
+                else (None, None, None)
+        if name == "wo":
+            return (m, None, None)
+        if name in ("bq", "bk", "bv"):
+            return (m, None) if (name == "bq" or rules.get("shard_kv", True)) \
+                else (None, None)
+        if name in ("w_kb", "w_vb"):
+            return (None, m, None)
+        if name in ("w_dkv", "w_kr"):
+            return (None, None)
+        # mlp / moe
+        if name in ("w1", "w3"):
+            if "experts" in path:
+                # stacked experts [E, d, ff]
+                return (m, None, None) if ep == "ep" else (None, None, m)
+            return (None, m)
+        if name == "w2":
+            if "experts" in path:
+                return (m, None, None) if ep == "ep" else (None, m, None)
+            return (m, None)
+        if name in ("b1",):
+            return (m,)
+        if name in ("b2",):
+            return (None,)
+        if name == "router":
+            return (None, None)
+        # ssm
+        if name in ("in_proj", "in_z", "in_xbc", "in_dt"):
+            return (None, m)
+        if name == "out_proj":
+            return (m, None)
+        if name == "conv_w":
+            return (None, m)
+        if name == "conv_b":
+            return (m,)
+        if name == "norm" and ndim >= 1:
+            return (None,)
+        # embeddings
+        if name == "embed":
+            return (None, m)
+        if name == "unembed":
+            return (None, m)
+        return tuple()
+
+    b = [a for a in base()]
+    pad = ndim - len(b)
+    if pad < 0:
+        b = b[-ndim:] if ndim > 0 else []
+        pad = 0
+    return tuple([None] * pad + b)
+
+
+def map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, lists and tuples, the
+    path joined with "/" from dict keys and sequence indices (the JAX
+    package's ``tree_map_with_path`` key names)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, f"{path}/{i}" if path
+                                        else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_pspecs(params, rules: Optional[dict] = None, mesh=None):
+    """Spec tree mirroring ``params`` (leaves need only ``.shape``). If
+    ``mesh`` given, specs are divisibility-sanitized against leaf
+    shapes."""
+    rules = rules if rules is not None else _CTX["rules"]
+
+    def f(path, leaf):
+        spec = _spec_for(path, len(leaf.shape), rules)
+        if mesh is not None:
+            spec = sanitize_spec(spec, leaf.shape, mesh)
+        return spec
+
+    return map_with_path(f, params)
+
+
+# ---------------------------------------------------------------------
+# The rank's slices and the collectives
+# ---------------------------------------------------------------------
+def axis_index(axis, mesh=None) -> int:
+    """This rank's index along a spec entry (a name or a tuple of names,
+    row-major); 0 for ``None``."""
+    mesh = mesh if mesh is not None else _CTX["mesh"]
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in entry_axes(axis):
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx
+
+
+def axis_size(axis, mesh=None) -> int:
+    """The number of ranks along a spec entry; 1 for ``None``."""
+    n = 1
+    if not entry_axes(axis):
+        return n
+    sizes = axis_sizes(mesh if mesh is not None else _CTX["mesh"])
+    for a in entry_axes(axis):
+        n *= sizes[a]
+    return n
+
+
+def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (each named dim cut into
+    equal blocks, the rank's taken), contiguous: a copy where the block is
+    a strided part of ``t``, ``t`` itself where it is all of it (one rank,
+    or no named dim)."""
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = axis_size(axis, mesh)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {axis!r} ({n} ranks)")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, axis_index(axis, mesh) * size, size)
+    return t.contiguous()
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree``, whose structure decides what a
+    leaf is (a spec is itself a tuple)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh):
+    """Every leaf of ``tree`` cut to this rank's block by the spec at the
+    same place in ``specs``."""
+    return _zip_map(lambda t, s: local_slice(t, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh=None):
+    """Inverse of ``shard_tree``: every leaf gathered along its split
+    dims (a collective: every rank of the mesh calls it)."""
+    def full(t, spec):
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                t = all_gather(t, axis, dim, mesh)
+        return t
+    return _zip_map(full, tree, specs)
+
+
+def shard_params(params, mesh, rules: dict):
+    """This rank's slice of every leaf of ``params`` (the whole tree, as
+    ``init_params`` or ``from_jax_params`` made it), by its
+    divisibility-sanitized ``param_pspecs`` spec."""
+    return shard_tree(params, param_pspecs(params, rules, mesh), mesh)
+
+
+def _groups(axis, mesh):
+    mesh = mesh if mesh is not None else _CTX["mesh"]
+    return [mesh.get_group(a) for a in entry_axes(axis)]
+
+
+def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Sum over the ranks along ``axis`` (a name or tuple of names).
+    Reduces ``x`` in place and returns it: pass a fresh result."""
+    for g in _groups(axis, mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+    return x
+
+
+def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Elementwise max over the ranks along ``axis``, in place."""
+    for g in _groups(axis, mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+    return x
+
+
+def all_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+    """The ranks' blocks along ``axis`` concatenated on ``dim`` in rank
+    order (row-major over a tuple of names)."""
+    x = x.contiguous()
+    for g in reversed(_groups(axis, mesh)):   # innermost axis first
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, x, group=g)
+        x = torch.cat(parts, dim=dim)
+    return x
+
+
+# ---------------------------------------------------------------------
+# What the model code asks of the active mesh
+# ---------------------------------------------------------------------
+def model_axis():
+    """The active mesh's model axis name; None without a mesh or without
+    a model rule (the model code's every sharded branch keys on it)."""
+    return _CTX["rules"].get("model") if _CTX["mesh"] is not None else None
+
+
+def model_split(n: int) -> bool:
+    """Whether a dim of ``n`` splits over the model axis (a spec naming
+    the axis survives ``sanitize_spec``)."""
+    m = model_axis()
+    return m is not None and n % axis_size(m) == 0
+
+
+def batch_axis():
+    """The batch rule under the active mesh (a name, a tuple of names or
+    None)."""
+    return _CTX["rules"].get("batch") if _CTX["mesh"] is not None else None
+
+
+def batch_rows(t: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of a whole batch ``t`` (leading dim) under the
+    batch rule. The rule is set only where the batch splits
+    (``sharding_rules(global_batch=...)``): a batch that does not split
+    raises."""
+    b = batch_axis()
+    if b is None:
+        return t
+    n = axis_size(b)
+    if t.shape[0] % n:
+        raise ValueError(f"a batch of {t.shape[0]} does not split over "
+                         f"{b!r} ({n} ranks); build the rules with "
+                         f"sharding_rules(cfg, mesh, global_batch=...)")
+    size = t.shape[0] // n
+    return t.narrow(0, axis_index(b) * size, size)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``batch_rows``: the whole batch on every rank."""
+    b = batch_axis()
+    return t if b is None else all_gather(t, b, 0)

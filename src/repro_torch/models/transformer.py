@@ -42,6 +42,17 @@ each block (hybrid, vlm: each period) in the backward pass, through
 ``jax.checkpoint``; ``loss_fn`` is the training loss. A block dispatches on its mixer kind
 (attention or SSM) and on the params it holds (cross-attention, MoE);
 attention is GQA or, with ``cfg.use_mla``, MLA.
+
+Under a device mesh (``sharding.sharding_ctx``; the params cut by
+``sharding.shard_params``, the decode state by
+``launch.specs.shard_decode_state``) ``forward``, ``prefill`` and
+``decode_step`` run the dense and moe families tensor-parallel: they
+take the whole batch, each rank computes its batch rows (the "batch"
+rule), gathers the embedding's d blocks, runs its heads, ff blocks and
+experts (see ``attention`` and ``moe``), and the vocab-split logits and
+the rows are gathered back, so every rank returns what the call returns
+without a mesh. The other families, the paged and per-row decode and
+the training loss raise under a mesh (ROADMAP.md A16–A19).
 """
 from __future__ import annotations
 
@@ -54,12 +65,30 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding as shd
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
                                        gelu_mlp, init_gelu_mlp, init_swiglu,
-                                       rms_norm, sinusoidal_positions, swiglu)
+                                       rms_norm, sinusoidal_positions,
+                                       swiglu_tp)
 
 AUX_WEIGHT = 0.01
+# the ROADMAP.md items that port the other families under a mesh
+_MESH_TODO = {"ssm": "A16", "hybrid": "A16", "encdec": "A17", "vlm": "A17"}
+
+
+def _check_mesh(cfg, what: str = "") -> None:
+    """Refuse what is not ported under an active mesh: the families but
+    dense and moe, and (``what``) other entry points."""
+    if shd.active_mesh() is None:
+        return
+    if what:
+        raise NotImplementedError(f"{what} under a device mesh is not "
+                                  f"ported yet (ROADMAP.md A19)")
+    if cfg.family in _MESH_TODO:
+        raise NotImplementedError(
+            f"the {cfg.family} family under a device mesh is not ported "
+            f"yet (ROADMAP.md {_MESH_TODO[cfg.family]})")
 
 
 def _param_dtype(cfg) -> torch.dtype:
@@ -187,7 +216,18 @@ def unembed_matrix(params):
 
 
 def logits_from_hidden(params, cfg, h):
+    """Final norm and unembedding -> fp32 logits. Under a mesh: the
+    vocab-split ``unembed``'s logits gathered over the model axis, or,
+    tied, the rank's d block of the embedding against its block of
+    ``h``, summed over it."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    m = shd.model_axis()
+    if "unembed" in params and shd.model_split(cfg.vocab_size):
+        return shd.all_gather((h @ params["unembed"]).float(), m, -1)
+    if "unembed" not in params and shd.model_split(cfg.d_model):
+        emb = params["embed"]
+        lo = shd.axis_index(m) * emb.shape[1]
+        return shd.psum((h[..., lo:lo + emb.shape[1]] @ emb.T).float(), m)
     return (h @ unembed_matrix(params)).float()
 
 
@@ -234,7 +274,7 @@ def _ffn_full(p, cfg, h, moe_path):
         return h + y, aux
     if cfg.family == "encdec":
         return h + gelu_mlp(p["mlp"], x), 0.0
-    return h + swiglu(p["mlp"], x), 0.0
+    return h + swiglu_tp(p["mlp"], x, cfg.d_ff), 0.0
 
 
 def _block_full(p, cfg, h, positions, *, kind, window, enc, moe_path):
@@ -249,7 +289,12 @@ def _block_full(p, cfg, h, positions, *, kind, window, enc, moe_path):
 
 
 def _embed(params, cfg, tokens, positions):
-    h = params["embed"][tokens]
+    """Token embeddings (+ sinusoidal positions). Under a mesh the
+    embedding's d blocks are gathered over the model axis."""
+    if shd.model_split(cfg.d_model):
+        h = shd.all_gather(params["embed"][tokens], shd.model_axis(), -1)
+    else:
+        h = params["embed"][tokens]
     if cfg.pos_emb == "sinusoidal":
         h = h + sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
     return h
@@ -293,6 +338,7 @@ def _block_params(params, path):
 # =====================================================================
 def encoder_forward(params, cfg, frames):
     """frames [B, T, d] (stub frontend output) -> encoder states."""
+    _check_mesh(cfg)
     B, T, _ = frames.shape
     pos = torch.arange(T, device=frames.device)[None, :].expand(B, T)
     h = frames + sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
@@ -326,7 +372,16 @@ def forward(params, cfg, tokens, *, enc=None, window: Optional[int] = None,
     aux_loss fp32 scalar). ``remat``: keep only each block's (hybrid,
     vlm: each period's) input for the backward pass and recompute the
     rest there, as JAX's ``jax.checkpoint`` over the scan body does; the
-    values are bitwise those of ``remat=False``."""
+    values are bitwise those of ``remat=False``. Under a mesh each rank
+    runs its batch rows and the hidden states are gathered back."""
+    _check_mesh(cfg)
+    h, aux = _forward(params, cfg, shd.batch_rows(tokens), enc, window,
+                      moe_path, remat)
+    return shd.gather_rows(h), aux
+
+
+def _forward(params, cfg, tokens, enc, window, moe_path, remat):
+    """``forward`` of the rank's rows (all of them without a mesh)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     h = _embed(params, cfg, tokens, positions)
@@ -348,6 +403,7 @@ def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
     ({"tokens", "labels"} [B,S] int; encdec also "frames" [B,T,d] for the
     encoder, vlm "patches" [B,T,d]) plus AUX_WEIGHT times the MoE layers'
     load-balance loss."""
+    _check_mesh(cfg, "the training loss")
     enc = None
     if cfg.family == "encdec":
         enc = encoder_forward(params, cfg, batch["frames"])
@@ -362,9 +418,13 @@ def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
 
 
 def prefill(params, cfg, tokens, *, enc=None, moe_path: str = "auto"):
-    """Full forward returning last-position logits [B, V] (no [B,S,V])."""
-    h, _ = forward(params, cfg, tokens, enc=enc, moe_path=moe_path)
-    return logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
+    """Full forward returning last-position logits [B, V] (no [B,S,V]).
+    Under a mesh each rank runs its rows; the logits are gathered."""
+    _check_mesh(cfg)
+    h, _ = _forward(params, cfg, shd.batch_rows(tokens), enc, None,
+                    moe_path, False)
+    return shd.gather_rows(
+        logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0])
 
 
 # =====================================================================
@@ -446,7 +506,11 @@ def decode_step(params, cfg, state, token, pos: int, *,
                 window: Optional[int] = None, moe_path: str = "auto"):
     """token [B,1] int, pos an int (the same for every row) -> (logits
     [B,V], new state). KV caches are updated in place; SSM states are
-    replaced in the returned state's lists."""
+    replaced in the returned state's lists. Under a mesh ``state`` is
+    the rank's (``launch.specs.shard_decode_state``): each rank decodes
+    its rows, and the logits are gathered."""
+    _check_mesh(cfg)
+    token = shd.batch_rows(token)
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.long,
                            device=token.device)
@@ -464,7 +528,8 @@ def decode_step(params, cfg, state, token, pos: int, *,
             p, cfg, h, caches[at], pos, kind=kind, window=window,
             cross_kv=next(cross) if "cross" in p else None,
             moe_path=moe_path)
-    return logits_from_hidden(params, cfg, h)[:, 0], new_state
+    return shd.gather_rows(logits_from_hidden(params, cfg, h)[:, 0]), \
+        new_state
 
 
 def _attn_decode_multipos(p, cfg, h, cache, pos_vec):

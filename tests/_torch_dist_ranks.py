@@ -1,0 +1,164 @@
+"""One rank of a distributed check of the port (no JAX here):
+
+    python tests/_torch_dist_ranks.py CASE.json RANK WORLD
+
+``tests/test_torch_distributed.py`` starts WORLD of these. Each opens a
+gloo process group through the case's ``file://`` store, builds the
+case's (data, model) CPU mesh, cuts the whole inputs (``torch.save``d by
+the test) to its slices and runs the sharded entry point. Every rank
+writes what it computed to ``out-RANK.pt`` beside the case file: the
+entry points return whole outputs, so the test reads rank 0's and checks
+that the ranks agree.
+"""
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, sharding_rules  # noqa: E402
+from repro_torch.launch.specs import shard_decode_state  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+
+
+def case_config(case):
+    cfg = reduced(get_config(case["arch"]), **case["reduce"])
+    return dataclasses.replace(cfg, **case["replace"])
+
+
+def run_moe(case, cfg, mesh, rules, inp):
+    """EP against the whole-batch paths: ``moe_ep_shardmap``, then
+    ``moe_capacity`` / ``moe_dense`` / ``moe_gather`` with the experts
+    split as the rules say and with them split over ff ("tp"), and each
+    rank's own dispatch (its kept slots)."""
+    p, x = inp["params"], inp["x"]
+    out = {}
+    for mode in ("ep", "tp"):
+        r = dict(rules, experts_mode=mode)
+        local = shd.shard_params(p, mesh, r)
+        with shd.sharding_ctx(mesh, r):
+            rows = shd.batch_rows(x)
+            paths = {"capacity": moe_lib.moe_capacity,
+                     "dense": moe_lib.moe_dense, "gather": moe_lib.moe_gather}
+            if mode == "ep":
+                paths["ep"] = moe_lib.moe_ep_shardmap
+            for name, fn in paths.items():
+                kw = ({"capacity_factor": case["cf"]}
+                      if name in ("ep", "capacity") else {})
+                y, aux = fn(local, cfg, rows, **kw)
+                out[f"{mode}/{name}"] = (shd.gather_rows(y), aux)
+            if mode == "ep":
+                # the rank's own dispatch, as moe_ep_shardmap makes it
+                ep = shd.axis_size("model")
+                Sl = x.shape[1] // ep
+                xl = rows.narrow(1, shd.axis_index("model") * Sl, Sl)
+                _, probs, ids = moe_lib.router_probs(local, cfg, xl)
+                C = moe_lib._capacity(xl.shape[0] * Sl, cfg, case["cf"])
+                _, slot, keep, _ = moe_lib._dispatch_local(
+                    cfg, xl.reshape(-1, cfg.d_model), probs, ids, C)
+                out["keep"], out["slot"] = keep, slot
+    return out
+
+
+def run_moe_auto(case, cfg, mesh, rules, inp):
+    """``moe_apply``'s own choice (path "auto") on the whole batch under
+    the rules, and how many times it took ``moe_ep_shardmap``."""
+    calls = []
+    ep = moe_lib.moe_ep_shardmap
+    moe_lib.moe_ep_shardmap = lambda *a, **k: calls.append(1) or ep(*a, **k)
+    try:
+        local = shd.shard_params(inp["params"], mesh, rules)
+        with shd.sharding_ctx(mesh, rules):
+            y, aux = moe_lib.moe_apply(local, cfg, shd.batch_rows(inp["x"]))
+            y = shd.gather_rows(y)
+    finally:
+        moe_lib.moe_ep_shardmap = ep
+    return {"auto": (y, aux), "ep_calls": len(calls)}
+
+
+def run_model(case, cfg, mesh, rules, inp):
+    """``prefill`` and ``forward`` of the whole batch; then (decode cases)
+    ``decode_step`` over the case's steps with the state cut by
+    ``shard_decode_state``."""
+    local = shd.shard_params(inp["params"], mesh, rules)
+    # every leaf gathered back over the ranks along its split dims
+    specs = shd.param_pspecs(inp["params"], rules, mesh)
+    back = shd.gather_tree(local, specs, mesh)
+    whole = list(_leaves(inp["params"], specs))
+    out = {"roundtrip": [
+        (path, torch.equal(b, w) and b.dtype == w.dtype)
+        for (path, w, _), (_, b, _) in zip(whole, _leaves(back, specs))],
+        "split_leaves": sum(any(a is not None for a in sp)
+                            for _, _, sp in whole)}
+    with shd.sharding_ctx(mesh, rules):
+        if "tokens" in inp:
+            out["prefill"] = tf.prefill(local, cfg, inp["tokens"])
+            out["forward"] = tf.forward(local, cfg, inp["tokens"])[0]
+        if "steps" in inp:
+            whole = tf.init_decode_state(local, cfg, inp["steps"].shape[0],
+                                         case["cache_len"], device="cpu")
+            state = shard_decode_state(whole, mesh, rules)
+            out["state_shapes"] = [tuple(v.shape)
+                                   for v in state["layers"][0].values()]
+            logits = []
+            for pos in range(inp["steps"].shape[1]):
+                lg, state = tf.decode_step(local, cfg, state,
+                                           inp["steps"][:, pos:pos + 1], pos,
+                                           window=case.get("window"))
+                logits.append(lg)
+            out["decode"] = torch.stack(logits)
+    return out
+
+
+def _leaves(tree, specs, path=""):
+    """(path, leaf, its spec) in order; ``tree`` decides what a leaf is."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], specs[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, (t, sp) in enumerate(zip(tree, specs)):
+            yield from _leaves(t, sp, f"{path}/{i}")
+    else:
+        yield path, tree, specs
+
+
+RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model}
+
+
+def run_case(case, mesh, inp):
+    """One case under its rules (the JAX test's, or ``sharding_rules``'
+    when it gives none); a case of kind "parts" runs each of its parts,
+    a case of its own, on the same ranks, outputs under the part's
+    name."""
+    if case["kind"] == "parts":
+        return {name: run_case(part, mesh, inp[name])
+                for name, part in case["parts"].items()}
+    cfg = case_config(case)
+    rules = case["rules"] or sharding_rules(cfg, mesh)
+    return RUNS[case["kind"]](case, cfg, mesh, rules, inp)
+
+
+def main(case_file, rank, world):
+    torch.set_num_threads(1)
+    case_file = Path(case_file)
+    case = json.loads(case_file.read_text())
+    dist.init_process_group("gloo", init_method=case["store"], rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(tuple(case["mesh"]), ("data", "model"), "cpu")
+        inp = torch.load(case["inputs"], weights_only=True)
+        torch.save(run_case(case, mesh, inp),
+                   case_file.parent / f"out-{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

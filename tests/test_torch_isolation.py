@@ -60,6 +60,8 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.models.transformer, repro_torch.kernels.ops, "
             "repro_torch.training, repro_torch.data, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.models.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, "
             "repro_torch.examples.offload_paper_pipeline; "
             "bad = [m for m in sys.modules if m == 'repro' or "
             "m.startswith(('jax', 'repro.'))]; print(bad); "
