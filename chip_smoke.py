@@ -79,6 +79,22 @@ It drives the port's two entry points end to end and checks them:
    .generate_batch`` on the same prompts (8 greedy tokens): the engine
    feeds the prompt token by token through ``decode_step``, so its
    logits at the last prompt position are held against the prefill's;
+6d. the dry run's counter (``dryrun_phase``), on the same weights, with
+   no mesh: one ``prefill`` of 2 x 2048 and one ``decode_step`` of 2
+   rows over 4096 cache slots, each under ``op_cost.OpCost`` on the card
+   and again on meta copies of the same tensors: the two reports must be
+   equal field for field (FLOPs, bytes, collectives, kernel calls, the
+   live bytes' peak) and the card run's kernel calls must equal its
+   launch counts (reset just before, read just after); each call is then
+   timed without the counter. Then ``python -m
+   repro_torch.launch.dryrun`` in a subprocess with the card hidden
+   (``CUDA_VISIBLE_DEVICES=""``: the dry run needs none) on
+   Qwen1.5-0.5B x decode_32k and DeepSeek-V2 x prefill_32k (expert
+   parallelism, flash at hd 192) on the (16, 16) mesh; each must end
+   ``1 ok, 0 failed``. One ``dryrun`` JSON line: per call the counted
+   work, the card's time, the achieved TFLOP/s and TB/s, the counted
+   peak beside ``torch.cuda.max_memory_allocated``'s rise, and the two
+   cases' results;
 6a. the distributed paths at world size 1: one NCCL process group
    (``tcp://127.0.0.1`` on a port free at run time) and a (1, 1)
    ("data", "model") mesh on the card, the rules of the published archs
@@ -430,6 +446,12 @@ STEP_TOL = {"float32": (1e-4, 1e-4, 1e-6),
 # the DeepSeek-V2 phase: depth cut to 2 of 60 layers at the published
 # widths, 32 expert slots a layer (20% of its 160 routed experts)
 DS_LAYERS, DS_SLOTS = 2, 32
+# the dry-run phase (6d): DRY_B rows of DRY_S tokens through prefill, one
+# decode_step of DRY_B rows at position DRY_S in a cache of DRY_CACHE
+# slots; then the dry run's CLI on DRY_CASES of the (16, 16) mesh
+DRY_B, DRY_S, DRY_CACHE = 2, 2048, 4096
+DRY_CASES = (("qwen1.5-0.5b", "decode_32k"),
+             ("deepseek-v2-236b", "prefill_32k"))
 # the distributed phase at world size 1: one MoE layer of Mixtral-8x7B on
 # EP_B x EP_S tokens (4096: what ``moe_apply`` needs to take EP); the MLA
 # decode of DeepSeek-V2 (DS_LAYERS), MLA_B rows over MLA_STEPS greedy
@@ -858,15 +880,6 @@ def glue_sources(prof, top=12):
             for kind, d in out.items()}
 
 
-def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a flash_attention call scores unmasked."""
-    import numpy as np
-    q = np.arange(Sq)
-    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(Sq, int)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def kernel_cases(calls):
     """(name, wrapper(), plain(), library() or None, graph-timed?, bytes,
     flops, shape, library_bwd() or None) for each kernel whose heaviest
@@ -874,7 +887,9 @@ def kernel_cases(calls):
     each output written once; flops count the work these inputs need:
     paged attention's keys are the ones the call's positions make
     visible, flash attention's (query, key) pairs the ones its masks
-    leave, SSD's the lower triangle of each chunk. The flash attention
+    leave, SSD's the lower triangle of each chunk (the forwards' and
+    moe_ffn's are each kernel module's ``cost``, which the dry run's
+    counter takes too). The flash attention
     backward's flops are the least autograd of the forward does per
     visible pair and head: S again (2 hd), dP (2 vd), dV (2 vd), dQ and
     dK (2 hd each), 2.5 times the forward's at hd = vd; its library call
@@ -899,10 +914,10 @@ def kernel_cases(calls):
         E, C, d = x_e.shape
         F_ = w1.shape[-1]
         sl = torch.tensor(slots, device="cuda")
+        flops, nbytes = moe_gemm.cost(x_e, w1)
         yield ("moe_ffn", lambda: ops.moe_ffn(x_e, w1, w3, w2, slots),
                lambda: moe_gemm.plain(x_e, w1, w3, w2, sl), None, False,
-               4 * (2 * E * C * d + 3 * E * d * F_ + E), 6 * E * C * d * F_,
-               {"E": E, "C": C, "d": d, "F": F_}, None)
+               nbytes, flops, {"E": E, "C": C, "d": d, "F": F_}, None)
 
     if "paged_attention" in calls:
         q, kp, vp, bt, pos = calls["paged_attention"]
@@ -922,7 +937,8 @@ def kernel_cases(calls):
         B, Sq, H, hd = q.shape
         Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
         causal, window = kw.get("causal", True), kw.get("window", 0)
-        pairs = visible_pairs(Sq, Sk, causal, window)
+        pairs = flash_mod.visible_pairs(Sq, Sk, causal, window)
+        flops, nbytes = flash_mod.cost(q, k, v, causal=causal, window=window)
         library = None
         if window == 0:   # SDPA has no sliding window
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -931,10 +947,7 @@ def kernel_cases(calls):
         yield ("flash_attention",
                lambda: ops.flash_attention(q, k, v, **kw),
                lambda: flash_mod.plain(q, k, v, causal=causal, window=window),
-               library, False,
-               q.element_size() * (B * Sq * H * hd + B * Sk * KV * (hd + vd)
-                                   + B * Sq * H * vd),
-               2 * B * H * pairs * (hd + vd),
+               library, False, nbytes, flops,
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
                 "dtype": str(q.dtype), "visible_pairs": pairs}, None)
@@ -944,7 +957,7 @@ def kernel_cases(calls):
         B, Sq, H, hd = q.shape
         Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
         causal, window = kw["causal"], kw["window"]
-        pairs = visible_pairs(Sq, Sk, causal, window)
+        pairs = flash_mod.visible_pairs(Sq, Sk, causal, window)
         library = library_bwd = None
         if window == 0:   # SDPA's forward and backward: what it costs there
             lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
@@ -982,14 +995,10 @@ def kernel_cases(calls):
         dA, xw, Bm, Cm = calls["ssd_chunk"]
         G, Q, H = dA.shape
         P, N = xw.shape[3], Bm.shape[2]
-        tri = Q * (Q + 1) // 2
+        flops, nbytes = ssd_mod.cost(dA, xw, Bm)
         yield ("ssd_chunk", lambda: ops.ssd_chunk(dA, xw, Bm, Cm),
                lambda: ssd_mod.plain(dA, xw, Bm, Cm), None, False,
-               4 * (G * Q * H + 2 * G * Q * H * P + 2 * G * Q * N
-                    + G * H * P * N),
-               G * (2 * tri * N + tri * H + 2 * tri * H * P + Q * H * P
-                    + 2 * Q * H * P * N),
-               {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
+               nbytes, flops, {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
     if "ssd_chunk_bwd" in calls:
         args = calls["ssd_chunk_bwd"]
@@ -1943,10 +1952,16 @@ def offload_invariants(params, cfg, prompts, store):
             "seconds": time.perf_counter() - t0}
 
 
+def pairs_times_heads(q, k, v, causal=True, window=0):
+    """A flash_attention call's (query, key) pairs scored, times heads."""
+    from repro_torch.kernels.flash_attention import visible_pairs
+    return q.shape[0] * q.shape[2] * visible_pairs(q.shape[1], k.shape[1],
+                                                   causal, window)
+
+
 PREFILL_SPECS = {   # heaviest prefill calls, copied as they were
     "flash_attention": (   # by (query, key) pairs scored, times heads
-        lambda q, k, v, causal=True, window=0: q.shape[0] * q.shape[2]
-        * visible_pairs(q.shape[1], k.shape[1], causal, window),
+        pairs_times_heads,
         lambda q, k, v, **kw: (q.clone(), k.clone(), v.clone(), dict(kw))),
     "ssd_chunk": (lambda dA, xw, *_: xw.numel(),
                   lambda *args: tuple(a.clone() for a in args)),
@@ -1973,6 +1988,92 @@ def prefill_run(params, cfg, toks, ops, seen, prof=None, **kw):
         launches = ops.launch_counts()
     summary = device_time_summary(prof, ms) if prof is not None else None
     return logits, launches, ms, summary
+
+
+def dryrun_phase(params, cfg, ops, card):
+    """Phase 6d: the op counter on the card against the same calls on
+    meta copies, its kernel calls against the launch counts, each call
+    timed without the counter, then the dry run's CLI on DRY_CASES.
+    Returns the ``dryrun`` line's record."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.transformer import (_tree_map, decode_step,
+                                                init_decode_state, prefill)
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (DRY_B, DRY_S))).cuda()
+    meta = _tree_map(lambda t: t.to("meta"), params)
+    meta_toks = toks.to("meta")
+    states = {"cuda": init_decode_state(params, cfg, DRY_B, DRY_CACHE,
+                                        device="cuda"),
+              "meta": init_decode_state(meta, cfg, DRY_B, DRY_CACHE,
+                                        device="meta")}
+    calls = {
+        "prefill": lambda p, t, st: prefill(p, cfg, t),
+        "decode_step": lambda p, t, st: decode_step(p, cfg, st, t[:, :1],
+                                                    DRY_S)[0]}
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "card": card}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), OpCost() as on_card:
+            call(params, toks, states["cuda"])
+        torch.cuda.synchronize()
+        counted_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        peak_rise = torch.cuda.max_memory_allocated() - base
+        with torch.no_grad(), OpCost() as on_meta:
+            call(meta, meta_toks, states["meta"])
+        got, want = on_card.to_dict(), on_meta.to_dict()
+        check(got.pop("devices") == ["cuda"] and
+              want.pop("devices") == ["meta"],
+              f"dry run {name}: devices {sorted(on_card.devices)} and "
+              f"{sorted(on_meta.devices)}")
+        diff = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+        check(not diff, f"dry run {name}: card and meta counts differ: "
+                        f"{diff}")
+        kernel_calls = {k: v["calls"] for k, v in got["kernel_calls"].items()}
+        check(kernel_calls == {k: n for k, n in launches.items() if n},
+              f"dry run {name}: kernel calls {kernel_calls} != launches "
+              f"{launches}")
+        times = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(params, toks, states["cuda"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[1]
+        rec[name] = dict(got, ms=ms, counted_ms=counted_ms, step_ms=times,
+                         launches=launches,
+                         tflop_s=got["flops"] / ms / 1e9,
+                         tb_s=got["bytes_accessed"] / ms / 1e9,
+                         max_memory_allocated_rise=peak_rise)
+    del states, meta, meta_toks
+    cases = []
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRY_CASES:
+            out = Path(tmp) / f"{arch}-{shape}.json"
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out)], cwd=ROOT,
+                env=env, capture_output=True, text=True, timeout=600)
+            print(r.stdout, end="", flush=True)
+            check(r.returncode == 0 and "1 ok, 0 failed" in r.stdout,
+                  f"dry run {arch} x {shape}: exit {r.returncode}\n"
+                  f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            (res,) = json.loads(out.read_text())["results"]
+            res["wall_s"] = time.perf_counter() - t0
+            cases.append(res)
+    rec["cases"] = cases
+    return rec
 
 
 def check_launches(launches, want, what):
@@ -3537,6 +3638,12 @@ def main() -> None:
     flash_launches, rep = prefill_phase(params, cfg, ops, seen,
                                         args.profile)
     print(json.dumps({"prefill": rep}), flush=True)
+
+    # ---- the dry run's counter on the card, and two dry-run cases ---
+    print(json.dumps({"dryrun": dryrun_phase(params, cfg, ops, card)}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- the distributed paths at world size 1 (NCCL) ---------------
     import torch.distributed as dist

@@ -28,6 +28,7 @@ import ctypes
 import math
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ref import flash_attention_ref
@@ -57,6 +58,25 @@ def plain(q, k, v, *, causal: bool, window: int):
     vf = v.transpose(1, 2).reshape(B * H, Sk, vd)
     out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
     return out.reshape(B, H, Sq, vd).transpose(1, 2)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a call scores unmasked."""
+    q = np.arange(Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(Sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(q, k, v, *, causal: bool, window: int):
+    """(flops, bytes) of one call: both products, 2·(hd + vd) a visible
+    (query, key) pair and query head; q, k and v read once, the output
+    written once."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
+    return (2 * B * H * visible_pairs(Sq, Sk, causal, window) * (hd + vd),
+            q.element_size() * (B * Sq * H * hd + B * Sk * KV * (hd + vd)
+                                + B * Sq * H * vd))
 
 
 def launch(fn, q, k, v, *, causal: bool, window: int):

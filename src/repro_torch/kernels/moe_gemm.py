@@ -24,6 +24,16 @@ ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 SLICE_ROWS = 1024   # contraction rows per block at most (kSliceMax)
 
 
+def cost(x_e, w1):
+    """(flops, bytes) of one call, from the shapes: three products of
+    2·C·d·F a group; x_e read and y written once, each group's three
+    weight matrices read once, and its slot index (int32)."""
+    E, C, d = x_e.shape
+    F = w1.shape[-1]
+    return (6 * E * C * d * F,
+            x_e.element_size() * (2 * E * C * d + 3 * E * d * F) + 4 * E)
+
+
 def plain(x_e, w1, w3, w2, slots):
     """x_e [E,C,d]; w1/w3 [S,d,F]; w2 [S,F,d]; slots [E] int64 -> [E,C,d]."""
     return moe_gemm_ref(x_e, w1.index_select(0, slots),

@@ -4,7 +4,17 @@ counters, and the build loader for the CUDA sources in ``csrc/``.
 The rule for every wrapper: a tensor on the CPU takes the kernel's
 plain PyTorch version; a tensor on a CUDA device launches the
 hand-written kernel or raises. There is no fallback between the two and
-no switch to choose.
+no switch to choose. Every route returns contiguous outputs, as the
+kernels write them. A ``meta`` tensor (the dry run's) gets an empty
+meta output of the kernel's shape and dtype, and computes nothing.
+
+An active op counter (``repro_torch.launch.op_cost.OpCost``, a
+dispatch mode) is told of each forward wrapper's call as one call of
+its kernel, with the kernel's closed-form FLOPs and bytes (each kernel
+module's ``cost``), and does not count the ops the wrapper runs inside
+it: the plain version's intermediates are not what the card runs. So a
+call counts the same on ``meta``, ``cpu`` and ``cuda``. With no counter
+active nothing is counted.
 
 Each wrapper keeps a plain integer count in ``LAUNCHES``, incremented
 where it launches its kernel and nowhere else, so a run can show that
@@ -43,6 +53,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_gemm, paged_attention as paged_mod
@@ -58,6 +69,9 @@ _MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
             "ssd_chunk_bwd": ssd_mod.BACKWARD}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
+# why a meta call of a differentiable kernel refuses inputs that need a
+# gradient
+_NO_META_BWD = "meta tensors: training under a mesh adds it, ROADMAP.md A19"
 
 
 def _nvcc() -> str:
@@ -143,12 +157,13 @@ def _check_cuda(name: str, dtype, *tensors) -> None:
 
 
 def _no_backward(name: str, why: str, *tensors) -> None:
-    """Raise if autograd would need a gradient through this CUDA kernel,
-    which has no backward (``why`` says where one would come from)."""
+    """Raise if autograd would need a gradient through this route (the
+    CUDA kernel or the meta output), which has none (``why`` says why,
+    or where one would come from)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward ({why}); call it "
-            f"under torch.no_grad() or on tensors that do not require grad")
+            f"{name}: this route has no backward ({why}); call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
 
 
 def _one_device(name: str, *tensors) -> torch.device:
@@ -156,9 +171,19 @@ def _one_device(name: str, *tensors) -> torch.device:
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on several devices: "
                          f"{sorted({str(t.device) for t in tensors})}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
+
+
+def _counted(name: str, cost, run):
+    """``run()``, the call of kernel ``name``; an active op counter is
+    told of it as one kernel call of ``cost()`` = (flops, bytes) and does
+    not count what ``run`` does."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "kernel_call"):
+            return mode.kernel_call(name, cost, run)
+    return run()
 
 
 # ---------------------------------------------------------------- moe
@@ -183,19 +208,24 @@ def moe_ffn(x_e, w1, w3, w2, slots: Sequence[int]):
         raise ValueError(f"moe_ffn: need {E} slot indices in [0, {S}), "
                          f"got {slots}")
     dev = _one_device("moe_ffn", x_e, w1, w3, w2)
-    if dev.type == "cpu":
-        return moe_gemm.plain(x_e, w1, w3, w2,
-                              torch.tensor(slots, dtype=torch.long))
-    _no_backward("moe_ffn", "a decode-only kernel: no backward is planned",
-                 x_e, w1, w3, w2)
-    _check_cuda("moe_ffn", torch.float32, x_e, w1, w3, w2)
-    fn = _entry("moe_ffn")
-    # from pinned memory, so the upload does not wait for the stream
-    sl = torch.tensor(slots, dtype=torch.int32, pin_memory=True).to(
-        dev, non_blocking=True)
-    y = moe_gemm.launch(fn, x_e, w1, w3, w2, sl)
-    LAUNCHES["moe_ffn"] += 1
-    return y
+
+    def run():
+        if dev.type == "cpu":
+            return moe_gemm.plain(x_e, w1, w3, w2, torch.tensor(
+                slots, dtype=torch.long)).contiguous()
+        _no_backward("moe_ffn", "a decode-only kernel: no backward is "
+                     "planned", x_e, w1, w3, w2)
+        if dev.type == "meta":
+            return x_e.new_empty((E, C, d), dtype=torch.float32)
+        _check_cuda("moe_ffn", torch.float32, x_e, w1, w3, w2)
+        fn = _entry("moe_ffn")
+        # from pinned memory, so the upload does not wait for the stream
+        sl = torch.tensor(slots, dtype=torch.int32, pin_memory=True).to(
+            dev, non_blocking=True)
+        y = moe_gemm.launch(fn, x_e, w1, w3, w2, sl)
+        LAUNCHES["moe_ffn"] += 1
+        return y
+    return _counted("moe_ffn", lambda: moe_gemm.cost(x_e, w1), run)
 
 
 # ------------------------------------------------------ paged attention
@@ -222,22 +252,29 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos):
                          f"{tuple(pos.shape)} do not fit")
     dev = _one_device("paged_attention", q, k_pool, v_pool, block_tables,
                       pos)
-    if dev.type == "cpu":
-        return paged_mod.plain(q, k_pool, v_pool, block_tables, pos)
-    _no_backward("paged_attention", "a decode-only kernel: no backward is "
-                 "planned", q, k_pool, v_pool)
-    _check_cuda("paged_attention", torch.float32, q, k_pool, v_pool)
-    if H // KV > paged_mod.MAX_GROUP or hd > paged_mod.MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: the CUDA kernel takes up to "
-                         f"{paged_mod.MAX_GROUP} query heads per KV head "
-                         f"and head_dim <= {paged_mod.MAX_HEAD_DIM}, got "
-                         f"{H // KV} and {hd}")
-    fn = _entry("paged_attention")
-    tbl = block_tables.to(torch.int32).contiguous()
-    pos = pos.to(torch.int32).contiguous()
-    out = paged_mod.launch(fn, q, k_pool, v_pool, tbl, pos)
-    LAUNCHES["paged_attention"] += 1
-    return out
+
+    def run():
+        if dev.type == "cpu":
+            return paged_mod.plain(q, k_pool, v_pool, block_tables,
+                                   pos).contiguous()
+        _no_backward("paged_attention", "a decode-only kernel: no backward "
+                     "is planned", q, k_pool, v_pool)
+        if dev.type == "meta":
+            return q.new_empty((B, H, hd))
+        _check_cuda("paged_attention", torch.float32, q, k_pool, v_pool)
+        if H // KV > paged_mod.MAX_GROUP or hd > paged_mod.MAX_HEAD_DIM:
+            raise ValueError(f"paged_attention: the CUDA kernel takes up to "
+                             f"{paged_mod.MAX_GROUP} query heads per KV "
+                             f"head and head_dim <= {paged_mod.MAX_HEAD_DIM},"
+                             f" got {H // KV} and {hd}")
+        fn = _entry("paged_attention")
+        out = paged_mod.launch(fn, q, k_pool, v_pool,
+                               block_tables.to(torch.int32).contiguous(),
+                               pos.to(torch.int32).contiguous())
+        LAUNCHES["paged_attention"] += 1
+        return out
+    return _counted("paged_attention",
+                    lambda: paged_mod.cost(q, k_pool, block_tables), run)
 
 
 # ------------------------------------------------------ flash attention
@@ -260,15 +297,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"{window}) do not fit")
     window = int(window)
     dev = _one_device("flash_attention", q, k, v)
-    if dev.type == "cpu":
-        return flash_mod.plain(q, k, v, causal=causal, window=window)
-    _check_cuda("flash_attention", (torch.float32, torch.bfloat16), q, k, v)
-    if H // KV > flash_mod.MAX_GROUP or hd > flash_mod.MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: the CUDA kernel takes up to "
-                         f"{flash_mod.MAX_GROUP} query heads per KV head "
-                         f"and head_dim <= {flash_mod.MAX_HEAD_DIM}, got "
-                         f"{H // KV} and {hd}")
-    return _FlashAttention.apply(q, k, v, causal, window)
+
+    def run():
+        if dev.type == "cpu":
+            return flash_mod.plain(q, k, v, causal=causal,
+                                   window=window).contiguous()
+        if dev.type == "meta":
+            _no_backward("flash_attention", _NO_META_BWD, q, k, v)
+            return q.new_empty((B, Sq, H, v.shape[3]))
+        _check_cuda("flash_attention", (torch.float32, torch.bfloat16), q, k,
+                    v)
+        if H // KV > flash_mod.MAX_GROUP or hd > flash_mod.MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: the CUDA kernel takes up to "
+                             f"{flash_mod.MAX_GROUP} query heads per KV "
+                             f"head and head_dim <= {flash_mod.MAX_HEAD_DIM},"
+                             f" got {H // KV} and {hd}")
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _counted("flash_attention", lambda: flash_mod.cost(
+        q, k, v, causal=causal, window=window), run)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -311,13 +357,22 @@ def ssd_chunk(dA, xw, Bm, Cm):
                          f"{tuple(Cm.shape)} do not fit [G,Q,H], [G,Q,H,P], "
                          f"[G,Q,N]")
     dev = _one_device("ssd_chunk", dA, xw, Bm, Cm)
-    if dev.type == "cpu":
-        return ssd_mod.plain(dA, xw, Bm, Cm)
-    _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
-    if Q > ssd_mod.MAX_CHUNK:
-        raise ValueError(f"ssd_chunk: the CUDA kernels take chunks of up "
-                         f"to {ssd_mod.MAX_CHUNK} positions, got {Q}")
-    return _SsdChunk.apply(dA, xw, Bm, Cm)
+
+    def run():
+        if dev.type == "cpu":
+            return tuple(t.contiguous()
+                         for t in ssd_mod.plain(dA, xw, Bm, Cm))
+        if dev.type == "meta":
+            _no_backward("ssd_chunk", _NO_META_BWD, dA, xw, Bm, Cm)
+            P, N = xw.shape[3], Bm.shape[2]
+            return (dA.new_empty((G, Q, H, P), dtype=torch.float32),
+                    dA.new_empty((G, H, P, N), dtype=torch.float32))
+        _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
+        if Q > ssd_mod.MAX_CHUNK:
+            raise ValueError(f"ssd_chunk: the CUDA kernels take chunks of "
+                             f"up to {ssd_mod.MAX_CHUNK} positions, got {Q}")
+        return _SsdChunk.apply(dA, xw, Bm, Cm)
+    return _counted("ssd_chunk", lambda: ssd_mod.cost(dA, xw, Bm), run)
 
 
 class _SsdChunk(torch.autograd.Function):

@@ -37,6 +37,21 @@ MAX_HEAD_DIM = 256
 KEYS_PER_SPLIT = 128
 
 
+def cost(q, k_pool, block_tables):
+    """(flops, bytes) of one call, from the shapes. The positions are
+    data, so the keys are every slot the tables name, B·T·bs (the most
+    a call can see): 4·hd a (key, query head); q read, the output
+    written, those keys' K and V rows read once, the tables and
+    positions (int32) read once."""
+    B, H, hd = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
+    T = block_tables.shape[1]
+    keys = B * T * bs
+    return (4 * keys * H * hd,
+            q.element_size() * (2 * B * H * hd + 2 * keys * KV * hd)
+            + 4 * (B * T + B))
+
+
 def launch(fn, q, k_pool, v_pool, block_tables, pos, *,
            keys_per_split: int = KEYS_PER_SPLIT):
     """Launch on the current stream. Arguments are checked by the

@@ -44,6 +44,21 @@ BWD_PART = 132       # floats of d dA sums a (tile pair, head)
 BWD_BLOCKS = 512     # blocks the head groups and head splits aim for
 
 
+def cost(dA, xw, Bm):
+    """(flops, bytes) of one call: a chunk's scores C·Bᵀ (2·N a pair of
+    its lower triangle), the decay (one a pair and head), Y (2·P a pair
+    and head), the end-of-chunk decay on xw (one a position, head and
+    P) and S (2·P·N a position and head); every input read once, both
+    outputs written once (fp32)."""
+    G, Q, H = dA.shape
+    P, N = xw.shape[3], Bm.shape[2]
+    tri = Q * (Q + 1) // 2
+    return (G * (2 * tri * N + tri * H + 2 * tri * H * P + Q * H * P
+                 + 2 * Q * H * P * N),
+            4 * (G * Q * H + 2 * G * Q * H * P + 2 * G * Q * N
+                 + G * H * P * N))
+
+
 def launch(fn, dA, xw, Bm, Cm):
     """Launch on the current stream. Arguments are checked by the
     caller: fp32, contiguous, on one CUDA device. Returns (Y [G,Q,H,P],

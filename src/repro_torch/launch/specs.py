@@ -1,20 +1,104 @@
-"""Partition specs of the inputs and the decode state (the spec half of
-``repro.launch.specs``).
+"""Abstract inputs and partition specs of every (architecture x input
+shape), with no device allocation (port of ``repro.launch.specs``).
+
+Where the JAX package returns ``ShapeDtypeStruct``s, the port returns
+``meta`` tensors: they have shapes, dtypes and strides and no storage,
+and the model code runs on them. ``input_specs(cfg, shape_name)`` gives
+the dry run's inputs:
+
+  train:   {tokens, labels [B,S] i32, (+frames/patches)}
+  prefill: {tokens [B,S] i32, (+frames/patches)}
+  decode:  {token [B,1] i32, pos scalar i32, state <decode cache>}
 
 Specs are tuples as in ``repro_torch.models.sharding``. The decode state
 is the port's tree (``transformer.init_decode_state``: one cache per
 layer, in lists, where the JAX package stacks them on a layer axis), so
 a leaf's spec here is the JAX package's without the leading layer
-entries; ``shard_decode_state`` cuts a whole state to a rank's. The
-abstract input shapes (``input_specs``, ``params_spec``,
-``decode_state_spec``) and the optimizer-state specs belong to the dry
-run and are not ported here.
+entries; ``shard_decode_state`` cuts a whole state to a rank's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
-from repro_torch.models.sharding import axis_sizes, map_with_path, shard_tree
+import torch
+
+from repro_torch.configs import INPUT_SHAPES
+from repro_torch.models import transformer as tf
+from repro_torch.models.sharding import (axis_sizes, map_with_path,
+                                         shard_tree, zip_map)
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """An abstract input: a meta tensor of ``shape`` and ``dtype``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def decode_geometry(cfg, shape) -> Tuple[int, Optional[int]]:
+    """(cache_len, window) for a decode shape.
+
+    long_500k uses the sliding-window carve-out for attention layers
+    (the config's ``long_context_window``); SSM state is length-free
+    anyway.
+    """
+    if shape.seq_len > 32_768 and cfg.long_context_window:
+        w = cfg.long_context_window
+        return w, w
+    return shape.seq_len, None
+
+
+def frontend_specs(cfg, batch: int) -> Dict:
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "encdec":
+        return {"frames": sds((batch, cfg.encoder_frames, cfg.d_model), dt)}
+    if cfg.family == "vlm":
+        return {"patches": sds((batch, cfg.num_image_tokens, cfg.d_model),
+                               dt)}
+    return {}
+
+
+def params_spec(cfg):
+    """The whole params on ``meta`` (``transformer.init_params``)."""
+    return tf.init_params(cfg, torch.Generator(), device="meta")
+
+
+def decode_state_spec(cfg, batch: int, cache_len: int):
+    """The whole decode state on ``meta``, built under the active
+    sharding context (its KV heads pad as the mesh says); encdec runs
+    ``encoder_forward`` over meta frames for its cross K/V."""
+    p_spec = params_spec(cfg)
+    fe = frontend_specs(cfg, batch)
+    enc = None
+    if cfg.family == "encdec":
+        enc = tf.encoder_forward(p_spec, cfg, fe["frames"])
+    elif cfg.family == "vlm":
+        enc = fe["patches"]
+    return tf.init_decode_state(p_spec, cfg, batch, cache_len, enc=enc,
+                                device="meta")
+
+
+def input_specs(cfg, shape_name: str) -> Dict:
+    shape = INPUT_SHAPES[shape_name]
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        out = {"tokens": sds((B, S), torch.int32),
+               "labels": sds((B, S), torch.int32)}
+        out.update(frontend_specs(cfg, B))
+        return out
+    if shape.kind == "prefill":
+        out = {"tokens": sds((B, S), torch.int32)}
+        out.update(frontend_specs(cfg, B))
+        return out
+    cache_len, _window = decode_geometry(cfg, shape)
+    return {
+        "token": sds((B, 1), torch.int32),
+        "pos": sds((), torch.int32),
+        "state": decode_state_spec(cfg, B, cache_len),
+    }
+
+
+# ---------------------------------------------------------------------
+# Partition specs
+# ---------------------------------------------------------------------
 
 
 def batch_pspecs(specs: Dict, rules) -> Dict:
@@ -78,3 +162,26 @@ def shard_decode_state(state, mesh, rules):
     that does not split raises (``sharding.local_slice``): the decode
     step takes the split from the rules alone."""
     return shard_tree(state, decode_state_pspecs(state, rules, mesh), mesh)
+
+
+def opt_state_pspecs(param_pspecs_tree, params_spec_tree, cfg, rules,
+                     *, data_axis: str = "data"):
+    """m/v mirror the param specs; with ``cfg.zero1`` each leaf
+    additionally shards its largest not-yet-sharded dim over the data
+    axis (ZeRO-1-style optimizer-state partitioning)."""
+    n_data = rules.get("_data_size", 16)
+
+    def zshard(leaf, spec):
+        if not cfg.zero1 or len(leaf.shape) < 2:
+            return spec
+        parts = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        cands = [(leaf.shape[i], i) for i in range(len(parts))
+                 if parts[i] is None and leaf.shape[i] % n_data == 0
+                 and leaf.shape[i] >= n_data]
+        if cands:
+            _, i = max(cands)
+            parts[i] = data_axis
+        return tuple(parts)
+
+    mv = zip_map(zshard, params_spec_tree, param_pspecs_tree)
+    return {"m": mv, "v": mv, "count": ()}

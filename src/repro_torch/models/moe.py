@@ -93,13 +93,21 @@ def router_probs(p, cfg, x):
     return logits, top_probs, top_ids
 
 
+def _one_hot(ids, n: int):
+    """``F.one_hot(ids, n)`` (int64), as a comparison: ``F.one_hot``
+    checks its ids' range on the host (a device sync on the card) and
+    runs other ops on meta tensors, which would give the dry run's op
+    count another program. ``ids`` come from ``torch.topk``: in range."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
+
+
 def load_balance_loss(logits, top_ids, num_experts: int, batch_axis=None):
     """GShard aux loss: E * mean_e(frac_tokens_e * mean_prob_e). With a
     ``batch_axis`` of the active mesh that splits the rows, the means are
     the whole batch's (sums over its ranks)."""
     probs = torch.softmax(logits, dim=-1).reshape(-1, num_experts)
     ids = top_ids.reshape(-1, top_ids.shape[-1])
-    sel = F.one_hot(ids[:, 0], num_experts).float()
+    sel = _one_hot(ids[:, 0], num_experts).float()
     n = shd.axis_size(batch_axis)
     if n == 1:
         return num_experts * torch.sum(sel.mean(dim=0) * probs.mean(dim=0))
@@ -172,7 +180,7 @@ def _dispatch_local(cfg, xf, top_probs, top_ids, capacity: int):
     C = capacity
     fid = top_ids.reshape(T * k)                       # flat expert ids
     fp = top_probs.reshape(T * k)
-    oh = F.one_hot(fid, E)                             # [T*k, E]
+    oh = _one_hot(fid, E)                              # [T*k, E]
     pos = torch.sum(torch.cumsum(oh, dim=0) * oh, dim=-1) - 1
     keep = pos < C
     slot = torch.where(keep, fid * C + pos, torch.full_like(fid, E * C))

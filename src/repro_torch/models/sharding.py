@@ -255,20 +255,20 @@ def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return t.contiguous()
 
 
-def _zip_map(fn, tree, specs):
+def zip_map(fn, tree, specs):
     """``fn(leaf, spec)`` over ``tree``, whose structure decides what a
     leaf is (a spec is itself a tuple)."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: zip_map(fn, v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+        return type(tree)(zip_map(fn, v, s) for v, s in zip(tree, specs))
     return fn(tree, specs)
 
 
 def shard_tree(tree, specs, mesh):
     """Every leaf of ``tree`` cut to this rank's block by the spec at the
     same place in ``specs``."""
-    return _zip_map(lambda t, s: local_slice(t, s, mesh), tree, specs)
+    return zip_map(lambda t, s: local_slice(t, s, mesh), tree, specs)
 
 
 def gather_tree(tree, specs, mesh=None):
@@ -279,7 +279,7 @@ def gather_tree(tree, specs, mesh=None):
             if axis is not None:
                 t = all_gather(t, axis, dim, mesh)
         return t
-    return _zip_map(full, tree, specs)
+    return zip_map(full, tree, specs)
 
 
 def shard_params(params, mesh, rules: dict):

@@ -79,16 +79,17 @@ _MESH_TODO = {"ssm": "A16", "hybrid": "A16", "encdec": "A17", "vlm": "A17"}
 
 def _check_mesh(cfg, what: str = "") -> None:
     """Refuse what is not ported under an active mesh: the families but
-    dense and moe, and (``what``) other entry points."""
+    dense and moe (first: their item comes before any entry point's),
+    and (``what``) other entry points."""
     if shd.active_mesh() is None:
         return
-    if what:
-        raise NotImplementedError(f"{what} under a device mesh is not "
-                                  f"ported yet (ROADMAP.md A19)")
     if cfg.family in _MESH_TODO:
         raise NotImplementedError(
             f"the {cfg.family} family under a device mesh is not ported "
             f"yet (ROADMAP.md {_MESH_TODO[cfg.family]})")
+    if what:
+        raise NotImplementedError(f"{what} under a device mesh is not "
+                                  f"ported yet (ROADMAP.md A19)")
 
 
 def _param_dtype(cfg) -> torch.dtype:

@@ -22,6 +22,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, sharding_rules  # noqa: E402
+from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.specs import shard_decode_state  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
@@ -117,6 +118,27 @@ def run_model(case, cfg, mesh, rules, inp):
     return out
 
 
+def run_cost(case, cfg, mesh, rules, inp):
+    """The rank's ``OpCost`` report of ``prefill`` of the whole batch or
+    (with a "cache_len") of one ``decode_step`` at the cache's last slot,
+    the state cut by ``shard_decode_state``; on whatever device the
+    inputs are (``meta`` under a fake group)."""
+    local = shd.shard_params(inp["params"], mesh, rules)
+    tokens = inp["tokens"]
+    with shd.sharding_ctx(mesh, rules), torch.no_grad():
+        if "cache_len" not in case:
+            with OpCost() as cost:
+                tf.prefill(local, cfg, tokens)
+        else:
+            L = case["cache_len"]
+            whole = tf.init_decode_state(local, cfg, tokens.shape[0], L,
+                                         device=tokens.device)
+            state = shard_decode_state(whole, mesh, rules)
+            with OpCost() as cost:
+                tf.decode_step(local, cfg, state, tokens, L - 1)
+    return cost.to_dict()
+
+
 def _leaves(tree, specs, path=""):
     """(path, leaf, its spec) in order; ``tree`` decides what a leaf is."""
     if isinstance(tree, dict):
@@ -129,7 +151,8 @@ def _leaves(tree, specs, path=""):
         yield path, tree, specs
 
 
-RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model}
+RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model,
+        "cost": run_cost}
 
 
 def run_case(case, mesh, inp):

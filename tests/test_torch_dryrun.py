@@ -1,0 +1,491 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its op counter
+(``repro_torch.launch.op_cost.OpCost``) against the JAX package.
+
+* Specs: ``input_specs``, ``params_spec`` and ``decode_state_spec`` (the
+  port's per-layer lists stacked on their layer axes) equal the JAX
+  package's ``eval_shape`` trees for every assigned arch x input shape,
+  shape and dtype exactly; ``opt_state_pspecs`` and
+  ``decode_state_pspecs`` equal JAX's under a stand-in production mesh.
+* FLOPs: the counted matmul FLOPs of ``prefill`` and ``decode_step``
+  (reduced dense and Mixtral, no mesh) equal the closed form, and for
+  the dense decode step JAX's optimized HLO's dot FLOPs.
+* Meta equals CPU: one call's whole report on ``meta`` equals the report
+  on the CPU (the kernels' plain versions), for every family.
+* Collectives: rank 0's under a 4-rank gloo group (real data) equal the
+  fake group's on meta, for an expert-parallel MoE prefill and a dense
+  decode step.
+* The CLI: one case ok, the families and entry points not ported under a
+  mesh named by their ROADMAP.md item.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES, get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.launch import mesh as jmesh
+from repro.launch import specs as jspecs
+from repro.launch.hlo_cost import HloCost, _dot_flops
+from repro.models import sharding as jshd
+from repro.models import transformer as jtf
+import repro_torch.configs as pcfg
+from repro_torch.configs.all_configs import ASSIGNED
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as pmesh
+from repro_torch.launch import specs as pspecs
+from repro_torch.launch.op_cost import OpCost
+from repro_torch.models import sharding as pshd
+from repro_torch.models import transformer as ptf
+
+import _torch_dist_ranks as ranks
+
+ROOT = Path(__file__).resolve().parents[1]
+RANK_TIMEOUT_S = 240
+GLOO_MESH = (2, 2)
+# the rules of tests/test_distributed.py at data 2 (sharding_rules leaves
+# a depth-cut config's weights whole)
+RULES = {"batch": ["data"], "model": "model", "heads": "model",
+         "vocab": "model", "experts": "model", "capacity": "data",
+         "shard_kv": True, "experts_mode": "ep", "_data_size": 2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class StandInMesh:
+    """What both packages' rules read of a mesh (JAX's ``shape`` mapping,
+    the port's ``mesh_dim_names`` and ``size(i)``)."""
+
+    def __init__(self, shape, names):
+        self.axis_names = self.mesh_dim_names = tuple(names)
+        self.shape = dict(zip(names, shape))
+
+    def size(self, i):
+        return self.shape[self.mesh_dim_names[i]]
+
+
+def _spec(p):
+    """A spec as a tuple, a one-name tuple entry written as the name."""
+    return tuple(a[0] if isinstance(a, (tuple, list)) and len(a) == 1
+                 else a for a in p)
+
+
+def _jax_leaves(tree):
+    """{path: leaf} of a JAX tree (PartitionSpecs are leaves)."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))[0]
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", "")))
+                     for k in path): v for path, v in flat}
+
+
+class _Tagged:
+    """A port leaf with its spec (a spec is itself a tuple)."""
+
+    def __init__(self, t, spec=None):
+        self.t, self.spec = t, spec
+
+
+def _port_leaves(tree, path="", lead=()):
+    """(JAX path, list lengths stacked, leaf) of a port tree: its lists
+    are the JAX package's stacked layer axes, its dicts and tuples the
+    same nodes."""
+    if isinstance(tree, list):
+        for t in tree:
+            yield from _port_leaves(t, path, lead + (len(tree),))
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _port_leaves(v, f"{path}/{k}" if path else k, lead)
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _port_leaves(v, f"{path}/{i}" if path else str(i),
+                                    lead)
+    else:
+        yield path, lead, tree
+
+
+def _stacked(tree):
+    """{JAX path: (shape, dtype)} of a port tree, its lists stacked on
+    their layer axes (every entry of a list has one shape)."""
+    out = {}
+    for path, lead, t in _port_leaves(tree):
+        t = t.t if isinstance(t, _Tagged) else t
+        got = (lead + tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        assert out.setdefault(path, got) == got, path
+    return out
+
+
+def _jax_shapes(tree):
+    return {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _jax_leaves(tree).items()}
+
+
+# --------------------------------------------------------------- specs
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_params_spec_matches_jax(arch):
+    """Leaf paths, shapes and dtypes of the whole params, on meta."""
+    got = pspecs.params_spec(pcfg.get_config(arch))
+    assert {t.device.type for _, _, t in _port_leaves(got)} == {"meta"}
+    assert _stacked(got) == _jax_shapes(jspecs.params_spec(
+        jget_config(arch)))
+
+
+@pytest.mark.parametrize("shape", list(INPUT_SHAPES))
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_input_specs_match_jax(arch, shape):
+    """Every input of the case, the decode state stacked on its layer
+    axes, shape and dtype exactly (no mesh: unpadded heads)."""
+    want = _jax_shapes(jspecs.input_specs(jget_config(arch), shape))
+    got = pspecs.input_specs(pcfg.get_config(arch), shape)
+    assert {t.device.type for _, _, t in _port_leaves(got)} == {"meta"}
+    assert _stacked(got) == want
+    assert pspecs.decode_geometry(pcfg.get_config(arch),
+                                  INPUT_SHAPES[shape]) == \
+        jspecs.decode_geometry(jget_config(arch), INPUT_SHAPES[shape])
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b",
+                                  "qwen1.5-32b"])
+def test_opt_state_pspecs_match_jax(arch, multi_pod):
+    """m / v / count specs over the sanitized param specs: ZeRO-1's data
+    split of the largest free dim for DeepSeek-V2 and Jamba, the param
+    specs as they are for Qwen1.5-32B."""
+    shape, names = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
+        else ((16, 16), ("data", "model"))
+    mesh = StandInMesh(shape, names)
+    jcfg, cfg = jget_config(arch), pcfg.get_config(arch)
+    rules = jmesh.sharding_rules(jcfg, mesh, global_batch=256)
+    assert pmesh.sharding_rules(cfg, mesh, global_batch=256) == rules
+    jp = jspecs.params_spec(jcfg)
+    want = _jax_leaves(jspecs.opt_state_pspecs(
+        jshd.param_pspecs(jp, rules, mesh=mesh), jp, jcfg, rules))
+    pp = pspecs.params_spec(cfg)
+    specs = pspecs.opt_state_pspecs(pshd.param_pspecs(pp, rules, mesh=mesh),
+                                    pp, cfg, rules)
+    tree = {"m": pshd.zip_map(_Tagged, pp, specs["m"]),
+            "v": pshd.zip_map(_Tagged, pp, specs["v"]),
+            "count": _Tagged(None, specs["count"])}
+    got = {path: _spec(t.spec) for path, _, t in _port_leaves(tree)}
+    assert got == {k: _spec(v) for k, v in want.items()}
+    if cfg.zero1:
+        assert sum("data" in s for s in got.values()) > 10
+
+
+DECODE_ARCHS = [a for a in ASSIGNED if a != "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_decode_state_pspecs_match_jax(arch):
+    """The decode state's specs at decode_32k on the (16, 16) mesh, each
+    state built under its package's sharding context (KV heads pad):
+    every per-layer leaf of the port has the JAX stacked leaf's spec
+    without its layer entries, and the stacked shapes are equal.
+    (Whisper's state needs ``encoder_forward``, which refuses a mesh
+    until ROADMAP.md A17.)"""
+    mesh = StandInMesh((16, 16), ("data", "model"))
+    shape = INPUT_SHAPES["decode_32k"]
+    jcfg, cfg = jget_config(arch), pcfg.get_config(arch)
+    rules = jmesh.sharding_rules(jcfg, mesh, global_batch=shape.global_batch)
+    cache_len, _ = jspecs.decode_geometry(jcfg, shape)
+    with jshd.sharding_ctx(mesh, rules):
+        jstate = jspecs.decode_state_spec(jcfg, shape.global_batch,
+                                          cache_len)
+    want = _jax_leaves(jspecs.decode_state_pspecs(jstate, rules, mesh))
+    with pshd.sharding_ctx(mesh, rules):
+        state = pspecs.decode_state_spec(cfg, shape.global_batch, cache_len)
+    tagged = pshd.zip_map(_Tagged, state,
+                          pspecs.decode_state_pspecs(state, rules, mesh))
+    assert _stacked(tagged) == _jax_shapes(jstate)
+    n = 0
+    for path, lead, t in _port_leaves(tagged):
+        assert _spec(t.spec) == _spec(want[path])[len(lead):], path
+        n += 1
+    assert n >= cfg.num_layers
+
+
+# ---------------------------------------------------------------- flops
+def _cfgs(arch, **kw):
+    kw = dict(dict(layers=2, d_model=64, experts=4, vocab=128), **kw)
+    j = dataclasses.replace(jreduced(jget_config(arch), **kw),
+                            dtype="float32")
+    p = dataclasses.replace(pcfg.reduced(pcfg.get_config(arch), **kw),
+                            dtype="float32")
+    assert dataclasses.asdict(j) == dataclasses.asdict(p)
+    return j, p
+
+
+def _closed_form(cfg, B, S, L=None):
+    """Matmul FLOPs of prefill (S positions, last-position logits) or of
+    one decode step (``L`` cache slots, S = 1), kernel calls included:
+    the q/k/v/o projections, the attention's two products (causal pairs
+    in prefill, every cache slot in decode), the FFN (SwiGLU; MoE:
+    router, then every expert on every token under ``moe_dense`` (T <=
+    256) or the [E, C] slot buffers under ``moe_capacity``, with its
+    gate-weighted combine for the dense path), and the logits."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T = B * S
+    proj = 2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d
+    if L is None:
+        attn = 2 * B * H * (S * (S + 1) // 2) * 2 * hd
+    else:
+        attn = 2 * 2 * B * H * L * hd
+    if cfg.is_moe:
+        E, ff = cfg.num_experts, cfg.expert_d_ff
+        if T <= 256:
+            ffn = 2 * T * d * E + 6 * T * d * E * ff + 2 * T * E * d
+        else:
+            C = -(-max(int(np.ceil(T * cfg.num_experts_per_tok
+                                   * cfg.capacity_factor / E)), 8) // 8) * 8
+            ffn = 2 * T * d * E + 6 * E * C * d * ff
+    else:
+        ffn = 6 * T * d * cfg.d_ff
+    return cfg.num_layers * (proj + attn + ffn) + 2 * B * d * cfg.vocab_size
+
+
+def _counted(cfg, params, fn, **kw):
+    with torch.no_grad(), OpCost() as c:
+        fn(params, cfg, **kw)
+    return c.to_dict()
+
+
+@pytest.mark.parametrize("arch,S", [("qwen1.5-0.5b", 64),
+                                    ("mixtral-8x7b", 64),
+                                    ("mixtral-8x7b", 256)])
+def test_matmul_flops_equal_closed_form(arch, S):
+    """No mesh, meta tensors: prefill of 2 x S (Mixtral at 64 positions
+    takes ``moe_dense``, at 256 ``moe_capacity``) and one decode step
+    over 2 rows and S cache slots; the attention of prefill is the
+    flash-attention kernel's call."""
+    _, cfg = _cfgs(arch)
+    p = ptf.init_params(cfg, torch.Generator(), device="meta")
+    tok = torch.zeros((2, S), dtype=torch.long, device="meta")
+    rep = _counted(cfg, p, ptf.prefill, tokens=tok)
+    flash = rep["kernel_calls"]["flash_attention"]
+    assert flash["calls"] == cfg.num_layers
+    assert flash["flops"] == cfg.num_layers * 2 * 2 * cfg.num_heads * (
+        S * (S + 1) // 2) * 2 * cfg.head_dim
+    assert rep["matmul_flops"] + flash["flops"] == _closed_form(cfg, 2, S)
+    state = ptf.init_decode_state(p, cfg, 2, S, device="meta")
+    rep = _counted(cfg, p, ptf.decode_step, state=state, token=tok[:, :1],
+                   pos=S - 1)
+    assert rep["kernel_calls"] == {}
+    assert rep["matmul_flops"] == _closed_form(cfg, 2, 1, L=S)
+
+
+class DotFlops(HloCost):
+    """The JAX package's HLO walk (trip counts and fusions as it does
+    them), counting the FLOPs of ``dot`` instructions only."""
+
+    def _leaf(self, inst, shapes, mult, rep, *, bytes_too=True):
+        if inst.opcode == "dot":
+            rep.flops += mult * _dot_flops(inst, shapes)
+
+
+def test_decode_matmul_flops_equal_xla_dots():
+    """The reduced dense decode step's counted matmul FLOPs equal the dot
+    FLOPs of JAX's optimized HLO of the same jitted step (MoE is left
+    out: JAX's dispatch einsums are dots the port does not run)."""
+    jcfg, cfg = _cfgs("qwen1.5-0.5b")
+    B, L = 2, 64
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    js = jtf.init_decode_state(jp, jcfg, B, L)
+    step = jax.jit(lambda p, s, t, pos: jtf.decode_step(p, jcfg, s, t, pos))
+    text = step.lower(jp, js, np.zeros((B, 1), np.int32),
+                      np.int32(L - 1)).compile().as_text()
+    want = DotFlops(text).analyze().flops
+    p = ptf.init_params(cfg, torch.Generator(), device="meta")
+    rep = _counted(cfg, p, ptf.decode_step,
+                   state=ptf.init_decode_state(p, cfg, B, L, device="meta"),
+                   token=torch.zeros((B, 1), dtype=torch.long,
+                                     device="meta"), pos=L - 1)
+    assert want > 0 and rep["matmul_flops"] == want
+
+
+# ------------------------------------------------------- meta == cpu
+FAMILIES = ["qwen2.5-3b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-2.7b",
+            "jamba-1.5-large-398b", "whisper-tiny", "llama-3.2-vision-11b"]
+
+
+def _report(cfg, device, kind):
+    """One prefill (2 x 64; encdec's encoder first) or one decode step
+    (2 rows, 64 slots) of ``cfg`` on ``device``, counted."""
+    p = ptf.init_params(cfg, torch.Generator(device=device).manual_seed(0)
+                        if device != "meta" else torch.Generator(),
+                        device=device)
+    tok = torch.ones((2, 64), dtype=torch.long, device=device)
+    enc = None
+    if cfg.family in ("encdec", "vlm"):
+        n = cfg.encoder_frames if cfg.family == "encdec" \
+            else cfg.num_image_tokens
+        enc = torch.ones((2, n, cfg.d_model), device=device)
+    if kind == "decode":
+        if cfg.family == "encdec":
+            enc = ptf.encoder_forward(p, cfg, enc)
+        state = ptf.init_decode_state(p, cfg, 2, 64, enc=enc, device=device)
+    with torch.no_grad(), OpCost() as c:
+        if kind == "prefill":
+            if cfg.family == "encdec":
+                enc = ptf.encoder_forward(p, cfg, enc)
+            ptf.prefill(p, cfg, tok, enc=enc)
+        else:
+            ptf.decode_step(p, cfg, state, tok[:, :1], 63)
+    return c.to_dict()
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_meta_report_equals_cpu(arch, kind):
+    """Field for field (devices aside): FLOPs, bytes, collectives, the
+    kernel calls and the live bytes' peak; the kernels' plain versions
+    on the CPU are one opaque call each, as the meta outputs are."""
+    _, cfg = _cfgs(arch)
+    meta, cpu = _report(cfg, "meta", kind), _report(cfg, "cpu", kind)
+    assert meta.pop("devices") == ["meta"] and cpu.pop("devices") == ["cpu"]
+    assert meta == cpu
+    assert meta["flops"] > meta["matmul_flops"] > 0
+    assert meta["bytes_accessed"] > 0 and meta["temp_bytes"] > 0
+    kernels = set(meta["kernel_calls"])
+    if kind == "prefill":
+        assert kernels == ({"ssd_chunk"} if cfg.family == "ssm" else
+                           {"flash_attention", "ssd_chunk"}
+                           if cfg.family == "hybrid" else
+                           {"flash_attention"})
+
+
+# ------------------------------------------------- collectives: gloo
+def _gloo_case():
+    """A reduced MoE prefill that takes expert parallelism (2 x 2048
+    tokens, 4 experts over the model axis of 2) and a reduced dense
+    decode step (2 rows, 32 slots), as parts of one spawn."""
+    moe = {"kind": "cost", "arch": "mixtral-8x7b",
+           "reduce": dict(layers=2, d_model=64, experts=4, vocab=128),
+           "replace": {"dtype": "float32"}, "rules": RULES}
+    dense = {"kind": "cost", "arch": "qwen1.5-0.5b",
+             "reduce": dict(layers=2, d_model=64, vocab=128),
+             "replace": {"dtype": "float32"}, "rules": RULES,
+             "cache_len": 32}
+    return {"kind": "parts", "parts": {"moe_prefill": moe,
+                                       "dense_decode": dense}}
+
+
+def _gloo_inputs(case, device):
+    out = {}
+    for name, part in case["parts"].items():
+        cfg = ranks.case_config(part)
+        gen = torch.Generator().manual_seed(0)
+        p = ptf.init_params(cfg, gen, device="cpu")
+        if device == "meta":
+            p = ptf._tree_map(lambda t: t.to("meta"), p)
+        S = 2048 if "cache_len" not in part else 1
+        tok = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+        out[name] = {"params": p, "tokens": tok.to(device)}
+    return out
+
+
+def test_collectives_equal_under_gloo_and_fake(tmp_path):
+    """Rank 0 of 4 gloo CPU processes on a (2, 2) mesh, real data, and
+    rank 0 of a fake group of 4 on meta tensors: the same collective
+    calls and bytes by kind, and the same whole report (devices aside),
+    for an EP MoE prefill (all-to-all) and a dense decode step."""
+    case = _gloo_case()
+    torch.save(_gloo_inputs(case, "cpu"), tmp_path / "inputs.pt")
+    spawned = dict(case, mesh=list(GLOO_MESH),
+                   store=f"file://{tmp_path}/store",
+                   inputs=str(tmp_path / "inputs.pt"))
+    (tmp_path / "case.json").write_text(json.dumps(spawned))
+    world = GLOO_MESH[0] * GLOO_MESH[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
+         str(tmp_path / "case.json"), str(r), str(world)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    bad = [(r, p.returncode, log[-3000:])
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    assert not bad, bad
+    gloo = torch.load(tmp_path / "out-0.pt", weights_only=True)
+
+    dryrun.open_fake_group(world)
+    try:
+        mesh = pmesh.make_mesh(GLOO_MESH, ("data", "model"), "cpu")
+        fake = ranks.run_case(case, mesh, _gloo_inputs(case, "meta"))
+    finally:
+        torch.distributed.destroy_process_group()
+    for part in case["parts"]:
+        g, f = gloo[part], fake[part]
+        assert g.pop("devices") == ["cpu"] and f.pop("devices") == ["meta"]
+        assert g["collective_calls"] == f["collective_calls"], part
+        assert g["collectives"] == f["collectives"], part
+        assert g == f, part
+    assert "all-to-all" in fake["moe_prefill"]["collective_calls"]
+    assert "all-gather" in fake["dense_decode"]["collective_calls"]
+
+
+# ------------------------------------------------------------------ CLI
+def _cli(*argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           *argv], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_dryrun_cli_single_case(tmp_path):
+    r = _cli("--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--out",
+             str(tmp_path / "dry.json"))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "1 ok, 0 failed" in r.stdout
+    assert "[qwen1.5-0.5b × decode_32k × mesh 16x16]" in r.stdout
+    out = json.loads((tmp_path / "dry.json").read_text())
+    assert out["failures"] == []
+    (res,) = out["results"]
+    assert set(res) == {
+        "arch", "shape", "mesh", "chips", "flops", "matmul_flops",
+        "transcendental", "bytes_accessed", "collective_bytes",
+        "collective_calls", "collective_total", "kernel_calls", "by_op",
+        "params_total", "params_active", "run_s", "memory"}
+    assert set(res["memory"]) == {"argument_bytes", "output_bytes",
+                                  "temp_bytes"}
+    assert res["mesh"] == "16x16" and res["chips"] == 256
+    assert res["flops"] > res["matmul_flops"] > 0
+    assert set(res["collective_bytes"]) == {"all-gather", "all-reduce"}
+    assert res["params_total"] == pcfg.get_config(
+        "qwen1.5-0.5b").param_counts()[0]
+    ops = res["by_op"].values()
+    assert sum(o["flops"] for o in ops) == res["flops"]
+    assert res["by_op"]["mm"]["flops"] + res["by_op"]["bmm"]["flops"] == \
+        res["matmul_flops"]
+
+
+@pytest.mark.parametrize("arch,shape,item", [
+    ("mamba2-2.7b", "decode_32k", "A16"),
+    ("qwen1.5-0.5b", "train_4k", "A19")])
+def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
+                                          capsys):
+    """A case that raises is reported with the ROADMAP.md item that
+    ports it, and the run exits 1."""
+    out = tmp_path / "dry.json"
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                        str(out)]) == 1
+    assert "0 ok, 1 failed" in capsys.readouterr().out
+    (fail,) = json.loads(out.read_text())["failures"]
+    assert fail["arch"] == arch and f"ROADMAP.md {item}" in fail["error"]

@@ -61,10 +61,14 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.training, repro_torch.data, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.models.sharding, repro_torch.launch.mesh, "
-            "repro_torch.launch.specs, "
+            "repro_torch.launch.specs, repro_torch.launch.op_cost, "
+            "repro_torch.launch.dryrun, repro_torch.configs.all_configs, "
             "repro_torch.examples.offload_paper_pipeline; "
             "bad = [m for m in sys.modules if m == 'repro' or "
-            "m.startswith(('jax', 'repro.'))]; print(bad); "
+            "m.startswith(('jax', 'repro.'))]; "
+            # the dry run's fake process group is imported where it opens
+            "bad += [m for m in sys.modules if m.startswith("
+            "'torch.testing._internal.distributed')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -131,6 +135,10 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 # ------------------------------------------------------------- configs
 def test_configs_mirror_reference_field_for_field():
     from repro.configs import get_config, list_archs
+    from repro.configs.all_configs import ASSIGNED
+    from repro_torch.configs.all_configs import ASSIGNED as PORT_ASSIGNED
+    assert PORT_ASSIGNED == ASSIGNED and len(ASSIGNED) == 10
+    assert set(ASSIGNED) <= set(pcfg.list_archs())
     want = dataclasses.asdict(get_config("mixtral-8x7b"))
     assert dataclasses.asdict(pcfg.get_config("mixtral-8x7b")) == want
     assert dataclasses.asdict(ptiny()) == dataclasses.asdict(

@@ -436,17 +436,47 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                                    "ssd_chunk_bwd": 0}
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device no wrapper takes ("mps") and holds
+    nothing: any op on it fails the test."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device="mps")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on an unsupported device")
+
+
 def test_unsupported_device_raises():
-    m = torch.zeros(1, 2, 8, device="meta")
-    with pytest.raises(ValueError):
-        ops.moe_ffn(m, torch.zeros(1, 8, 4, device="meta"),
+    """A device but cpu, cuda and meta raises before any op runs. (Meta
+    tensors take the meta route since the dry run: an empty meta output
+    of the kernel's shape and dtype, no launch.)"""
+    E = _Elsewhere
+    with pytest.raises(ValueError, match="unsupported device mps"):
+        ops.moe_ffn(E(1, 2, 8), E(1, 8, 4), E(1, 8, 4), E(1, 4, 8), [0])
+    with pytest.raises(ValueError, match="unsupported device mps"):
+        ops.flash_attention(E(1, 3, 2, 8), E(1, 3, 2, 8), E(1, 3, 2, 8))
+    with pytest.raises(ValueError, match="unsupported device mps"):
+        ops.ssd_chunk(E(1, 4, 2), E(1, 4, 2, 3), E(1, 4, 5), E(1, 4, 5))
+    with pytest.raises(ValueError, match="unsupported device mps"):
+        ops.paged_attention(E(1, 2, 8), E(3, 4, 1, 8), E(3, 4, 1, 8),
+                            E(1, 2), E(1))
+    ops.reset_launch_counts()
+    m = torch.zeros(1, 3, 2, 8, device="meta")
+    out = ops.flash_attention(m, m, m[..., :4])
+    assert (out.device.type, tuple(out.shape), out.dtype) == (
+        "meta", (1, 3, 2, 4), torch.float32)
+    y, s = ops.ssd_chunk(torch.zeros(1, 4, 2, device="meta"),
+                         torch.zeros(1, 4, 2, 3, device="meta"),
+                         torch.zeros(1, 4, 5, device="meta"),
+                         torch.zeros(1, 4, 5, device="meta"))
+    assert (tuple(y.shape), tuple(s.shape)) == ((1, 4, 2, 3), (1, 2, 3, 5))
+    y = ops.moe_ffn(torch.zeros(1, 2, 8, device="meta"),
+                    torch.zeros(1, 8, 4, device="meta"),
                     torch.zeros(1, 8, 4, device="meta"),
                     torch.zeros(1, 4, 8, device="meta"), [0])
-    m4 = torch.zeros(1, 3, 2, 8, device="meta")
-    with pytest.raises(ValueError):
-        ops.flash_attention(m4, m4, m4)
-    with pytest.raises(ValueError):
-        ops.ssd_chunk(torch.zeros(1, 4, 2, device="meta"),
-                      torch.zeros(1, 4, 2, 3, device="meta"),
-                      torch.zeros(1, 4, 5, device="meta"),
-                      torch.zeros(1, 4, 5, device="meta"))
+    assert (y.device.type, tuple(y.shape)) == ("meta", (1, 2, 8))
+    assert sum(ops.launch_counts().values()) == 0
