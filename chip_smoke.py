@@ -111,9 +111,22 @@ It drives the port's two entry points end to end and checks them:
    greedy ``decode_step``s of 2 rows with the latent and rope-key caches
    cut by ``shard_decode_state`` (sequence-sharded, the softmax combined
    across the model ranks) against the unsharded caches: tokens equal,
-   logits within 1e-5 x max. One ``distributed`` JSON line (world size,
-   NCCL version, the three results, their times and the phase's
-   seconds); then the group is destroyed;
+   logits within 1e-5 x max; on Jamba's weights at the end of its 6c
+   phase, (d) its ``prefill`` of 2 x 2048 tokens under the mesh (the
+   attention on the rank's heads, the SSM split by head, the MoE
+   expert-parallel), bitwise the unsharded one, flash attention and SSD
+   chunk launched once each and their calls held and timed; on Mamba2's
+   weights at the end of phase 7, (e) its ``prefill`` of 2 x 2048 under
+   the mesh (the SSD mixer split by head: its xBC columns handed to the
+   heads by one ``all_to_all_single`` a layer, ``ssd_chunk`` on the
+   rank's heads, the norm's mean of squares and ``out_proj``
+   all-reduced), bitwise, SSD chunk once a layer, its call held and
+   timed, then 8 greedy ``decode_step``s of 2 rows with the state cut by
+   ``shard_decode_state`` against the unsharded state: tokens equal,
+   logits within 1e-6 x max. One ``distributed`` JSON line (world size,
+   NCCL version, the five results, their times and the phase's
+   seconds); then the group is destroyed. The group stays open from 6a
+   to the end of phase 7;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
    width 3072) at its full published widths (d_model 5120, 128 heads of
    hd 128, kv_lora_rank 512, rope key 64, expert d_ff 1536, vocab
@@ -341,7 +354,10 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # cross-attention (1 query over 1500 frames, MHA at hd 64), Llama-3.2-
 # Vision's cross-attention (Sq != Sk, 1601 keys: no whole last tile),
 # Jamba's self-attention (8 query heads a KV head, 64 heads) and its SSD
-# chunk (Q 128, 256 heads)
+# chunk (Q 128, 256 heads); then one rank's SSD call of prefill_32k on
+# the (16, 16) mesh, where each rank runs 2 rows and H / 16 heads: Mamba2's
+# (G 2 x 128 chunks, Q 256, H 80 / 16 = 5) and Jamba's (G 2 x 256, Q 128,
+# H 256 / 16 = 16). World size 1 never launches these.
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -365,7 +381,8 @@ SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (2, 256, 80, 64, 128, 0.1), (2, 1024, 8, 64, 128, 0.1),
               (2, 100, 3, 37, 20, 0.1), (1, 70, 2, 21, 37, 0.1),
               (2, 256, 1, 64, 128, 0.1), (2, 256, 8, 64, 128, 1.0),
-              (32, 128, 256, 64, 128, 0.1)]
+              (32, 128, 256, 64, 128, 0.1), (256, 256, 5, 64, 128, 0.1),
+              (512, 128, 16, 64, 128, 0.1)]
 SSD_ORACLE_SHAPE = (1, 4096, 2, 64, 128, 0.1)
 # Jamba-1.5-Large's published SSD call (G, Q, H, P, N): 2 x 2048 tokens in
 # chunks of 128, 256 heads of 64, state 128; the SSD backward is timed
@@ -458,6 +475,12 @@ DRY_CASES = (("qwen1.5-0.5b", "decode_32k"),
 # steps in a cache of MLA_CACHE slots, its logits within MLA_TOL x max
 EP_B, EP_S = 2, 2048
 MLA_B, MLA_STEPS, MLA_CACHE, MLA_TOL = 2, 8, 16, 1e-5
+# the head-split SSM decode of Mamba2-2.7B (MAMBA_LAYERS): SSM_B rows over
+# SSM_STEPS greedy steps, its logits within SSM_TOL x max of the unsharded
+# decode where they are not bitwise equal
+SSM_B, SSM_STEPS, SSM_TOL = 2, 8, 1e-6
+# a prefill under the mesh against the plain one, timed again in turns
+TURNS = ("plain", "mesh", "mesh", "plain")
 # the phases of the other families, at published widths, cut in depth:
 # Jamba-1.5-Large 2 of 72 layers in periods of 2 (one attention layer with
 # a dense SwiGLU, one SSM layer with the 16-expert MoE), Whisper-tiny whole
@@ -2470,38 +2493,78 @@ def ep_check(params, cfg, mesh):
             "exchange_bytes": [n for _, n in exchanges]}
 
 
+def mesh_prefill(params, cfg, arch, mesh, ops, seen, want, what):
+    """``prefill`` of PREFILL_B x PREFILL_S seeded tokens without a mesh
+    (timed), then under the mesh with ``arch``'s published rules and the
+    params cut by ``shard_params``: counted (``want``: kernel ->
+    launches, and nothing else; the heaviest calls into ``seen``) and
+    timed, its logits bitwise the unsharded ones (one rank: the same
+    products; the collectives leave a single rank's values as they
+    are); then both again in TURNS, warm. Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import prefill
+    rules = mesh_rules(arch, mesh)
+    local = shd.shard_params(params, mesh, rules)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with shd.sharding_ctx(mesh, rules):
+        logits, launches, ms, _ = prefill_run(local, cfg, toks, ops, seen)
+    check_launches(launches, want, what)
+    err = float((logits - plain).abs().max())
+    check(torch.equal(logits, plain),
+          f"{what} != prefill at one rank: max |diff| {err}")
+    turns = {"plain": [], "mesh": []}
+    for turn in TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "mesh":
+            with shd.sharding_ctx(mesh, rules):
+                prefill(local, cfg, toks)
+        else:
+            prefill(params, cfg, toks)
+        torch.cuda.synchronize()
+        turns[turn].append((time.perf_counter() - t0) * 1e3)
+    return {"tokens": [PREFILL_B, PREFILL_S], "layers": cfg.num_layers,
+            "launches": launches, "bitwise": True, "max_abs_diff": err,
+            "mesh_ms": ms, "plain_ms": plain_ms, "turns_ms": turns}
+
+
 def tp_prefill_check(params, cfg, mesh, ops, seen):
     """(b) Mixtral-8x7B (``cfg``'s layers) under the mesh: ``prefill`` of
     PREFILL_B x PREFILL_S seeded tokens through the tensor-parallel path
     (the rank's heads, one all-reduce after ``wo`` and after each FFN,
     the embedding and the logits gathered; the MoE takes EP), counted
     (flash attention once a layer, nothing else) and timed, against
-    ``prefill`` without a mesh: bitwise at one rank (the same products;
-    the collectives leave a single rank's values as they are)."""
-    import numpy as np
+    ``prefill`` without a mesh, bitwise (``mesh_prefill``)."""
+    return mesh_prefill(params, cfg, "mixtral-8x7b", mesh, ops, seen,
+                        {"flash_attention": cfg.num_layers},
+                        "tensor-parallel prefill")
+
+
+def greedy_decode(params, cfg, state, first, steps):
+    """``steps`` greedy ``decode_step``s from the tokens ``first`` [B, 1]
+    under whatever mesh is active: (tokens [B, steps], logits [steps, B,
+    V], the last state, host ms a step)."""
     import torch
-    from repro_torch.models import sharding as shd
-    from repro_torch.models.transformer import prefill
-    rules = mesh_rules("mixtral-8x7b", mesh)
-    local = shd.shard_params(params, mesh, rules)
-    toks = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    from repro_torch.models.transformer import decode_step
+    tok, toks, logits = first, [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = prefill(params, cfg, toks)
+    for pos in range(steps):
+        lg, state = decode_step(params, cfg, state, tok, pos)
+        tok = lg.argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+        logits.append(lg)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    with shd.sharding_ctx(mesh, rules):
-        logits, launches, ms, _ = prefill_run(local, cfg, toks, ops, seen)
-    check_launches(launches, {"flash_attention": cfg.num_layers},
-                   "tensor-parallel prefill")
-    err = float((logits - want).abs().max())
-    check(torch.equal(logits, want),
-          f"tensor-parallel prefill != prefill at one rank: max |diff| "
-          f"{err}")
-    return {"tokens": [PREFILL_B, PREFILL_S], "layers": cfg.num_layers,
-            "launches": launches, "bitwise": True, "max_abs_diff": err,
-            "mesh_ms": ms, "plain_ms": plain_ms}
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.cat(toks, 1), torch.stack(logits), state, ms
 
 
 def mla_decode_check(params, cfg, mesh):
@@ -2525,27 +2588,15 @@ def mla_decode_check(params, cfg, mesh):
     first = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
         0, cfg.vocab_size, (MLA_B, 1))).cuda()
 
-    def run(p, state):
-        tok, toks, logits = first, [], []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for pos in range(MLA_STEPS):
-            lg, state = decode_step(p, cfg, state, tok, pos)
-            tok = lg.argmax(dim=-1, keepdim=True)
-            toks.append(tok)
-            logits.append(lg)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / MLA_STEPS
-        return torch.cat(toks, 1), torch.stack(logits), state, ms
-
-    want_toks, want, _, plain_ms = run(
-        params, init_decode_state(params, cfg, MLA_B, MLA_CACHE,
-                                  device="cuda"))
+    want_toks, want, _, plain_ms = greedy_decode(
+        params, cfg, init_decode_state(params, cfg, MLA_B, MLA_CACHE,
+                                       device="cuda"), first, MLA_STEPS)
     with shd.sharding_ctx(mesh, rules):
         state = shard_decode_state(
             init_decode_state(local, cfg, MLA_B, MLA_CACHE, device="cuda"),
             mesh, rules)
-        toks, logits, state, ms = run(local, state)
+        toks, logits, state, ms = greedy_decode(local, cfg, state, first,
+                                                MLA_STEPS)
     # what a mesh step adds at one rank: its collectives, each timed
     # alone on a decode row's residual [MLA_B, d] (host wall, synced)
     calls = []
@@ -2584,7 +2635,89 @@ def mla_decode_check(params, cfg, mesh):
             "psum_ms": psum_ms}
 
 
-def family_phase(arch, ops, card, hold_and_time, profile):
+def hybrid_mesh_check(params, cfg, mesh, ops, seen):
+    """(d) Jamba-1.5-Large (``cfg``'s layers) under the mesh: ``prefill``
+    of PREFILL_B x PREFILL_S seeded tokens, the attention layers on the
+    rank's heads (PR 27's path), the SSM layers split by head (``ssm``:
+    the conv's columns handed to the heads by one ``all_to_all_single``,
+    the norm's mean of squares and ``out_proj`` all-reduced) and the MoE
+    expert-parallel (``moe_ep_shardmap``, counted: once a MoE layer at
+    these 4096 tokens); flash attention and SSD chunk launched once a
+    layer of their kind; bitwise ``prefill`` without a mesh
+    (``mesh_prefill``)."""
+    from repro_torch.models import moe as moe_lib
+    ep_calls = []
+
+    def counted(ep):
+        return lambda *a, **kw: ep_calls.append(1) or ep(*a, **kw)
+
+    with patched(moe_lib, "moe_ep_shardmap", counted):
+        rep = mesh_prefill(params, cfg, "jamba-1.5-large-398b", mesh, ops,
+                           seen, prefill_launches(cfg),
+                           f"{cfg.name} prefill under the mesh")
+    # once a MoE layer in each mesh prefill: the counted one and TURNS'
+    runs = 1 + TURNS.count("mesh")
+    moe_layers = sum(cfg.has_moe(i) for i in range(cfg.num_layers))
+    check(len(ep_calls) == moe_layers * runs,
+          f"{cfg.name} under the mesh: moe_ep_shardmap called "
+          f"{len(ep_calls)} times in {runs} prefills, {moe_layers} MoE "
+          f"layers")
+    rep["ep_calls"] = len(ep_calls) // runs
+    return rep
+
+
+def ssm_mesh_check(params, cfg, mesh, ops, seen):
+    """(e) Mamba2-2.7B (``cfg``'s layers) under the mesh: ``prefill`` of
+    PREFILL_B x PREFILL_S seeded tokens through the head-split SSD mixer
+    (``in_z`` / ``in_xbc`` / ``in_dt`` and the conv column-parallel, one
+    ``all_to_all_single`` a layer handing the rank its heads' x channels
+    and B and C, ``ssd_chunk`` on the rank's heads, the norm's mean of
+    squares and ``out_proj`` all-reduced): SSD chunk once a layer, bitwise
+    ``prefill`` without a mesh (``mesh_prefill``; the split norm's mean is
+    the mean of one block mean at one rank). Then SSM_STEPS greedy
+    ``decode_step``s of SSM_B rows from seeded tokens with the state cut
+    by ``shard_decode_state`` (``ssd`` the rank's heads, ``conv`` whole:
+    each step gathers the new xBC row) against the unsharded state:
+    tokens equal, logits within SSM_TOL x max, and whether bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import shard_decode_state
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_decode_state
+    rep = mesh_prefill(params, cfg, "mamba2-2.7b", mesh, ops, seen,
+                       {"ssd_chunk": cfg.num_layers},
+                       "head-split SSM prefill")
+    rules = mesh_rules("mamba2-2.7b", mesh)
+    local = shd.shard_params(params, mesh, rules)
+    first = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, (SSM_B, 1))).cuda()
+    want_toks, want, _, plain_ms = greedy_decode(
+        params, cfg, init_decode_state(params, cfg, SSM_B, SSM_STEPS,
+                                       device="cuda"), first, SSM_STEPS)
+    with shd.sharding_ctx(mesh, rules):
+        state = shard_decode_state(
+            init_decode_state(local, cfg, SSM_B, SSM_STEPS, device="cuda"),
+            mesh, rules)
+        toks, logits, state, ms = greedy_decode(local, cfg, state, first,
+                                                SSM_STEPS)
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    check(torch.equal(toks, want_toks),
+          f"SSM decode under the mesh: tokens {toks.tolist()} != "
+          f"{want_toks.tolist()}")
+    check(err <= SSM_TOL * scale,
+          f"SSM decode under the mesh: max |diff| {err} > {SSM_TOL} x "
+          f"{scale}")
+    rep["decode"] = {
+        "rows": SSM_B, "steps": SSM_STEPS, "tokens_equal": True,
+        "tokens": toks.tolist(), "bitwise": bool(torch.equal(logits, want)),
+        "max_abs_diff": err, "max_abs_logit": scale,
+        "state_shapes": [tuple(v.shape) for v in state["layers"][0].values()],
+        "step_ms": ms, "plain_step_ms": plain_ms}
+    return rep
+
+
+def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
     """One model of the hybrid, encdec or vlm family at its published
     widths, depth cut as JAMBA_LAYERS / VLM_LAYERS say (Whisper-tiny
     whole), fp32, random weights drawn on the card from the seeded
@@ -2595,8 +2728,10 @@ def family_phase(arch, ops, card, hold_and_time, profile):
     launching flash attention once a layer, non-causal; vlm: 1601
     seeded patch embeddings. The phase's heaviest flash attention and
     SSD chunk calls are held against their plain versions and timed
-    (``hold_and_time``, entries marked with the model), then the params
-    are freed. Returns the report."""
+    (``hold_and_time``, entries marked with the model). With ``mesh``,
+    the hybrid then runs ``hybrid_mesh_check`` (its kernel calls held and
+    timed as entries of their own; the report's "mesh_prefill"). Then the
+    params are freed. Returns the report."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2649,6 +2784,16 @@ def family_phase(arch, ops, card, hold_and_time, profile):
     hold_and_time({k: v[1] for k, v in seen.items()},
                   {k: launches[k] + encoder[k] for k in launches},
                   model=cfg.name)
+    if mesh is not None and cfg.family == "hybrid":
+        t0 = time.perf_counter()
+        mesh_seen = {}
+        rep["mesh_prefill"] = hybrid_mesh_check(params, cfg, mesh, ops,
+                                                mesh_seen)
+        hold_and_time({k: v[1] for k, v in mesh_seen.items()},
+                      {k: rep["mesh_prefill"]["launches"][k]
+                       for k in mesh_seen},
+                      model=f"{cfg.name} under the (1, 1) mesh")
+        rep["mesh_prefill"]["s"] = time.perf_counter() - t0
     del params, seen, enc
     gc.collect()
     torch.cuda.empty_cache()
@@ -3668,33 +3813,45 @@ def main() -> None:
             ops, card, hold_and_time, args.profile, mesh)
         print(json.dumps({"deepseek_serving": ds_serving}), flush=True)
         print(json.dumps({"prefill": ds_prefill}), flush=True)
+
+        # ---- the hybrid, encdec and vlm families: prefill and engine;
+        # Jamba's prefill again under the mesh ------------------------
+        hybrid = None
+        for arch in ("jamba-1.5-large-398b", "whisper-tiny",
+                     "llama-3.2-vision-11b"):
+            rep = family_phase(arch, ops, card, hold_and_time, args.profile,
+                               mesh)
+            hybrid = rep.get("mesh_prefill", hybrid)
+            print(json.dumps({"prefill": rep}), flush=True)
+
+        # ---- the same for Mamba2, then its SSM split by head --------
+        mcfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                                   num_layers=MAMBA_LAYERS, dtype="float32")
+        mparams = init_params(
+            mcfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        ssd_launches, rep = prefill_phase(mparams, mcfg, ops, seen,
+                                          args.profile)
+        print(json.dumps({"prefill": rep}), flush=True)
+        t0 = time.perf_counter()
+        ssm_seen = {}
+        ssm = ssm_mesh_check(mparams, mcfg, mesh, ops, ssm_seen)
+        hold_and_time({"ssd_chunk": ssm_seen["ssd_chunk"][1]},
+                      {"ssd_chunk": ssm["launches"]["ssd_chunk"]},
+                      model=f"{mcfg.name} head-split SSM (1x1 mesh)")
+        ssm["s"] = time.perf_counter() - t0
+        del mparams, ssm_seen
+        gc.collect()
+        torch.cuda.empty_cache()
         print(json.dumps({"distributed": {
             "world_size": dist.get_world_size(), "backend": "nccl",
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
             "mesh": {"data": 1, "model": 1}, "ep_moe": ep,
-            "tp_prefill": tp, "mla_decode": mla,
-            "phase_s": ep["s"] + tp["s"] + mla["s"], "card": card}}),
-            flush=True)
+            "tp_prefill": tp, "mla_decode": mla, "hybrid_prefill": hybrid,
+            "ssm": ssm, "phase_s": ep["s"] + tp["s"] + mla["s"]
+            + hybrid["s"] + ssm["s"], "card": card}}), flush=True)
     finally:
         dist.destroy_process_group()
-
-    # ---- the hybrid, encdec and vlm families: prefill and engine ----
-    for arch in ("jamba-1.5-large-398b", "whisper-tiny",
-                 "llama-3.2-vision-11b"):
-        print(json.dumps({"prefill": family_phase(
-            arch, ops, card, hold_and_time, args.profile)}), flush=True)
-
-    # ---- the same for Mamba2 ----------------------------------------
-    mcfg = dataclasses.replace(get_config("mamba2-2.7b"),
-                               num_layers=MAMBA_LAYERS, dtype="float32")
-    mparams = init_params(
-        mcfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    ssd_launches, rep = prefill_phase(mparams, mcfg, ops, seen,
-                                      args.profile)
-    print(json.dumps({"prefill": rep}), flush=True)
-    del mparams
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # ---- training: Qwen1.5-0.5B whole, Mixtral-8x7B (2 layers) -------
     print(json.dumps({"training": training_phase(

@@ -31,10 +31,16 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------- norms
-def rms_norm(x, weight, eps: float = 1e-5):
+def rms_norm(x, weight, eps: float = 1e-5, axis=None):
+    """RMSNorm over the last dim. ``axis``: that dim is split in equal
+    blocks over this mesh axis, ``x`` and ``weight`` are the rank's
+    block, and the mean of squares is the mean of the ranks' block means
+    (one all-reduce; at one rank exactly the unsplit mean)."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    if axis is not None:
+        var = shd.psum(var / shd.axis_size(axis), axis)
     out = x * torch.rsqrt(var + eps)
     return (out * weight.float()).to(dt)
 

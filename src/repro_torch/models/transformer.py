@@ -46,13 +46,15 @@ attention is GQA or, with ``cfg.use_mla``, MLA.
 Under a device mesh (``sharding.sharding_ctx``; the params cut by
 ``sharding.shard_params``, the decode state by
 ``launch.specs.shard_decode_state``) ``forward``, ``prefill`` and
-``decode_step`` run the dense and moe families tensor-parallel: they
-take the whole batch, each rank computes its batch rows (the "batch"
-rule), gathers the embedding's d blocks, runs its heads, ff blocks and
-experts (see ``attention`` and ``moe``), and the vocab-split logits and
-the rows are gathered back, so every rank returns what the call returns
-without a mesh. The other families, the paged and per-row decode and
-the training loss raise under a mesh (ROADMAP.md A16–A19).
+``decode_step`` run the dense, moe, ssm and hybrid families
+tensor-parallel: they take the whole batch, each rank computes its batch
+rows (the "batch" rule), gathers the embedding's d blocks, runs its
+heads, ff blocks and experts (see ``attention``, ``moe`` and ``ssm``:
+the SSD mixer by head, its ``ssd`` state the rank's heads, the conv
+state whole), and the vocab-split logits and the rows are gathered back,
+so every rank returns what the call returns without a mesh. The encdec
+and vlm families, the paged and per-row decode and the training loss
+raise under a mesh (ROADMAP.md A17–A19).
 """
 from __future__ import annotations
 
@@ -74,12 +76,12 @@ from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
 
 AUX_WEIGHT = 0.01
 # the ROADMAP.md items that port the other families under a mesh
-_MESH_TODO = {"ssm": "A16", "hybrid": "A16", "encdec": "A17", "vlm": "A17"}
+_MESH_TODO = {"encdec": "A17", "vlm": "A17"}
 
 
 def _check_mesh(cfg, what: str = "") -> None:
-    """Refuse what is not ported under an active mesh: the families but
-    dense and moe (first: their item comes before any entry point's),
+    """Refuse what is not ported under an active mesh: the encdec and
+    vlm families (first: their item comes before any entry point's),
     and (``what``) other entry points."""
     if shd.active_mesh() is None:
         return

@@ -13,6 +13,7 @@ that the ranks agree.
 import dataclasses
 import json
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -26,6 +27,7 @@ from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.specs import shard_decode_state  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 
@@ -87,7 +89,8 @@ def run_moe_auto(case, cfg, mesh, rules, inp):
 def run_model(case, cfg, mesh, rules, inp):
     """``prefill`` and ``forward`` of the whole batch; then (decode cases)
     ``decode_step`` over the case's steps with the state cut by
-    ``shard_decode_state``."""
+    ``shard_decode_state``: the tokens of ``steps``, or (a "greedy" count)
+    its first column and then each step's argmax."""
     local = shd.shard_params(inp["params"], mesh, rules)
     # every leaf gathered back over the ranks along its split dims
     specs = shd.param_pspecs(inp["params"], rules, mesh)
@@ -98,7 +101,8 @@ def run_model(case, cfg, mesh, rules, inp):
         for (path, w, _), (_, b, _) in zip(whole, _leaves(back, specs))],
         "split_leaves": sum(any(a is not None for a in sp)
                             for _, _, sp in whole)}
-    with shd.sharding_ctx(mesh, rules):
+    out["ssd_calls"] = []
+    with shd.sharding_ctx(mesh, rules), _recording_ssd(out["ssd_calls"]):
         if "tokens" in inp:
             out["prefill"] = tf.prefill(local, cfg, inp["tokens"])
             out["forward"] = tf.forward(local, cfg, inp["tokens"])[0]
@@ -107,15 +111,38 @@ def run_model(case, cfg, mesh, rules, inp):
                                          case["cache_len"], device="cpu")
             state = shard_decode_state(whole, mesh, rules)
             out["state_shapes"] = [tuple(v.shape)
-                                   for v in state["layers"][0].values()]
-            logits = []
-            for pos in range(inp["steps"].shape[1]):
-                lg, state = tf.decode_step(local, cfg, state,
-                                           inp["steps"][:, pos:pos + 1], pos,
+                                   for entry in _first_entries(state)
+                                   for v in entry.values()]
+            logits, tok = [], inp["steps"][:, :1]
+            for pos in range(case.get("greedy") or inp["steps"].shape[1]):
+                lg, state = tf.decode_step(local, cfg, state, tok, pos,
                                            window=case.get("window"))
                 logits.append(lg)
+                tok = (lg.argmax(dim=-1, keepdim=True) if case.get("greedy")
+                       else inp["steps"][:, pos + 1:pos + 2])
             out["decode"] = torch.stack(logits)
     return out
+
+
+@contextmanager
+def _recording_ssd(calls):
+    """Each ``ops.ssd_chunk`` call's dA shape [G, Q, H] into ``calls``."""
+    ssd = ssm_lib.kops.ssd_chunk
+    ssm_lib.kops.ssd_chunk = lambda dA, *a: calls.append(
+        tuple(dA.shape)) or ssd(dA, *a)
+    try:
+        yield
+    finally:
+        ssm_lib.kops.ssd_chunk = ssd
+
+
+def _first_entries(state):
+    """The first layer's entry of each group of a decode state (a hybrid's
+    attention group, then its first SSM position's)."""
+    for group in ("layers", "attn_layers", "ssm_layers"):
+        if group in state:
+            entry = state[group][0]
+            yield entry[0] if group == "ssm_layers" else entry
 
 
 def run_cost(case, cfg, mesh, rules, inp):

@@ -55,6 +55,8 @@ GLOO_MESH = (2, 2)
 RULES = {"batch": ["data"], "model": "model", "heads": "model",
          "vocab": "model", "experts": "model", "capacity": "data",
          "shard_kv": True, "experts_mode": "ep", "_data_size": 2}
+# the same at data 1
+RULES_1 = dict(RULES, _data_size=1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -314,6 +316,99 @@ def test_decode_matmul_flops_equal_xla_dots():
     assert want > 0 and rep["matmul_flops"] == want
 
 
+def test_ssm_decode_matmul_flops_equal_xla_dots():
+    """The same for the reduced Mamba2 decode step (8 SSM heads of 16,
+    state 16): the projections, the conv ring's product over its window,
+    the state update's outer product, its read-out and the logits."""
+    jcfg, cfg = _cfgs("mamba2-2.7b")
+    jcfg, cfg = (dataclasses.replace(c, ssm_headdim=16, ssm_state=16)
+                 for c in (jcfg, cfg))
+    B, L = 2, 64
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    js = jtf.init_decode_state(jp, jcfg, B, L)
+    step = jax.jit(lambda p, s, t, pos: jtf.decode_step(p, jcfg, s, t, pos))
+    text = step.lower(jp, js, np.zeros((B, 1), np.int32),
+                      np.int32(L - 1)).compile().as_text()
+    want = DotFlops(text).analyze().flops
+    p = ptf.init_params(cfg, torch.Generator(), device="meta")
+    rep = _counted(cfg, p, ptf.decode_step,
+                   state=ptf.init_decode_state(p, cfg, B, L, device="meta"),
+                   token=torch.zeros((B, 1), dtype=torch.long,
+                                     device="meta"), pos=L - 1)
+    assert want > 0 and rep["matmul_flops"] == want
+
+
+# ------------------------------------------- the SSM split over 4 ranks
+SSM_MESH = (1, 4)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_sharded_ssm_work_sums_to_unsharded(kind):
+    """Reduced Mamba2 (8 SSM heads of 16, state 16: d_inner 128, xBC 160
+    columns) as rank 0 of a fake group of 4 on a (1, 4) mesh, on meta:
+    every model rank runs the same shapes, so the ranks' matmul FLOPs
+    plus ``ssd_chunk``'s sum to 4 x rank 0's. That sum is the unsharded
+    count plus 3 x the part every rank repeats: the chunk scores C·Bᵀ
+    inside the kernel's cost (2·N a pair of a chunk's lower triangle,
+    G chunks a layer); the projections, the conv (per channel: each rank
+    convolves its own columns), the inter-chunk products, the decode's
+    state update and read-out, ``out_proj`` and the vocab-split logits
+    are split, and the embedding (a gather) and the norms are no
+    products. The collective bytes by kind are what the design moves:
+    all-gather: the embedding's d blocks, the logits' vocab blocks and
+    the rows over the data axis, and in decode each layer's new xBC row;
+    all-to-all: each layer's xBC columns to the heads' x channels plus
+    B and C; all-reduce: each layer's norm sums and ``out_proj``."""
+    _, cfg = _cfgs("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, ssm_headdim=16, ssm_state=16)
+    Lyr, d, V, N = cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.ssm_state
+    di, C = cfg.d_inner, cfg.d_inner + 2 * cfg.ssm_state
+    m = SSM_MESH[1]
+    B, S = 2, (256 if kind == "prefill" else 1)
+    p = ptf.init_params(cfg, torch.Generator(), device="meta")
+    tok = torch.zeros((B, S), dtype=torch.long, device="meta")
+
+    def run(params):
+        if kind == "prefill":
+            return _counted(cfg, params, ptf.prefill, tokens=tok)
+        state = ptf.init_decode_state(params, cfg, B, 64, device="meta")
+        if pshd.active_mesh() is not None:
+            state = pspecs.shard_decode_state(state, pshd.active_mesh(),
+                                              RULES_1)
+        return _counted(cfg, params, ptf.decode_step, state=state,
+                        token=tok, pos=63)
+
+    whole = run(p)
+    dryrun.open_fake_group(m)
+    try:
+        mesh = pmesh.make_mesh(SSM_MESH, ("data", "model"), "cpu")
+        with pshd.sharding_ctx(mesh, RULES_1):
+            rank = run(pshd.shard_params(p, mesh, RULES_1))
+    finally:
+        torch.distributed.destroy_process_group()
+
+    def work(rep):
+        return rep["matmul_flops"] + sum(k["flops"] for k in
+                                         rep["kernel_calls"].values())
+    Q = min(cfg.ssm_chunk, S)
+    repeated = 0
+    if kind == "prefill":
+        assert rank["kernel_calls"]["ssd_chunk"]["calls"] == Lyr
+        repeated = Lyr * (B * S // Q) * 2 * (Q * (Q + 1) // 2) * N
+    assert m * work(rank) == work(whole) + (m - 1) * repeated
+    assert m * rank["matmul_flops"] == whole["matmul_flops"]
+    T, f = B * S, 4                           # tokens a rank, fp32 bytes
+    want = {"all-gather": f * (T * d + 2 * B * V), "all-to-all":
+            Lyr * f * T * (di // m + 2 * N), "all-reduce":
+            Lyr * f * (T + T * d)}
+    if kind == "decode":
+        want["all-gather"] += Lyr * f * B * C
+    assert rank["collectives"] == want
+    assert rank["collective_calls"] == {
+        "all-gather": 3 + (Lyr if kind == "decode" else 0),
+        "all-to-all": Lyr, "all-reduce": 2 * Lyr}
+
+
 # ------------------------------------------------------- meta == cpu
 FAMILIES = ["qwen2.5-3b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-2.7b",
             "jamba-1.5-large-398b", "whisper-tiny", "llama-3.2-vision-11b"]
@@ -477,7 +572,7 @@ def test_dryrun_cli_single_case(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("mamba2-2.7b", "decode_32k", "A16"),
+    ("whisper-tiny", "decode_32k", "A17"),
     ("qwen1.5-0.5b", "train_4k", "A19")])
 def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
                                           capsys):

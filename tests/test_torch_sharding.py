@@ -33,6 +33,7 @@ from repro_torch.launch import specs as pspecs
 from repro_torch.models import attention as pattn
 from repro_torch.models import moe as pmoe
 from repro_torch.models import sharding as pshd
+from repro_torch.models import ssm as pssm
 from repro_torch.models import transformer as ptf
 
 # the rules of tests/test_distributed.py (sharding_rules would leave the
@@ -273,34 +274,57 @@ def _model(arch, seed, **kw):
         jax.tree.map(np.asarray, jp), device="cpu")
 
 
+def _first_mixers(params, cfg):
+    """{kind: the first block's mixer as a function of (params, x,
+    positions)} for each mixer kind ("attn": ``gqa_full`` or
+    ``mla_full``, "ssm": ``ssd_full``)."""
+    full = pattn.mla_full if cfg.use_mla else pattn.gqa_full
+    paths = {}
+    for path, kind in ptf._blocks(params, cfg):
+        paths.setdefault(kind, path)
+
+    def mixer(kind, path):
+        if kind == "attn":
+            return lambda p, x, pos: full(
+                ptf._block_params(p, path)["attn"], cfg, x, pos)
+        return lambda p, x, pos: pssm.ssd_full(
+            ptf._block_params(p, path)["ssm"], cfg, x)
+    return {kind: mixer(kind, path) for kind, path in paths.items()}
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b",
-                                  "qwen2.5-3b"])
+                                  "qwen2.5-3b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
 def test_one_rank_entry_points_equal_unsharded(one_rank, arch):
-    """``prefill`` and ``forward`` bitwise; ``gqa_full`` / ``mla_full``
-    bitwise; 6 ``decode_step``s within 1e-6 (the sharded decode combines
-    its softmax as the sequence-split path does)."""
+    """``prefill`` and ``forward`` bitwise; the first layer of each mixer
+    kind (``gqa_full`` / ``mla_full`` / ``ssd_full``) bitwise; 6
+    ``decode_step``s within 1e-6 (the sharded attention decode combines
+    its softmax as the sequence-split path does; the SSM's split norm
+    takes the mean of one block mean, which is the mean)."""
     cfg, tp = _model(arch, 3, layers=2, d_model=64, vocab=128)
     rules = RULES
     local = pshd.shard_params(tp, one_rank, rules)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 8)))
     want_pre, (want_h, want_aux) = (ptf.prefill(tp, cfg, toks),
                                     ptf.forward(tp, cfg, toks))
-    layer = ptf._layer(tp["layers"], 0)
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(2, 8, 64)).astype(np.float32))
     pos = torch.arange(8)[None].expand(2, 8)
-    full = pattn.mla_full if cfg.use_mla else pattn.gqa_full
-    want_attn = full(layer["attn"], cfg, x, pos)
+    mixers = _first_mixers(tp, cfg)
+    want_mix = {kind: fn(tp, x, pos) for kind, fn in mixers.items()}
     steps = np.random.default_rng(2).integers(0, 128, (2, 6))
     state = ptf.init_decode_state(tp, cfg, 2, 8, device="cpu")
-    want_dec = [ptf.decode_step(tp, cfg, state, torch.from_numpy(
-        steps[:, i:i + 1]), i)[0] for i in range(6)]
+    want_dec = []
+    for i in range(6):
+        lg, state = ptf.decode_step(tp, cfg, state, torch.from_numpy(
+            steps[:, i:i + 1]), i)
+        want_dec.append(lg)
     with pshd.sharding_ctx(one_rank, rules):
         assert torch.equal(ptf.prefill(local, cfg, toks), want_pre)
         h, aux = ptf.forward(local, cfg, toks)
         assert torch.equal(h, want_h) and torch.equal(aux, want_aux)
-        assert torch.equal(full(ptf._layer(local["layers"], 0)["attn"], cfg,
-                                x, pos), want_attn)
+        for kind, fn in mixers.items():
+            assert torch.equal(fn(local, x, pos), want_mix[kind]), kind
         state = pspecs.shard_decode_state(
             ptf.init_decode_state(local, cfg, 2, 8, device="cpu"),
             one_rank, rules)
@@ -370,21 +394,23 @@ def test_one_rank_moe_paths_equal_unsharded(one_rank, monkeypatch):
 
 
 def test_unported_families_raise_under_a_mesh(one_rank):
-    """ssm, hybrid, encdec and vlm under a mesh name the ROADMAP item that
-    ports them; so do the per-row and paged decodes and the loss."""
-    for arch, item in (("mamba2-2.7b", "A16"), ("jamba-1.5-large-398b", "A16"),
-                       ("whisper-tiny", "A17"),
+    """encdec and vlm under a mesh name the ROADMAP item that ports them;
+    so do the per-row and paged decodes and the loss (Mixtral's and,
+    now that its family runs under a mesh, Mamba2's)."""
+    for arch, item in (("whisper-tiny", "A17"),
                        ("llama-3.2-vision-11b", "A17")):
         cfg = _port_cfg(arch, layers=2, d_model=64)
         with pshd.sharding_ctx(one_rank, {"model": "model"}):
             with pytest.raises(NotImplementedError, match=item):
                 ptf.prefill({}, cfg, torch.zeros(1, 4, dtype=torch.long))
     cfg, tp = _model("mixtral-8x7b", 0, layers=2, d_model=64)
+    mcfg, mp = _model("mamba2-2.7b", 0, layers=2, d_model=64)
     x = torch.zeros(1, 1, 64)
     with pshd.sharding_ctx(one_rank, {"model": "model"}):
-        with pytest.raises(NotImplementedError, match="A19"):
-            ptf.loss_fn(tp, cfg, {"tokens": torch.zeros(1, 4).long(),
-                                  "labels": torch.zeros(1, 4).long()})
+        for c, p in ((cfg, tp), (mcfg, mp)):
+            with pytest.raises(NotImplementedError, match="A19"):
+                ptf.loss_fn(p, c, {"tokens": torch.zeros(1, 4).long(),
+                                   "labels": torch.zeros(1, 4).long()})
         with pytest.raises(NotImplementedError, match="A18"):
             pattn.gqa_decode_multipos(ptf._layer(tp["layers"], 0)["attn"],
                                       cfg, x, {}, torch.zeros(1).long())
