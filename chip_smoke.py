@@ -123,9 +123,22 @@ It drives the port's two entry points end to end and checks them:
    all-reduced), bitwise, SSD chunk once a layer, its call held and
    timed, then 8 greedy ``decode_step``s of 2 rows with the state cut by
    ``shard_decode_state`` against the unsharded state: tokens equal,
-   logits within 1e-6 x max. One ``distributed`` JSON line (world size,
-   NCCL version, the five results, their times and the phase's
-   seconds); then the group is destroyed. The group stays open from 6a
+   logits within 1e-6 x max; at the end of Whisper-tiny's and
+   Llama-3.2-Vision's 6c phases (f) under each one's published rules
+   (Whisper-tiny's data parallel only, its weights whole; Vision's
+   splitting heads and ff blocks), Whisper's ``encoder_forward`` over 2 x
+   1500 frames (flash once an encoder layer) and each one's ``prefill``
+   (2 x 448, 2 x 2048 over 1601 patches; the cross layers on the rank's
+   heads over its rows of the encoder states), bitwise the unsharded
+   ones, flash once a self-attention and once a cross layer, the
+   heaviest self-attention and cross calls held and timed; then 8 greedy
+   ``decode_step``s of 2 rows over a state built whole and cut by
+   ``shard_decode_state`` (its cross K/V by rows and heads) against the
+   unsharded state: tokens equal, logits within 1e-6 x max, flash once a
+   cross layer a step, one more step's collectives counted. One
+   ``distributed`` JSON line (world size, NCCL version, the seven
+   results, their times and the phase's seconds); then the group is
+   destroyed. The group stays open from 6a
    to the end of phase 7;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
    width 3072) at its full published widths (d_model 5120, 128 heads of
@@ -228,7 +241,10 @@ It drives the port's two entry points end to end and checks them:
    (a partial k-step), rows copied 4 bytes or one element at a time,
    the new families' shapes: one query over 1500 keys and 77 over 1601
    (no causal mask, no whole last key tile), 64 heads over 8 KV heads
-   (flash); other chunk lengths (37 to 1024), head counts (1 to 256) and
+   (flash), and one rank's cross calls on the (16, 16) mesh (Vision's
+   2 x 32768 queries over 1601 patches at 2 heads, fp32 and bf16; 8 rows
+   of 1 query, Vision's and Whisper's); other chunk lengths (37 to
+   1024), head counts (1 to 256) and
    widths, P and N off the multiples of 8 (a partial k-step, 4-byte
    copies), a strongly decaying dA, Jamba's 256 heads at Q 128 (SSD),
    and a 4096-position chunk
@@ -239,7 +255,11 @@ It drives the port's two entry points end to end and checks them:
    backward at every SSD chunk shape with seeded output gradients (the
    4096-position chunk against float64);
 11. paged attention's batch independence: one row gives bitwise the same
-   output alone, as one of 16 rows, and with a table two blocks wider.
+   output alone, as one of 16 rows, and with a table two blocks wider;
+12. the engines' one-query cross-attention calls (Whisper's and
+   Vision's, 2 rows) held against the plain version and timed in CUDA
+   graphs beside the plain version, SDPA and the byte bound (a
+   ``one_query_cross`` line).
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -357,7 +377,12 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # chunk (Q 128, 256 heads); then one rank's SSD call of prefill_32k on
 # the (16, 16) mesh, where each rank runs 2 rows and H / 16 heads: Mamba2's
 # (G 2 x 128 chunks, Q 256, H 80 / 16 = 5) and Jamba's (G 2 x 256, Q 128,
-# H 256 / 16 = 16). World size 1 never launches these.
+# H 256 / 16 = 16); and one rank's cross-attention calls on that mesh:
+# Llama-3.2-Vision's at prefill_32k (2 rows of 32768 queries over 1601
+# patches, 32 / 16 = 2 heads; fp32 and bf16) and at decode_32k (8 rows, 1
+# query), and Whisper-tiny's at decode_32k (8 rows, 1 query over 1500
+# frames, all 6 heads: its weights are whole). World size 1 never
+# launches these.
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -375,7 +400,16 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 70, 70, 6, 3, 37, 21, True, 0, "bfloat16"),
                 (2, 1, 1500, 6, 6, 64, 64, False, 0, "float32"),
                 (1, 77, 1601, 32, 32, 128, 128, False, 0, "float32"),
-                (1, 2048, 2048, 64, 8, 128, 128, True, 0, "float32")]
+                (1, 2048, 2048, 64, 8, 128, 128, True, 0, "float32"),
+                (2, 32768, 1601, 2, 2, 128, 128, False, 0, "float32"),
+                (2, 32768, 1601, 2, 2, 128, 128, False, 0, "bfloat16"),
+                (8, 1, 1601, 2, 2, 128, 128, False, 0, "float32"),
+                (8, 1, 1500, 6, 6, 64, 64, False, 0, "float32")]
+# the one-query cross-attention calls the engines launch at every decode
+# step, timed alone (B, Sk, H, hd): Whisper-tiny's 2 rows over 1500
+# frames, 6 heads of 64, and Llama-3.2-Vision's over 1601 patches, 32
+# heads of 128
+ONE_QUERY_CROSS = [(2, 1500, 6, 64), (2, 1601, 32, 128)]
 SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (1, 64, 6, 32, 64, 0.1), (3, 37, 5, 72, 130, 0.1),
               (2, 256, 80, 64, 128, 0.1), (2, 1024, 8, 64, 128, 0.1),
@@ -479,6 +513,9 @@ MLA_B, MLA_STEPS, MLA_CACHE, MLA_TOL = 2, 8, 16, 1e-5
 # SSM_STEPS greedy steps, its logits within SSM_TOL x max of the unsharded
 # decode where they are not bitwise equal
 SSM_B, SSM_STEPS, SSM_TOL = 2, 8, 1e-6
+# the encdec / vlm mesh checks: CROSS_STEPS greedy steps of CROSS_B rows,
+# logits within CROSS_TOL x max of the unsharded decode
+CROSS_B, CROSS_STEPS, CROSS_TOL = 2, 8, 1e-6
 # a prefill under the mesh against the plain one, timed again in turns
 TURNS = ("plain", "mesh", "mesh", "plain")
 # the phases of the other families, at published widths, cut in depth:
@@ -1184,6 +1221,49 @@ def coverage_checks():
              tuple(w.float() for w in want))
         if oracle:
             out[-1]["against"] = "float64"
+    return out
+
+
+def one_query_cross(floor_ms):
+    """The engines' one-query cross-attention calls (ONE_QUERY_CROSS),
+    fp32, seeded: the kernel held against its plain version, then the
+    kernel, the plain version and SDPA on the same call each timed in a
+    CUDA graph (the calls are shorter than a launch from the host), beside
+    the bound: K and V read once, at the memory rate, against the products
+    at the TF32 rate. Returns one record a call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 12)
+    out = []
+    for B, Sk, H, hd in ONE_QUERY_CROSS:
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda() for shape in ((B, 1, H, hd), (B, Sk, H, hd),
+                                              (B, Sk, H, hd)))
+        kw = dict(causal=False, window=0)
+        err, rel = agree("flash_attention", ops.flash_attention(q, k, v, **kw),
+                         flash_mod.plain(q, k, v, **kw),
+                         TOL["flash_attention"], f"one-query cross {B, Sk, H}")
+        flops, nbytes = flash_mod.cost(q, k, v, **kw)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw), 20,
+                       graph=True)
+        out.append({
+            "shape": {"B": B, "Sq": 1, "Sk": Sk, "H": H, "KV": H, "hd": hd,
+                      "vd": hd, "causal": False, "dtype": "torch.float32"},
+            "max_abs_err": err, "max_err_over_max_plain": rel,
+            "tol": TOL["flash_attention"], "ms": ms,
+            "plain_ms": device_ms(lambda: flash_mod.plain(q, k, v, **kw), 20,
+                                  graph=True),
+            "library_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), 20,
+                graph=True),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "launch_floor_ms": floor_ms})
     return out
 
 
@@ -2493,14 +2573,17 @@ def ep_check(params, cfg, mesh):
             "exchange_bytes": [n for _, n in exchanges]}
 
 
-def mesh_prefill(params, cfg, arch, mesh, ops, seen, want, what):
-    """``prefill`` of PREFILL_B x PREFILL_S seeded tokens without a mesh
-    (timed), then under the mesh with ``arch``'s published rules and the
-    params cut by ``shard_params``: counted (``want``: kernel ->
-    launches, and nothing else; the heaviest calls into ``seen``) and
-    timed, its logits bitwise the unsharded ones (one rank: the same
-    products; the collectives leave a single rank's values as they
-    are); then both again in TURNS, warm. Returns the report."""
+def mesh_prefill(params, cfg, arch, mesh, ops, seen, want, what, *,
+                 seq=PREFILL_S, enc=None, also=()):
+    """``prefill`` of PREFILL_B x ``seq`` seeded tokens (and ``enc``, the
+    whole encoder states or patch embeddings) without a mesh (timed),
+    then under the mesh with ``arch``'s published rules and the params
+    cut by ``shard_params``: counted (``want``: kernel -> launches, and
+    nothing else; the heaviest calls into ``seen``, each context of
+    ``also`` entered around the run) and timed, its logits
+    bitwise the unsharded ones (one rank: the same products; the
+    collectives leave a single rank's values as they are); then both
+    again in TURNS, warm. Returns the report."""
     import numpy as np
     import torch
     from repro_torch.models import sharding as shd
@@ -2508,14 +2591,17 @@ def mesh_prefill(params, cfg, arch, mesh, ops, seen, want, what):
     rules = mesh_rules(arch, mesh)
     local = shd.shard_params(params, mesh, rules)
     toks = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+        0, cfg.vocab_size, (PREFILL_B, seq))).cuda()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = prefill(params, cfg, toks)
+    plain = prefill(params, cfg, toks, enc=enc)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    with shd.sharding_ctx(mesh, rules):
-        logits, launches, ms, _ = prefill_run(local, cfg, toks, ops, seen)
+    with shd.sharding_ctx(mesh, rules), contextlib.ExitStack() as stack:
+        for ctx in also:
+            stack.enter_context(ctx)
+        logits, launches, ms, _ = prefill_run(local, cfg, toks, ops, seen,
+                                              enc=enc)
     check_launches(launches, want, what)
     err = float((logits - plain).abs().max())
     check(torch.equal(logits, plain),
@@ -2526,12 +2612,12 @@ def mesh_prefill(params, cfg, arch, mesh, ops, seen, want, what):
         t0 = time.perf_counter()
         if turn == "mesh":
             with shd.sharding_ctx(mesh, rules):
-                prefill(local, cfg, toks)
+                prefill(local, cfg, toks, enc=enc)
         else:
-            prefill(params, cfg, toks)
+            prefill(params, cfg, toks, enc=enc)
         torch.cuda.synchronize()
         turns[turn].append((time.perf_counter() - t0) * 1e3)
-    return {"tokens": [PREFILL_B, PREFILL_S], "layers": cfg.num_layers,
+    return {"tokens": [PREFILL_B, seq], "layers": cfg.num_layers,
             "launches": launches, "bitwise": True, "max_abs_diff": err,
             "mesh_ms": ms, "plain_ms": plain_ms, "turns_ms": turns}
 
@@ -2567,6 +2653,23 @@ def greedy_decode(params, cfg, state, first, steps):
     return torch.cat(toks, 1), torch.stack(logits), state, ms
 
 
+def counted_collectives(calls):
+    """Patches that append the name of every ``psum`` / ``pmax`` /
+    ``all_gather`` of ``sharding`` to ``calls``."""
+    from repro_torch.models import sharding as shd
+
+    def counting(fn):
+        def call(*a, **kw):
+            calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+
+    stack = contextlib.ExitStack()
+    for name in ("psum", "pmax", "all_gather"):
+        stack.enter_context(patched(shd, name, counting))
+    return stack
+
+
 def mla_decode_check(params, cfg, mesh):
     """(c) DeepSeek-V2 at its published widths (``cfg``'s layers): MLA_B
     rows, MLA_STEPS greedy ``decode_step``s from seeded first tokens,
@@ -2600,16 +2703,7 @@ def mla_decode_check(params, cfg, mesh):
     # what a mesh step adds at one rank: its collectives, each timed
     # alone on a decode row's residual [MLA_B, d] (host wall, synced)
     calls = []
-
-    def counting(fn):
-        def call(*a, **kw):
-            calls.append(fn.__name__)
-            return fn(*a, **kw)
-        return call
-
-    with shd.sharding_ctx(mesh, rules), patched(shd, "psum", counting), \
-            patched(shd, "pmax", counting), \
-            patched(shd, "all_gather", counting):
+    with shd.sharding_ctx(mesh, rules), counted_collectives(calls):
         decode_step(local, cfg, state, toks[:, -1:], MLA_STEPS)
     r = torch.zeros((MLA_B, cfg.d_model), device="cuda")
     torch.cuda.synchronize()
@@ -2717,6 +2811,137 @@ def ssm_mesh_check(params, cfg, mesh, ops, seen):
     return rep
 
 
+def _cross_call(q, k, **kw):
+    """Whether a flash attention call is a cross-attention one: no mask,
+    queries over another sequence's keys."""
+    return not kw.get("causal", True) and q.shape[1] != k.shape[1]
+
+
+def flash_kinds(ops, counts):
+    """Count the ``ops.flash_attention`` calls inside the block by kind
+    into ``counts``: "cross" (``_cross_call``) or "self"."""
+    def make(flash):
+        def call(q, k, v, **kw):
+            kind = "cross" if _cross_call(q, k, **kw) else "self"
+            counts[kind] = counts.get(kind, 0) + 1
+            return flash(q, k, v, **kw)
+        return call
+    return patched(ops, "flash_attention", make)
+
+
+# the heaviest self-attention call and the heaviest cross-attention call
+SELF_SPECS, CROSS_SPECS = ({"flash_attention": (
+    lambda q, k, v, cross=cross, **kw: (pairs_times_heads(q, k, v, **kw)
+                                        if _cross_call(q, k, **kw) == cross
+                                        else -1),
+    PREFILL_SPECS["flash_attention"][1])} for cross in (False, True))
+
+
+def cross_mesh_check(params, cfg, arch, mesh, ops, self_seen, cross_seen, fe,
+                     enc, seq):
+    """(f) Whisper-tiny or Llama-3.2-Vision (``cfg``'s layers) under the
+    mesh with the published arch's rules (Whisper-tiny's are data
+    parallel only: its weights whole; Vision's split the heads and ff
+    blocks): encdec first runs ``encoder_forward`` over the seeded frames
+    ``fe`` (flash attention once an encoder layer), bitwise ``enc`` (the
+    unsharded encoder states); then ``prefill`` of PREFILL_B x ``seq``
+    tokens over ``enc`` (the cross layers on the rank's heads over its
+    rows), bitwise the unsharded prefill (``mesh_prefill``: flash once a
+    self-attention and once a cross layer). The heaviest self-attention
+    call of both goes into ``self_seen``, the heaviest cross call into
+    ``cross_seen``, and their calls are counted by kind
+    (``flash_launches``: they sum to the wrapper's launches). Then
+    CROSS_STEPS greedy ``decode_step``s of CROSS_B rows from seeded
+    tokens, the state built whole from the whole params under the mesh
+    and cut by ``shard_decode_state`` (its ``cross_kv`` the rank's rows
+    and heads), against the unsharded state: tokens equal, logits within
+    CROSS_TOL x max, and whether bitwise; flash once a cross layer a step.
+    One more step counts its collectives."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import shard_decode_state
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step,
+                                                encoder_forward,
+                                                init_decode_state)
+    rules = mesh_rules(arch, mesh)
+    local = shd.shard_params(params, mesh, rules)
+    rep = {"rules_model_axis": rules.get("model")}
+    kinds, total = {}, 0
+    if cfg.family == "encdec":
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with shd.sharding_ctx(mesh, rules), \
+                recording(ops, self_seen, SELF_SPECS), \
+                flash_kinds(ops, kinds):
+            got = encoder_forward(local, cfg, fe)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        check_launches(launches, {"flash_attention": cfg.encoder_layers},
+                       f"{cfg.name} encoder under the mesh")
+        err = float((got - enc).abs().max())
+        check(torch.equal(got, enc), f"{cfg.name} encoder under the mesh != "
+                                     f"unsharded: max |diff| {err}")
+        rep["encoder"] = {"frames": fe.shape[1], "launches": launches,
+                          "bitwise": True, "max_abs_diff": err, "ms": ms}
+        total += launches["flash_attention"]
+    rep["prefill"] = mesh_prefill(params, cfg, arch, mesh, ops, {},
+                                  prefill_launches(cfg),
+                                  f"{cfg.name} prefill under the mesh",
+                                  seq=seq, enc=enc,
+                                  also=(recording(ops, self_seen, SELF_SPECS),
+                                        recording(ops, cross_seen,
+                                                  CROSS_SPECS),
+                                        flash_kinds(ops, kinds)))
+    total += rep["prefill"]["launches"]["flash_attention"]
+    check(sum(kinds.values()) == total
+          and kinds.get("cross") == cross_layers(cfg),
+          f"{cfg.name} under the mesh: flash calls by kind {kinds}, "
+          f"{total} launches, {cross_layers(cfg)} cross layers")
+    rep["flash_launches"] = kinds
+    first = torch.from_numpy(np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (CROSS_B, 1))).cuda()
+    rows = enc[:CROSS_B]
+    cache = CROSS_STEPS + 1
+    want_toks, want, _, plain_ms = greedy_decode(
+        params, cfg, init_decode_state(params, cfg, CROSS_B, cache,
+                                       enc=rows, device="cuda"),
+        first, CROSS_STEPS)
+    with shd.sharding_ctx(mesh, rules):
+        state = shard_decode_state(
+            init_decode_state(params, cfg, CROSS_B, cache, enc=rows,
+                              device="cuda"), mesh, rules)
+        ops.reset_launch_counts()
+        toks, logits, state, ms = greedy_decode(local, cfg, state, first,
+                                                CROSS_STEPS)
+        launches = ops.launch_counts()
+        calls = []
+        with counted_collectives(calls):
+            decode_step(local, cfg, state, toks[:, -1:], CROSS_STEPS)
+    check_launches(launches, {"flash_attention": cross_layers(cfg)
+                              * CROSS_STEPS},
+                   f"{cfg.name} decode under the mesh")
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    check(torch.equal(toks, want_toks),
+          f"{cfg.name} decode under the mesh: tokens {toks.tolist()} != "
+          f"{want_toks.tolist()}")
+    check(err <= CROSS_TOL * scale,
+          f"{cfg.name} decode under the mesh: max |diff| {err} > "
+          f"{CROSS_TOL} x {scale}")
+    rep["decode"] = {
+        "rows": CROSS_B, "steps": CROSS_STEPS, "tokens_equal": True,
+        "tokens": toks.tolist(), "bitwise": bool(torch.equal(logits, want)),
+        "max_abs_diff": err, "max_abs_logit": scale, "launches": launches,
+        "cross_kv_shape": list(state["cross_kv"][0]["k"].shape),
+        "collectives_per_step": {n: calls.count(n) for n in sorted(set(
+            calls))},
+        "step_ms": ms, "plain_step_ms": plain_ms}
+    return rep
+
+
 def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
     """One model of the hybrid, encdec or vlm family at its published
     widths, depth cut as JAMBA_LAYERS / VLM_LAYERS say (Whisper-tiny
@@ -2794,6 +3019,22 @@ def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
                        for k in mesh_seen},
                       model=f"{cfg.name} under the (1, 1) mesh")
         rep["mesh_prefill"]["s"] = time.perf_counter() - t0
+    elif mesh is not None:
+        t0 = time.perf_counter()
+        self_seen, cross_seen = {}, {}
+        rep["mesh_cross"] = cross_mesh_check(
+            params, cfg, arch, mesh, ops, self_seen, cross_seen,
+            frames if cfg.family == "encdec" else None, enc,
+            seqs.get("prefill_s", PREFILL_S))
+        # the mesh path's launches of each kind: its prefill's and
+        # (encdec) encoder's
+        kinds = rep["mesh_cross"]["flash_launches"]
+        for what, kind, calls in (("self-attention", "self", self_seen),
+                                  ("cross", "cross", cross_seen)):
+            hold_and_time({"flash_attention": calls["flash_attention"][1]},
+                          {"flash_attention": kinds[kind]},
+                          model=f"{cfg.name} under the (1, 1) mesh, {what}")
+        rep["mesh_cross"]["s"] = time.perf_counter() - t0
     del params, seen, enc
     gc.collect()
     torch.cuda.empty_cache()
@@ -3816,12 +4057,14 @@ def main() -> None:
 
         # ---- the hybrid, encdec and vlm families: prefill and engine;
         # Jamba's prefill again under the mesh ------------------------
-        hybrid = None
+        hybrid, cross = None, {}
         for arch in ("jamba-1.5-large-398b", "whisper-tiny",
                      "llama-3.2-vision-11b"):
             rep = family_phase(arch, ops, card, hold_and_time, args.profile,
                                mesh)
             hybrid = rep.get("mesh_prefill", hybrid)
+            if "mesh_cross" in rep:
+                cross[arch] = rep["mesh_cross"]
             print(json.dumps({"prefill": rep}), flush=True)
 
         # ---- the same for Mamba2, then its SSM split by head --------
@@ -3848,8 +4091,11 @@ def main() -> None:
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
             "mesh": {"data": 1, "model": 1}, "ep_moe": ep,
             "tp_prefill": tp, "mla_decode": mla, "hybrid_prefill": hybrid,
-            "ssm": ssm, "phase_s": ep["s"] + tp["s"] + mla["s"]
-            + hybrid["s"] + ssm["s"], "card": card}}), flush=True)
+            "ssm": ssm, "encdec": cross["whisper-tiny"],
+            "vlm": cross["llama-3.2-vision-11b"],
+            "phase_s": ep["s"] + tp["s"] + mla["s"] + hybrid["s"] + ssm["s"]
+            + sum(c["s"] for c in cross.values()), "card": card}}),
+            flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -3867,6 +4113,8 @@ def main() -> None:
                    "ssd_chunk": ssd_launches["ssd_chunk"]})
     print(json.dumps({"coverage": coverage_checks()}), flush=True)
     print(json.dumps(paged_batch_independence()), flush=True)
+    print(json.dumps({"one_query_cross": one_query_cross(floor_ms),
+                      "card": card}), flush=True)
     print(json.dumps({"wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs import INPUT_SHAPES
 from repro_torch.models import transformer as tf
 from repro_torch.models.sharding import (axis_sizes, map_with_path,
-                                         shard_tree, zip_map)
+                                         shard_tree, sharding_ctx, zip_map)
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -64,12 +64,14 @@ def params_spec(cfg):
 def decode_state_spec(cfg, batch: int, cache_len: int):
     """The whole decode state on ``meta``, built under the active
     sharding context (its KV heads pad as the mesh says); encdec runs
-    ``encoder_forward`` over meta frames for its cross K/V."""
+    ``encoder_forward`` over meta frames for its cross K/V, with the
+    whole params over the whole batch, so outside the mesh."""
     p_spec = params_spec(cfg)
     fe = frontend_specs(cfg, batch)
     enc = None
     if cfg.family == "encdec":
-        enc = tf.encoder_forward(p_spec, cfg, fe["frames"])
+        with sharding_ctx(None, {}):
+            enc = tf.encoder_forward(p_spec, cfg, fe["frames"])
     elif cfg.family == "vlm":
         enc = fe["patches"]
     return tf.init_decode_state(p_spec, cfg, batch, cache_len, enc=enc,
@@ -120,11 +122,15 @@ def _decode_leaf_spec(path: str, ndim: int, rules, shape=(),
         # head-padded); otherwise shard the SEQUENCE dim — a 2-kv-head
         # GQA cache left replicated costs 16x the reads AND the sharded
         # q-heads then induce cache gathers (§Perf pair 3 follow-up).
+        # Cross K/V (MHA, never padded) split on their heads where the
+        # model axis divides them, and are whole on every rank else, as
+        # cross-attention's weights are.
         kv_heads = shape[-2] if len(shape) >= 2 else 0
-        if not cross and kv is not None and kv_heads % max(model_size, 1):
+        even = kv_heads % max(model_size, 1) == 0
+        if not cross and kv is not None and not even:
             base = (b, m, None, None)
         else:
-            base = (b, None, m if cross else kv, None)
+            base = (b, None, (m if even else None) if cross else kv, None)
     elif name in ("latent", "k_rope"):
         # MLA latent has no head dim to shard — shard the SEQUENCE dim
         # over "model" instead of replicating the cache on every chip
@@ -158,9 +164,10 @@ def decode_state_pspecs(state, rules, mesh=None):
 def shard_decode_state(state, mesh, rules):
     """This rank's block of every leaf of a whole decode state (as
     ``transformer.init_decode_state`` builds it under the same mesh, so
-    that its KV heads are padded), by ``decode_state_pspecs``. A dim
-    that does not split raises (``sharding.local_slice``): the decode
-    step takes the split from the rules alone."""
+    that its KV heads are padded, from the whole params and the whole
+    frontend states), by ``decode_state_pspecs``. A dim that does not
+    split raises (``sharding.local_slice``): the decode step takes the
+    split from the rules alone."""
     return shard_tree(state, decode_state_pspecs(state, rules, mesh), mesh)
 
 

@@ -27,7 +27,10 @@ caches are split as ``launch.specs.decode_state_pspecs`` says: KV heads
 where they divide, else (GQA, and always for MLA's latent) the
 sequence, and then every rank scores its own keys and the softmax is
 combined across the model ranks (max, then sums of the exponentials and
-of the context). Without a mesh all of this is the identity.
+of the context). ``cross_attend`` runs the rank's block of the
+cross-attention heads, unpadded, where the model axis divides them, over
+the rank's rows of the frontend states. Without a mesh all of this is
+the identity.
 
 Unlike JAX, the caches are updated IN PLACE (``index_put_``): a decode
 step writes its new rows into the tensors it was given and returns the
@@ -335,7 +338,7 @@ def gqa_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     of ``wo``, summed over the model axis."""
     B = x.shape[0]
     m = shd.model_axis()
-    if window is None and m is None:
+    if window is None and shd.active_mesh() is None:
         return gqa_decode_multipos(
             p, cfg, x, cache,
             torch.full((B,), int(pos), dtype=torch.long, device=x.device))
@@ -555,7 +558,7 @@ def mla_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     the model ranks."""
     B = x.shape[0]
     m = shd.model_axis()
-    if window is None and m is None:
+    if window is None and shd.active_mesh() is None:
         return mla_decode_multipos(
             p, cfg, x, cache,
             torch.full((B,), int(pos), dtype=torch.long, device=x.device))
@@ -648,8 +651,26 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
 # =====================================================================
 # Cross-attention (enc-dec, VLM)
 # =====================================================================
+def cross_rank(p, cfg):
+    """The rank's cross-attention weights: ``p`` (``shard_params``'
+    slice) with ``wk``/``wv``/``bk``/``bv``, where the rules keep them
+    whole while the model axis divides the H heads, narrowed to the
+    rank's block, so that ``cross_kv`` computes K/V for those heads
+    alone. ``p`` as is without a mesh."""
+    idx, split = _split_heads(cfg.num_heads)
+    if not split or p["wk"].shape[1] == len(idx):
+        return p
+    out = dict(p)
+    for name, ax in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in p:
+            out[name] = p[name].narrow(ax, idx[0], len(idx))
+    return out
+
+
 def cross_kv(p, enc):
-    """Precompute K/V over frontend states enc [B,T,d]."""
+    """Precompute K/V over frontend states enc [B,T,d], over whatever
+    heads ``p`` holds (under a mesh, ``cross_rank``'s: the rank's heads
+    where the model axis divides them)."""
     k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
@@ -657,9 +678,15 @@ def cross_kv(p, enc):
 
 
 def cross_attend(p, cfg, x, kv):
-    """x [B,S,d] queries attend over precomputed kv (no mask)."""
+    """x [B,S,d] queries attend over precomputed kv (no mask). Cross-
+    attention is MHA and, as in the JAX package, its heads are never
+    padded: under a mesh whose model axis divides H the rank runs its
+    block of the heads (``cross_rank``'s weights, ``kv`` over the same
+    block) and sums ``wo``'s partial products over the model axis (one
+    all-reduce); else every rank runs every head and nothing is summed."""
+    split = shd.model_split(cfg.num_heads)
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     out = _sdpa(q, kv["k"], kv["v"], causal=False, window=None)
-    return _out_proj(out, p["wo"])
+    return _out_heads(out, p["wo"], split)

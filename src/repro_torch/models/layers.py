@@ -140,10 +140,25 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def _gelu_hidden(params, x):
+    return torch.nn.functional.gelu(x @ params["w1"] + params["b1"],
+                                    approximate="tanh")
+
+
 def gelu_mlp(params, x):
-    h = torch.nn.functional.gelu(x @ params["w1"] + params["b1"],
-                                 approximate="tanh")
-    return h @ params["w2"] + params["b2"]
+    return _gelu_hidden(params, x) @ params["w2"] + params["b2"]
+
+
+def gelu_tp(params, x, d_ff: int):
+    """``gelu_mlp`` under the active mesh: column-parallel ``w1``/``b1``
+    and row-parallel ``w2`` over the model axis where it divides
+    ``d_ff`` (``params`` from ``shard_params``: the rank's ff block), one
+    all-reduce after ``w2``, and ``b2``, whole on every rank, added once
+    after it. ``gelu_mlp`` itself without a mesh."""
+    if not shd.model_split(d_ff):
+        return gelu_mlp(params, x)
+    y = shd.psum(_gelu_hidden(params, x) @ params["w2"], shd.model_axis())
+    return y + params["b2"]
 
 
 # ------------------------------------------------------------- the loss

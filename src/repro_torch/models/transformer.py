@@ -53,8 +53,15 @@ heads, ff blocks and experts (see ``attention``, ``moe`` and ``ssm``:
 the SSD mixer by head, its ``ssd`` state the rank's heads, the conv
 state whole), and the vocab-split logits and the rows are gathered back,
 so every rank returns what the call returns without a mesh. The encdec
-and vlm families, the paged and per-row decode and the training loss
-raise under a mesh (ROADMAP.md A17–A19).
+and vlm families run so too: ``encoder_forward`` runs the rank's rows of
+the frames (its heads of the non-causal self-attention, its ff block of
+the GELU MLP, ``b2`` added once after the all-reduce) and gathers the
+rows back; ``forward`` and ``prefill`` cut the encoder states or patch
+embeddings to the rank's rows with the tokens; and cross-attention runs
+the rank's heads over them (``attention.cross_attend``; the decode
+state's ``cross_kv`` holds the rank's rows and heads). The paged and
+per-row decodes and the training loss raise under a mesh (ROADMAP.md A18,
+A19).
 """
 from __future__ import annotations
 
@@ -70,28 +77,11 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import sharding as shd
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
-                                       gelu_mlp, init_gelu_mlp, init_swiglu,
+                                       gelu_tp, init_gelu_mlp, init_swiglu,
                                        rms_norm, sinusoidal_positions,
                                        swiglu_tp)
 
 AUX_WEIGHT = 0.01
-# the ROADMAP.md items that port the other families under a mesh
-_MESH_TODO = {"encdec": "A17", "vlm": "A17"}
-
-
-def _check_mesh(cfg, what: str = "") -> None:
-    """Refuse what is not ported under an active mesh: the encdec and
-    vlm families (first: their item comes before any entry point's),
-    and (``what``) other entry points."""
-    if shd.active_mesh() is None:
-        return
-    if cfg.family in _MESH_TODO:
-        raise NotImplementedError(
-            f"the {cfg.family} family under a device mesh is not ported "
-            f"yet (ROADMAP.md {_MESH_TODO[cfg.family]})")
-    if what:
-        raise NotImplementedError(f"{what} under a device mesh is not "
-                                  f"ported yet (ROADMAP.md A19)")
 
 
 def _param_dtype(cfg) -> torch.dtype:
@@ -262,8 +252,8 @@ def _enc_attn_full(p, cfg, h, positions):
 
 def _cross_full(p, cfg, h, enc):
     x = rms_norm(h, p["ln_c"], cfg.norm_eps)
-    kv = attn.cross_kv(p["cross"], enc)
-    return h + attn.cross_attend(p["cross"], cfg, x, kv)
+    c = attn.cross_rank(p["cross"], cfg)
+    return h + attn.cross_attend(c, cfg, x, attn.cross_kv(c, enc))
 
 
 def _ffn_full(p, cfg, h, moe_path):
@@ -276,7 +266,7 @@ def _ffn_full(p, cfg, h, moe_path):
         y, aux = moe_lib.moe_apply(p["moe"], cfg, x, path=moe_path)
         return h + y, aux
     if cfg.family == "encdec":
-        return h + gelu_mlp(p["mlp"], x), 0.0
+        return h + gelu_tp(p["mlp"], x, cfg.d_ff), 0.0
     return h + swiglu_tp(p["mlp"], x, cfg.d_ff), 0.0
 
 
@@ -340,8 +330,9 @@ def _block_params(params, path):
 # full forward (train / prefill)
 # =====================================================================
 def encoder_forward(params, cfg, frames):
-    """frames [B, T, d] (stub frontend output) -> encoder states."""
-    _check_mesh(cfg)
+    """frames [B, T, d] (stub frontend output) -> encoder states. Under a
+    mesh each rank runs its rows and the states are gathered back."""
+    frames = shd.batch_rows(frames)
     B, T, _ = frames.shape
     pos = torch.arange(T, device=frames.device)[None, :].expand(B, T)
     h = frames + sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
@@ -349,7 +340,7 @@ def encoder_forward(params, cfg, frames):
         p = _layer(params["enc_layers"], i)
         h = _enc_attn_full(p, cfg, h, pos)
         h, _ = _ffn_full(p, cfg, h, "dense")
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return shd.gather_rows(rms_norm(h, params["enc_norm"], cfg.norm_eps))
 
 
 def _period(path) -> int:
@@ -376,11 +367,16 @@ def forward(params, cfg, tokens, *, enc=None, window: Optional[int] = None,
     vlm: each period's) input for the backward pass and recompute the
     rest there, as JAX's ``jax.checkpoint`` over the scan body does; the
     values are bitwise those of ``remat=False``. Under a mesh each rank
-    runs its batch rows and the hidden states are gathered back."""
-    _check_mesh(cfg)
-    h, aux = _forward(params, cfg, shd.batch_rows(tokens), enc, window,
-                      moe_path, remat)
+    runs its batch rows (of ``enc`` too) and the hidden states are
+    gathered back."""
+    h, aux = _forward(params, cfg, shd.batch_rows(tokens), _rows(enc),
+                      window, moe_path, remat)
     return shd.gather_rows(h), aux
+
+
+def _rows(enc):
+    """The rank's rows of the frontend states ``enc`` (or None)."""
+    return None if enc is None else shd.batch_rows(enc)
 
 
 def _forward(params, cfg, tokens, enc, window, moe_path, remat):
@@ -406,7 +402,9 @@ def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
     ({"tokens", "labels"} [B,S] int; encdec also "frames" [B,T,d] for the
     encoder, vlm "patches" [B,T,d]) plus AUX_WEIGHT times the MoE layers'
     load-balance loss."""
-    _check_mesh(cfg, "the training loss")
+    if shd.active_mesh() is not None:
+        raise NotImplementedError("the training loss under a device mesh is "
+                                  "not ported yet (ROADMAP.md A19)")
     enc = None
     if cfg.family == "encdec":
         enc = encoder_forward(params, cfg, batch["frames"])
@@ -422,9 +420,9 @@ def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
 
 def prefill(params, cfg, tokens, *, enc=None, moe_path: str = "auto"):
     """Full forward returning last-position logits [B, V] (no [B,S,V]).
-    Under a mesh each rank runs its rows; the logits are gathered."""
-    _check_mesh(cfg)
-    h, _ = _forward(params, cfg, shd.batch_rows(tokens), enc, None,
+    Under a mesh each rank runs its rows (of ``enc`` too); the logits are
+    gathered."""
+    h, _ = _forward(params, cfg, shd.batch_rows(tokens), _rows(enc), None,
                     moe_path, False)
     return shd.gather_rows(
         logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0])
@@ -445,7 +443,9 @@ def init_decode_state(params, cfg, batch: int, cache_len: int, *,
     also get ``"cross_kv"``, each cross layer's K/V over ``enc``,
     computed once here. (The JAX package stacks the entries on their
     layer axes; the port keeps one entry per layer, since decode updates
-    KV caches in place.)"""
+    KV caches in place.) Under a mesh the state is built whole, from the
+    whole params and ``enc`` under the sharding context (its KV heads pad
+    as the mesh says), and cut by ``launch.specs.shard_decode_state``."""
     dtype = dtype or _param_dtype(cfg)
     fam = cfg.family
 
@@ -512,7 +512,6 @@ def decode_step(params, cfg, state, token, pos: int, *,
     replaced in the returned state's lists. Under a mesh ``state`` is
     the rank's (``launch.specs.shard_decode_state``): each rank decodes
     its rows, and the logits are gathered."""
-    _check_mesh(cfg)
     token = shd.batch_rows(token)
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.long,

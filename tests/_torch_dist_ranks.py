@@ -25,6 +25,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, sharding_rules  # noqa: E402
 from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.specs import shard_decode_state  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
@@ -90,7 +91,10 @@ def run_model(case, cfg, mesh, rules, inp):
     """``prefill`` and ``forward`` of the whole batch; then (decode cases)
     ``decode_step`` over the case's steps with the state cut by
     ``shard_decode_state``: the tokens of ``steps``, or (a "greedy" count)
-    its first column and then each step's argmax."""
+    its first column and then each step's argmax. encdec runs
+    ``encoder_forward`` over the whole ``frames`` first, vlm takes the
+    whole ``patches``; the state is built whole (whole params, whole
+    frontend states) under the mesh, then cut."""
     local = shd.shard_params(inp["params"], mesh, rules)
     # every leaf gathered back over the ranks along its split dims
     specs = shd.param_pspecs(inp["params"], rules, mesh)
@@ -100,15 +104,24 @@ def run_model(case, cfg, mesh, rules, inp):
         (path, torch.equal(b, w) and b.dtype == w.dtype)
         for (path, w, _), (_, b, _) in zip(whole, _leaves(back, specs))],
         "split_leaves": sum(any(a is not None for a in sp)
-                            for _, _, sp in whole)}
-    out["ssd_calls"] = []
-    with shd.sharding_ctx(mesh, rules), _recording_ssd(out["ssd_calls"]):
+                            for _, _, sp in whole),
+        "model_axis": rules.get("model")}
+    out["ssd_calls"], out["flash_calls"], out["flash_strided"] = [], [], []
+    with shd.sharding_ctx(mesh, rules), _recording_ssd(out["ssd_calls"]), \
+            _recording_flash(out["flash_calls"], out["flash_strided"]):
+        enc = inp.get("patches")
+        if "frames" in inp:
+            enc = out["encoder"] = tf.encoder_forward(local, cfg,
+                                                      inp["frames"])
         if "tokens" in inp:
-            out["prefill"] = tf.prefill(local, cfg, inp["tokens"])
-            out["forward"] = tf.forward(local, cfg, inp["tokens"])[0]
+            out["prefill"] = tf.prefill(local, cfg, inp["tokens"], enc=enc)
+            out["forward"] = tf.forward(local, cfg, inp["tokens"],
+                                        enc=enc)[0]
         if "steps" in inp:
-            whole = tf.init_decode_state(local, cfg, inp["steps"].shape[0],
-                                         case["cache_len"], device="cpu")
+            whole = tf.init_decode_state(inp["params"], cfg,
+                                         inp["steps"].shape[0],
+                                         case["cache_len"], enc=enc,
+                                         device="cpu")
             state = shard_decode_state(whole, mesh, rules)
             out["state_shapes"] = [tuple(v.shape)
                                    for entry in _first_entries(state)
@@ -136,13 +149,34 @@ def _recording_ssd(calls):
         ssm_lib.kops.ssd_chunk = ssd
 
 
+@contextmanager
+def _recording_flash(calls, strided):
+    """Each ``ops.flash_attention`` call's (q shape, k shape, causal) into
+    ``calls``, and the same of each call given a q, k or v that is not
+    contiguous (which the CUDA kernel refuses) into ``strided``."""
+    flash = attn_lib.kops.flash_attention
+
+    def call(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw.get("causal")))
+        if not all(t.is_contiguous() for t in (q, k, v)):
+            strided.append(calls[-1])
+        return flash(q, k, v, **kw)
+
+    attn_lib.kops.flash_attention = call
+    try:
+        yield
+    finally:
+        attn_lib.kops.flash_attention = flash
+
+
 def _first_entries(state):
     """The first layer's entry of each group of a decode state (a hybrid's
-    attention group, then its first SSM position's)."""
+    attention group, then its first SSM position's; a vlm's first
+    period's first layer)."""
     for group in ("layers", "attn_layers", "ssm_layers"):
         if group in state:
             entry = state[group][0]
-            yield entry[0] if group == "ssm_layers" else entry
+            yield entry[0] if isinstance(entry, (list, tuple)) else entry
 
 
 def run_cost(case, cfg, mesh, rules, inp):

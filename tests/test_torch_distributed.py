@@ -114,16 +114,18 @@ def run_ranks(tmp_path, case, inputs):
 
 def _same_on_every_rank(outs):
     """Every rank's whole outputs equal rank 0's; ``shard_params`` then
-    ``gather_tree`` gave back the whole tree."""
+    ``gather_tree`` gave back the whole tree, which rules with a model
+    axis split and rules without one (pure data parallel) left whole."""
     for o in outs:
         if "roundtrip" in o:
-            assert o["split_leaves"] > 0
+            assert (o["split_leaves"] > 0) == (o.get("model_axis", "model")
+                                               is not None)
             assert [p for p, same in o["roundtrip"] if not same] == []
+    whole = ("prefill", "forward", "decode", "encoder")
     for r, o in enumerate(outs[1:], 1):
-        for k in ("prefill", "forward", "decode", "ep/ep", "auto"):
+        for k in whole + ("ep/ep", "auto"):
             if k in o:
-                a, b = (o[k], outs[0][k]) if k in ("prefill", "forward",
-                                                   "decode") else \
+                a, b = (o[k], outs[0][k]) if k in whole else \
                     (o[k][0], outs[0][k][0])
                 assert torch.equal(a, b), (r, k)
 

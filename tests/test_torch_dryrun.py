@@ -38,6 +38,7 @@ from repro.models import sharding as jshd
 from repro.models import transformer as jtf
 import repro_torch.configs as pcfg
 from repro_torch.configs.all_configs import ASSIGNED
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as pmesh
 from repro_torch.launch import specs as pspecs
@@ -186,7 +187,7 @@ def test_opt_state_pspecs_match_jax(arch, multi_pod):
         assert sum("data" in s for s in got.values()) > 10
 
 
-DECODE_ARCHS = [a for a in ASSIGNED if a != "whisper-tiny"]
+DECODE_ARCHS = list(ASSIGNED)
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
@@ -195,14 +196,17 @@ def test_decode_state_pspecs_match_jax(arch):
     state built under its package's sharding context (KV heads pad):
     every per-layer leaf of the port has the JAX stacked leaf's spec
     without its layer entries, and the stacked shapes are equal.
-    (Whisper's state needs ``encoder_forward``, which refuses a mesh
-    until ROADMAP.md A17.)"""
+    Whisper-tiny's JAX state is built outside the context: its encoder
+    constrains the weights to a ``NamedSharding``, which needs a real JAX
+    mesh, and its rules have no model axis, so nothing pads."""
     mesh = StandInMesh((16, 16), ("data", "model"))
     shape = INPUT_SHAPES["decode_32k"]
     jcfg, cfg = jget_config(arch), pcfg.get_config(arch)
     rules = jmesh.sharding_rules(jcfg, mesh, global_batch=shape.global_batch)
     cache_len, _ = jspecs.decode_geometry(jcfg, shape)
-    with jshd.sharding_ctx(mesh, rules):
+    encdec = jcfg.family == "encdec"
+    assert not encdec or rules["model"] is None
+    with jshd.sharding_ctx(None if encdec else mesh, {} if encdec else rules):
         jstate = jspecs.decode_state_spec(jcfg, shape.global_batch,
                                           cache_len)
     want = _jax_leaves(jspecs.decode_state_pspecs(jstate, rules, mesh))
@@ -572,7 +576,7 @@ def test_dryrun_cli_single_case(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("whisper-tiny", "decode_32k", "A17"),
+    ("whisper-tiny", "train_4k", "A19"),
     ("qwen1.5-0.5b", "train_4k", "A19")])
 def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
                                           capsys):
@@ -584,3 +588,47 @@ def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
     assert "0 ok, 1 failed" in capsys.readouterr().out
     (fail,) = json.loads(out.read_text())["failures"]
     assert fail["arch"] == arch and f"ROADMAP.md {item}" in fail["error"]
+
+
+def _flash_cost(B, Sq, Sk, H, KV, hd, causal, dtype=torch.bfloat16):
+    q = torch.empty((B, Sq, H, hd), dtype=dtype, device="meta")
+    k = torch.empty((B, Sk, KV, hd), dtype=dtype, device="meta")
+    return flash_mod.cost(q, k, k, causal=causal, window=0)[0]
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("whisper-tiny", "decode_32k"), ("llama-3.2-vision-11b", "prefill_32k")])
+def test_dryrun_cross_families_on_the_mesh(arch, shape, tmp_path, capsys):
+    """The encdec and vlm families run on the (16, 16) mesh. Whisper-tiny
+    is tiny (its weights whole, data parallel only): a decode step of its
+    8 rows a rank launches one cross call a decoder layer, 1 query over
+    1500 frames at all 6 heads, and gathers the logits' rows, nothing
+    else. Llama-3.2-Vision's prefill of 2 rows a rank: 40 self-attention
+    calls (2 query heads over 1 KV head, causal) and 8 cross calls (2
+    heads over 1601 patches, non-causal), each at ``flash_attention.cost``
+    of the rank's shapes; 88 all-reduces of the rank's [2, 32768, 4096]
+    bf16 rows (after ``wo`` in 40 self-attention and 8 cross layers, and
+    after ``w2`` in 40 FFNs), and the embedding's, the logits' and the
+    rows' gathers."""
+    out = tmp_path / "dry.json"
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                        str(out)]) == 0
+    assert "1 ok, 0 failed" in capsys.readouterr().out
+    (res,) = json.loads(out.read_text())["results"]
+    cfg = pcfg.get_config(arch)
+    flash = res["kernel_calls"]["flash_attention"]
+    if arch == "whisper-tiny":
+        B, V = INPUT_SHAPES[shape].global_batch // 16, cfg.vocab_size
+        assert flash["calls"] == cfg.num_layers
+        assert flash["flops"] == cfg.num_layers * _flash_cost(
+            B, 1, cfg.encoder_frames, 6, 6, 64, False)
+        assert res["collective_calls"] == {"all-gather": 1}
+        assert res["collective_bytes"] == {"all-gather": 16 * B * V * 4}
+        return
+    B, S, d = 2, INPUT_SHAPES[shape].seq_len, cfg.d_model
+    assert flash["calls"] == 48
+    assert flash["flops"] == 40 * _flash_cost(B, S, S, 2, 1, 128, True) \
+        + 8 * _flash_cost(B, S, cfg.num_image_tokens, 2, 2, 128, False)
+    assert res["collective_calls"] == {"all-reduce": 88, "all-gather": 3}
+    assert res["collective_bytes"]["all-reduce"] == 88 * B * S * d * 2 \
+        == 47_244_640_256

@@ -393,20 +393,64 @@ def test_one_rank_moe_paths_equal_unsharded(one_rank, monkeypatch):
                 assert torch.equal(got[1], refs[path][1]), (mode, path)
 
 
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_one_rank_cross_families_equal_unsharded(one_rank, arch):
+    """The encdec and vlm families at one rank: ``encoder_forward``,
+    ``prefill`` and ``forward`` bitwise the unsharded ones (the rank's
+    heads are every head, the all-reduces leave one rank's values as
+    they are), and 6 ``decode_step``s within 1e-6 with the state built
+    whole under the mesh and cut by ``shard_decode_state``."""
+    cfg, tp = _model(arch, 4, layers=2, d_model=64, vocab=128)
+    rules = RULES
+    local = pshd.shard_params(tp, one_rank, rules)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 128, (2, 8)))
+    T = cfg.encoder_frames if cfg.family == "encdec" else \
+        cfg.num_image_tokens
+    fe = torch.from_numpy(rng.normal(size=(2, T, 64)).astype(np.float32))
+    enc = ptf.encoder_forward(tp, cfg, fe) if cfg.family == "encdec" \
+        else fe
+    want_pre, (want_h, _) = (ptf.prefill(tp, cfg, toks, enc=enc),
+                             ptf.forward(tp, cfg, toks, enc=enc))
+    steps = rng.integers(0, 128, (2, 6))
+    state = ptf.init_decode_state(tp, cfg, 2, 8, enc=enc, device="cpu")
+    want_dec = []
+    for i in range(6):
+        lg, state = ptf.decode_step(tp, cfg, state, torch.from_numpy(
+            steps[:, i:i + 1]), i)
+        want_dec.append(lg)
+    with pshd.sharding_ctx(one_rank, rules):
+        if cfg.family == "encdec":
+            assert torch.equal(ptf.encoder_forward(local, cfg, fe), enc)
+        assert torch.equal(ptf.prefill(local, cfg, toks, enc=enc), want_pre)
+        assert torch.equal(ptf.forward(local, cfg, toks, enc=enc)[0], want_h)
+        state = pspecs.shard_decode_state(
+            ptf.init_decode_state(tp, cfg, 2, 8, enc=enc, device="cpu"),
+            one_rank, rules)
+        for i in range(6):
+            got, state = ptf.decode_step(local, cfg, state, torch.from_numpy(
+                steps[:, i:i + 1]), i)
+            np.testing.assert_allclose(got, want_dec[i], rtol=1e-6,
+                                       atol=1e-6)
+
+
 def test_unported_families_raise_under_a_mesh(one_rank):
-    """encdec and vlm under a mesh name the ROADMAP item that ports them;
-    so do the per-row and paged decodes and the loss (Mixtral's and,
-    now that its family runs under a mesh, Mamba2's)."""
-    for arch, item in (("whisper-tiny", "A17"),
-                       ("llama-3.2-vision-11b", "A17")):
-        cfg = _port_cfg(arch, layers=2, d_model=64)
-        with pshd.sharding_ctx(one_rank, {"model": "model"}):
-            with pytest.raises(NotImplementedError, match=item):
-                ptf.prefill({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+    """The training loss under a mesh names the ROADMAP item that ports
+    it (A19), for every family: the encdec and vlm ones (whose forward
+    runs under a mesh since A17), Mixtral's and Mamba2's; the per-row
+    and paged decodes name theirs (A18)."""
     cfg, tp = _model("mixtral-8x7b", 0, layers=2, d_model=64)
     mcfg, mp = _model("mamba2-2.7b", 0, layers=2, d_model=64)
+    wcfg, wp = _model("whisper-tiny", 0, layers=2, d_model=64)
+    vcfg, vp = _model("llama-3.2-vision-11b", 0, layers=2, d_model=64)
     x = torch.zeros(1, 1, 64)
+    fe = torch.zeros(1, 4, 64)
     with pshd.sharding_ctx(one_rank, {"model": "model"}):
+        for c, p in ((wcfg, wp), (vcfg, vp)):
+            with pytest.raises(NotImplementedError, match="A19"):
+                ptf.loss_fn(p, c, {"tokens": torch.zeros(1, 4).long(),
+                                   "labels": torch.zeros(1, 4).long(),
+                                   "frames": fe, "patches": fe})
         for c, p in ((cfg, tp), (mcfg, mp)):
             with pytest.raises(NotImplementedError, match="A19"):
                 ptf.loss_fn(p, c, {"tokens": torch.zeros(1, 4).long(),
