@@ -135,8 +135,20 @@ It drives the port's two entry points end to end and checks them:
    ``decode_step``s of 2 rows over a state built whole and cut by
    ``shard_decode_state`` (its cross K/V by rows and heads) against the
    unsharded state: tokens equal, logits within 1e-6 x max, flash once a
-   cross layer a step, one more step's collectives counted. One
-   ``distributed`` JSON line (world size, NCCL version, the seven
+   cross layer a step, one more step's collectives counted; after
+   Mamba2's, (g) ``make_train_step`` under the mesh for MESH_TRAIN_RUNS
+   (Qwen1.5-0.5B whole on 2 x 2048, Mixtral 2 layers on 1 x 2048 with
+   the expert-parallel path against the plain step's ``moe_capacity``,
+   Mamba2 8 layers on 1 x 2048, Whisper-tiny whole on 2 x 448 over 1500
+   frames; fp32, each collective differentiated by its transpose, the
+   gradients summed over the unsplit axes, AdamW on the rank's blocks):
+   two steps each way from the seeded params, the last step's loss,
+   gradients and post-AdamW params bitwise the plain step's, the flash /
+   SSD forward and backward launches and the collectives by kind exactly
+   as counted (``mesh_step_collectives``), each kernel's heaviest call of
+   the path held and timed (a ``kernels`` entry of its own), a step each
+   way timed in TURNS; a ``mesh_train`` line a model. One
+   ``distributed`` JSON line (world size, NCCL version, the eight
    results, their times and the phase's seconds); then the group is
    destroyed. The group stays open from 6a
    to the end of phase 7;
@@ -524,6 +536,15 @@ TURNS = ("plain", "mesh", "mesh", "plain")
 # (4 + 4 layers) on its 448-token text context, Llama-3.2-Vision-11B one
 # period (4 plain layers and 1 cross layer) of 40 layers
 JAMBA_LAYERS, WHISPER_S, VLM_LAYERS = 2, 448, 5
+# the train steps under the (1, 1) mesh (6a, g): (arch, layers or None for
+# the whole model, rows, positions, lr, the moe path of the mesh step), in
+# fp32; Mixtral's mesh step takes the expert-parallel path, its plain one
+# ``auto`` (``moe_capacity``); Whisper's batch holds its 1500 frames
+MESH_TRAIN_RUNS = (("qwen1.5-0.5b", None, 2, 2048, 1e-3, "auto"),
+                   ("mixtral-8x7b", 2, 1, 2048, 1e-4, "ep"),
+                   ("mamba2-2.7b", MAMBA_LAYERS, 1, 2048, 1e-4, "auto"),
+                   ("whisper-tiny", None, 2, WHISPER_S, 1e-3, "auto"))
+MESH_TRAIN_STEPS = 2
 # the memory-tier phase: slots a layer and KV blocks the budget is built
 # for, the block length, and the workload (requests, prompt and new tokens)
 TIER_SLOTS, TIER_BLOCKS, TIER_BLOCK_SIZE = 4, 4, 16
@@ -949,7 +970,8 @@ def kernel_cases(calls):
     visible, flash attention's (query, key) pairs the ones its masks
     leave, SSD's the lower triangle of each chunk (the forwards' and
     moe_ffn's are each kernel module's ``cost``, which the dry run's
-    counter takes too). The flash attention
+    counter takes too; the backwards' are each module's ``bwd_cost``,
+    which the counter takes for a meta backward). The flash attention
     backward's flops are the least autograd of the forward does per
     visible pair and head: S again (2 hd), dP (2 vd), dV (2 vd), dQ and
     dK (2 hd each), 2.5 times the forward's at hd = vd; its library call
@@ -1043,10 +1065,7 @@ def kernel_cases(calls):
                    ops._entry("flash_attention_bwd"), q, k, v, dout, **kw),
                lambda: flash_mod.plain_bwd(q.float(), k.float(), v.float(),
                                            dout.float(), **kw),
-               library, False,
-               q.element_size() * (B * Sq * H * (2 * hd + vd)
-                                   + 2 * B * Sk * KV * (hd + vd)),
-               2 * B * H * pairs * (3 * hd + 2 * vd),
+               library, False, *reversed(flash_mod.bwd_cost(q, k, v, **kw)),
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
                 "dtype": str(q.dtype), "visible_pairs": pairs}, library_bwd)
@@ -1064,13 +1083,10 @@ def kernel_cases(calls):
         args = calls["ssd_chunk_bwd"]
         G, Q, H = args[0].shape
         P, N = args[1].shape[3], args[2].shape[2]
-        tri = Q * (Q + 1) // 2
         yield ("ssd_chunk_bwd",
                lambda: ssd_mod.launch_bwd(ops._entry("ssd_chunk_bwd"), *args),
                lambda: ssd_mod.plain_bwd(*args), None, False,
-               4 * (2 * G * Q * H + 3 * G * Q * H * P + 4 * G * Q * N
-                    + G * H * P * N),
-               G * (H * (4 * Q * P * N + 4 * tri * P) + 6 * tri * N),
+               *reversed(ssd_mod.bwd_cost(*args[:3])),
                {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
 
@@ -2811,6 +2827,234 @@ def ssm_mesh_check(params, cfg, mesh, ops, seen):
     return rep
 
 
+@contextlib.contextmanager
+def counting_collectives(counts):
+    """Count every collective issued inside the block (the forward's,
+    autograd's and the optimizer's) by kind into ``counts``: the c10d
+    calls of ``torch.distributed`` the port makes and ``sharding``'s
+    reduce-scatter."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as shd
+
+    def counted(kind):
+        def make(fn):
+            def call(*a, **kw):
+                counts[kind] = counts.get(kind, 0) + 1
+                return fn(*a, **kw)
+            return call
+        return make
+
+    with patched(dist, "all_reduce", counted("all-reduce")), \
+            patched(dist, "all_gather", counted("all-gather")), \
+            patched(dist, "all_to_all_single", counted("all-to-all")), \
+            patched(shd, "_REDUCE_SCATTER", counted("reduce-scatter")):
+        yield
+
+
+def mesh_step_collectives(cfg, rules, seq, leaves, split_leaves):
+    """The collectives of one train step under the (1, 1) mesh, by kind,
+    from the layer kinds: each collective of the forward, again where
+    remat's recomputation runs it (it stops at the last tensor the
+    backward needs: a block's trailing all-reduce is not recomputed), and
+    its transpose in the backward. With a model axis: an attention layer
+    all-reduces after ``wo`` (forward, recomputed, backward: 3), a dense
+    SwiGLU after ``w2`` (2); an expert-parallel MoE layer exchanges twice
+    (6 all-to-alls with the recomputation and the reverses), sums its aux
+    over the batch and model axes (4 all-reduces) and gathers its rows
+    along the sequence (1 all-gather, its reduce-scatter); an SSM layer
+    redistributes its xBC columns (3 all-to-alls) and all-reduces the
+    norm's block means (3) and ``out_proj`` (2); the embedding's d blocks
+    are gathered (1 all-gather, 1 reduce-scatter), a tied embedding turned
+    into vocab blocks (2 all-to-alls); the cross entropy's 512-position
+    chunks all-reduce the row maxima and the exponentials' and label
+    logits' sums (3 a chunk with the backward). With a batch axis the
+    loss's sum is all-reduced (2). Then one all-reduce a gradient leaf,
+    and one for the norm of the split leaves."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    n = {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0,
+         "all-to-all": 0}
+    if rules.get("model") is not None:
+        n_moe = sum(cfg.has_moe(i) for i in range(cfg.num_layers))
+        n_ssm = kinds.count("ssm")
+        n_ffn = 0 if cfg.family == "ssm" else cfg.num_layers - n_moe
+        n["all-reduce"] += (3 * kinds.count("attn") + 2 * n_ffn + 4 * n_moe
+                            + 5 * n_ssm + 3 * max(seq // 512, 1))
+        n["all-to-all"] += 6 * n_moe + 3 * n_ssm + 2 * cfg.tie_embeddings
+        n["all-gather"] += n_moe + 1
+        n["reduce-scatter"] += n_moe + 1
+    if rules.get("batch") is not None:
+        n["all-reduce"] += 2
+    n["all-reduce"] += leaves + (split_leaves > 0)
+    return {k: v for k, v in n.items() if v}
+
+
+def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
+    """(g) ``make_train_step`` under the (1, 1) mesh with ``arch``'s
+    published rules (``cfg``: its layers, fp32), against the same step
+    without a mesh: MESH_TRAIN_STEPS steps each from the seeded params
+    and fresh optimizer states on B x S seeded tokens (Whisper with its
+    encoder frames). Each mesh step's launches exactly the flash forward
+    twice (remat) and its backward once a self- or cross-attention layer
+    (Whisper's encoder layers, outside remat, once each), the SSD chunk
+    forward twice and its backward once an SSM layer, as the plain
+    step's; its collectives by kind as ``mesh_step_collectives`` counts
+    them; the last step's loss, every gradient the optimizer saw and
+    every param after it bitwise the plain step's (the plain results
+    kept on the host between the runs, compared on the card). The
+    heaviest kernel calls of the mesh steps go into ``seen`` (kernel ->
+    call, as ``kernel_cases`` takes them). Then a step of each, warm, in
+    TURNS on the same params (at one rank ``shard_params`` gives the same
+    tensors). Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step, train_loop)
+    from repro_torch.training.tree import leaves
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    rules = mesh_rules(arch, mesh)
+    rng = np.random.default_rng(SEED + 11)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                 ).cuda() for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda()
+    kinds = prefill_launches(cfg)
+    n_enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    n_attn, n_ssm = kinds["flash_attention"], kinds["ssd_chunk"]
+    want = {"flash_attention": 2 * n_attn + n_enc,
+            "flash_attention_bwd": n_attn + n_enc,
+            "ssd_chunk": 2 * n_ssm, "ssd_chunk_bwd": n_ssm}
+    want = {k: v for k, v in want.items() if v}
+
+    def fresh():
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), device="cuda")
+        return params, adamw_init(params)
+
+    def steps(where, params, opt_state, want_grads=None):
+        """MESH_TRAIN_STEPS steps: (params, opt_state, losses, launches
+        and collectives a step, the last step's gradients): on the host,
+        or, given ``want_grads`` (host tensors), the leaves that differ
+        from them, each (leaf index, max |diff|), compared on the card as they
+        come (the host holds one model's gradients, not two)."""
+        step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr),
+                               moe_path=moe_path if where == "mesh"
+                               else "auto")
+        got = {"grads": None, "step": 0}
+
+        def keep(update):
+            def call(grads, *a, **kw):
+                got["step"] += 1
+                if got["step"] == MESH_TRAIN_STEPS:
+                    got["grads"] = ([g.cpu() for g in leaves(grads)]
+                                    if want_grads is None
+                                    else differing(leaves(grads), want_grads))
+                return update(grads, *a, **kw)
+            return call
+        losses, launches, colls = [], [], []
+        for _ in range(MESH_TRAIN_STEPS):
+            counts = {}
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(patched(train_loop, "adamw_update", keep))
+                if where == "mesh":
+                    stack.enter_context(shd.sharding_ctx(mesh, rules))
+                    stack.enter_context(counting_collectives(counts))
+                    stack.enter_context(recording(ops, seen, PREFILL_SPECS))
+                    stack.enter_context(patched(flash_mod, "launch_bwd",
+                                                keep_first_bwd(seen)))
+                    stack.enter_context(patched(ssd_mod, "launch_bwd",
+                                                keep_first_ssd_bwd(seen)))
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                params, opt_state, loss = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                launches.append(ops.launch_counts())
+            losses.append(loss.cpu())
+            colls.append(counts)
+        return params, opt_state, losses, launches, colls, got["grads"]
+
+    def differing(tensors, host):
+        """(index, max |diff|) of each card tensor that is not bitwise its
+        host twin."""
+        out = []
+        for i, (t, h) in enumerate(zip(tensors, host)):
+            h = h.to(t.device)
+            if not torch.equal(t, h):
+                out.append((i, float((t - h).abs().max())))
+        return out
+
+    # pinned host memory the earlier phases left cached (their expert
+    # masters): the plain run's gradients and params go to the host
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    t0 = time.perf_counter()
+    params, opt_state = fresh()
+    params, opt_state, p_losses, p_launches, _, p_grads = steps(
+        "plain", params, opt_state)
+    seen.clear()
+    p_params = [t.cpu() for t in leaves(params)]
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt_state = fresh()
+    local = shd.shard_params(params, mesh, rules)
+    local, opt_state, losses, launches, colls, bad_grads = steps(
+        "mesh", local, opt_state, p_grads)
+    for name in PREFILL_SPECS:     # (size, call) -> the call
+        if name in seen:
+            seen[name] = seen[name][1]
+    for i, (a, b) in enumerate(zip(p_launches, launches)):
+        check_launches(a, want, f"{cfg.name} plain train step {i}")
+        check_launches(b, want, f"{cfg.name} mesh train step {i}")
+    specs = []
+    shd.zip_map(lambda _, sp: specs.append(sp), params,
+                shd.param_pspecs(params, rules, mesh))
+    want_colls = mesh_step_collectives(
+        cfg, rules, S, len(specs),
+        sum(any(e is not None for e in sp) for sp in specs))
+    for c in colls:
+        check(c == want_colls, f"{cfg.name} mesh train step collectives "
+                               f"{c}, expected {want_colls}")
+    bad = {"loss": [] if torch.equal(losses[-1], p_losses[-1]) else
+           [float((losses[-1] - p_losses[-1]).abs())],
+           "grads": bad_grads, "params": differing(leaves(local), p_params)}
+    check(not any(bad.values()), f"{cfg.name}: the mesh train step is not "
+                                 f"bitwise the plain one: {bad}")
+    del p_params, p_grads
+    s = time.perf_counter() - t0
+    # warm, on the same params and moments
+    step = {w: make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr),
+                               moe_path=moe_path if w == "mesh" else "auto")
+            for w in ("plain", "mesh")}
+    turns = {"plain": [], "mesh": []}
+    for turn in TURNS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with shd.sharding_ctx(mesh if turn == "mesh" else None,
+                              rules if turn == "mesh" else {}):
+            step[turn](local, opt_state, batch)
+        torch.cuda.synchronize()
+        turns[turn].append((time.perf_counter() - t1) * 1e3)
+    del local, params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.num_layers, "batch": [B, S],
+            "lr": lr, "moe_path": moe_path, "steps": MESH_TRAIN_STEPS,
+            "losses_plain": [float(x) for x in p_losses],
+            "losses_mesh": [float(x) for x in losses], "bitwise": True,
+            "launches_per_step": launches[-1],
+            "launches_mesh_steps": {k: sum(c.get(k, 0) for c in launches)
+                                    for k in want},
+            "collectives_per_step": colls[-1], "turns_ms": turns, "s": s}
+
+
 def _cross_call(q, k, **kw):
     """Whether a flash attention call is a cross-attention one: no mask,
     queries over another sequence's keys."""
@@ -4086,15 +4330,30 @@ def main() -> None:
         del mparams, ssm_seen
         gc.collect()
         torch.cuda.empty_cache()
+
+        # ---- train steps under the mesh against plain ones ----------
+        train = {}
+        for run in MESH_TRAIN_RUNS:
+            t_seen = {}
+            rep = mesh_train_check(*run, mesh, ops, t_seen)
+            hold_and_time(t_seen, {k: rep["launches_mesh_steps"][k]
+                                   for k in t_seen},
+                          model=f"{rep['model']} train step (1x1 mesh)")
+            train[rep["model"]] = rep
+            print(json.dumps({"mesh_train": rep, "card": card}), flush=True)
+            del t_seen
+            gc.collect()
+            torch.cuda.empty_cache()
         print(json.dumps({"distributed": {
             "world_size": dist.get_world_size(), "backend": "nccl",
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
             "mesh": {"data": 1, "model": 1}, "ep_moe": ep,
             "tp_prefill": tp, "mla_decode": mla, "hybrid_prefill": hybrid,
             "ssm": ssm, "encdec": cross["whisper-tiny"],
-            "vlm": cross["llama-3.2-vision-11b"],
+            "vlm": cross["llama-3.2-vision-11b"], "train": train,
             "phase_s": ep["s"] + tp["s"] + mla["s"] + hybrid["s"] + ssm["s"]
-            + sum(c["s"] for c in cross.values()), "card": card}}),
+            + sum(c["s"] for c in cross.values())
+            + sum(t["s"] for t in train.values()), "card": card}}),
             flush=True)
     finally:
         dist.destroy_process_group()

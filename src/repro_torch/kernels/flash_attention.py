@@ -79,6 +79,19 @@ def cost(q, k, v, *, causal: bool, window: int):
                                 + B * Sq * H * vd))
 
 
+def bwd_cost(q, k, v, *, causal: bool, window: int):
+    """(flops, bytes) of one backward call: the least autograd of the
+    forward does per visible (query, key) pair and query head, S again
+    (2·hd), dP (2·vd), dV (2·vd), dQ and dK (2·hd each); q, k, v and the
+    output's gradient read once, dq, dk and dv written once."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, vd = k.shape[1], k.shape[2], v.shape[3]
+    return (2 * B * H * visible_pairs(Sq, Sk, causal, window)
+            * (3 * hd + 2 * vd),
+            q.element_size() * (B * Sq * H * (2 * hd + vd)
+                                + 2 * B * Sk * KV * (hd + vd)))
+
+
 def launch(fn, q, k, v, *, causal: bool, window: int):
     """Launch on the current stream. Arguments are checked by the
     caller: one dtype (fp32 or bf16), contiguous, on one CUDA device.

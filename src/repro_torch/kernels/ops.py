@@ -29,9 +29,12 @@ hand-written backward kernels (``flash_attention_bwd`` and
 tensor cores, 3xTF32 for fp32 operands, as their forwards; flash
 attention in fp32 or bf16, SSD chunk in fp32). The decode-only
 kernels (``moe_ffn``, ``paged_attention``) write into fresh outputs with
-no autograd record, so their CUDA routes raise when grad mode is on and
-an input requires grad (``_no_backward``) rather than silently cut the
-gradient; their CPU routes differentiate as plain PyTorch does.
+no autograd record, so their CUDA and meta routes raise when grad mode
+is on and an input requires grad (``_no_backward``) rather than silently
+cut the gradient; their CPU routes differentiate as plain PyTorch does.
+On meta tensors the two differentiable kernels' backwards give empty
+gradients of the inputs' shapes and tell an active counter of one call
+of their backward kernel at its module's ``bwd_cost``, as the card's do.
 
 Kernels are built at first use: one ``nvcc`` per source, all started
 together, into ``build/kernels/`` at the root of the checkout (listed in
@@ -69,9 +72,6 @@ _MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
             "ssd_chunk_bwd": ssd_mod.BACKWARD}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
-# why a meta call of a differentiable kernel refuses inputs that need a
-# gradient
-_NO_META_BWD = "meta tensors: training under a mesh adds it, ROADMAP.md A19"
 
 
 def _nvcc() -> str:
@@ -302,42 +302,52 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         if dev.type == "cpu":
             return flash_mod.plain(q, k, v, causal=causal,
                                    window=window).contiguous()
-        if dev.type == "meta":
-            _no_backward("flash_attention", _NO_META_BWD, q, k, v)
-            return q.new_empty((B, Sq, H, v.shape[3]))
-        _check_cuda("flash_attention", (torch.float32, torch.bfloat16), q, k,
-                    v)
-        if H // KV > flash_mod.MAX_GROUP or hd > flash_mod.MAX_HEAD_DIM:
-            raise ValueError(f"flash_attention: the CUDA kernel takes up to "
-                             f"{flash_mod.MAX_GROUP} query heads per KV "
-                             f"head and head_dim <= {flash_mod.MAX_HEAD_DIM},"
-                             f" got {H // KV} and {hd}")
+        if dev.type == "cuda":
+            _check_cuda("flash_attention", (torch.float32, torch.bfloat16),
+                        q, k, v)
+            if H // KV > flash_mod.MAX_GROUP or hd > flash_mod.MAX_HEAD_DIM:
+                raise ValueError(
+                    f"flash_attention: the CUDA kernel takes up to "
+                    f"{flash_mod.MAX_GROUP} query heads per KV head and "
+                    f"head_dim <= {flash_mod.MAX_HEAD_DIM}, got {H // KV} "
+                    f"and {hd}")
         return _FlashAttention.apply(q, k, v, causal, window)
     return _counted("flash_attention", lambda: flash_mod.cost(
         q, k, v, causal=causal, window=window), run)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The CUDA route of ``flash_attention``: the forward kernel, and the
-    backward kernel for (dq, dk, dv) in q's dtype from the saved q, k and
-    v (it recomputes the softmax and the output it needs)."""
+    """The CUDA and meta routes of ``flash_attention``: the forward
+    kernel, and the backward kernel for (dq, dk, dv) in q's dtype from
+    the saved q, k and v (it recomputes the softmax and the output it
+    needs), one call of ``flash_attention_bwd`` at ``bwd_cost`` to an
+    active op counter. On meta tensors both give empty outputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if q.is_meta:
+            return q.new_empty((*q.shape[:3], v.shape[3]))
         out = flash_mod.launch(_entry("flash_attention"), q, k, v,
                                causal=causal, window=window)
         LAUNCHES["flash_attention"] += 1
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_mod.launch_bwd(
-            _entry("flash_attention_bwd"), q, k, v, dout.contiguous(),
-            causal=ctx.causal, window=ctx.window)
-        LAUNCHES["flash_attention_bwd"] += 1
+        kw = dict(causal=ctx.causal, window=ctx.window)
+
+        def run():
+            if q.is_meta:
+                return tuple(torch.empty_like(t) for t in (q, k, v))
+            grads = flash_mod.launch_bwd(_entry("flash_attention_bwd"), q,
+                                         k, v, dout.contiguous(), **kw)
+            LAUNCHES["flash_attention_bwd"] += 1
+            return grads
+        dq, dk, dv = _counted("flash_attention_bwd",
+                              lambda: flash_mod.bwd_cost(q, k, v, **kw), run)
         return dq, dk, dv, None, None
 
 
@@ -362,39 +372,49 @@ def ssd_chunk(dA, xw, Bm, Cm):
         if dev.type == "cpu":
             return tuple(t.contiguous()
                          for t in ssd_mod.plain(dA, xw, Bm, Cm))
-        if dev.type == "meta":
-            _no_backward("ssd_chunk", _NO_META_BWD, dA, xw, Bm, Cm)
-            P, N = xw.shape[3], Bm.shape[2]
-            return (dA.new_empty((G, Q, H, P), dtype=torch.float32),
-                    dA.new_empty((G, H, P, N), dtype=torch.float32))
-        _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
-        if Q > ssd_mod.MAX_CHUNK:
-            raise ValueError(f"ssd_chunk: the CUDA kernels take chunks of "
-                             f"up to {ssd_mod.MAX_CHUNK} positions, got {Q}")
+        if dev.type == "cuda":
+            _check_cuda("ssd_chunk", torch.float32, dA, xw, Bm, Cm)
+            if Q > ssd_mod.MAX_CHUNK:
+                raise ValueError(f"ssd_chunk: the CUDA kernels take chunks "
+                                 f"of up to {ssd_mod.MAX_CHUNK} positions, "
+                                 f"got {Q}")
         return _SsdChunk.apply(dA, xw, Bm, Cm)
     return _counted("ssd_chunk", lambda: ssd_mod.cost(dA, xw, Bm), run)
 
 
 class _SsdChunk(torch.autograd.Function):
-    """The CUDA route of ``ssd_chunk``: the forward kernel, and the
-    backward kernel for the four input gradients from the saved inputs
-    (it recomputes the scores and decays it needs). A gradient of an
-    unused output arrives as zeros (autograd materialises it)."""
+    """The CUDA and meta routes of ``ssd_chunk``: the forward kernel, and
+    the backward kernel for the four input gradients from the saved
+    inputs (it recomputes the scores and decays it needs), one call of
+    ``ssd_chunk_bwd`` at ``bwd_cost`` to an active op counter. A gradient
+    of an unused output arrives as zeros (autograd materialises it). On
+    meta tensors both give empty outputs."""
 
     @staticmethod
     def forward(ctx, dA, xw, Bm, Cm):
+        ctx.save_for_backward(dA, xw, Bm, Cm)
+        if dA.is_meta:
+            G, Q, H = dA.shape
+            P, N = xw.shape[3], Bm.shape[2]
+            return (dA.new_empty((G, Q, H, P), dtype=torch.float32),
+                    dA.new_empty((G, H, P, N), dtype=torch.float32))
         out = ssd_mod.launch(_entry("ssd_chunk"), dA, xw, Bm, Cm)
         LAUNCHES["ssd_chunk"] += 1
-        ctx.save_for_backward(dA, xw, Bm, Cm)
         return out
 
     @staticmethod
     def backward(ctx, dy, ds):
-        grads = ssd_mod.launch_bwd(_entry("ssd_chunk_bwd"),
-                                   *ctx.saved_tensors, dy.contiguous(),
-                                   ds.contiguous())
-        LAUNCHES["ssd_chunk_bwd"] += 1
-        return grads
+        saved = ctx.saved_tensors
+
+        def run():
+            if dy.is_meta:
+                return tuple(torch.empty_like(t) for t in saved)
+            grads = ssd_mod.launch_bwd(_entry("ssd_chunk_bwd"), *saved,
+                                       dy.contiguous(), ds.contiguous())
+            LAUNCHES["ssd_chunk_bwd"] += 1
+            return grads
+        return _counted("ssd_chunk_bwd",
+                        lambda: ssd_mod.bwd_cost(*saved[:3]), run)
 
 
 def reset_launch_counts() -> None:

@@ -59,6 +59,19 @@ def cost(dA, xw, Bm):
                  + G * H * P * N))
 
 
+def bwd_cost(dA, xw, Bm):
+    """(flops, bytes) of one backward call: its products, a head's U and
+    state term (2·Q·P·N each), dxw and dM (2·P a visible pair each), and
+    a chunk's scores, dC and dB (2·N a visible pair each); dA, xw, Bm,
+    Cm, dY and dS read once, the four gradients written once (fp32)."""
+    G, Q, H = dA.shape
+    P, N = xw.shape[3], Bm.shape[2]
+    tri = Q * (Q + 1) // 2
+    return (G * (H * (4 * Q * P * N + 4 * tri * P) + 6 * tri * N),
+            4 * (2 * G * Q * H + 3 * G * Q * H * P + 4 * G * Q * N
+                 + G * H * P * N))
+
+
 def launch(fn, dA, xw, Bm, Cm):
     """Launch on the current stream. Arguments are checked by the
     caller: fp32, contiguous, on one CUDA device. Returns (Y [G,Q,H,P],

@@ -30,8 +30,8 @@ they carry over:
   slice twice, ``hlo_cost._io_bytes``' dynamic-update-slice rule;
 * collectives (``c10d`` ops): result bytes a kind, under
   ``hlo_cost.COLLECTIVES``' names (``all-reduce``, ``all-gather``,
-  ``all-to-all``), and their input + result bytes in
-  ``bytes_accessed``;
+  ``all-to-all``, ``reduce-scatter``: the kinds an NCCL run issues), and
+  their input + result bytes in ``bytes_accessed``;
 * a kernel wrapper's call (``kernels.ops``) is one opaque call: the
   kernel's closed-form FLOPs and bytes, and nothing of what the wrapper
   runs inside it, so a call counts the same on ``meta``, ``cpu`` (the
@@ -72,10 +72,11 @@ _FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                    "new_empty_strided", "_unsafe_view",
                    "_local_scalar_dense"})
 # the c10d ops the port issues (``sharding.psum`` / ``pmax``,
-# ``all_gather``, ``moe._exchange``) -> hlo_cost.COLLECTIVES' name; any
-# other counts under its own name
+# ``all_gather`` and its backward, ``all_to_all``) -> hlo_cost.COLLECTIVES'
+# name; any other counts under its own name
 _COLLECTIVES = {"allreduce_": "all-reduce", "allgather_": "all-gather",
-                "alltoall_base_": "all-to-all"}
+                "alltoall_base_": "all-to-all",
+                "_reduce_scatter_base_": "reduce-scatter"}
 
 
 def tensors(tree):

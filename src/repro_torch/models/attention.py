@@ -307,13 +307,13 @@ def _valid_keys(pos: int, lo: int, L_local: int, L: int, window, device):
 def _attend(s, values, split_seq: bool):
     """Softmax over the last dim of the scores ``s`` (fp32, masked) and
     the weighted sum ``values(w)``. With the keys split over the model
-    axis, every rank holds a block: the row maxima are combined (max),
-    then the sums of the exponentials and the unnormalised context
-    (one sum)."""
+    axis, every rank holds a block: the row maxima are combined (max; the
+    shift cancels, so it is detached), then the sums of the exponentials
+    and the unnormalised context (one sum)."""
     if not split_seq:
         return values(torch.softmax(s, dim=-1))
     m = shd.model_axis()
-    mx = shd.pmax(s.amax(dim=-1, keepdim=True), m)
+    mx = shd.pmax(s.amax(dim=-1, keepdim=True).detach(), m)
     e = torch.exp(s - mx)
     ctx = values(e)
     both = shd.psum(torch.cat([ctx, e.sum(dim=-1, keepdim=True)], dim=-1),

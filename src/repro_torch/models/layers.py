@@ -163,7 +163,8 @@ def gelu_tp(params, x, d_ff: int):
 
 # ------------------------------------------------------------- the loss
 def chunked_softmax_xent(hidden, unembed, labels, *, chunk: int = 512,
-                         norm_w=None, eps: float = 1e-5):
+                         norm_w=None, eps: float = 1e-5, vocab_axis=None,
+                         batch_axis=None):
     """Cross entropy over the vocab without building [B,S,V].
 
     hidden: [B, S, d]  (before the final norm if ``norm_w`` is given)
@@ -171,21 +172,49 @@ def chunked_softmax_xent(hidden, unembed, labels, *, chunk: int = 512,
     labels: [B, S] int
     Loops over ``S // chunk`` sequence chunks (one chunk if S < chunk;
     S must split evenly, as the JAX package's reshape requires); returns
-    the mean xent, an fp32 scalar."""
+    the mean xent, an fp32 scalar. Each row's log-sum-exp is taken about
+    its detached maximum (the shift cancels in the value and in the
+    gradient).
+
+    Under a mesh: ``unembed`` is the rank's block [d, V/n] of a vocab
+    split in equal blocks over ``vocab_axis`` (``labels`` hold global
+    ids), so each rank computes its block of a chunk's logits; the row
+    maxima are combined (max), then the sums of the exponentials and the
+    label logits, each taken on the rank that owns the label (one sum).
+    ``hidden`` and ``labels`` are the rank's rows of a batch split over
+    ``batch_axis``: the ranks' sums are summed over it and the mean is
+    the whole batch's. With one rank on each axis the collectives leave
+    the values as they are: the same bits as with no axis."""
     B, S, d = hidden.shape
     n_chunks = max(S // chunk, 1)
     chunk = S // n_chunks
     if n_chunks * chunk != S:
         raise ValueError(f"chunked_softmax_xent: {S} positions do not split "
                          f"into {n_chunks} chunks of {chunk}")
+    V = unembed.shape[1]
+    lo = shd.axis_index(vocab_axis) * V if vocab_axis is not None else 0
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):
         h = hidden[:, c * chunk:(c + 1) * chunk]
-        lab = labels[:, c * chunk:(c + 1) * chunk].long()
+        lab = labels[:, c * chunk:(c + 1) * chunk].long() - lo
         if norm_w is not None:
             h = rms_norm(h, norm_w, eps)
         logits = (h @ unembed).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+        mx = logits.detach().amax(dim=-1, keepdim=True)
+        if vocab_axis is not None:
+            mx = shd.pmax(mx, vocab_axis)
+        sumexp = torch.sum(torch.exp(logits - mx), dim=-1)
+        picked = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])
+        picked = picked[..., 0]
+        if vocab_axis is not None:
+            own = (lab >= 0) & (lab < V)
+            both = shd.psum(torch.stack([sumexp, torch.where(
+                own, picked, torch.zeros((), device=picked.device))]),
+                vocab_axis)
+            sumexp, picked = both[0], both[1]
+        lse = torch.log(sumexp) + mx[..., 0]
         total = total + torch.sum(lse - picked)
-    return total / (B * S)
+    n = 1
+    if batch_axis is not None:
+        total, n = shd.psum(total, batch_axis), shd.axis_size(batch_axis)
+    return total / (B * S * n)

@@ -46,8 +46,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-import torch.distributed as dist
-
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dense_init, swiglu_tp
 
@@ -281,11 +279,9 @@ def moe_gather(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _exchange(t, axis):
     """One all-to-all on ``axis``: block i of ``t``'s leading dim goes to
-    rank i; returns the blocks received, block j from rank j."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=shd.active_mesh().get_group(axis))
-    return out
+    rank i; returns the blocks received, block j from rank j. Its
+    backward is the same exchange of the cotangents, reversed."""
+    return shd.all_to_all(t, axis)
 
 
 def moe_ep_shardmap(p, cfg, x, *, capacity_factor: Optional[float] = None

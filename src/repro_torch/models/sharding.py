@@ -9,9 +9,13 @@ explicit: every rank holds the slice of each tensor that its spec gives
 it (``shard_params``), and the model code takes that slice as its
 params: under a mesh every function's params are ``shard_params``'
 output (a weight whose spec splits nothing is whole). It calls
-``psum`` / ``pmax`` / ``all_gather`` over a named mesh axis where the
-partitioner put an all-reduce or an all-gather. The tensors stay plain ``torch.Tensor``s
-(no DTensor), so the ctypes kernels take them as they are.
+``psum`` / ``pmax`` / ``all_gather`` / ``all_to_all`` over a named mesh
+axis where the partitioner put an all-reduce, an all-gather or an
+all-to-all. Under autograd each is differentiated by its transpose, so
+training differentiates every rank's program as it is and then sums
+each gradient over the axes its leaf is not split on (``psum_unsplit``).
+The tensors stay plain ``torch.Tensor``s (no DTensor), so the ctypes
+kernels take them as they are.
 
 A spec is a plain tuple with one entry per dim: ``None`` (replicated), a
 mesh-axis name, or a tuple of names (the dim split over their product,
@@ -294,16 +298,104 @@ def _groups(axis, mesh):
     return [mesh.get_group(a) for a in entry_axes(axis)]
 
 
+# The collectives under autograd. Each one's backward is its own
+# transpose: an all-reduce's is the same all-reduce of the cotangents, an
+# all-gather's a reduce-scatter, an all-to-all's the exchange with the
+# splits reversed. So every rank's autograd gives the gradient of the sum
+# of the ranks' outputs with respect to its own inputs: a training step
+# differentiates loss / world size on each rank, then sums each
+# gradient over the mesh axes its leaf is not split on
+# (``psum_unsplit``), which is the gradient of the one global loss.
+# Without autograd (grad mode off, or nothing to differentiate) the
+# collectives run as they are, in place where they can.
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """A fresh contiguous copy of ``x`` summed over ``group``."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a reduce-scatter: block i of g along dim, summed over the
+        # ranks, to rank i
+        n = dist.get_world_size(ctx.group)
+        blocks = torch.stack(g.chunk(n, dim=ctx.dim))
+        out = g.new_empty(blocks.shape[1:])
+        _REDUCE_SCATTER(out.view(-1), blocks.view(-1), op=dist.ReduceOp.SUM,
+                        group=ctx.group)
+        return out, None, None
+
+
+def _exchange(x: torch.Tensor, group, out_rows, in_rows) -> torch.Tensor:
+    rows = sum(out_rows) if out_rows is not None else x.shape[0]
+    out = x.new_empty((rows, *x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=out_rows,
+                           input_split_sizes=in_rows, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, out_rows, in_rows):
+        ctx.args = (group, in_rows, out_rows)   # the reverse exchange
+        return _exchange(x, group, out_rows, in_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g.contiguous(), *ctx.args), None, None, None)
+
+
 def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     """Sum over the ranks along ``axis`` (a name or tuple of names).
-    Reduces ``x`` in place and returns it: pass a fresh result."""
+    Under autograd a fresh result whose backward sums the cotangents
+    over the same ranks; else ``x`` reduced in place and returned: pass
+    a fresh result."""
     for g in _groups(axis, mesh):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+        if _tracked(x):
+            x = _AllReduce.apply(x, g)
+        else:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
     return x
 
 
 def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
-    """Elementwise max over the ranks along ``axis``, in place."""
+    """Elementwise max over the ranks along ``axis``, in place. It has no
+    gradient: the callers take it of a detached max (a softmax's shift,
+    which cancels), and a tensor that autograd tracks raises."""
+    if _tracked(x):
+        raise ValueError("pmax has no backward: pass a detached tensor")
     for g in _groups(axis, mesh):
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
     return x
@@ -311,13 +403,48 @@ def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
     """The ranks' blocks along ``axis`` concatenated on ``dim`` in rank
-    order (row-major over a tuple of names)."""
+    order (row-major over a tuple of names). Its backward is a
+    reduce-scatter."""
     x = x.contiguous()
     for g in reversed(_groups(axis, mesh)):   # innermost axis first
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-        dist.all_gather(parts, x, group=g)
-        x = torch.cat(parts, dim=dim)
+        x = _AllGather.apply(x, g, dim) if _tracked(x) else _gather(x, g, dim)
     return x
+
+
+def all_to_all(x: torch.Tensor, axis: str, out_rows=None, in_rows=None,
+               mesh=None) -> torch.Tensor:
+    """One all-to-all over the mesh axis ``axis``: ``x``'s leading dim is
+    cut into blocks of ``in_rows`` (equal blocks by default), block j sent
+    to rank j; returns the blocks received, block i (``out_rows[i]`` rows,
+    or as many as sent) from rank i. Its backward is the reverse
+    exchange."""
+    x = x.contiguous()
+    g = _groups(axis, mesh)[0]
+    if _tracked(x):
+        return _AllToAll.apply(x, g, out_rows, in_rows)
+    return _exchange(x, g, out_rows, in_rows)
+
+
+def psum_unsplit(tree, specs, mesh=None):
+    """Every leaf of ``tree`` (gradients, each the rank's block of its
+    leaf under the spec at the same place in ``specs``) summed over the
+    mesh axes its spec does not split: one all-reduce over the whole mesh
+    (the default group) where it splits none, else one an axis. Returns
+    the tree of the sums (each leaf reduced in place where it is
+    contiguous)."""
+    mesh = mesh if mesh is not None else _CTX["mesh"]
+
+    def reduce(t, spec):
+        t = t.contiguous()
+        split = {a for e in spec for a in entry_axes(e)}
+        axes = tuple(a for a in mesh.mesh_dim_names if a not in split)
+        if len(axes) == mesh.ndim:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        elif axes:
+            psum(t, axes, mesh)
+        return t
+    with torch.no_grad():
+        return zip_map(reduce, tree, specs)
 
 
 # ---------------------------------------------------------------------

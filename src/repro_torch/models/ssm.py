@@ -32,7 +32,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
@@ -100,7 +99,8 @@ def _redistribute(t, cfg, axis):
     then the whole B and C, by one ``all_to_all_single`` over ``axis``.
     Rank s takes columns [s·di/n, (s+1)·di/n) and [di, di + 2N); each
     rank sends what of its block falls there, and the blocks received in
-    rank order are those columns in order."""
+    rank order are those columns in order. The backward sends the
+    cotangents back the same way, reversed."""
     n, r = shd.axis_size(axis), shd.axis_index(axis)
     di, N = cfg.d_inner, cfg.ssm_state
     c, e = t.shape[-1], di // n
@@ -120,13 +120,9 @@ def _redistribute(t, cfg, axis):
     send = [torch.cat([rows[:, a:b] for a, b in cols(r, s)], dim=-1)
             .reshape(-1) for s in range(n) if cols(r, s)]
     widths = [sum(b - a for a, b in cols(q, r)) for q in range(n)]
-    out = rows.new_empty(R * (e + 2 * N))
-    dist.all_to_all_single(
-        out, torch.cat(send),
-        output_split_sizes=[R * w for w in widths],
-        input_split_sizes=[R * sum(b - a for a, b in cols(r, s))
-                           for s in range(n)],
-        group=shd.active_mesh().get_group(axis))
+    out = shd.all_to_all(
+        torch.cat(send), axis, out_rows=[R * w for w in widths],
+        in_rows=[R * sum(b - a for a, b in cols(r, s)) for s in range(n)])
     got = [blk.view(R, w) for blk, w in zip(out.split([R * w for w in widths]),
                                             widths) if w]
     return torch.cat(got, dim=-1).reshape(*t.shape[:-1], e + 2 * N)

@@ -59,9 +59,11 @@ the GELU MLP, ``b2`` added once after the all-reduce) and gathers the
 rows back; ``forward`` and ``prefill`` cut the encoder states or patch
 embeddings to the rank's rows with the tokens; and cross-attention runs
 the rank's heads over them (``attention.cross_attend``; the decode
-state's ``cross_kv`` holds the rank's rows and heads). The paged and
-per-row decodes and the training loss raise under a mesh (ROADMAP.md A18,
-A19).
+state's ``cross_kv`` holds the rank's rows and heads). ``loss_fn``
+runs each rank's rows and its vocab block of the cross entropy, and
+returns the whole batch's loss on every rank; its gradients are the
+rank's part (``training.train_loop``). The paged and per-row decodes
+raise under a mesh (ROADMAP.md A18).
 """
 from __future__ import annotations
 
@@ -332,7 +334,12 @@ def _block_params(params, path):
 def encoder_forward(params, cfg, frames):
     """frames [B, T, d] (stub frontend output) -> encoder states. Under a
     mesh each rank runs its rows and the states are gathered back."""
-    frames = shd.batch_rows(frames)
+    return shd.gather_rows(_encode(params, cfg, shd.batch_rows(frames)))
+
+
+def _encode(params, cfg, frames):
+    """``encoder_forward`` of the rank's rows (all of them without a
+    mesh)."""
     B, T, _ = frames.shape
     pos = torch.arange(T, device=frames.device)[None, :].expand(B, T)
     h = frames + sinusoidal_positions(pos, cfg.d_model).to(frames.dtype)
@@ -340,7 +347,7 @@ def encoder_forward(params, cfg, frames):
         p = _layer(params["enc_layers"], i)
         h = _enc_attn_full(p, cfg, h, pos)
         h, _ = _ffn_full(p, cfg, h, "dense")
-    return shd.gather_rows(rms_norm(h, params["enc_norm"], cfg.norm_eps))
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def _period(path) -> int:
@@ -401,21 +408,45 @@ def loss_fn(params, cfg, batch, *, moe_path: str = "auto",
     """The training loss: mean next-token xent (fp32) of ``batch``
     ({"tokens", "labels"} [B,S] int; encdec also "frames" [B,T,d] for the
     encoder, vlm "patches" [B,T,d]) plus AUX_WEIGHT times the MoE layers'
-    load-balance loss."""
-    if shd.active_mesh() is not None:
-        raise NotImplementedError("the training loss under a device mesh is "
-                                  "not ported yet (ROADMAP.md A19)")
+    load-balance loss. Under a mesh each rank runs its batch rows (of the
+    frames or patches too) and its vocab block of the cross entropy
+    (``_vocab_block``), and every rank returns the whole batch's loss."""
+    rows = {k: shd.batch_rows(v) for k, v in batch.items()}
     enc = None
     if cfg.family == "encdec":
-        enc = encoder_forward(params, cfg, batch["frames"])
+        enc = _encode(params, cfg, rows["frames"])
     elif cfg.family == "vlm":
-        enc = batch["patches"]
-    h, aux = forward(params, cfg, batch["tokens"], enc=enc,
-                     moe_path=moe_path, remat=remat)
-    xent = chunked_softmax_xent(h, unembed_matrix(params), batch["labels"],
+        enc = rows["patches"]
+    h, aux = _forward(params, cfg, rows["tokens"], enc, None, moe_path,
+                      remat)
+    unembed, vocab_axis = _vocab_block(params, cfg)
+    xent = chunked_softmax_xent(h, unembed, rows["labels"],
                                 norm_w=params["final_norm"],
-                                eps=cfg.norm_eps)
+                                eps=cfg.norm_eps, vocab_axis=vocab_axis,
+                                batch_axis=shd.batch_axis())
     return xent + AUX_WEIGHT * aux
+
+
+def _vocab_block(params, cfg):
+    """(the unembedding the rank's cross entropy takes, the mesh axis its
+    vocab is split over or None). Without a mesh: the whole [d, V] one.
+    Under a mesh: the rank's block of a vocab-split ``unembed``; tied, the
+    embedding's d blocks turned into vocab blocks by one all-to-all over
+    the model axis (rank j gets the rows of vocab block j from every
+    rank; where V does not split, the d blocks are gathered whole);
+    else whole."""
+    m = shd.model_axis()
+    if "unembed" in params:
+        split = shd.model_split(cfg.vocab_size)
+        return params["unembed"], m if split else None
+    emb = params["embed"]
+    if not shd.model_split(cfg.d_model):
+        return emb.T, None
+    if not shd.model_split(cfg.vocab_size):
+        return shd.all_gather(emb, m, -1).T, None
+    n, Vl = shd.axis_size(m), cfg.vocab_size // shd.axis_size(m)
+    got = shd.all_to_all(emb, m)           # [n * Vl, d / n], by source rank
+    return got.reshape(n, Vl, -1).transpose(0, 1).reshape(Vl, -1).T, m
 
 
 def prefill(params, cfg, tokens, *, enc=None, moe_path: str = "auto"):

@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.models import sharding as shd
 from repro_torch.training.tree import leaves, unflatten
 
 CHUNK = 1 << 26   # elements of a leaf updated at once
@@ -42,19 +44,37 @@ def adamw_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=ps[0].device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. Under a mesh, with
+    ``specs`` (the leaves' specs, ``tree`` holding the rank's block of
+    each): the whole tree's norm, each leaf's sum of squares summed over
+    the mesh axes its spec splits (one all-reduce for the leaves split
+    alike), a leaf kept whole counted once. The leaves' sums are added in
+    the same order either way, so one rank gives the unsplit norm's bits."""
+    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if specs is not None and shd.active_mesh() is not None:
+        axes = [sum((shd.entry_axes(e) for e in s.spec), ())
+                for s in leaves(shd.zip_map(
+                    lambda _, spec: SimpleNamespace(spec=spec), tree,
+                    specs))]
+        for ax in sorted(set(axes) - {()}):
+            idx = [i for i, a in enumerate(axes) if a == ax]
+            summed = shd.psum(torch.stack([sq[i] for i in idx]), ax)
+            for i, v in zip(idx, summed):
+                sq[i] = v
+    return torch.sqrt(sum(sq))
 
 
 def adamw_update(grads, opt_state, params, *, cfg: AdamWConfig,
-                 lr_scale=1.0) -> Tuple[Any, Any]:
+                 lr_scale=1.0, specs=None) -> Tuple[Any, Any]:
     """Returns (params, opt_state), both updated in place. Grads may be
-    any dtype; the global norm is clipped to ``cfg.grad_clip`` first."""
+    any dtype; the global norm (``global_norm(grads, specs)``: under a
+    mesh pass the params' specs) is clipped to ``cfg.grad_clip`` first.
+    Under a mesh every rank updates its blocks."""
     b1, b2 = cfg.b1, cfg.b2
     with torch.no_grad():
         count = opt_state["count"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs)
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         c = count.float()
         bc1 = 1 - b1 ** c

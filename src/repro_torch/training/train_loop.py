@@ -2,19 +2,24 @@
 ``repro.training.train_loop``). The port runs eagerly: a step is the
 loss, ``torch.autograd.grad`` over the param leaves, then AdamW in place
 with the schedule read at the optimizer's step count, as JAX's jitted
-step does."""
+step does. Under a device mesh the step runs on each rank's blocks of
+the params (``make_train_step``)."""
 from __future__ import annotations
 
+import functools
+import math
 import time
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.launch.specs import params_spec
+from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, cosine_schedule)
-from repro_torch.training.tree import flatten, unflatten
+from repro_torch.training.tree import flatten, leaves, unflatten
 
 
 def make_train_step(cfg, *, opt_cfg: Optional[AdamWConfig] = None,
@@ -23,27 +28,74 @@ def make_train_step(cfg, *, opt_cfg: Optional[AdamWConfig] = None,
     """step(params, opt_state, batch) -> (params, opt_state, loss): params
     and state are updated in place (and returned), loss is the step's
     fp32 scalar before the update. ``batch`` holds tensors on the
-    params' device."""
+    params' device.
+
+    Under a mesh (``sharding.sharding_ctx``) ``params`` and the moments
+    are the rank's blocks (``shard_params``), ``batch`` is the whole
+    batch, and the loss is the whole batch's on every rank; each rank
+    ends with its blocks of the params the unsharded step would give
+    (``loss_and_grads``, then AdamW with the global norm of the whole
+    gradient). Moments cut more finely than the params (ZeRO-1) are
+    refused before the loss runs."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = schedule or (lambda s: 1.0)
 
     def step(params, opt_state, batch):
-        # fresh leaves that share the params' storage: the graph is built
-        # on them, and the caller's tensors keep requires_grad False
-        leaves = [p.detach().requires_grad_() for _, p in flatten(params)]
-        with torch.enable_grad():
-            loss = tf.loss_fn(unflatten(params, leaves), cfg, batch,
-                              moe_path=moe_path, remat=remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
+        if any(m.shape != p.shape for m, p in zip(leaves(opt_state["m"]),
+                                                  leaves(params))):
+            raise NotImplementedError(
+                "optimizer state cut more finely than the params (ZeRO-1) "
+                "is not ported yet (ROADMAP.md A20)")
+        specs = None if shd.active_mesh() is None else param_specs(cfg)
+        loss, grads = loss_and_grads(params, cfg, batch, moe_path=moe_path,
+                                     remat=remat, specs=specs)
         lr_scale = schedule(opt_state["count"])
-        params, opt_state = adamw_update(unflatten(params, grads), opt_state,
-                                         params, cfg=opt_cfg,
-                                         lr_scale=lr_scale)
-        return params, opt_state, loss.detach()
+        params, opt_state = adamw_update(grads, opt_state, params,
+                                         cfg=opt_cfg, lr_scale=lr_scale,
+                                         specs=specs)
+        return params, opt_state, loss
 
     return step
+
+
+@functools.lru_cache(maxsize=16)
+def _whole_params(cfg):
+    return params_spec(cfg)
+
+
+def param_specs(cfg):
+    """The spec tree of ``cfg``'s params under the active mesh and rules
+    (``param_pspecs`` of the whole params on ``meta``, sanitized)."""
+    return shd.param_pspecs(_whole_params(cfg), mesh=shd.active_mesh())
+
+
+def loss_and_grads(params, cfg, batch, *, moe_path: str = "auto",
+                   remat: bool = True, specs=None):
+    """(loss, grads): ``loss_fn`` detached and its gradients, a tree like
+    ``params`` (zeros where a leaf is unused). Under a mesh each rank
+    differentiates loss / world size (the collectives' backwards are
+    their transposes, so that is its part of the gradient of the sum of
+    the ranks' losses, each the global loss), then sums each gradient
+    over the mesh axes its leaf is not split on (``specs``, the params'
+    specs: ``param_specs(cfg)`` by default): its block of the gradient of
+    the global loss."""
+    # fresh leaves that share the params' storage: the graph is built on
+    # them, and the caller's tensors keep requires_grad False
+    flat = [p.detach().requires_grad_() for _, p in flatten(params)]
+    mesh = shd.active_mesh()
+    with torch.enable_grad():
+        loss = tf.loss_fn(unflatten(params, flat), cfg, batch,
+                          moe_path=moe_path, remat=remat)
+        cot = None
+        if mesh is not None:
+            world = math.prod(shd.axis_sizes(mesh).values())
+            cot = torch.full_like(loss, 1.0 / world)
+        grads = torch.autograd.grad(loss, flat, cot, allow_unused=True)
+    grads = unflatten(params, [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(grads, flat)])
+    if mesh is not None:
+        grads = shd.psum_unsplit(grads, specs or param_specs(cfg), mesh)
+    return loss.detach(), grads
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:

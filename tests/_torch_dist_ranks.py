@@ -2,7 +2,8 @@
 
     python tests/_torch_dist_ranks.py CASE.json RANK WORLD
 
-``tests/test_torch_distributed.py`` starts WORLD of these. Each opens a
+``tests/test_torch_distributed.py`` (and the other
+``tests/test_torch_distributed_*.py``) start WORLD of these. Each opens a
 gloo process group through the case's ``file://`` store, builds the
 case's (data, model) CPU mesh, cuts the whole inputs (``torch.save``d by
 the test) to its slices and runs the sharded entry point. Every rank
@@ -30,6 +31,9 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.training import (AdamWConfig, adamw_init,  # noqa: E402
+                                  global_norm, make_train_step)
+from repro_torch.training import train_loop  # noqa: E402
 
 
 def case_config(case):
@@ -200,6 +204,47 @@ def run_cost(case, cfg, mesh, rules, inp):
     return cost.to_dict()
 
 
+def run_train(case, cfg, mesh, rules, inp):
+    """``train_loop.loss_and_grads`` of the whole ``batch`` under the
+    rules, then (unless the case says ``"step": False``) one
+    ``make_train_step`` step (AdamW at the case's lr), each from
+    ``shard_params``' slices of a copy of the whole params: the loss of
+    each, the gradients' ``global_norm``, and the gradients and the
+    stepped params gathered whole (``gather_tree``). A case's
+    "aux_weight" stands in for ``transformer.AUX_WEIGHT``. Each flash
+    call given a strided q, k or v goes into ``flash_strided``."""
+    whole, batch = inp["params"], inp["batch"]
+    path = case.get("moe_path", "auto")
+    aux_weight = tf.AUX_WEIGHT
+    tf.AUX_WEIGHT = case.get("aux_weight", aux_weight)
+    out = {"flash_calls": [], "flash_strided": []}
+    try:
+        with shd.sharding_ctx(mesh, rules), \
+                _recording_flash(out["flash_calls"], out["flash_strided"]):
+            specs = train_loop.param_specs(cfg)
+            out["specs_match"] = specs == shd.param_pspecs(whole, rules,
+                                                           mesh)
+            local = shd.shard_params(_copy(whole), mesh, rules)
+            loss, grads = train_loop.loss_and_grads(local, cfg, batch,
+                                                    moe_path=path)
+            out.update(loss=loss, norm=global_norm(grads, specs),
+                       grads=shd.gather_tree(grads, specs, mesh))
+            if case.get("step", True):
+                local = shd.shard_params(_copy(whole), mesh, rules)
+                step = make_train_step(cfg, opt_cfg=AdamWConfig(
+                    lr=case["lr"]), moe_path=path)
+                params, _, out["step_loss"] = step(local, adamw_init(local),
+                                                   batch)
+                out["params"] = shd.gather_tree(params, specs, mesh)
+    finally:
+        tf.AUX_WEIGHT = aux_weight
+    return out
+
+
+def _copy(tree):
+    return tf._tree_map(torch.clone, tree)
+
+
 def _leaves(tree, specs, path=""):
     """(path, leaf, its spec) in order; ``tree`` decides what a leaf is."""
     if isinstance(tree, dict):
@@ -213,7 +258,7 @@ def _leaves(tree, specs, path=""):
 
 
 RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model,
-        "cost": run_cost}
+        "cost": run_cost, "train": run_train}
 
 
 def run_case(case, mesh, inp):

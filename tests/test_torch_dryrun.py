@@ -16,6 +16,10 @@
   decode step.
 * The CLI: one case ok, the families and entry points not ported under a
   mesh named by their ROADMAP.md item.
+* Training: Qwen1.5-0.5B's train_4k step on the (16, 16) mesh, its
+  kernel calls and collectives in closed form; a meta call under grad of
+  each differentiable kernel counts its backward once at ``bwd_cost``,
+  and the decode-only kernels refuse grad.
 """
 import dataclasses
 import json
@@ -45,6 +49,7 @@ from repro_torch.launch import specs as pspecs
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.models import sharding as pshd
 from repro_torch.models import transformer as ptf
+from repro_torch.training.tree import flatten as ptf_flatten
 
 import _torch_dist_ranks as ranks
 
@@ -576,18 +581,139 @@ def test_dryrun_cli_single_case(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("whisper-tiny", "train_4k", "A19"),
-    ("qwen1.5-0.5b", "train_4k", "A19")])
+    ("deepseek-v2-236b", "train_4k", "A20"),
+    ("jamba-1.5-large-398b", "train_4k", "A20")])
 def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
-                                          capsys):
+                                          capsys, monkeypatch):
     """A case that raises is reported with the ROADMAP.md item that
-    ports it, and the run exits 1."""
+    ports it, and the run exits 1: the two ZeRO-1 configs' train steps
+    (their moments cut on the data axis too) are refused before the loss
+    runs."""
+    calls = []
+    monkeypatch.setattr(ptf, "loss_fn", lambda *a, **k: calls.append(1))
     out = tmp_path / "dry.json"
     assert dryrun.main(["--arch", arch, "--shape", shape, "--out",
                         str(out)]) == 1
     assert "0 ok, 1 failed" in capsys.readouterr().out
     (fail,) = json.loads(out.read_text())["failures"]
     assert fail["arch"] == arch and f"ROADMAP.md {item}" in fail["error"]
+    assert calls == []
+
+
+def _local_bytes(cfg, rules, mesh):
+    """(bytes of the rank's block of every param leaf, leaves split)."""
+    whole = pspecs.params_spec(cfg)
+    sizes = pshd.axis_sizes(mesh)
+    got = []
+
+    def leaf(t, spec):
+        n = int(np.prod([sizes[a] for e in spec for a in pshd.entry_axes(e)]))
+        got.append((t.numel() * t.element_size() // n, n > 1))
+    pshd.zip_map(leaf, whole, pshd.param_pspecs(whole, rules, mesh))
+    return sum(b for b, _ in got), sum(s for _, s in got)
+
+
+def test_dryrun_train_step_on_the_mesh(tmp_path, capsys):
+    """Qwen1.5-0.5B x train_4k on (16, 16): a step of 16 rows a rank runs
+    the flash forward twice a layer (remat recomputes it) and its
+    backward once, each at the module's closed form on the rank's heads;
+    the all-reduces are, in closed form: a layer's two [16, 4096, 1024]
+    bf16 sums (after ``wo`` and ``w2``) in the forward, the first again
+    in the recomputation (which stops at the last tensor the backward
+    needs, before the second), both in the backward; per 512-position
+    chunk of the cross entropy the row maxima and the stacked sums of
+    exponentials and label logits (and the latter's backward); the
+    batch's loss sum and its backward; each gradient leaf once, the
+    rank's block; and one sum of the split leaves' squares for the global
+    norm. The embedding's d blocks are gathered once (their gradient
+    reduce-scattered once), and the tied embedding's all-to-all into
+    vocab blocks runs once each way."""
+    out = tmp_path / "dry.json"
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k",
+                        "--out", str(out)]) == 0
+    assert "1 ok, 0 failed" in capsys.readouterr().out
+    (res,) = json.loads(out.read_text())["results"]
+    cfg = pcfg.get_config("qwen1.5-0.5b")
+    L, S, d, H = cfg.num_layers, 4096, cfg.d_model, cfg.num_heads // 16
+    Br, chunks = 256 // 16, 4096 // 512
+    kc = res["kernel_calls"]
+    q = torch.empty((Br, S, H, cfg.head_dim), dtype=torch.bfloat16,
+                    device="meta")
+    fwd = flash_mod.cost(q, q, q, causal=True, window=0)
+    bwd = flash_mod.bwd_cost(q, q, q, causal=True, window=0)
+    assert kc["flash_attention"] == {"calls": 2 * L, "flops": 2 * L * fwd[0],
+                                     "bytes": 2 * L * fwd[1]}
+    assert kc["flash_attention_bwd"] == {"calls": L, "flops": L * bwd[0],
+                                         "bytes": L * bwd[1]}
+    mesh = StandInMesh((16, 16), ("data", "model"))
+    rules = pmesh.sharding_rules(cfg, mesh, global_batch=256)
+    grad_bytes, split = _local_bytes(cfg, rules, mesh)
+    leaves = len(list(ptf_flatten(pspecs.params_spec(cfg))))
+    assert res["collective_calls"] == {
+        "all-reduce": 5 * L + 3 * chunks + 2 + leaves + 1,
+        "all-gather": 1, "reduce-scatter": 1, "all-to-all": 2}
+    rows = Br * S * d * 2
+    assert res["collective_bytes"]["all-reduce"] == (
+        5 * L * rows + chunks * (Br * 512 * 4 + 2 * 2 * Br * 512 * 4)
+        + 2 * 4 + grad_bytes + 4 * split)
+    emb = cfg.vocab_size * d // 16 * 2
+    assert res["collective_bytes"]["all-to-all"] == 2 * emb
+    assert res["collective_bytes"]["all-gather"] == rows
+    assert res["collective_bytes"]["reduce-scatter"] == rows // 16
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_chunk"])
+def test_meta_backward_counts_one_call(kernel):
+    """A meta call under grad of each differentiable kernel: the backward
+    gives gradients of the inputs' shapes and dtypes, and an op counter
+    sees one call of the forward at ``cost`` and one of the backward
+    kernel at ``bwd_cost`` (nothing of what either runs inside)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+
+    def t(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta",
+                           requires_grad=True)
+    if kernel == "flash_attention":
+        args = (t(2, 48, 8, 32, dtype=torch.bfloat16),
+                t(2, 64, 2, 32, dtype=torch.bfloat16),
+                t(2, 64, 2, 16, dtype=torch.bfloat16))
+        kw = dict(causal=True, window=8)
+        want = (flash_mod.cost(*args, **kw), flash_mod.bwd_cost(*args, **kw))
+        run = lambda: (ops.flash_attention(*args, **kw),)  # noqa: E731
+    else:
+        args = (t(6, 16, 4), t(6, 16, 4, 8), t(6, 16, 5), t(6, 16, 5))
+        want = (ssd_mod.cost(*args[:3]), ssd_mod.bwd_cost(*args[:3]))
+        run = lambda: ops.ssd_chunk(*args)  # noqa: E731
+    with torch.enable_grad(), OpCost() as cost:
+        outs = run()
+        grads = torch.autograd.grad(outs, args, [torch.ones_like(o)
+                                                 for o in outs])
+    for g, a in zip(grads, args):
+        assert (g.device.type, g.shape, g.dtype) == ("meta", a.shape,
+                                                      a.dtype)
+    calls = {k: (v["calls"], v["flops"], v["bytes"])
+             for k, v in cost.kernel_calls.items()}
+    assert calls == {kernel: (1, *want[0]), f"{kernel}_bwd": (1, *want[1])}
+
+
+@pytest.mark.parametrize("kernel", ["moe_ffn", "paged_attention"])
+def test_decode_only_kernels_refuse_grad_on_meta(kernel):
+    """The decode-only kernels have no backward: their meta route raises
+    under grad rather than cut the gradient."""
+    from repro_torch.kernels import ops
+
+    def t(*shape, grad=True, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta",
+                           requires_grad=grad)
+    with torch.enable_grad(), pytest.raises(NotImplementedError,
+                                            match="no backward"):
+        if kernel == "moe_ffn":
+            ops.moe_ffn(t(1, 2, 8), t(1, 8, 4), t(1, 8, 4), t(1, 4, 8), [0])
+        else:
+            ops.paged_attention(t(1, 2, 8), t(2, 4, 1, 8), t(2, 4, 1, 8),
+                                t(1, 2, grad=False, dtype=torch.int32),
+                                t(1, grad=False, dtype=torch.int32))
 
 
 def _flash_cost(B, Sq, Sk, H, KV, hd, causal, dtype=torch.bfloat16):

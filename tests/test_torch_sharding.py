@@ -435,26 +435,12 @@ def test_one_rank_cross_families_equal_unsharded(one_rank, arch):
 
 
 def test_unported_families_raise_under_a_mesh(one_rank):
-    """The training loss under a mesh names the ROADMAP item that ports
-    it (A19), for every family: the encdec and vlm ones (whose forward
-    runs under a mesh since A17), Mixtral's and Mamba2's; the per-row
-    and paged decodes name theirs (A18)."""
+    """The per-row and paged decodes under a mesh name the ROADMAP item
+    that ports them (A18). (The training loss runs under a mesh since
+    A19: ``tests/test_torch_distributed_train.py``.)"""
     cfg, tp = _model("mixtral-8x7b", 0, layers=2, d_model=64)
-    mcfg, mp = _model("mamba2-2.7b", 0, layers=2, d_model=64)
-    wcfg, wp = _model("whisper-tiny", 0, layers=2, d_model=64)
-    vcfg, vp = _model("llama-3.2-vision-11b", 0, layers=2, d_model=64)
     x = torch.zeros(1, 1, 64)
-    fe = torch.zeros(1, 4, 64)
     with pshd.sharding_ctx(one_rank, {"model": "model"}):
-        for c, p in ((wcfg, wp), (vcfg, vp)):
-            with pytest.raises(NotImplementedError, match="A19"):
-                ptf.loss_fn(p, c, {"tokens": torch.zeros(1, 4).long(),
-                                   "labels": torch.zeros(1, 4).long(),
-                                   "frames": fe, "patches": fe})
-        for c, p in ((cfg, tp), (mcfg, mp)):
-            with pytest.raises(NotImplementedError, match="A19"):
-                ptf.loss_fn(p, c, {"tokens": torch.zeros(1, 4).long(),
-                                   "labels": torch.zeros(1, 4).long()})
         with pytest.raises(NotImplementedError, match="A18"):
             pattn.gqa_decode_multipos(ptf._layer(tp["layers"], 0)["attn"],
                                       cfg, x, {}, torch.zeros(1).long())
