@@ -147,10 +147,22 @@ It drives the port's two entry points end to end and checks them:
    SSD forward and backward launches and the collectives by kind exactly
    as counted (``mesh_step_collectives``), each kernel's heaviest call of
    the path held and timed (a ``kernels`` entry of its own), a step each
-   way timed in TURNS; a ``mesh_train`` line a model. One
-   ``distributed`` JSON line (world size, NCCL version, the eight
-   results, their times and the phase's seconds); then the group is
-   destroyed. The group stays open from 6a
+   way timed in TURNS; a ``mesh_train`` line a model; (h) ZeRO-1 for
+   ZERO1_TRAIN_RUNS (Jamba-1.5-Large and DeepSeek-V2, one layer each at
+   published widths, fp32 and bf16, 1 x 2048) with the moments of
+   ``init_opt_state`` (cut on "data": at one rank each non-empty ZeRO-1
+   leaf's gradient is reduce-scattered and its updated block
+   all-gathered through NCCL, one block of all of it): two steps, each
+   from the same state as a plain step run just before it (the state
+   saved to pinned host buffers and swapped back), the loss, every
+   gradient AdamW saw and every param and moment after each step bitwise
+   the plain step's, launches as (g) counts them, collectives by kind as
+   ``mesh_step_collectives`` counts them from the leaves' specs (one
+   reduce-scatter and one all-gather a non-empty ZeRO-1 leaf), the card's
+   peak and the pinned host bytes, a step each way timed in TURNS; a
+   ``zero1_train`` line a model. One ``distributed`` JSON line (world
+   size, NCCL version, the nine results, their times and the phase's
+   seconds); then the group is destroyed. The group stays open from 6a
    to the end of phase 7;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
    width 3072) at its full published widths (d_model 5120, 128 heads of
@@ -545,6 +557,21 @@ MESH_TRAIN_RUNS = (("qwen1.5-0.5b", None, 2, 2048, 1e-3, "auto"),
                    ("mamba2-2.7b", MAMBA_LAYERS, 1, 2048, 1e-4, "auto"),
                    ("whisper-tiny", None, 2, WHISPER_S, 1e-3, "auto"))
 MESH_TRAIN_STEPS = 2
+# ZeRO-1 under the (1, 1) mesh (6a, h): (arch, layers, rows, positions,
+# lr, the moe path of the mesh step, dtype) of the two ``zero1`` configs
+# at their published widths, cut
+# to one layer. Jamba-1.5-Large stacks its layers by period (attention
+# every 8th), so its one-layer cut holds 1 // 8 = 0 periods: every layer
+# stack is empty (0 long) and the step runs the embedding, the final norm
+# and the unembedding's cross entropy over 65536 words, 1.07 B params,
+# 17.2 GB of fp32 params, gradients and moments. DeepSeek-V2's layer is
+# MLA beside 160 routed and 2 shared experts, 5.10 B params, in its
+# published bf16: 20.4 GB of params and gradients, 40.8 GB of fp32
+# moments. On 2048 tokens ``auto`` takes ``moe_capacity`` (EP needs 4096)
+ZERO1_TRAIN_RUNS = (("jamba-1.5-large-398b", 1, 1, 2048, 1e-3, "auto",
+                     "float32"),
+                    ("deepseek-v2-236b", 1, 1, 2048, 1e-4, "capacity",
+                     "bfloat16"))
 # the memory-tier phase: slots a layer and KV blocks the budget is built
 # for, the block length, and the workload (requests, prompt and new tokens)
 TIER_SLOTS, TIER_BLOCKS, TIER_BLOCK_SIZE = 4, 4, 16
@@ -2207,12 +2234,22 @@ def cross_layers(cfg) -> int:
     return sum(cfg.has_cross_attn(i) for i in range(cfg.num_layers))
 
 
+def whole_layers(cfg) -> int:
+    """The layers ``init_params`` holds: the hybrid and vlm families stack
+    theirs by period, and keep whole periods only."""
+    period = {"hybrid": cfg.attn_every,
+              "vlm": cfg.cross_attn_every}.get(cfg.family, 1)
+    return cfg.num_layers - cfg.num_layers % period
+
+
 def prefill_launches(cfg):
     """A prefill's launches, from the layer kinds: flash attention once
     per attention layer and once per cross-attention layer, SSD chunk
-    once per SSM layer."""
-    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-    return {"flash_attention": kinds.count("attn") + cross_layers(cfg),
+    once per SSM layer, over ``whole_layers``."""
+    layers = whole_layers(cfg)
+    kinds = [cfg.layer_kind(i) for i in range(layers)]
+    return {"flash_attention": kinds.count("attn")
+            + sum(cfg.has_cross_attn(i) for i in range(layers)),
             "ssd_chunk": kinds.count("ssm")}
 
 
@@ -2832,7 +2869,7 @@ def counting_collectives(counts):
     """Count every collective issued inside the block (the forward's,
     autograd's and the optimizer's) by kind into ``counts``: the c10d
     calls of ``torch.distributed`` the port makes and ``sharding``'s
-    reduce-scatter."""
+    reduce-scatter and all-gather into one buffer."""
     import torch.distributed as dist
     from repro_torch.models import sharding as shd
 
@@ -2847,45 +2884,131 @@ def counting_collectives(counts):
     with patched(dist, "all_reduce", counted("all-reduce")), \
             patched(dist, "all_gather", counted("all-gather")), \
             patched(dist, "all_to_all_single", counted("all-to-all")), \
-            patched(shd, "_REDUCE_SCATTER", counted("reduce-scatter")):
+            patched(shd, "_REDUCE_SCATTER", counted("reduce-scatter")), \
+            patched(shd, "_ALL_GATHER_INTO", counted("all-gather")):
         yield
 
 
-def mesh_step_collectives(cfg, rules, seq, leaves, split_leaves):
+def mesh_step_collectives(cfg, rules, seq, leaves, moe_path):
     """The collectives of one train step under the (1, 1) mesh, by kind,
     from the layer kinds: each collective of the forward, again where
     remat's recomputation runs it (it stops at the last tensor the
     backward needs: a block's trailing all-reduce is not recomputed), and
-    its transpose in the backward. With a model axis: an attention layer
+    its transpose in the backward (over ``whole_layers``). With a model
+    axis: an attention layer
     all-reduces after ``wo`` (forward, recomputed, backward: 3), a dense
-    SwiGLU after ``w2`` (2); an expert-parallel MoE layer exchanges twice
-    (6 all-to-alls with the recomputation and the reverses), sums its aux
-    over the batch and model axes (4 all-reduces) and gathers its rows
-    along the sequence (1 all-gather, its reduce-scatter); an SSM layer
+    SwiGLU after ``w2`` (2); an expert-parallel MoE layer (``moe_path``
+    "ep") exchanges twice (6 all-to-alls with the recomputation and the
+    reverses), sums its aux over the batch and model axes (4 all-reduces)
+    and gathers its rows along the sequence (1 all-gather, its
+    reduce-scatter), a ``moe_capacity`` one with its experts split over
+    the model axis gathers the batch's rows and its experts' outputs (4
+    all-gathers with the recomputation, 2 reduce-scatters), and shared
+    experts all-reduce as a dense SwiGLU does (2); an SSM layer
     redistributes its xBC columns (3 all-to-alls) and all-reduces the
     norm's block means (3) and ``out_proj`` (2); the embedding's d blocks
     are gathered (1 all-gather, 1 reduce-scatter), a tied embedding turned
     into vocab blocks (2 all-to-alls); the cross entropy's 512-position
     chunks all-reduce the row maxima and the exponentials' and label
     logits' sums (3 a chunk with the backward). With a batch axis the
-    loss's sum is all-reduced (2). Then one all-reduce a gradient leaf,
-    and one for the norm of the split leaves."""
-    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    loss's sum is all-reduced (2). Then, from ``leaves`` ((param spec,
+    moment spec, elements) of each leaf): a leaf whose moment spec is its
+    param spec all-reduces its gradient once (over the whole mesh where
+    the spec splits nothing, else over each axis it leaves whole: one at
+    (1, 1)); a ZeRO-1 leaf (its moment spec adds an axis) reduce-scatters
+    it once, all-reduces the block over each axis still whole (none where
+    the param is split on the other one) and all-gathers the updated
+    block once; an empty ZeRO-1 leaf does none of this. The global norm
+    all-reduces once an axis for each distinct tuple of axes the moment
+    specs split."""
+    layers = whole_layers(cfg)
+    kinds = [cfg.layer_kind(i) for i in range(layers)]
     n = {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0,
          "all-to-all": 0}
     if rules.get("model") is not None:
-        n_moe = sum(cfg.has_moe(i) for i in range(cfg.num_layers))
+        n_moe = sum(cfg.has_moe(i) for i in range(layers))
         n_ssm = kinds.count("ssm")
-        n_ffn = 0 if cfg.family == "ssm" else cfg.num_layers - n_moe
-        n["all-reduce"] += (3 * kinds.count("attn") + 2 * n_ffn + 4 * n_moe
-                            + 5 * n_ssm + 3 * max(seq // 512, 1))
-        n["all-to-all"] += 6 * n_moe + 3 * n_ssm + 2 * cfg.tie_embeddings
-        n["all-gather"] += n_moe + 1
-        n["reduce-scatter"] += n_moe + 1
+        n_ffn = 0 if cfg.family == "ssm" else layers - n_moe
+        ep = moe_path == "ep"
+        n["all-reduce"] += (3 * kinds.count("attn") + 2 * n_ffn
+                            + (4 * ep + 2 * bool(cfg.num_shared_experts))
+                            * n_moe + 5 * n_ssm + 3 * max(seq // 512, 1))
+        n["all-to-all"] += 6 * ep * n_moe + 3 * n_ssm \
+            + 2 * cfg.tie_embeddings
+        n["all-gather"] += (1 if ep else 4) * n_moe + 1
+        n["reduce-scatter"] += (1 if ep else 2) * n_moe + 1
     if rules.get("batch") is not None:
         n["all-reduce"] += 2
-    n["all-reduce"] += leaves + (split_leaves > 0)
+    axes = ("data", "model")
+    norm = set()
+    for spec, moment, numel in leaves:
+        split = [a for e in spec for a in (e if isinstance(e, tuple)
+                                           else (e,)) if a]
+        names = tuple(a for e in moment for a in (e if isinstance(e, tuple)
+                                                  else (e,)) if a)
+        norm.add(names)
+        zero1 = len(names) > len(split)
+        if zero1 and not numel:
+            continue
+        whole = [a for a in axes if a not in names]
+        n["all-reduce"] += 1 if len(whole) == len(axes) else len(whole)
+        n["reduce-scatter"] += zero1
+        n["all-gather"] += zero1
+    n["all-reduce"] += sum(len(a) for a in norm)
     return {k: v for k, v in n.items() if v}
+
+
+def step_leaves(params, cfg, rules, mesh):
+    """(param spec, moment spec, elements) of each leaf of ``params``
+    under ``cfg``'s specs on ``mesh`` with ``rules``."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import leaf_specs
+    from repro_torch.training.tree import leaves
+    with shd.sharding_ctx(mesh, rules):
+        return list(zip(
+            leaf_specs(params, train_loop.param_specs(cfg)),
+            leaf_specs(params, train_loop.opt_specs(cfg)["m"]),
+            [p.numel() for p in leaves(params)]))
+
+
+def train_batch(cfg, B, S):
+    """B x S seeded tokens and labels on the card (Whisper's frames too)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 11)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                 ).cuda() for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda()
+    return batch
+
+
+def train_launches(cfg):
+    """A remat train step's launches: the flash forward twice and its
+    backward once a self- or cross-attention layer (Whisper's encoder
+    layers, outside remat, once each), the SSD chunk forward twice and its
+    backward once an SSM layer."""
+    kinds = prefill_launches(cfg)
+    n_enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    n_attn, n_ssm = kinds["flash_attention"], kinds["ssd_chunk"]
+    want = {"flash_attention": 2 * n_attn + n_enc,
+            "flash_attention_bwd": n_attn + n_enc,
+            "ssd_chunk": 2 * n_ssm, "ssd_chunk_bwd": n_ssm}
+    return {k: v for k, v in want.items() if v}
+
+
+def differing(tensors, host):
+    """(index, max |diff|) of each card tensor that is not bitwise its
+    host twin."""
+    import torch
+    out = []
+    for i, (t, h) in enumerate(zip(tensors, host)):
+        h = h.to(t.device)
+        if not torch.equal(t, h):
+            out.append((i, float((t.float() - h.float()).abs().max())))
+    return out
 
 
 def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
@@ -2905,7 +3028,6 @@ def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
     call, as ``kernel_cases`` takes them). Then a step of each, warm, in
     TURNS on the same params (at one rank ``shard_params`` gives the same
     tensors). Returns the report."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash_mod
@@ -2920,19 +3042,8 @@ def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
         cfg = dataclasses.replace(cfg, num_layers=layers)
     cfg = dataclasses.replace(cfg, dtype="float32")
     rules = mesh_rules(arch, mesh)
-    rng = np.random.default_rng(SEED + 11)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
-                                 ).cuda() for k in ("tokens", "labels")}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.from_numpy(rng.normal(size=(
-            B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda()
-    kinds = prefill_launches(cfg)
-    n_enc = cfg.encoder_layers if cfg.family == "encdec" else 0
-    n_attn, n_ssm = kinds["flash_attention"], kinds["ssd_chunk"]
-    want = {"flash_attention": 2 * n_attn + n_enc,
-            "flash_attention_bwd": n_attn + n_enc,
-            "ssd_chunk": 2 * n_ssm, "ssd_chunk_bwd": n_ssm}
-    want = {k: v for k, v in want.items() if v}
+    batch = train_batch(cfg, B, S)
+    want = train_launches(cfg)
 
     def fresh():
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
@@ -2981,16 +3092,6 @@ def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
             colls.append(counts)
         return params, opt_state, losses, launches, colls, got["grads"]
 
-    def differing(tensors, host):
-        """(index, max |diff|) of each card tensor that is not bitwise its
-        host twin."""
-        out = []
-        for i, (t, h) in enumerate(zip(tensors, host)):
-            h = h.to(t.device)
-            if not torch.equal(t, h):
-                out.append((i, float((t - h).abs().max())))
-        return out
-
     # pinned host memory the earlier phases left cached (their expert
     # masters): the plain run's gradients and params go to the host
     getattr(torch._C, "_host_emptyCache", lambda: None)()
@@ -3013,12 +3114,9 @@ def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
     for i, (a, b) in enumerate(zip(p_launches, launches)):
         check_launches(a, want, f"{cfg.name} plain train step {i}")
         check_launches(b, want, f"{cfg.name} mesh train step {i}")
-    specs = []
-    shd.zip_map(lambda _, sp: specs.append(sp), params,
-                shd.param_pspecs(params, rules, mesh))
-    want_colls = mesh_step_collectives(
-        cfg, rules, S, len(specs),
-        sum(any(e is not None for e in sp) for sp in specs))
+    want_colls = mesh_step_collectives(cfg, rules, S,
+                                       step_leaves(params, cfg, rules, mesh),
+                                       moe_path)
     for c in colls:
         check(c == want_colls, f"{cfg.name} mesh train step collectives "
                                f"{c}, expected {want_colls}")
@@ -3053,6 +3151,173 @@ def mesh_train_check(arch, layers, B, S, lr, moe_path, mesh, ops, seen):
             "launches_mesh_steps": {k: sum(c.get(k, 0) for c in launches)
                                     for k in want},
             "collectives_per_step": colls[-1], "turns_ms": turns, "s": s}
+
+
+def zero1_train_check(arch, layers, B, S, lr, moe_path, dtype, mesh, ops,
+                      seen):
+    """(h) ZeRO-1 under the (1, 1) mesh: ``make_train_step`` of a
+    ``zero1`` config (``arch`` at its published widths, ``layers`` of
+    them, in ``dtype``) with its published rules and the moments of
+    ``init_opt_state`` (cut on "data" by ``opt_state_pspecs``: at one rank
+    a leaf's one block is all of it, so the step's reduce-scatter and
+    all-gather of every non-empty ZeRO-1 leaf run through NCCL), against
+    the step without a mesh (the mesh step on ``moe_path``, the plain one
+    on "auto"), MESH_TRAIN_STEPS steps from the same seeded params on B x
+    S seeded tokens. Both steps run from the same state in
+    lockstep, so the host keeps one model's worth: before each step the
+    params and moments go to pinned host buffers; the plain step runs
+    (its gradients to pinned buffers as AdamW gets them); its results
+    and the saved state swap places, leaf by leaf; the mesh step runs from
+    the same state. Each step's loss, every gradient the optimizer saw
+    and every param and moment after it are bitwise the plain step's
+    (compared on the card); its launches are ``train_launches``' as the
+    plain step's; its collectives by kind are ``mesh_step_collectives``'.
+    The heaviest kernel calls of the mesh steps go into ``seen``. Then a
+    step of each, warm, in TURNS on the same params and moments. Returns
+    the report, with the card's peak allocation and the host's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step, train_loop)
+    from repro_torch.training.tree import leaves
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype=dtype)
+    rules = mesh_rules(arch, mesh)
+    batch = train_batch(cfg, B, S)
+    want = train_launches(cfg)
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    plan = step_leaves(params, cfg, rules, mesh)
+    zero1 = sum(p != m for p, m, _ in plan)
+    zero1_full = sum(n > 0 and p != m for p, m, n in plan)
+    check(zero1_full > 0, f"{cfg.name}: no ZeRO-1 leaf under {rules}")
+    want_colls = mesh_step_collectives(cfg, rules, S, plan, moe_path)
+    with shd.sharding_ctx(mesh, rules):
+        local = shd.shard_params(params, mesh, rules)
+        opt_state = init_opt_state(local, cfg)
+    del params
+    step = {w: make_train_step(cfg, opt_cfg=AdamWConfig(lr=lr),
+                               moe_path=moe_path if w == "mesh" else "auto")
+            for w in ("plain", "mesh")}
+
+    def state():
+        return leaves(local) + leaves(opt_state["m"]) + leaves(opt_state["v"])
+
+    def pinned(tensors):
+        return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+
+    host_free = mem_available()
+    host = pinned(state())
+    host_grads = pinned(leaves(local))
+    host_bytes = sum(t.numel() * t.element_size() for t in host + host_grads)
+    got = {"bad_grads": []}
+
+    def keep(update):
+        def call(grads, *a, **kw):
+            for h, g in zip(host_grads, leaves(grads)):
+                h.copy_(g)
+            return update(grads, *a, **kw)
+        return call
+
+    def compare(update):
+        def call(grads, *a, **kw):
+            got["bad_grads"] = differing(leaves(grads), host_grads)
+            return update(grads, *a, **kw)
+        return call
+
+    losses, launches, colls = {"plain": [], "mesh": []}, [], []
+    for k in range(MESH_TRAIN_STEPS):
+        for h, t in zip(host, state()):
+            h.copy_(t)
+        count = opt_state["count"].clone()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with patched(train_loop, "adamw_update", keep):
+            local, opt_state, loss = step["plain"](local, opt_state, batch)
+        torch.cuda.synchronize()
+        p_launches = ops.launch_counts()
+        losses["plain"].append(loss.cpu())
+        p_count = opt_state["count"].clone()
+        for h, t in zip(host, state()):     # the saved state back
+            after = t.clone()
+            t.copy_(h)
+            h.copy_(after)
+            del after
+        opt_state["count"] = count
+        counts = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(train_loop, "adamw_update", compare))
+            stack.enter_context(shd.sharding_ctx(mesh, rules))
+            stack.enter_context(counting_collectives(counts))
+            stack.enter_context(recording(ops, seen, PREFILL_SPECS))
+            stack.enter_context(patched(flash_mod, "launch_bwd",
+                                        keep_first_bwd(seen)))
+            stack.enter_context(patched(ssd_mod, "launch_bwd",
+                                        keep_first_ssd_bwd(seen)))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            local, opt_state, loss = step["mesh"](local, opt_state, batch)
+            torch.cuda.synchronize()
+            launches.append(ops.launch_counts())
+        losses["mesh"].append(loss.cpu())
+        colls.append(counts)
+        check_launches(p_launches, want, f"{cfg.name} plain step {k}")
+        check_launches(launches[-1], want, f"{cfg.name} ZeRO-1 step {k}")
+        check(counts == want_colls, f"{cfg.name} ZeRO-1 step {k} "
+                                    f"collectives {counts}, expected "
+                                    f"{want_colls}")
+        bad = {"loss": [] if torch.equal(losses["mesh"][-1],
+                                         losses["plain"][-1])
+               else [float(losses["mesh"][-1] - losses["plain"][-1])],
+               "grads": got["bad_grads"],
+               "state": differing(state(), host),
+               "count": [] if torch.equal(opt_state["count"], p_count)
+               else [int(opt_state["count"])]}
+        check(not any(bad.values()), f"{cfg.name}: ZeRO-1 step {k} is not "
+                                     f"bitwise the plain one: {bad}")
+    for name in PREFILL_SPECS:     # (size, call) -> the call
+        if name in seen:
+            seen[name] = seen[name][1]
+    del host, host_grads
+    peak = torch.cuda.max_memory_allocated()
+    s = time.perf_counter() - t0
+    turns = {"plain": [], "mesh": []}
+    for turn in TURNS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with shd.sharding_ctx(mesh if turn == "mesh" else None,
+                              rules if turn == "mesh" else {}):
+            step[turn](local, opt_state, batch)
+        torch.cuda.synchronize()
+        turns[turn].append((time.perf_counter() - t1) * 1e3)
+    del local, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    return {"model": cfg.name, "layers": cfg.num_layers, "dtype": dtype,
+            "batch": [B, S], "lr": lr, "moe_path": moe_path,
+            "steps": MESH_TRAIN_STEPS,
+            "leaves": len(plan), "zero1_leaves": zero1,
+            "zero1_leaves_nonempty": zero1_full,
+            "losses_plain": [float(x) for x in losses["plain"]],
+            "losses_mesh": [float(x) for x in losses["mesh"]],
+            "bitwise": True, "launches_per_step": launches[-1],
+            "launches_mesh_steps": {k: sum(c.get(k, 0) for c in launches)
+                                    for k in want},
+            "collectives_per_step": colls[-1],
+            "peak_device_bytes": peak, "host_pinned_bytes": host_bytes,
+            "host_available_before_bytes": host_free,
+            "turns_ms": turns, "s": s}
 
 
 def _cross_call(q, k, **kw):
@@ -4344,6 +4609,21 @@ def main() -> None:
             del t_seen
             gc.collect()
             torch.cuda.empty_cache()
+        zero1 = {}
+        for run in ZERO1_TRAIN_RUNS:
+            t_seen = {}
+            rep = zero1_train_check(*run, mesh, ops, t_seen)
+            if t_seen:
+                hold_and_time(t_seen, {k: rep["launches_mesh_steps"][k]
+                                       for k in t_seen},
+                              model=f"{rep['model']} ZeRO-1 train step "
+                                    f"(1x1 mesh)")
+            zero1[rep["model"]] = rep
+            print(json.dumps({"zero1_train": rep, "card": card}),
+                  flush=True)
+            del t_seen
+            gc.collect()
+            torch.cuda.empty_cache()
         print(json.dumps({"distributed": {
             "world_size": dist.get_world_size(), "backend": "nccl",
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
@@ -4351,9 +4631,11 @@ def main() -> None:
             "tp_prefill": tp, "mla_decode": mla, "hybrid_prefill": hybrid,
             "ssm": ssm, "encdec": cross["whisper-tiny"],
             "vlm": cross["llama-3.2-vision-11b"], "train": train,
+            "zero1_train": zero1,
             "phase_s": ep["s"] + tp["s"] + mla["s"] + hybrid["s"] + ssm["s"]
             + sum(c["s"] for c in cross.values())
-            + sum(t["s"] for t in train.values()), "card": card}}),
+            + sum(t["s"] for t in train.values())
+            + sum(z["s"] for z in zero1.values()), "card": card}}),
             flush=True)
     finally:
         dist.destroy_process_group()

@@ -22,9 +22,10 @@ params and decode state on ``meta`` cut to rank 0's blocks
 (``shard_params``, ``shard_decode_state``), then ``prefill``
 (``encoder_forward`` first for encdec), ``decode_step`` at the last
 position of the shape's context, or a train step (loss, gradients,
-AdamW). A case that raises is reported with its error and the run goes
-on; the families and entry points not yet ported under a mesh raise
-naming their ROADMAP.md item.
+AdamW; for a ``zero1`` config the moments cut on the data axis too). A
+case that raises is reported with its error and the run goes on; the
+entry points not yet ported under a mesh raise naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -189,7 +190,9 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"bytes={res['bytes_accessed']:.3e} "
               f"collective={res['collective_total']:.3e} "
               f"{ {k: f'{v:.2e}' for k, v in cost.collectives.items()} }")
-        print(f"  memory: args={arg_bytes / 2**30:.2f}GiB "
+        opt = (f" (optimizer state {_tree_bytes(args[1]) / 2**30:.2f}GiB)"
+               if INPUT_SHAPES[shape_name].kind == "train" else "")
+        print(f"  memory: args={arg_bytes / 2**30:.2f}GiB{opt} "
               f"out={out_bytes / 2**30:.2f}GiB "
               f"temp={cost.temp_bytes / 2**30:.2f}GiB")
     return res

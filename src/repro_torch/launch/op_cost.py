@@ -72,9 +72,11 @@ _FREE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                    "new_empty_strided", "_unsafe_view",
                    "_local_scalar_dense"})
 # the c10d ops the port issues (``sharding.psum`` / ``pmax``,
-# ``all_gather`` and its backward, ``all_to_all``) -> hlo_cost.COLLECTIVES'
+# ``all_gather`` and its backward, ``all_to_all``, ZeRO-1's
+# ``reduce_scatter`` and ``all_gather_into``) -> hlo_cost.COLLECTIVES'
 # name; any other counts under its own name
 _COLLECTIVES = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+                "_allgather_base_": "all-gather",
                 "alltoall_base_": "all-to-all",
                 "_reduce_scatter_base_": "reduce-scatter"}
 

@@ -224,7 +224,11 @@ def moe_capacity(p, cfg, x, *, capacity_factor: Optional[float] = None
     its ff block of every expert, summed over it ("tp"); then it keeps
     its rows."""
     rows = x
-    x = shd.gather_rows(x)
+    # one autograd node between the rank's rows and the batch's, with a
+    # batch axis or without: the router's and the dispatch's gradients
+    # are summed there before the shared experts' is added to them, in
+    # the same order either way (bitwise at one rank)
+    x = shd.gather_rows(x) if shd.batch_axis() is not None else x.view_as(x)
     B, S, d = x.shape
     C = _capacity(B * S, cfg, capacity_factor)
     logits, top_probs, top_ids = router_probs(p, cfg, x)

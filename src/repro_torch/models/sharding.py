@@ -36,6 +36,7 @@ With no context installed nothing here is called by the model code.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
@@ -310,6 +311,8 @@ def _groups(axis, mesh):
 # collectives run as they are, in place where they can.
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+_ALL_GATHER_INTO = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
 
 
 def _tracked(x: torch.Tensor) -> bool:
@@ -340,6 +343,25 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A reduce-scatter: block i of ``x`` along ``dim``, summed over the
+    ranks of ``group``, to rank i (a fresh contiguous tensor). The blocks
+    are staged in rank order by one copy unless ``x`` already holds them
+    so (one rank, or contiguous with no dim before ``dim`` longer than
+    1)."""
+    n, dim = dist.get_world_size(group), dim % x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    src = x.contiguous() if n == 1 or math.prod(x.shape[:dim]) == 1 \
+        else torch.stack(x.chunk(n, dim=dim))
+    out = x.new_empty((*x.shape[:dim], x.shape[dim] // n,
+                       *x.shape[dim + 1:]))
+    _REDUCE_SCATTER(out.view(-1), src.view(-1), op=dist.ReduceOp.SUM,
+                    group=group)
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -348,14 +370,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # a reduce-scatter: block i of g along dim, summed over the
-        # ranks, to rank i
-        n = dist.get_world_size(ctx.group)
-        blocks = torch.stack(g.chunk(n, dim=ctx.dim))
-        out = g.new_empty(blocks.shape[1:])
-        _REDUCE_SCATTER(out.view(-1), blocks.view(-1), op=dist.ReduceOp.SUM,
-                        group=ctx.group)
-        return out, None, None
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
 
 
 def _exchange(x: torch.Tensor, group, out_rows, in_rows) -> torch.Tensor:
@@ -411,6 +426,31 @@ def all_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
     return x
 
 
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
+                   mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along the mesh axis ``axis``, of
+    which the rank of index i keeps block i of ``dim`` (a fresh
+    contiguous tensor). It has no autograd: ``all_gather``'s backward is
+    the differentiated use."""
+    return _scatter_sum(x, _groups(axis, mesh)[0], dim)
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, axis: str,
+                    dim: int, mesh=None) -> torch.Tensor:
+    """``out`` (in place, and returned) set to the ranks' blocks ``x``
+    along the mesh axis ``axis`` concatenated on ``dim`` in rank order:
+    one ``all_gather_single`` (``all_gather_into_tensor``) into a buffer
+    of ``out``'s size, then one copy into ``out``, however ``dim`` lies.
+    No autograd."""
+    g = _groups(axis, mesh)[0]
+    n = dist.get_world_size(g)
+    buf = x.new_empty(n * x.numel())
+    _ALL_GATHER_INTO(buf, x.contiguous().view(-1), group=g)
+    out.unflatten(dim, (n, x.shape[dim])).movedim(dim, 0).copy_(
+        buf.view(n, *x.shape))
+    return out
+
+
 def all_to_all(x: torch.Tensor, axis: str, out_rows=None, in_rows=None,
                mesh=None) -> torch.Tensor:
     """One all-to-all over the mesh axis ``axis``: ``x``'s leading dim is
@@ -425,26 +465,47 @@ def all_to_all(x: torch.Tensor, axis: str, out_rows=None, in_rows=None,
     return _exchange(x, g, out_rows, in_rows)
 
 
-def psum_unsplit(tree, specs, mesh=None):
-    """Every leaf of ``tree`` (gradients, each the rank's block of its
-    leaf under the spec at the same place in ``specs``) summed over the
-    mesh axes its spec does not split: one all-reduce over the whole mesh
-    (the default group) where it splits none, else one an axis. Returns
-    the tree of the sums (each leaf reduced in place where it is
-    contiguous)."""
-    mesh = mesh if mesh is not None else _CTX["mesh"]
+def added_axis(spec: tuple, moment_spec: tuple):
+    """(dim, axis) where a moment's spec (``launch.specs.opt_state_pspecs``)
+    splits a dim over a mesh axis that its param's ``spec`` keeps whole
+    (ZeRO-1's data axis), or None where the two split alike."""
+    for dim, (a, b) in enumerate(zip(spec, moment_spec)):
+        if a != b:
+            if a is not None:
+                raise ValueError(f"moment spec {moment_spec} does not refine "
+                                 f"the param spec {spec}")
+            return dim, b
+    return None
 
-    def reduce(t, spec):
+
+def psum_unsplit(t: torch.Tensor, spec: tuple, moment_spec: tuple,
+                 mesh=None) -> torch.Tensor:
+    """A gradient leaf ``t`` (the rank's block of its leaf under the param
+    spec ``spec``) summed over the mesh axes ``spec`` does not split: one
+    all-reduce over the whole mesh (the default group) where it splits
+    none, else one an axis, in place where ``t`` is contiguous. Where the
+    leaf's ``moment_spec`` adds an axis on a dim (ZeRO-1's data axis), the
+    sum over that axis is a reduce-scatter onto the rank's block of the
+    dim, first, and the other axes' all-reduces run on the block; an
+    empty such leaf is only cut to its (empty) block, with no collective,
+    alike on every rank. Returns the sum."""
+    mesh = mesh if mesh is not None else _CTX["mesh"]
+    with torch.no_grad():
         t = t.contiguous()
         split = {a for e in spec for a in entry_axes(e)}
+        added = added_axis(spec, moment_spec)
+        if added is not None:
+            dim, axis = added
+            if t.numel() == 0:
+                return t.narrow(dim, 0, t.shape[dim] // axis_size(axis, mesh))
+            t = reduce_scatter(t, axis, dim, mesh)
+            split.update(entry_axes(axis))
         axes = tuple(a for a in mesh.mesh_dim_names if a not in split)
         if len(axes) == mesh.ndim:
             dist.all_reduce(t, op=dist.ReduceOp.SUM)
         elif axes:
             psum(t, axes, mesh)
-        return t
-    with torch.no_grad():
-        return zip_map(reduce, tree, specs)
+    return t
 
 
 # ---------------------------------------------------------------------

@@ -62,7 +62,8 @@ the rank's heads over them (``attention.cross_attend``; the decode
 state's ``cross_kv`` holds the rank's rows and heads). ``loss_fn``
 runs each rank's rows and its vocab block of the cross entropy, and
 returns the whole batch's loss on every rank; its gradients are the
-rank's part (``training.train_loop``). The paged and per-row decodes
+rank's part, which ``training.train_loop`` sums over the ranks (onto the
+rank's data block of the moments, for a ZeRO-1 config). The paged and per-row decodes
 raise under a mesh (ROADMAP.md A18).
 """
 from __future__ import annotations

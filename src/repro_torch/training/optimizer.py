@@ -2,7 +2,9 @@
 ``repro.training.optimizer``).
 
 The optimizer state is ``{"m", "v", "count"}``: fp32 moments shaped like
-the params and an int32 step count. The math is JAX's, in fp32; params
+the params (under a mesh, like the rank's blocks of them that
+``launch.specs.opt_state_pspecs`` gives: ZeRO-1 cuts them on the data
+axis too) and an int32 step count. The math is JAX's, in fp32; params
 keep their dtype. Unlike JAX's pure update, ``adamw_update`` writes the
 new params and moments IN PLACE, under ``torch.no_grad()``, leaf by leaf
 in slices of at most ``CHUNK`` elements, so an update takes no second
@@ -34,14 +36,25 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def adamw_init(params):
+def adamw_init(params, shapes=None):
+    """Zero moments shaped like the params' leaves, or (``shapes``, in
+    ``leaves`` order) like the blocks of them a rank keeps."""
     ps = leaves(params)
+    shapes = shapes or [p.shape for p in ps]
 
     def zeros():
-        return unflatten(params, [torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device) for p in ps])
+        return unflatten(params, [torch.zeros(s, dtype=torch.float32,
+                                              device=p.device)
+                                  for s, p in zip(shapes, ps)])
     return {"m": zeros(), "v": zeros(),
             "count": torch.zeros((), dtype=torch.int32, device=ps[0].device)}
+
+
+def leaf_specs(tree, specs) -> list:
+    """The specs of ``specs`` (a tree mirroring ``tree``, each spec a
+    tuple) in the order of ``leaves(tree)``."""
+    return [b.spec for b in leaves(shd.zip_map(
+        lambda _, spec: SimpleNamespace(spec=spec), tree, specs))]
 
 
 def global_norm(tree, specs=None) -> torch.Tensor:
@@ -53,10 +66,8 @@ def global_norm(tree, specs=None) -> torch.Tensor:
     the same order either way, so one rank gives the unsplit norm's bits."""
     sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
     if specs is not None and shd.active_mesh() is not None:
-        axes = [sum((shd.entry_axes(e) for e in s.spec), ())
-                for s in leaves(shd.zip_map(
-                    lambda _, spec: SimpleNamespace(spec=spec), tree,
-                    specs))]
+        axes = [sum((shd.entry_axes(e) for e in s), ())
+                for s in leaf_specs(tree, specs)]
         for ax in sorted(set(axes) - {()}):
             idx = [i for i, a in enumerate(axes) if a == ax]
             summed = shd.psum(torch.stack([sq[i] for i in idx]), ax)
@@ -66,22 +77,30 @@ def global_norm(tree, specs=None) -> torch.Tensor:
 
 
 def adamw_update(grads, opt_state, params, *, cfg: AdamWConfig,
-                 lr_scale=1.0, specs=None) -> Tuple[Any, Any]:
+                 lr_scale=1.0, specs=None, moment_specs=None
+                 ) -> Tuple[Any, Any]:
     """Returns (params, opt_state), both updated in place. Grads may be
-    any dtype; the global norm (``global_norm(grads, specs)``: under a
-    mesh pass the params' specs) is clipped to ``cfg.grad_clip`` first.
-    Under a mesh every rank updates its blocks."""
+    any dtype; the global norm of the whole gradient is clipped to
+    ``cfg.grad_clip`` first. Under a mesh every rank updates its blocks:
+    ``specs`` are the params' specs and ``moment_specs`` the moments'
+    (the params' where omitted), and the gradients are cut like the
+    moments. A leaf whose moment spec adds an axis on a dim (ZeRO-1)
+    updates the rank's block of that dim of the param (a contiguous copy
+    where the block is strided) with its gradient and moment blocks, then
+    all-gathers the blocks over the axis back into the param."""
     b1, b2 = cfg.b1, cfg.b2
+    moment_specs = specs if moment_specs is None else moment_specs
+    sharded = specs is not None and shd.active_mesh() is not None
     with torch.no_grad():
         count = opt_state["count"] + 1
-        gnorm = global_norm(grads, specs)
+        gnorm = global_norm(grads, moment_specs)
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         c = count.float()
         bc1 = 1 - b1 ** c
         bc2 = 1 - b2 ** c
         lr = cfg.lr * lr_scale
-        for g, m, v, p in zip(leaves(grads), leaves(opt_state["m"]),
-                              leaves(opt_state["v"]), leaves(params)):
+
+        def update(g, m, v, p):
             g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
             for a in range(0, p.numel(), CHUNK):
                 gs = g[a:a + CHUNK].float() * scale
@@ -91,6 +110,22 @@ def adamw_update(grads, opt_state, params, *, cfg: AdamWConfig,
                 step = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
                 step = step + cfg.weight_decay * ps.float()
                 ps.copy_(ps.float() - lr * step)
+
+        ps = leaves(params)
+        added = ([shd.added_axis(s, m) for s, m in zip(
+            leaf_specs(params, specs), leaf_specs(params, moment_specs))]
+            if sharded else [None] * len(ps))
+        for g, m, v, p, zero in zip(leaves(grads), leaves(opt_state["m"]),
+                                    leaves(opt_state["v"]), ps, added):
+            if zero is None:
+                update(g, m, v, p)
+            elif p.numel():
+                dim, axis = zero
+                n = m.shape[dim]
+                block = p.narrow(dim, shd.axis_index(axis) * n, n)
+                block = block.contiguous()
+                update(g, m, v, block)
+                shd.all_gather_into(p, block, axis, dim)
         opt_state["count"] = count
     return params, opt_state
 

@@ -5,9 +5,10 @@
 ``tests/test_torch_distributed.py`` (and the other
 ``tests/test_torch_distributed_*.py``) start WORLD of these. Each opens a
 gloo process group through the case's ``file://`` store, builds the
-case's (data, model) CPU mesh, cuts the whole inputs (``torch.save``d by
-the test) to its slices and runs the sharded entry point. Every rank
-writes what it computed to ``out-RANK.pt`` beside the case file: the
+case's CPU mesh (its "axes", ("data", "model") by default), cuts the
+whole inputs (``torch.save``d by the test) to its slices and runs the
+sharded entry point. Every rank writes what it computed to
+``out-RANK.pt`` beside the case file: the
 entry points return whole outputs, so the test reads rank 0's and checks
 that the ranks agree.
 """
@@ -31,8 +32,8 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.training import (AdamWConfig, adamw_init,  # noqa: E402
-                                  global_norm, make_train_step)
+from repro_torch.training import (AdamWConfig, global_norm,  # noqa: E402
+                                  init_opt_state, make_train_step)
 from repro_torch.training import train_loop  # noqa: E402
 
 
@@ -206,13 +207,14 @@ def run_cost(case, cfg, mesh, rules, inp):
 
 def run_train(case, cfg, mesh, rules, inp):
     """``train_loop.loss_and_grads`` of the whole ``batch`` under the
-    rules, then (unless the case says ``"step": False``) one
-    ``make_train_step`` step (AdamW at the case's lr), each from
-    ``shard_params``' slices of a copy of the whole params: the loss of
-    each, the gradients' ``global_norm``, and the gradients and the
-    stepped params gathered whole (``gather_tree``). A case's
-    "aux_weight" stands in for ``transformer.AUX_WEIGHT``. Each flash
-    call given a strided q, k or v goes into ``flash_strided``."""
+    rules, then one ``make_train_step`` step (AdamW at the case's lr),
+    each from ``shard_params``' slices of a copy of the whole params, the
+    moments from ``init_opt_state`` (cut on the data axis too for a
+    ZeRO-1 config): the loss of each, the gradients' ``global_norm``, the
+    gradients, the stepped params and moments gathered whole
+    (``gather_tree``; the gradients and moments by the moments' specs).
+    A case's "aux_weight" stands in for ``transformer.AUX_WEIGHT``. Each
+    flash call given a strided q, k or v goes into ``flash_strided``."""
     whole, batch = inp["params"], inp["batch"]
     path = case.get("moe_path", "auto")
     aux_weight = tf.AUX_WEIGHT
@@ -222,20 +224,25 @@ def run_train(case, cfg, mesh, rules, inp):
         with shd.sharding_ctx(mesh, rules), \
                 _recording_flash(out["flash_calls"], out["flash_strided"]):
             specs = train_loop.param_specs(cfg)
+            moments = train_loop.opt_specs(cfg)["m"]
             out["specs_match"] = specs == shd.param_pspecs(whole, rules,
                                                            mesh)
+            out["zero1_leaves"] = sum(
+                shd.added_axis(sp, m) is not None for (_, _, sp), (_, _, m)
+                in zip(_leaves(whole, specs), _leaves(whole, moments)))
             local = shd.shard_params(_copy(whole), mesh, rules)
             loss, grads = train_loop.loss_and_grads(local, cfg, batch,
                                                     moe_path=path)
-            out.update(loss=loss, norm=global_norm(grads, specs),
-                       grads=shd.gather_tree(grads, specs, mesh))
-            if case.get("step", True):
-                local = shd.shard_params(_copy(whole), mesh, rules)
-                step = make_train_step(cfg, opt_cfg=AdamWConfig(
-                    lr=case["lr"]), moe_path=path)
-                params, _, out["step_loss"] = step(local, adamw_init(local),
-                                                   batch)
-                out["params"] = shd.gather_tree(params, specs, mesh)
+            out.update(loss=loss, norm=global_norm(grads, moments),
+                       grads=shd.gather_tree(grads, moments, mesh))
+            local = shd.shard_params(_copy(whole), mesh, rules)
+            step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=case["lr"]),
+                                   moe_path=path)
+            params, state, out["step_loss"] = step(
+                local, init_opt_state(local, cfg), batch)
+            out["params"] = shd.gather_tree(params, specs, mesh)
+            out["moments"] = {k: shd.gather_tree(state[k], moments, mesh)
+                              for k in ("m", "v")}
     finally:
         tf.AUX_WEIGHT = aux_weight
     return out
@@ -281,7 +288,8 @@ def main(case_file, rank, world):
     dist.init_process_group("gloo", init_method=case["store"], rank=rank,
                             world_size=world)
     try:
-        mesh = make_mesh(tuple(case["mesh"]), ("data", "model"), "cpu")
+        mesh = make_mesh(tuple(case["mesh"]),
+                         tuple(case.get("axes", ("data", "model"))), "cpu")
         inp = torch.load(case["inputs"], weights_only=True)
         torch.save(run_case(case, mesh, inp),
                    case_file.parent / f"out-{rank}.pt")

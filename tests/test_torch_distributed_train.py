@@ -21,13 +21,20 @@ gradient. One spawn runs every case (its parts):
   nothing drops, on the whole batch or on a rank's tokens. The
   shardmap's aux is the mean of the ranks' losses, which no unsharded
   path computes, so that case weighs the aux 0 in both packages;
-* MLA (DeepSeek-V2 reduced, 8 experts with a shared one): the loss and
-  its gradients only;
+* MLA (DeepSeek-V2 reduced, 8 experts with a shared one);
 * Mamba2 and Jamba reduced (8 SSM heads of 16, state 16: B and C on the
   last model rank, redistributed after the conv);
 * Whisper reduced under ``sharding_rules``' own rules (tiny: data
   parallel, no weight split) and under explicit rules with a model axis;
 * Llama-3.2-Vision reduced (a cross layer every 2nd).
+
+DeepSeek-V2 and Jamba are ``zero1`` configs: their moments come from
+``init_opt_state``, cut on the data axis too (``opt_state_pspecs`` at the
+rules' ``_data_size`` of 2), so each such leaf's gradient is
+reduce-scattered over "data", AdamW updates the rank's block and the
+blocks are all-gathered back into the param. Those two run again on a
+(pod 2, data 2, model 2) mesh, the batch split over ("pod", "data"), where
+the pod all-reduce follows the data reduce-scatter.
 
 Every bias leaf is redrawn N(0, 0.5) before bridging (zero biases would
 hide a bias added on every rank). Limits, fp32:
@@ -43,11 +50,17 @@ hide a bias added on every rank). Limits, fp32:
   gradients explain of the unsharded step's (``chip_smoke.py``'s
   STEP_TOL rule for fp32: AdamW's first step is g / (|g| + eps), so a
   param moves at most 2 |dg| / |g| of lr more, and at most 2 lr where a
-  near-zero gradient's sign differs, plus 1e-6 of |p|); and every rank's
-  gathered tree, its whole leaves too, bitwise the same.
+  near-zero gradient's sign differs, plus 1e-6 of |p|); the moments
+  gathered whole by the same rule (m = (1 - b1) g s and v = (1 - b2)
+  (g s)^2 after a first step, s the clip's scale: each moves by what
+  the gradient's difference and the norm's explain, plus 1e-6 of its
+  size); and every rank's gathered tree, its whole leaves too, bitwise
+  the same.
 
 Besides, on a one-rank gloo group: a train step under the (1, 1) mesh is
-bitwise the step without one, for each family.
+bitwise the step without one, for each family, the moments too (for the
+two ZeRO-1 configs every leaf of 2 dims or more is then a one-block
+ZeRO-1 leaf: the reduce-scatter and all-gather run at one rank).
 """
 import dataclasses
 import json
@@ -72,7 +85,8 @@ from repro_torch.launch import mesh as pmesh
 from repro_torch.models import moe as pmoe
 from repro_torch.models import sharding as pshd
 from repro_torch.models import transformer as ptf
-from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+from repro_torch.training import (AdamWConfig, adamw_init, init_opt_state,
+                                  make_train_step)
 from repro_torch.training import train_loop
 from repro_torch.training.optimizer import global_norm
 from repro_torch.training.tree import flatten
@@ -84,6 +98,9 @@ from test_torch_distributed_ssm import JAMBA, SSM
 from test_torch_training import GRAD_ATOL_FRAC, GRAD_RTOL
 
 B, S, LR, SEED = 4, 16, 1e-3, 40
+POD_MESH = (2, 2, 2)     # ("pod", "data", "model")
+POD_RULES = dict(RULES, batch=["pod", "data"])
+ZERO1 = ("mla", "hybrid")
 JAX_WORKERS = 4
 PORT_TOL = 1e-5       # loss relative; gradients x max |g|; the norm
 STEP_TOL = (1e-4, 1e-4, 1e-6)   # chip_smoke.py's fp32 row
@@ -108,7 +125,7 @@ CASES = {
         dict(RULES, experts_mode="tp"), "capacity", {}),
     "mla": ("deepseek-v2-236b", dict(
         reduce=dict(layers=2, d_model=64, experts=8, vocab=128),
-        replace=dict(dtype="float32")), RULES, "dense", {"step": False}),
+        replace=dict(dtype="float32")), RULES, "dense", {}),
     "ssm": ("mamba2-2.7b", dict(
         reduce=dict(layers=2, d_model=64, vocab=128), replace=SSM),
         RULES, "auto", {}),
@@ -195,7 +212,8 @@ class Case:
 
     def port(self):
         """The unsharded port: (loss, grads by key, norm, stepped params by
-        key or None), the shardmap case on ``moe_dense``."""
+        key and moments {"m", "v"} by key, or None), the shardmap case on
+        ``moe_dense``."""
         path = "dense" if self.path == "ep" else self.path
         aux = ptf.AUX_WEIGHT
         ptf.AUX_WEIGHT = self.extra.get("aux_weight", aux)
@@ -203,20 +221,19 @@ class Case:
             loss, grads = train_loop.loss_and_grads(self.tp, self.cfg,
                                                     self.batch,
                                                     moe_path=path)
-            params = None
-            if self.extra.get("step", True):
-                p = ptf._tree_map(torch.clone, self.tp)
-                step = make_train_step(self.cfg, opt_cfg=AdamWConfig(lr=LR),
-                                       moe_path=path)
-                params = dict(flatten(step(p, adamw_init(p), self.batch)[0]))
+            p = ptf._tree_map(torch.clone, self.tp)
+            step = make_train_step(self.cfg, opt_cfg=AdamWConfig(lr=LR),
+                                   moe_path=path)
+            p, st, _ = step(p, adamw_init(p), self.batch)
         finally:
             ptf.AUX_WEIGHT = aux
-        return loss, dict(flatten(grads)), global_norm(grads), params
+        return (loss, dict(flatten(grads)), global_norm(grads),
+                dict(flatten(p)), {k: dict(flatten(st[k])) for k in "mv"})
 
 
-def _start_ranks(tmp, parts, inputs):
+def _start_ranks(tmp, parts, inputs, mesh=MESH, axes=("data", "model")):
     torch.save(inputs, tmp / "inputs.pt")
-    case = dict(kind="parts", parts=parts, mesh=list(MESH),
+    case = dict(kind="parts", parts=parts, mesh=list(mesh), axes=list(axes),
                 store=f"file://{tmp}/store", inputs=str(tmp / "inputs.pt"))
     (tmp / "case.json").write_text(json.dumps(case))
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
@@ -294,20 +311,32 @@ def trained(tmp_path_factory):
     return cases, refs, outs[0]
 
 
-def _within(name, got, want, tol):
-    err = float((got - want).abs().max())
-    top = float(want.abs().max())
-    print(f"{name}: max |diff| {err:.3e}, {err / top:.2e} of max |want|")
-    assert err <= tol * top, (name, err, top)
+@pytest.fixture(scope="module")
+def trained_pod(trained, tmp_path_factory):
+    """Rank 0's outputs of the ZeRO-1 cases on the (2, 2, 2) mesh, from
+    the same params and batches (every rank's outputs bitwise the same)."""
+    cases = trained[0]
+    parts = {n: dict(cases[n].part, rules=POD_RULES) for n in ZERO1}
+    tmp = tmp_path_factory.mktemp("train_pod")
+    procs = _start_ranks(tmp, parts, {n: {"params": cases[n].tp,
+                                          "batch": cases[n].batch}
+                                      for n in ZERO1},
+                         POD_MESH, ("pod", "data", "model"))
+    outs = _collect(tmp, procs)
+    for o in outs[1:]:
+        for n in ZERO1:
+            assert _same(o[n], outs[0][n]), n
+    return outs[0]
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_train_under_the_mesh_matches_unsharded(trained, name):
-    cases, refs, outs = trained
-    c, o = cases[name], outs[name]
-    (loss, grads, norm, params), (jloss, jgrads) = refs[name]
+def check_step(name, c, o, ref, jref):
+    """One case's rank outputs ``o`` against the unsharded port ``ref``
+    and JAX ``jref`` (the limits of the module's docstring)."""
+    loss, grads, norm, params, moments = ref
+    jloss, jgrads = jref
     assert o["specs_match"] and o["flash_strided"] == []
-    for got in (o["loss"], o.get("step_loss", o["loss"])):
+    assert (o["zero1_leaves"] > 0) == c.cfg.zero1, o["zero1_leaves"]
+    for got in (o["loss"], o["step_loss"]):
         np.testing.assert_allclose(float(got), float(loss), rtol=PORT_TOL)
         np.testing.assert_allclose(float(got), jloss, rtol=GRAD_RTOL)
     got = dict(flatten(o["grads"]))
@@ -323,10 +352,10 @@ def test_train_under_the_mesh_matches_unsharded(trained, name):
     print(f"{name}: loss {float(o['loss'])} vs {float(loss)}, "
           f"norm {float(o['norm'])} vs {float(norm)}")
     np.testing.assert_allclose(float(o["norm"]), float(norm), rtol=PORT_TOL)
-    if params is None:
-        return
-    assert float(norm) > AdamWConfig().grad_clip      # the clip is active
+    opt = AdamWConfig()
+    assert float(norm) > opt.grad_clip      # the clip is active
     norm_err = abs(float(o["norm"]) - float(norm)) / float(norm)
+    scale = opt.grad_clip / float(norm)
     _, _, p_tol = STEP_TOL
     for k, p in dict(flatten(o["params"])).items():
         want, dg = params[k], (got[k] - grads[k]).abs()
@@ -334,6 +363,33 @@ def test_train_under_the_mesh_matches_unsharded(trained, name):
         allowed = LR * sens.clamp(max=2.0) + p_tol * (want.abs() + LR)
         d = (p - want).abs()
         assert bool((d <= allowed).all()), (k, float((d - allowed).max()))
+    for key, b in (("m", opt.b1), ("v", opt.b2)):
+        for k, m in dict(flatten(o["moments"][key])).items():
+            want, m = moments[key][k].double(), m.double()
+            g = grads[k].double().abs()
+            dg = got[k].double() - grads[k].double()
+            assert m.shape == want.shape, (key, k)
+            # |g' s' - g s|, s the clip's scale
+            e = scale * (dg.abs() + 2 * norm_err * g)
+            moved = e if key == "m" else e * (2 * scale * g + e)
+            allowed = (1 - b) * moved + p_tol * (want.abs() + m.abs())
+            d = (m - want).abs()
+            assert bool((d <= allowed).all()), (key, k,
+                                                float((d - allowed).max()))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_train_under_the_mesh_matches_unsharded(trained, name):
+    cases, refs, outs = trained
+    check_step(name, cases[name], outs[name], *refs[name])
+
+
+@pytest.mark.parametrize("name", ZERO1)
+def test_zero1_on_the_pod_mesh_matches_unsharded(trained, trained_pod,
+                                                  name):
+    """The ZeRO-1 configs on (pod 2, data 2, model 2): the same limits."""
+    cases, refs, _ = trained
+    check_step(name, cases[name], trained_pod[name], *refs[name])
 
 
 # ---------------------------------------------------- one rank: bitwise
@@ -349,22 +405,12 @@ def one_rank(tmp_path_factory):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name,mesh_path", [
-    ("qwen_tied", "auto"), ("dense", "auto"), ("moe_ep", "ep"),
-    ("ssm", "auto"), ("hybrid", "auto"), ("whisper_dp", "auto"),
-    ("vision", "auto")])
-def test_one_rank_mesh_step_is_bitwise_the_plain_step(one_rank, name,
-                                                      mesh_path):
-    """Two steps under the (1, 1) mesh (the published rules' kind: a
-    model axis, or none for Whisper) from the same params and optimizer
-    state as two steps without one: the losses, the gradients the
-    optimizer saw and the params after each step bitwise equal. Mixtral
-    takes ``moe_ep_shardmap`` under the mesh and ``moe_capacity``
-    without: at one rank the same dispatch, and the exchanges (and their
-    reverses) move the buffers as they are."""
-    c = Case(name, 60)    # the port's own params
-    rules = pmesh.sharding_rules(c.cfg, one_rank) if c.rules is None \
-        else dict(c.rules, _data_size=1)
+def _one_rank_runs(c, rules, mesh, paths):
+    """Two steps of case ``c`` under the one-rank ``mesh`` with ``rules``
+    and two without one, each from ``c``'s params and zero moments
+    (``init_opt_state``), on the moe path ``paths[where]``: (losses, the
+    gradients the optimizer saw, params and moments after each step) of
+    each."""
     runs = {}
     for where in ("plain", "mesh"):
         seen = []
@@ -377,20 +423,79 @@ def test_one_rank_mesh_step_is_bitwise_the_plain_step(one_rank, name,
         train_loop.adamw_update = keep
         try:
             p = ptf._tree_map(torch.clone, c.tp)
+            ctx = (mesh, rules) if where == "mesh" else (None, {})
             if where == "mesh":
-                p = pshd.shard_params(p, one_rank, rules)
-            st = adamw_init(p)
+                p = pshd.shard_params(p, mesh, rules)
+            with pshd.sharding_ctx(*ctx):
+                st = init_opt_state(p, c.cfg)
             step = make_train_step(c.cfg, opt_cfg=AdamWConfig(lr=LR),
-                                   moe_path=(mesh_path if where == "mesh"
-                                             else c.path))
+                                   moe_path=paths[where])
             losses, after = [], []
             for _ in range(2):
-                with pshd.sharding_ctx(one_rank if where == "mesh" else None,
-                                       rules if where == "mesh" else {}):
+                with pshd.sharding_ctx(*ctx):
                     p, st, loss = step(p, st, c.batch)
                 losses.append(loss)
-                after.append([t.clone() for _, t in flatten(p)])
+                after.append([t.clone() for tree in (p, st["m"], st["v"])
+                              for _, t in flatten(tree)])
         finally:
             train_loop.adamw_update = adamw
         runs[where] = (losses, seen, after)
+    return runs
+
+
+@pytest.mark.parametrize("name,mesh_path", [
+    ("qwen_tied", "auto"), ("dense", "auto"), ("moe_ep", "ep"),
+    ("ssm", "auto"), ("hybrid", "auto"), ("whisper_dp", "auto"),
+    ("vision", "auto"), ("mla", "dense")])
+def test_one_rank_mesh_step_is_bitwise_the_plain_step(one_rank, name,
+                                                      mesh_path):
+    """Two steps under the (1, 1) mesh (the published rules' kind: a
+    model axis, or none for Whisper) from the same params and zero
+    moments (``init_opt_state``) as two steps without one: the losses,
+    the gradients the optimizer saw and the params and moments after
+    each step bitwise equal. Mixtral takes ``moe_ep_shardmap`` under the
+    mesh and ``moe_capacity`` without: at one rank the same dispatch, and
+    the exchanges (and their reverses) move the buffers as they are.
+    Jamba and DeepSeek-V2 take ZeRO-1 under the mesh: a one-block
+    reduce-scatter and all-gather a leaf."""
+    c = Case(name, 60)    # the port's own params
+    rules = pmesh.sharding_rules(c.cfg, one_rank) if c.rules is None \
+        else dict(c.rules, _data_size=1)
+    runs = _one_rank_runs(c, rules, one_rank,
+                          {"plain": c.path, "mesh": mesh_path})
     assert _same(runs["mesh"], runs["plain"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_rank_zero1_capacity_step_is_bitwise(one_rank, dtype):
+    """DeepSeek-V2 reduced (8 experts, top 6, a shared expert) through
+    ``moe_capacity`` both ways, as the card runs it, in fp32 and in its
+    published bf16: two ZeRO-1 steps under the (1, 1) mesh bitwise two
+    steps without one. Under the mesh the router's and the dispatch's
+    gradients meet at the batch's gather before the shared expert's is
+    added; without one they meet at a view in the same place, so the
+    three are summed in the same order."""
+    c = Case("mla", 60)
+    c.cfg = dataclasses.replace(c.cfg, dtype=dtype)
+    c.tp = ptf.init_params(c.cfg, torch.Generator().manual_seed(60),
+                           device="cpu")
+    runs = _one_rank_runs(c, dict(RULES, _data_size=1), one_rank,
+                          {"plain": "capacity", "mesh": "capacity"})
+    assert _same(runs["mesh"], runs["plain"])
+
+
+def test_a_moment_of_another_shape_raises(one_rank, monkeypatch):
+    """A ZeRO-1 step given a moment whose shape is not the block its spec
+    gives raises ``ValueError`` naming the leaf, before the loss runs
+    (no whole-leaf update in its place)."""
+    c = Case("hybrid", 60)
+    rules = dict(c.rules, _data_size=1)
+    calls = []
+    monkeypatch.setattr(ptf, "loss_fn", lambda *a, **k: calls.append(1))
+    p = pshd.shard_params(ptf._tree_map(torch.clone, c.tp), one_rank, rules)
+    with pshd.sharding_ctx(one_rank, rules):
+        st = init_opt_state(p, c.cfg)
+        st["v"]["embed"] = st["v"]["embed"][:c.cfg.vocab_size // 2]
+        with pytest.raises(ValueError, match=r"v\['embed'\] has shape"):
+            make_train_step(c.cfg)(p, st, c.batch)
+    assert calls == []

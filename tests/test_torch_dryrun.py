@@ -14,12 +14,13 @@
 * Collectives: rank 0's under a 4-rank gloo group (real data) equal the
   fake group's on meta, for an expert-parallel MoE prefill and a dense
   decode step.
-* The CLI: one case ok, the families and entry points not ported under a
-  mesh named by their ROADMAP.md item.
+* The CLI: one case ok.
 * Training: Qwen1.5-0.5B's train_4k step on the (16, 16) mesh, its
-  kernel calls and collectives in closed form; a meta call under grad of
-  each differentiable kernel counts its backward once at ``bwd_cost``,
-  and the decode-only kernels refuse grad.
+  kernel calls and collectives in closed form; the ZeRO-1 configs' step
+  (reduced) on a fake (2, 4) mesh, its moment bytes and its added
+  reduce-scatters and all-gathers in closed form; a meta call under grad
+  of each differentiable kernel counts its backward once at
+  ``bwd_cost``, and the decode-only kernels refuse grad.
 """
 import dataclasses
 import json
@@ -580,24 +581,67 @@ def test_dryrun_cli_single_case(tmp_path):
         res["matmul_flops"]
 
 
-@pytest.mark.parametrize("arch,shape,item", [
-    ("deepseek-v2-236b", "train_4k", "A20"),
-    ("jamba-1.5-large-398b", "train_4k", "A20")])
-def test_dryrun_names_what_is_not_ported(arch, shape, item, tmp_path,
-                                          capsys, monkeypatch):
-    """A case that raises is reported with the ROADMAP.md item that
-    ports it, and the run exits 1: the two ZeRO-1 configs' train steps
-    (their moments cut on the data axis too) are refused before the loss
-    runs."""
-    calls = []
-    monkeypatch.setattr(ptf, "loss_fn", lambda *a, **k: calls.append(1))
-    out = tmp_path / "dry.json"
-    assert dryrun.main(["--arch", arch, "--shape", shape, "--out",
-                        str(out)]) == 1
-    assert "0 ok, 1 failed" in capsys.readouterr().out
-    (fail,) = json.loads(out.read_text())["failures"]
-    assert fail["arch"] == arch and f"ROADMAP.md {item}" in fail["error"]
-    assert calls == []
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "jamba-1.5-large-398b"])
+def test_dryrun_zero1_train_step(arch):
+    """The two ZeRO-1 configs' train step (reduced, 2 layers at d 8192 so
+    that ``sharding_rules`` gives a model axis) through
+    ``dryrun.build_case`` on a fake group of 8 and a (2, 4) mesh, against
+    the same step with ``zero1`` off. In closed form, over the leaves
+    whose moment spec adds "data" (the largest dim of 2 or more that 2
+    divides and the param spec keeps whole): the moments in
+    ``argument_bytes`` are each leaf's param block in fp32, twice, halved
+    on those leaves; the step adds one reduce-scatter a leaf, of its
+    gradient block halved (on top of the backward's own), and one
+    all-gather a leaf, of its updated param block (on top of the
+    forward's own)."""
+    cfg = pcfg.reduced(pcfg.get_config(arch), layers=2, d_model=8192)
+    dryrun.open_fake_group(8)
+    try:
+        mesh = pmesh.make_mesh((2, 4), ("data", "model"), "cpu")
+        runs = {}
+        for zero1 in (True, False):
+            c = dataclasses.replace(cfg, zero1=zero1)
+            fn, args, rules, arg_bytes = dryrun.build_case(c, "train_4k",
+                                                           mesh)
+            with pshd.sharding_ctx(mesh, rules), torch.enable_grad(), \
+                    OpCost() as cost:
+                fn(*args)
+            runs[zero1] = cost.to_dict(), arg_bytes
+    finally:
+        torch.distributed.destroy_process_group()
+    assert rules["model"] == "model" and rules["_data_size"] == 2
+    whole = pspecs.params_spec(cfg)
+    specs = pshd.param_pspecs(whole, rules, mesh)
+    moments = pspecs.opt_state_pspecs(specs, whole, cfg, rules)["m"]
+    sizes = pshd.axis_sizes(mesh)
+    blocks, zero = [], []      # (elements, element size); a ZeRO-1 leaf
+
+    def leaf(t, spec):
+        n = int(np.prod([sizes[a] for e in spec
+                         for a in pshd.entry_axes(e)]))
+        blocks.append((t.numel() // n, t.element_size()))
+    pshd.zip_map(leaf, whole, specs)
+    pshd.zip_map(lambda t, m: zero.append(t.numel() > 0 and "data" in m),
+                 whole, moments)
+    assert sum(zero) > len(zero) // 2
+    B = INPUT_SHAPES["train_4k"]
+    batch = 2 * B.global_batch * B.seq_len * 4 // 2      # int32 rows
+    params = sum(n * e for n, e in blocks)
+    moment_bytes = sum(8 * n // (2 if z else 1)
+                       for (n, _), z in zip(blocks, zero))
+    (got, got_args), (base, _) = runs[True], runs[False]
+    assert got_args == params + moment_bytes + 4 + batch
+    more = {k: got["collectives"].get(k, 0) - base["collectives"].get(k, 0)
+            for k in ("reduce-scatter", "all-gather")}
+    calls = {k: got["collective_calls"].get(k, 0)
+             - base["collective_calls"].get(k, 0)
+             for k in ("reduce-scatter", "all-gather")}
+    assert calls == {"reduce-scatter": sum(zero), "all-gather": sum(zero)}
+    assert more == {
+        "reduce-scatter": sum(n * e // 2 for (n, e), z in zip(blocks, zero)
+                              if z),
+        "all-gather": sum(n * e for (n, e), z in zip(blocks, zero) if z)}
 
 
 def _local_bytes(cfg, rules, mesh):
