@@ -160,8 +160,19 @@ It drives the port's two entry points end to end and checks them:
    ``mesh_step_collectives`` counts them from the leaves' specs (one
    reduce-scatter and one all-gather a non-empty ZeRO-1 leaf), the card's
    peak and the pinned host bytes, a step each way timed in TURNS; a
-   ``zero1_train`` line a model. One ``distributed`` JSON line (world
-   size, NCCL version, the nine results, their times and the phase's
+   ``zero1_train`` line a model; on Mixtral's weights and phase 4's
+   pinned masters, right after (b), (i) offload serving under the mesh:
+   phase 4's workload through ``ContinuousOffloadServer`` built and run
+   inside the mesh from the whole params (attention tensor-parallel on
+   the rank's heads, ``paged_attention`` on its pool of KV heads, the
+   experts whole), in TURNS against the plain server: tokens, functional
+   trace rows, ``stats()`` with the simulated clock, per-step H2D bytes
+   and every step's logits bitwise the plain run's, ``paged_attention``
+   once a layer a step and ``moe_ffn`` as often as plain, the mesh run's
+   calls of both held and timed (``kernels`` entries of their own), the
+   collectives a step by kind; then the same with 4-token prefill
+   chunks; a ``mesh_serving`` line. One ``distributed`` JSON line (world
+   size, NCCL version, the eleven results, their times and the phase's
    seconds); then the group is destroyed. The group stays open from 6a
    to the end of phase 7;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
@@ -174,8 +185,11 @@ It drives the port's two entry points end to end and checks them:
    ``generate``, bytes per step exact, ``moe_ffn`` launched for every
    layer of every step, ``paged_attention`` never (MLA's paged decode is
    plain PyTorch, as in the JAX package), finite [4, vocab] logits — then
-   overlap on == off, a ``deepseek_serving`` line (step times, H2D bytes,
-   the smallest gap between the 6th and 7th router logit), and phase 6's
+   overlap on == off, the same workload's server built and run under the
+   (1, 1) mesh (6a, i: the latent pool whole, the rank's heads) with the
+   plain server's tokens, trace rows and ``stats()``, a
+   ``deepseek_serving`` line (step times, H2D bytes, the smallest gap
+   between the 6th and 7th router logit, the mesh run's), and phase 6's
    prefills: flash attention at q/k width 192 and v width 128 once a
    layer, the prefill against the absorbed-latent ``decode_step``;
 6c. the hybrid, encdec and vlm families at their published widths, fp32,
@@ -2415,10 +2429,11 @@ def deepseek_phase(ops, card, hold_and_time, profile, mesh):
     the prefill's logits against the absorbed decode's. Both kernels are
     held against their plain versions at this model's heaviest calls
     (``hold_and_time``, entries marked with the model). ``profile``
-    traces the overlap-off serving loop and one prefill. Last, on the same
-    params, the distributed phase's MLA decode on ``mesh``
-    (``mla_decode_check``). Returns the serving, prefill and MLA decode
-    reports."""
+    traces the overlap-off serving loop and one prefill. The same
+    serving workload then runs under ``mesh`` (``mla_mesh_serving``) on
+    the same masters. Last, on the same params, the distributed phase's
+    MLA decode on ``mesh`` (``mla_decode_check``). Returns the serving,
+    prefill and MLA decode reports."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2496,6 +2511,10 @@ def deepseek_phase(ops, card, hold_and_time, profile, mesh):
         check(out == want, f"deepseek: server {out[PROMPT_LEN:]} != "
                            f"generate {want[PROMPT_LEN:]} for prompt {p}")
     generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_rep = mla_mesh_serving(params, cfg, prompts, ops, server_kw, store,
+                                mesh, off)
+    mesh_rep["s"] = time.perf_counter() - t0
     hold_and_time(calls, launches, model=cfg.name)
     rep = {"model": cfg.name, "layers": cfg.num_layers,
            "slots_per_layer": DS_SLOTS, "requests": len(prompts),
@@ -2513,7 +2532,7 @@ def deepseek_phase(ops, card, hold_and_time, profile, mesh):
            "overlap_equal": on_rep["equal"],
            "server_equals_generate": True, "generate_s": generate_s,
            "new_tokens_out": [o[PROMPT_LEN:] for o in off["tokens"]],
-           "setup": setup, "card": card}
+           "mesh": mesh_rep, "setup": setup, "card": card}
     if prof is not None:
         rep["profile"] = device_time_summary(prof, loop_ms, sum(step_h2d))
     del srv, store, calls, pool, logits, prof
@@ -2685,6 +2704,164 @@ def tp_prefill_check(params, cfg, mesh, ops, seen):
     return mesh_prefill(params, cfg, "mixtral-8x7b", mesh, ops, seen,
                         {"flash_attention": cfg.num_layers},
                         "tensor-parallel prefill")
+
+
+def kept_logits(engine, out):
+    """Each decode step's logits of ``engine`` (a clone) appended to
+    ``out`` inside the block."""
+    def make(decode_tokens):
+        def call(*args, **kw):
+            logits, state = decode_tokens(*args, **kw)
+            out.append(logits.clone())
+            return logits, state
+        return call
+    return patched(engine, "decode_tokens", make)
+
+
+def mesh_served(params, cfg, prompts, ops, server_kw, store, where, mesh,
+                rules, **kw):
+    """One serving run of the staggered workload (``serve``) on the pinned
+    masters ``store``, the server built and run inside the mesh under
+    ``rules`` (``where`` "mesh") or without one ("plain"), with
+    ``server_kw`` updated by ``kw``: ``served_run``'s record (tokens,
+    trace rows, stats, clock, per-step bytes, step times, launches) plus
+    every step's logits, the recorded kernel calls, the collectives by
+    kind (``counting_collectives``), all of ``stats()`` and its rank's KV
+    pool's layer-0 shapes."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    counts, logits = {}, []
+    with contextlib.ExitStack() as stack:
+        if where == "mesh":
+            stack.enter_context(shd.sharding_ctx(mesh, rules))
+        with reusing(store):
+            srv = ContinuousOffloadServer(params, cfg, **{**server_kw, **kw})
+        stack.enter_context(kept_logits(srv.engine, logits))
+        stack.enter_context(counting_collectives(counts))
+        rids, launches, step_ms, step_h2d, calls, loop_ms = serve(
+            srv, prompts, ops)
+    rec = served_run(srv, rids, step_ms, step_h2d, loop_ms, launches,
+                     kernels=("moe_ffn",))
+    rec.update(where=where, logits=logits, calls=calls, collectives=counts,
+               all_stats={k: repr(v) for k, v in srv.stats().items()},
+               pool=[tuple(v.shape) for v in
+                     srv.paged.state["layers"][0].values()])
+    del srv
+    gc.collect()
+    return rec
+
+
+def same_serving(got, want, what, logits=True):
+    """A mesh run's record against a plain one's: tokens, functional
+    trace rows, all of ``stats()`` (the clock too), per-step H2D bytes
+    and (``logits``) every step's logits bitwise."""
+    import torch
+    for key in ("tokens", "rows", "all_stats", "step_h2d"):
+        check(got[key] == want[key], f"{what}: {key} differ from plain")
+    if logits:
+        check(len(got["logits"]) == len(want["logits"]) and all(
+            torch.equal(a, b) for a, b in zip(got["logits"],
+                                              want["logits"])),
+              f"{what}: a step's logits differ from plain")
+
+
+def turn_summary(rec):
+    """A serving record's step count, median and max step ms, loop ms."""
+    import numpy as np
+    return {"where": rec["where"], "steps": len(rec["step_ms"]),
+            "step_ms_median": float(np.median(rec["step_ms"])),
+            "step_ms_max": max(rec["step_ms"]), "loop_ms": rec["loop_ms"]}
+
+
+def offload_mesh_check(params, cfg, prompts, store, mesh, ops, server_kw,
+                       hold_and_time, card):
+    """(i) Mixtral-8x7B offload serving under the mesh (phase 4's
+    workload on its pinned masters ``store``: 4 staggered requests,
+    LFU with 4 slots, speculative prefetch, paged KV in 16-token blocks)
+    with the published rules: ``ContinuousOffloadServer`` built and run
+    inside ``sharding_ctx`` from the whole params (attention on the
+    rank's heads and KV-head pool, the experts whole), in TURNS against
+    the plain server: every mesh run's tokens, trace rows, ``stats()``
+    (the simulated clock too), per-step H2D bytes and every step's
+    logits bitwise the first plain run's; ``paged_attention`` launched
+    once a layer a step and ``moe_ffn`` as often as plain; the first mesh
+    run's kernel calls held and timed (``kernels`` entries of their own).
+    Then the same with 4-token prefill chunks, plain and mesh. Returns
+    the report: step times by turn, collectives a step by kind."""
+    rules = mesh_rules("mixtral-8x7b", mesh)
+    L = cfg.num_layers
+    runs = []
+    for turn in TURNS:
+        runs.append(mesh_served(params, cfg, prompts, ops, server_kw, store,
+                                turn, mesh, rules))
+        rec = runs[-1]
+        steps = len(rec["step_ms"])
+        check(rec["launches"]["paged_attention"] == steps * L,
+              f"offload {turn}: paged_attention launched "
+              f"{rec['launches']['paged_attention']} times in {steps} steps "
+              f"of {L} layers")
+        if turn == "mesh":
+            same_serving(rec, runs[0], "offload serving under the mesh")
+            check(rec["launches"] == runs[0]["launches"],
+                  f"offload under the mesh: launches {rec['launches']} != "
+                  f"plain {runs[0]['launches']}")
+    mesh_run = next(r for r in runs if r["where"] == "mesh")
+    hold_and_time(mesh_run["calls"], mesh_run["launches"],
+                  model=f"{cfg.name} offload server (1x1 mesh)")
+    chunked = [mesh_served(params, cfg, prompts, ops, server_kw, store, w,
+                           mesh, rules, prefill_chunk=4)
+               for w in ("plain", "mesh")]
+    same_serving(chunked[1], chunked[0],
+                 "chunked offload serving under the mesh")
+    for rec in chunked:
+        steps = len(rec["step_ms"])
+        check(rec["launches"]["paged_attention"] == steps * L,
+              f"chunked {rec['where']}: paged_attention "
+              f"{rec['launches']['paged_attention']} in {steps} steps")
+    steps = len(mesh_run["step_ms"])
+    return {"model": cfg.name, "layers": L, "requests": len(prompts),
+            "rules": {k: rules[k] for k in ("model", "shard_kv",
+                                            "experts_mode")},
+            "pool_layer0": {"plain": runs[0]["pool"],
+                            "mesh": mesh_run["pool"]},
+            "turns": [turn_summary(r) for r in runs],
+            "collectives": mesh_run["collectives"],
+            "collectives_per_step": {k: v / steps for k, v in
+                                     mesh_run["collectives"].items()},
+            "plain_collectives": runs[0]["collectives"],
+            "launches": mesh_run["launches"],
+            "equal": ["tokens", "rows", "stats", "sim_time", "step_h2d",
+                      "logits bitwise"],
+            "sim_time_s": mesh_run["clock"]["sim_time_s"],
+            "chunked": {"turns": [turn_summary(r) for r in chunked],
+                        "launches": chunked[1]["launches"],
+                        "collectives": chunked[1]["collectives"],
+                        "equal": True},
+            "card": card}
+
+
+def mla_mesh_serving(params, cfg, prompts, ops, server_kw, store, mesh,
+                     off):
+    """DeepSeek-V2's paged MLA server under the mesh (its published
+    rules: the latent pool whole, the rank's heads, one all-reduce after
+    ``wo``; the experts whole) on the plain run's pinned masters: tokens
+    (and trace rows, ``stats()`` off the clock keys) equal the plain
+    server's record ``off``; ``paged_attention`` never launched."""
+    rules = mesh_rules("deepseek-v2-236b", mesh)
+    rec = mesh_served(params, cfg, prompts, ops, server_kw, store, "mesh",
+                      mesh, rules)
+    for key in ("tokens", "rows", "stats"):
+        check(rec[key] == off[key],
+              f"deepseek under the mesh: {key} differ from plain")
+    check(rec["launches"]["paged_attention"] == 0,
+          "deepseek under the mesh: paged_attention launched")
+    steps = len(rec["step_ms"])
+    return {"tokens_equal": True, "rows_equal": True, "stats_equal": True,
+            "mesh": turn_summary(rec),
+            "plain": turn_summary(dict(off, where="plain")),
+            "pool_layer0": rec["pool"], "launches": rec["launches"],
+            "collectives_per_step": {k: v / steps for k, v in
+                                     rec["collectives"].items()}}
 
 
 def greedy_decode(params, cfg, state, first, steps):
@@ -4524,7 +4701,6 @@ def main() -> None:
     # ---- the offload invariants and race checks on the card ---------
     print(json.dumps(offload_invariants(params, cfg, prompts, store)),
           flush=True)
-    del store
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4554,7 +4730,12 @@ def main() -> None:
                       {"flash_attention": tp["launches"]["flash_attention"]},
                       model=f"{cfg.name} tensor-parallel (1x1 mesh)")
         tp["s"] = time.perf_counter() - t0
-        del params, tp_seen
+        t0 = time.perf_counter()
+        serving = offload_mesh_check(params, cfg, prompts, store, mesh, ops,
+                                     server_kw, hold_and_time, card)
+        serving["s"] = time.perf_counter() - t0
+        print(json.dumps({"mesh_serving": serving}), flush=True)
+        del params, tp_seen, store
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4631,8 +4812,10 @@ def main() -> None:
             "tp_prefill": tp, "mla_decode": mla, "hybrid_prefill": hybrid,
             "ssm": ssm, "encdec": cross["whisper-tiny"],
             "vlm": cross["llama-3.2-vision-11b"], "train": train,
-            "zero1_train": zero1,
-            "phase_s": ep["s"] + tp["s"] + mla["s"] + hybrid["s"] + ssm["s"]
+            "zero1_train": zero1, "offload_serving": serving,
+            "mla_serving": ds_serving["mesh"],
+            "phase_s": ep["s"] + tp["s"] + serving["s"]
+            + ds_serving["mesh"]["s"] + mla["s"] + hybrid["s"] + ssm["s"]
             + sum(c["s"] for c in cross.values())
             + sum(t["s"] for t in train.values())
             + sum(z["s"] for z in zero1.values()), "card": card}}),

@@ -27,6 +27,18 @@ or ``attach_tiers`` later) every expert master is registered with the
 arbiter, each miss's serving tier lands in the trace (``miss_tiers``)
 and the arbiter's stalls (disk-resident demand fetches, KV promotes,
 in-flight demotions) land on the simulated clock once a step.
+
+Built and stepped inside ``sharding.sharding_ctx(mesh, rules)`` the
+engine runs tensor-parallel in attention with the experts whole: it takes
+the whole params, builds its ``ExpertStore`` from the whole experts, and
+keeps ``shard_params``' slices of every other leaf (the MoE's, router
+and shared experts included, stay whole), so the embedding, the
+attention decodes (the rank's heads, its dense cache block or its pool
+of KV heads) and the logits run as the rules lay them out, each with its
+collectives. The rows stay whole on every rank: after each all-reduce h
+is the same on every rank, so the routing readback, the caches, the
+grouped FFN, the trace and the clock are the same on every rank. A mesh
+whose data (or pod) axis is larger than 1 raises, and so do memory tiers.
 """
 from __future__ import annotations
 
@@ -46,8 +58,10 @@ from repro_torch.core.prefetch import (LearnedPredictor, MarkovPredictor,
 from repro_torch.core.trace import TraceRecorder
 from repro_torch.core.transfer_engine import TransferEngine
 from repro_torch.kernels import ops
+from repro_torch.launch.specs import shard_decode_state
+from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import rms_norm, sinusoidal_positions
+from repro_torch.models.layers import rms_norm
 from repro_torch.serving.sampler import request_generator, sample_token
 
 
@@ -143,8 +157,17 @@ class OffloadEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
-        self.params = params
         self.cfg = cfg
+        self.mesh, self.rules = shd.active_mesh(), shd.active_rules()
+        if self.mesh is not None:
+            sizes = shd.axis_sizes(self.mesh)
+            rows = sizes.get("data", 1) * sizes.get("pod", 1)
+            if rows > 1:
+                raise ValueError(
+                    f"OffloadEngine under a mesh with {rows} data ranks: the "
+                    f"engine is one batch with one control plane (routing, "
+                    f"caches, clock); a cache on each data replica would be "
+                    f"another system. Use a mesh of data size 1")
         if isinstance(cache_slots, int):
             if cache_slots < 1:
                 raise ValueError(
@@ -166,6 +189,9 @@ class OffloadEngine:
         self.faults = as_injector(faults, trace=self.trace)
         self.store = ExpertStore.from_params(
             params, cfg, quant=quant, pin=self.device.type == "cuda")
+        self.params = params if self.mesh is None else self._rank_params(
+            params)
+        params = self.params
         # per-layer param views, sliced once
         self._layers = [tf._layer(params["layers"], l)
                         for l in range(cfg.num_layers)]
@@ -224,10 +250,32 @@ class OffloadEngine:
         if tiers is not None:
             self.attach_tiers(tiers)
 
+    def _rank_params(self, params):
+        """``shard_params``' slices of every leaf but the MoE's (router,
+        experts, shared experts), which stay whole."""
+        specs = shd.param_pspecs(params, self.rules, self.mesh)
+        specs["layers"]["moe"] = shd.map_with_path(
+            lambda _, t: (None,) * t.dim(), params["layers"]["moe"])
+        return shd.shard_tree(params, specs, self.mesh)
+
+    def _check_mesh(self) -> None:
+        if shd.active_mesh() is not self.mesh:
+            raise ValueError(
+                "OffloadEngine stepped under another mesh than the one it "
+                "was built under: its params are cut for that one")
+
     def attach_tiers(self, tiers) -> None:
         """Wire a ``TieredMemoryManager`` in: register every expert's
         master copy (real store bytes) and point the per-layer caches
-        at the arbiter. Call once, before any decoding."""
+        at the arbiter. Call once, before any decoding. Under a mesh it
+        raises: the arbiter's parked bytes and budget would be the
+        rank's while its plan prices the whole model (ROADMAP.md A21)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "memory tiers under a device mesh are not supported: the "
+                "arbiter's parked KV bytes and HBM budget would be the "
+                "rank's while its plan prices the whole model (ROADMAP.md "
+                "A21)")
         assert self.tiers is None, "tiers already attached"
         self.tiers = tiers
         if tiers.trace is None:
@@ -243,8 +291,21 @@ class OffloadEngine:
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, cache_len: int):
-        return tf.init_decode_state(self.params, self.cfg, batch, cache_len,
-                                    dtype=torch.float32, device=self.device)
+        """The dense per-row decode state; under the mesh the rank's block
+        of one built whole under it (``shard_decode_state``), its length
+        rounded up to a multiple of the model axis so that a cache split
+        by sequence splits evenly (the slots past a row's position are
+        masked, so the extra ones change nothing)."""
+        self._check_mesh()
+        if self.mesh is None:
+            return tf.init_decode_state(self.params, self.cfg, batch,
+                                        cache_len, dtype=torch.float32,
+                                        device=self.device)
+        n = shd.axis_size(shd.model_axis())
+        state = tf.init_decode_state(self.params, self.cfg, batch,
+                                     -(-cache_len // n) * n,
+                                     dtype=torch.float32, device=self.device)
+        return shard_decode_state(state, self.mesh, self.rules)
 
     def new_prompt(self, *, reset_context: bool = True) -> int:
         """Allocate a fresh prompt (request) id.
@@ -488,6 +549,7 @@ class OffloadEngine:
         lives at the physical blocks ``block_tables[b]``. The KV caches
         are updated in place. Returns (logits [B,V], state).
         """
+        self._check_mesh()
         cfg = self.cfg
         params = self.params
         dev = self.device
@@ -507,10 +569,7 @@ class OffloadEngine:
             block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
                                            device=dev)
 
-        h = params["embed"][tokens]
-        if cfg.pos_emb == "sinusoidal":
-            h = h + sinusoidal_positions(pos_vec[:, None],
-                                         cfg.d_model).to(h.dtype)
+        h = tf._embed(params, cfg, tokens, pos_vec[:, None])
 
         # guesses issued at layer l are consumed at layer l+1 of the SAME
         # token pass (the prefetch travels ahead of the compute wavefront);

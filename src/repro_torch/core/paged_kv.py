@@ -21,7 +21,11 @@ by preempting/requeueing (see ``ContinuousOffloadServer``).
 
 The allocator is pure host state (block ids only) and is property-
 tested in isolation; pass ``cfg`` to also own the per-layer device
-pools the engine's paged decode path reads and writes.
+pools the engine's paged decode path reads and writes. Built under a
+device mesh (``sharding.sharding_ctx``) the GQA pools hold the rank's KV
+heads (``attention.gqa_paged_cache_init``) and MLA's latent pools are
+whole; the allocator, the tables and the sink block are the same on
+every rank.
 
 ``park_blocks`` / ``restore_blocks`` move a request's blocks to host
 tensors and back (the memory tiers' KV parking, see

@@ -27,7 +27,11 @@ caches are split as ``launch.specs.decode_state_pspecs`` says: KV heads
 where they divide, else (GQA, and always for MLA's latent) the
 sequence, and then every rank scores its own keys and the softmax is
 combined across the model ranks (max, then sums of the exponentials and
-of the context). ``cross_attend`` runs the rank's block of the
+of the context). The per-row decodes (``*_multipos``) are the same core
+with a position a row. A paged GQA pool holds the rank's KV heads (those
+its query heads group with), so ``paged_attention`` runs on the rank's
+heads as it is and one block table serves every rank; MLA's latent pool
+has no head dim and is whole on every rank. ``cross_attend`` runs the rank's block of the
 cross-attention heads, unpadded, where the model axis divides them, over
 the rank's rows of the frontend states. Without a mesh all of this is
 the identity.
@@ -39,7 +43,7 @@ same dict. That saves copying the whole cache or pool every step.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -265,15 +269,35 @@ def gqa_cache_init(cfg, batch: int, cache_len: int, dtype, device="cuda"):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _refuse_mesh(what: str):
-    if shd.active_mesh() is not None:
-        raise NotImplementedError(
-            f"{what} under a device mesh is not ported yet (ROADMAP.md A18); "
-            f"decode_step's dense caches are")
+class _Layout(NamedTuple):
+    """How the rank's GQA decode meets its dense cache under the active
+    mesh (``launch.specs.decode_state_pspecs``): its query heads ``q``
+    and the KV heads ``kv`` they group with (``_gqa_heads``), ``split``
+    when the query heads are the rank's block, ``split_seq`` when the
+    cache holds the rank's block of the sequence, ``all_kv`` when it
+    holds every one of the ``KVp`` (padded) KV heads."""
+    q: list
+    kv: list
+    split: bool
+    split_seq: bool
+    all_kv: bool
+    KVp: int
+
+
+def _gqa_layout(cfg) -> _Layout:
+    """The dense cache holds the rank's KV heads where the padded KV count
+    divides the model axis, else (``shard_kv``) its block of the sequence
+    with every KV head, else (the rules keep the KV heads whole) every
+    KV head. Without a mesh: every head, nothing split."""
+    m = shd.model_axis()
+    _, KVp, q, kv, split = _gqa_heads(cfg.num_heads, cfg.num_kv_heads)
+    shard_kv = m is not None and bool(shd.active_rules().get("shard_kv"))
+    split_seq = shard_kv and KVp % _axis_size() != 0
+    return _Layout(q, kv, split, split_seq, split_seq or not shard_kv, KVp)
 
 
 def _cache_keys(L_local: int, split_seq: bool):
-    """(global positions of the rank's cache slots [L_local], the cache's
+    """(global position of the rank's first cache slot, the cache's
     global length): its block of the sequence when ``split_seq``."""
     m = shd.model_axis()
     lo = shd.axis_index(m) * L_local if split_seq else 0
@@ -281,27 +305,53 @@ def _cache_keys(L_local: int, split_seq: bool):
     return lo, L
 
 
-def _write_slot(caches, news, pos: int, lo: int, L: int, window):
-    """Write the new rows at the slot of ``pos`` (``pos % L`` in a ring)
-    where this rank holds it (slots lo .. lo + local length). Without a
-    ring a ``pos`` past the cache's L slots raises, as the unsharded
-    ``index_put_`` does."""
-    if window is None and pos >= L:
+def _check_slot(pos: int, L: int):
+    """Without a ring a ``pos`` past the cache's L slots raises, under a
+    mesh as the unsharded ``index_put_`` does."""
+    if pos >= L:
         raise IndexError(f"position {pos} is out of bounds for a cache of "
                          f"{L} slots")
-    slot = pos % L if window is not None else pos
+
+
+def _write_rows(caches, news, pos, lo: int, split_seq: bool):
+    """Row b's new entries ``news`` [B, ...] at slot ``pos[b]`` (a [B]
+    tensor) of the caches [B, L_local, ...], in place. With the sequence
+    split the rank holds slots lo .. lo + L_local: a row whose slot lies
+    elsewhere writes back what its clamped slot holds (no host sync)."""
+    rows = torch.arange(caches[0].shape[0], device=pos.device)
+    if not split_seq:
+        for c, n in zip(caches, news):
+            c.index_put_((rows, pos), n.to(c.dtype))
+        return
+    slot = pos - lo
+    own = (slot >= 0) & (slot < caches[0].shape[1])
+    slot = slot.clamp(0, caches[0].shape[1] - 1)
+    for c, n in zip(caches, news):
+        keep = own.reshape(-1, *[1] * (n.dim() - 1))
+        c.index_put_((rows, slot), torch.where(keep, n.to(c.dtype),
+                                               c[rows, slot]))
+
+
+def _row_keys(pos, lo: int, L_local: int):
+    """[B, L_local] mask of the rank's slots that hold a position <=
+    row b's ``pos[b]`` (``pos`` [B, 1])."""
+    return (lo + torch.arange(L_local, device=pos.device))[None, :] <= pos
+
+
+def _write_ring(caches, news, pos: int, lo: int, L: int):
+    """Write the new rows at ring slot ``pos % L`` where this rank holds
+    it (slots lo .. lo + local length)."""
+    slot = pos % L
     if lo <= slot < lo + caches[0].shape[1]:
         for c, n in zip(caches, news):
             c[:, slot - lo] = n.to(c.dtype)
 
 
-def _valid_keys(pos: int, lo: int, L_local: int, L: int, window, device):
-    """[L_local] mask of the rank's slots that hold a position <= pos
-    (ring: slot i holds ``pos - ((pos - i) mod L)``)."""
+def _ring_keys(pos: int, lo: int, L_local: int, L: int, device):
+    """[1, L_local] mask of the rank's ring slots written so far (slot i
+    holds ``pos - ((pos - i) mod L)``)."""
     idx = lo + torch.arange(L_local, device=device)
-    if window is None:
-        return idx <= pos
-    return pos - torch.remainder(pos - idx, L) >= 0
+    return (pos - torch.remainder(pos - idx, L) >= 0)[None]
 
 
 def _attend(s, values, split_seq: bool):
@@ -321,13 +371,49 @@ def _attend(s, values, split_seq: bool):
     return both[..., :-1] / both[..., -1:]
 
 
+def _gqa_rank(p, cfg, lay: _Layout):
+    """The rank's weights for a dense-cache decode: its query heads, and
+    the KV heads its cache holds (all ``KVp`` of them where it holds
+    every one)."""
+    return _rank_qkv(p, cfg, list(range(lay.KVp)) if lay.all_kv
+                     else None)[0]
+
+
+def _gqa_attend(pr, x, q, k, v, valid, lay: _Layout):
+    """The rank's queries q [B,1,nq,hd] against its dense cache block k/v
+    [B,L_local,nk,hd] for the keys ``valid`` [B or 1, L_local] leaves,
+    through its rows of ``wo`` -> [B,1,d]. With the sequence split every
+    query head meets the rank's keys (the queries gathered where the
+    heads are split) and the softmax is combined across the model ranks;
+    a cache of every KV head is narrowed to the rank's."""
+    B, hd = x.shape[0], q.shape[-1]
+    m = shd.model_axis()
+    if lay.split_seq and lay.split:    # every query head meets these keys
+        q = shd.all_gather(q, m, dim=2)
+    if lay.all_kv and not lay.split_seq and lay.kv != list(range(k.shape[2])):
+        sel = torch.as_tensor(lay.kv, device=x.device)   # the rank's KV heads
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    nq, nk = q.shape[2], k.shape[2]
+    qf = q.reshape(B, nk, nq // nk, hd).to(k.dtype)
+    s = torch.einsum("bkgh,blkh->bkgl", qf, k).float() / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), NEG_INF, device=x.device))
+    out = _attend(s, lambda w: torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype),
+                                            v).float(), lay.split_seq)
+    out = out.reshape(B, 1, nq, hd)
+    if lay.split_seq and lay.split:    # back to the rank's query heads
+        out = out[:, :, lay.q[0]:lay.q[-1] + 1]
+    return _out_heads(out.to(x.dtype), pr["wo"], lay.split)
+
+
 def gqa_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     """x [B,1,d]; cache {k,v [B,L,kv,hd]}; pos an int (the same for every
-    row). Without a window the cache holds positions 0..L-1 (and, without
-    a mesh, this is ``gqa_decode_multipos``). With a window the cache is
-    a ring of L slots: position ``pos`` writes slot ``pos % L`` (in
-    place) and the step attends to every slot written so far, the last L
-    positions (slot i holds position ``pos - ((pos - i) mod L)``).
+    row). Without a window the cache holds positions 0..L-1 and this is
+    ``gqa_decode_multipos`` (the JAX package's one decode core), with or
+    without a mesh. With a window the cache is a ring of L slots:
+    position ``pos`` writes slot ``pos % L`` (in place) and the step
+    attends to every slot written so far, the last L positions (slot i
+    holds position ``pos - ((pos - i) mod L)``).
 
     Under a mesh: the rank's heads and cache block. The cache holds the
     rank's KV heads where the padded KV count divides the model axis,
@@ -337,40 +423,21 @@ def gqa_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     ranks); the context of the rank's query heads goes through its rows
     of ``wo``, summed over the model axis."""
     B = x.shape[0]
-    m = shd.model_axis()
-    if window is None and shd.active_mesh() is None:
+    pos = int(pos)
+    lay = _gqa_layout(cfg)
+    k, v = cache["k"], cache["v"]
+    lo, L = _cache_keys(k.shape[1], lay.split_seq)
+    if window is None:
+        _check_slot(pos, L)
         return gqa_decode_multipos(
             p, cfg, x, cache,
-            torch.full((B,), int(pos), dtype=torch.long, device=x.device))
-    pos = int(pos)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    Hp, KVp, q_idx, kv_idx, split = _gqa_heads(H, KV)
-    shard_kv = m is not None and bool(shd.active_rules().get("shard_kv"))
-    split_seq = shard_kv and KVp % _axis_size() != 0
-    all_kv = split_seq or not shard_kv     # the cache holds every KV head
-    pr, _ = _rank_qkv(p, cfg, list(range(KVp)) if all_kv else None)
+            torch.full((B,), pos, dtype=torch.long, device=x.device))
+    pr = _gqa_rank(p, cfg, lay)
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(pr, cfg, x, positions, rope=True)
-    k, v = cache["k"], cache["v"]
-    lo, L = _cache_keys(k.shape[1], split_seq)
-    _write_slot((k, v), (k_new[:, 0], v_new[:, 0]), pos, lo, L, window)
-    valid = _valid_keys(pos, lo, k.shape[1], L, window, x.device)
-    if split_seq and split:            # every query head meets these keys
-        q = shd.all_gather(q, m, dim=2)
-    if all_kv and not split_seq and kv_idx != list(range(k.shape[2])):
-        sel = torch.as_tensor(kv_idx, device=x.device)   # the rank's KV heads
-        k, v = k.index_select(2, sel), v.index_select(2, sel)
-    nq, nk = q.shape[2], k.shape[2]
-    qf = q.reshape(B, nk, nq // nk, hd).to(k.dtype)
-    s = torch.einsum("bkgh,blkh->bkgl", qf, k).float() / math.sqrt(hd)
-    s = torch.where(valid[None, None, None, :], s,
-                    torch.full((), NEG_INF, device=x.device))
-    out = _attend(s, lambda w: torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype),
-                                            v).float(), split_seq)
-    out = out.reshape(B, 1, nq, hd)
-    if split_seq and split:            # back to the rank's query heads
-        out = out[:, :, q_idx[0]:q_idx[-1] + 1]
-    return _out_heads(out.to(x.dtype), pr["wo"], split), cache
+    _write_ring((k, v), (k_new[:, 0], v_new[:, 0]), pos, lo, L)
+    valid = _ring_keys(pos, lo, k.shape[1], L, x.device)
+    return _gqa_attend(pr, x, q, k, v, valid, lay), cache
 
 
 def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
@@ -379,29 +446,26 @@ def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
     x [B,1,d]; cache {k,v [B,L,kv,hd]}; pos_vec [B] int — row b writes
     its K/V at slot pos_vec[b] (in place) and attends to slots
     <= pos_vec[b]. Plain PyTorch: the JAX package has no kernel on this
-    path either (``OffloadEngine.generate`` runs it)."""
-    _refuse_mesh("gqa_decode_multipos")
+    path either (``OffloadEngine.generate`` runs it).
+
+    Under a mesh the cache is ``gqa_decode``'s (the rank's KV heads, or
+    its block of the sequence): a row writes its slot only on the rank
+    that holds it, and its valid keys are the rank's slots up to its
+    position. A position past the cache raises unsharded (the
+    ``index_put_``); with the sequence split its write is skipped, since
+    checking a device vector would sync the host (``gqa_decode`` checks
+    its int)."""
     B = x.shape[0]
-    L = cache["k"].shape[1]
+    lay = _gqa_layout(cfg)
+    pr = _gqa_rank(p, cfg, lay)
     positions = pos_vec.reshape(B, 1).long()
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=True)
-
-    rows = torch.arange(B, device=x.device)
+    q, k_new, v_new = _project_qkv(pr, cfg, x, positions, rope=True)
     k, v = cache["k"], cache["v"]
-    k.index_put_((rows, positions[:, 0]), k_new[:, 0].to(k.dtype))
-    v.index_put_((rows, positions[:, 0]), v_new[:, 0].to(v.dtype))
-
-    H, KV, hd = q.shape[2], k.shape[2], cfg.head_dim
-    G = H // KV
-    qf = q.reshape(B, KV, G, hd).to(k.dtype)
-    s = torch.einsum("bkgh,blkh->bkgl", qf, k).float() / math.sqrt(hd)
-    valid = torch.arange(L, device=x.device)[None, :] <= positions  # [B, L]
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), NEG_INF, device=x.device))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgl,blkh->bkgh", w.to(v.dtype), v).float()
-    out = out.reshape(B, 1, H, hd).to(x.dtype)
-    return _out_proj(out, p["wo"]), cache
+    lo, _ = _cache_keys(k.shape[1], lay.split_seq)
+    _write_rows((k, v), (k_new[:, 0], v_new[:, 0]), positions[:, 0], lo,
+                lay.split_seq)
+    valid = _row_keys(positions, lo, k.shape[1])
+    return _gqa_attend(pr, x, q, k, v, valid, lay), cache
 
 
 # =====================================================================
@@ -409,8 +473,13 @@ def gqa_decode_multipos(p, cfg, x, cache, pos_vec):
 # =====================================================================
 def gqa_paged_cache_init(cfg, num_blocks: int, block_size: int, dtype,
                          device="cuda"):
-    """One layer's K/V block pool: [N, bs, kv, hd] (vs dense [B, L, kv, hd])."""
-    _, kv = _head_padding(cfg.num_heads, cfg.num_kv_heads)
+    """One layer's K/V block pool: [N, bs, kv, hd] (vs dense [B, L, kv,
+    hd]). Under the active mesh it is the rank's pool: ``kv`` the KV
+    heads its query heads group with (``_gqa_heads``: its block where the
+    padded KV count divides the model axis, else the grouped heads it
+    shares with the ranks beside it, else one a query head), so that one
+    block table serves every rank. Without a mesh every KV head."""
+    kv = len(_gqa_heads(cfg.num_heads, cfg.num_kv_heads)[3])
     shape = (num_blocks, block_size, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -434,17 +503,29 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     Inactive rows point at the pool's sink block, so their writes never
     touch a live request's block. Two live rows at the SAME cell remain
     undefined.
+
+    Under a mesh the pool is the rank's (``gqa_paged_cache_init`` under
+    the same mesh): the rank projects its query heads and the KV heads
+    its pool holds, the kernel runs on them as it is, and ``wo``'s
+    partial products are summed over the model axis. A pool of another
+    count of KV heads (allocated under another mesh, or under none)
+    raises.
     """
-    _refuse_mesh("gqa_decode_paged")
     B = x.shape[0]
     bs = cache["k"].shape[1]
+    pr, split = _rank_qkv(p, cfg)
     positions = pos_vec.reshape(B, 1).long()
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=True)
+    q, k_new, v_new = _project_qkv(pr, cfg, x, positions, rope=True)
+    k, v = cache["k"], cache["v"]
+    if k.shape[2] != k_new.shape[2]:
+        raise ValueError(
+            f"gqa_decode_paged: the pool holds {k.shape[2]} KV heads, this "
+            f"rank's decode {k_new.shape[2]}; allocate it with "
+            f"gqa_paged_cache_init under the same mesh")
 
     rows = torch.arange(B, device=x.device)
     blk = block_tables[rows, positions[:, 0] // bs].long()
     off = positions[:, 0] % bs
-    k, v = cache["k"], cache["v"]
     k.index_put_((blk, off), k_new[:, 0].to(k.dtype))
     v.index_put_((blk, off), v_new[:, 0].to(v.dtype))
 
@@ -452,8 +533,7 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     # wrapper launches no conversion)
     out = kops.paged_attention(q[:, 0], k, v, block_tables,
                                pos_vec.reshape(B))
-    out = out[:, None].to(x.dtype)
-    return _out_proj(out, p["wo"]), cache
+    return _out_heads(out[:, None].to(x.dtype), pr["wo"], split), cache
 
 
 # =====================================================================
@@ -543,13 +623,19 @@ def _mla_attend(p, cfg, x, q_nope, q_rope, latent, k_rope, valid, *,
     return _out_heads(out[:, None].to(x.dtype), p["wo"], split)
 
 
+def _mla_split_seq() -> bool:
+    """Whether the rank's latent and rope-key caches are its block of the
+    sequence (``mla_seq_shard``, the default under a model axis)."""
+    return shd.model_axis() is not None and bool(
+        shd.active_rules().get("mla_seq_shard", True))
+
+
 def mla_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     """Absorbed decode: x [B,1,d]; cache {latent [B,L,r], k_rope
     [B,L,rd]} — only the compressed latent and the shared rope key are
     cached, the MLA memory win; pos an int (the same for every row).
-    Without a window (and without a mesh) this is
-    ``mla_decode_multipos``; with one the cache is a ring of L slots, as
-    in ``gqa_decode``.
+    Without a window this is ``mla_decode_multipos``, with or without a
+    mesh; with one the cache is a ring of L slots, as in ``gqa_decode``.
 
     Under a mesh: the rank's heads, and the latent and rope-key caches
     hold the rank's block of the sequence (``mla_seq_shard``, the
@@ -557,25 +643,24 @@ def mla_decode(p, cfg, x, cache, pos: int, *, window: Optional[int] = None):
     ``pos`` writes it, and ``_mla_attend`` combines the softmax across
     the model ranks."""
     B = x.shape[0]
-    m = shd.model_axis()
-    if window is None and shd.active_mesh() is None:
+    pos = int(pos)
+    split_seq = _mla_split_seq()
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    lo, L = _cache_keys(latent.shape[1], split_seq)
+    if window is None:
+        _check_slot(pos, L)
         return mla_decode_multipos(
             p, cfg, x, cache,
-            torch.full((B,), int(pos), dtype=torch.long, device=x.device))
-    pos = int(pos)
-    split = shd.model_split(cfg.num_heads)
-    split_seq = m is not None and bool(
-        shd.active_rules().get("mla_seq_shard", True))
+            torch.full((B,), pos, dtype=torch.long, device=x.device))
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
-    latent, k_rope = cache["latent"], cache["k_rope"]
-    lo, L = _cache_keys(latent.shape[1], split_seq)
-    _write_slot((latent, k_rope), (latent_new[:, 0], k_rope_new[:, 0]),
-                pos, lo, L, window)
-    valid = _valid_keys(pos, lo, latent.shape[1], L, window, x.device)
+    _write_ring((latent, k_rope), (latent_new[:, 0], k_rope_new[:, 0]),
+                pos, lo, L)
+    valid = _ring_keys(pos, lo, latent.shape[1], L, x.device)
     y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], latent, k_rope,
-                    valid[None], split=split, split_seq=split_seq)
+                    valid, split=shd.model_split(cfg.num_heads),
+                    split_seq=split_seq)
     return y, cache
 
 
@@ -583,22 +668,23 @@ def mla_decode_multipos(p, cfg, x, cache, pos_vec):
     """Absorbed MLA decode with a per-row position vector [B] (the
     contract of ``gqa_decode_multipos``; windows stay on the scalar-pos
     ring path). Row b writes its latent and rope key at slot pos_vec[b]
-    (in place) and attends to slots <= pos_vec[b]."""
-    _refuse_mesh("mla_decode_multipos")
+    (in place) and attends to slots <= pos_vec[b]. Under a mesh the
+    caches are ``mla_decode``'s: a row writes its slot only on the rank
+    that holds it, and the softmax is combined across the model ranks
+    where the sequence is split."""
     B = x.shape[0]
-    L = cache["latent"].shape[1]
+    split_seq = _mla_split_seq()
     positions = pos_vec.reshape(B, 1).long()
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
-    rows = torch.arange(B, device=x.device)
     latent, k_rope = cache["latent"], cache["k_rope"]
-    latent.index_put_((rows, positions[:, 0]),
-                      latent_new[:, 0].to(latent.dtype))
-    k_rope.index_put_((rows, positions[:, 0]),
-                      k_rope_new[:, 0].to(k_rope.dtype))
-    valid = torch.arange(L, device=x.device)[None, :] <= positions  # [B, L]
+    lo, _ = _cache_keys(latent.shape[1], split_seq)
+    _write_rows((latent, k_rope), (latent_new[:, 0], k_rope_new[:, 0]),
+                positions[:, 0], lo, split_seq)
+    valid = _row_keys(positions, lo, latent.shape[1])
     y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], latent, k_rope,
-                    valid)
+                    valid, split=shd.model_split(cfg.num_heads),
+                    split_seq=split_seq)
     return y, cache
 
 
@@ -625,8 +711,11 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     table and attended as in ``mla_decode_multipos`` — with plain
     PyTorch ops, as the JAX package runs it (it has no paged MLA
     kernel). With T*bs equal to the dense cache's L, paged and dense
-    decode are the same arithmetic on the same values."""
-    _refuse_mesh("mla_decode_paged")
+    decode are the same arithmetic on the same values.
+
+    Under a mesh the pool has no head dim and stays whole on every rank:
+    every rank writes the same rows, and the rank's heads attend over the
+    whole strip (no softmax combine), summed after ``wo``."""
     B = x.shape[0]
     bs = cache["latent"].shape[1]
     positions = pos_vec.reshape(B, 1).long()
@@ -644,7 +733,8 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     lg = latent[tables].reshape(B, T * bs, latent.shape[-1])
     rg = k_rope[tables].reshape(B, T * bs, k_rope.shape[-1])
     valid = torch.arange(T * bs, device=x.device)[None, :] <= positions
-    y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], lg, rg, valid)
+    y = _mla_attend(p, cfg, x, q_nope[:, 0], q_rope[:, 0], lg, rg, valid,
+                    split=shd.model_split(cfg.num_heads))
     return y, cache
 
 

@@ -63,8 +63,11 @@ state's ``cross_kv`` holds the rank's rows and heads). ``loss_fn``
 runs each rank's rows and its vocab block of the cross entropy, and
 returns the whole batch's loss on every rank; its gradients are the
 rank's part, which ``training.train_loop`` sums over the ranks (onto the
-rank's data block of the moments, for a ZeRO-1 config). The paged and per-row decodes
-raise under a mesh (ROADMAP.md A18).
+rank's data block of the moments, for a ZeRO-1 config). The per-row
+and paged decodes (``_attn_decode_multipos`` / ``_attn_decode_paged``,
+the offload engine's) take the rank's params as they are and run the
+rank's heads over its dense cache block or its pool of KV heads (see
+``attention``); their rows are whole.
 """
 from __future__ import annotations
 
@@ -567,7 +570,9 @@ def decode_step(params, cfg, state, token, pos: int, *,
 
 
 def _attn_decode_multipos(p, cfg, h, cache, pos_vec):
-    """Per-row-position decode (continuous batching): pos_vec [B]."""
+    """Per-row-position decode (continuous batching): pos_vec [B]. Under
+    a mesh ``p`` is the rank's and ``cache`` the rank's block
+    (``launch.specs.shard_decode_state``)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     decode = (attn.mla_decode_multipos if cfg.use_mla
               else attn.gqa_decode_multipos)
@@ -580,7 +585,9 @@ def _attn_decode_paged(p, cfg, h, cache, pos_vec, block_tables):
     layer's block pool and ``block_tables [B, T]`` maps each row's
     logical blocks to physical ones (see ``repro_torch.core.paged_kv``).
     Rows may share a table at distinct positions (chunked prefill's
-    virtual rows) — see ``attention.gqa_decode_paged``."""
+    virtual rows) — see ``attention.gqa_decode_paged``. Under a mesh
+    ``p`` is the rank's and ``cache`` the rank's pool (its KV heads, or
+    MLA's whole latent pool)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     decode = attn.mla_decode_paged if cfg.use_mla else attn.gqa_decode_paged
     y, cache = decode(p["attn"], cfg, x, cache, pos_vec, block_tables)

@@ -10,7 +10,8 @@ whole inputs (``torch.save``d by the test) to its slices and runs the
 sharded entry point. Every rank writes what it computed to
 ``out-RANK.pt`` beside the case file: the
 entry points return whole outputs, so the test reads rank 0's and checks
-that the ranks agree.
+that the ranks agree. A part of a "parts" case may name a mesh of its
+own ("mesh", "axes"): every rank builds it, in the parts' order.
 """
 import dataclasses
 import json
@@ -23,7 +24,12 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+import numpy as np  # noqa: E402
+
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.offload_engine import (OffloadEngine,  # noqa: E402
+                                             _batch_union)
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, sharding_rules  # noqa: E402
 from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.specs import shard_decode_state  # noqa: E402
@@ -32,6 +38,9 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.serving.offload_serving import (  # noqa: E402
+    ContinuousOffloadServer)
 from repro_torch.training import (AdamWConfig, global_norm,  # noqa: E402
                                   init_opt_state, make_train_step)
 from repro_torch.training import train_loop  # noqa: E402
@@ -264,17 +273,243 @@ def _leaves(tree, specs, path=""):
         yield path, tree, specs
 
 
+BLOCK = 4   # tokens a KV block, in the per-row and paged decode checks
+FUNCTIONAL = ("activated", "hits", "misses", "evicted", "spec_guess",
+              "prefetched")
+
+
+def per_row_decodes(p, cfg, x, pos, tables, *, paged):
+    """One layer's per-row (``paged=False``: ``*_decode_multipos`` over a
+    dense cache of ``tables.shape[1] * BLOCK`` slots) or paged decode
+    (``*_decode_paged`` over a pool of ``tables.max() + 1`` blocks),
+    called once for each of ``x``'s steps [n, B, 1, d], row b at position
+    ``pos[b] + i``; the cache made here under the active mesh (a dense one
+    built whole and cut by ``shard_decode_state``, a pool the rank's).
+    Returns every call's output [n, B, 1, d]."""
+    B = x.shape[1]
+    mla = cfg.use_mla
+    if paged:
+        init = (attn_lib.mla_paged_cache_init if mla
+                else attn_lib.gqa_paged_cache_init)
+        cache = init(cfg, int(tables.max()) + 1, BLOCK, torch.float32, "cpu")
+        decode = (attn_lib.mla_decode_paged if mla
+                  else attn_lib.gqa_decode_paged)
+    else:
+        init = attn_lib.mla_cache_init if mla else attn_lib.gqa_cache_init
+        cache = init(cfg, B, tables.shape[1] * BLOCK, torch.float32, "cpu")
+        if shd.active_mesh() is not None:
+            cache = shard_decode_state(cache, shd.active_mesh(),
+                                       shd.active_rules())
+        decode = (attn_lib.mla_decode_multipos if mla
+                  else attn_lib.gqa_decode_multipos)
+    out = []
+    for i in range(x.shape[0]):
+        pv = torch.as_tensor(np.asarray(pos) + i, dtype=torch.int32)
+        y, cache = decode(p, cfg, x[i], cache, pv,
+                          *((tables,) if paged else ()))
+        out.append(y)
+    return torch.stack(out)
+
+
+def paged_greedy(params, cfg, first, n, tables):
+    """``n`` greedy steps from the tokens ``first`` [B, 1] with every
+    layer's attention through ``_attn_decode_paged`` over its own pool
+    (made here, under the active mesh) and the rows' blocks ``tables``:
+    (tokens [B, n], logits [n, B, V])."""
+    init = (attn_lib.mla_paged_cache_init if cfg.use_mla
+            else attn_lib.gqa_paged_cache_init)
+    pools = [init(cfg, int(tables.max()) + 1, BLOCK, torch.float32, "cpu")
+             for _ in range(cfg.num_layers)]
+    tok, toks, logits = first, [], []
+    for pos in range(n):
+        pv = torch.full((first.shape[0],), pos, dtype=torch.int32)
+        h = tf._embed(params, cfg, tok, pv[:, None].long())
+        for l in range(cfg.num_layers):
+            p = tf._layer(params["layers"], l)
+            h, pools[l] = tf._attn_decode_paged(p, cfg, h, pools[l], pv,
+                                                tables)
+            h, _ = tf._ffn_full(p, cfg, h, "auto")
+        lg = tf.logits_from_hidden(params, cfg, h)[:, 0]
+        tok = lg.argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+        logits.append(lg)
+    return torch.cat(toks, 1), torch.stack(logits)
+
+
+def run_decodes(case, cfg, mesh, rules, inp):
+    """The four decodes under the mesh: layer 0's per-row and paged
+    decode (``per_row_decodes``, its attention params cut by
+    ``shard_params``), the KV heads of the rank's pool, a pool made
+    without a mesh refused where its head count differs; then greedy
+    decodes of the whole model: ``decode_step`` (the per-row core; the
+    state built whole and cut) and ``paged_greedy``."""
+    whole = inp["params"]
+    local = shd.shard_params(whole, mesh, rules)
+    x, pos, tables = inp["x"], inp["pos"], inp["tables"]
+    first, n = inp["first"], case["greedy"]
+    out = {}
+    plain_pool = None
+    if not cfg.use_mla:
+        plain_pool = attn_lib.gqa_paged_cache_init(cfg, 4, BLOCK,
+                                                   torch.float32, "cpu")
+    with shd.sharding_ctx(mesh, rules):
+        p = tf._layer(local["layers"], 0)["attn"]
+        out["multipos"] = per_row_decodes(p, cfg, x, pos, tables,
+                                          paged=False)
+        out["paged"] = per_row_decodes(p, cfg, x, pos, tables, paged=True)
+        init = (attn_lib.mla_paged_cache_init if cfg.use_mla
+                else attn_lib.gqa_paged_cache_init)
+        out["pool_shape"] = tuple(next(iter(init(
+            cfg, 1, BLOCK, torch.float32, "cpu").values())).shape)
+        if plain_pool is not None and \
+                plain_pool["k"].shape[2] != out["pool_shape"][2]:
+            try:
+                attn_lib.gqa_decode_paged(p, cfg, x[0], plain_pool,
+                                          torch.zeros(x.shape[1],
+                                                      dtype=torch.int32),
+                                          tables.clamp(max=3))
+                out["plain_pool"] = "ran"
+            except ValueError as e:
+                out["plain_pool"] = str(e)
+        state = shard_decode_state(
+            tf.init_decode_state(whole, cfg, first.shape[0], n,
+                                 device="cpu"), mesh, rules)
+        out["state_shapes"] = [tuple(v.shape)
+                               for v in state["layers"][0].values()]
+        tok, toks, logits = first, [], []
+        for i in range(n):
+            lg, state = tf.decode_step(local, cfg, state, tok, i)
+            tok = lg.argmax(dim=-1, keepdim=True)
+            toks.append(tok)
+            logits.append(lg)
+        out["greedy"] = (torch.cat(toks, 1), torch.stack(logits))
+        out["paged_greedy"] = paged_greedy(local, cfg, first, n,
+                                           inp["greedy_tables"])
+    return out
+
+
+def track_margins(engine, seen):
+    """Record, per MoE call of ``engine``, the smallest gap between two
+    summed gate weights of the active rows' batch union (the order the
+    engine streams and traces) and between the k-th and (k+1)-th router
+    logit of an active row (where k < E)."""
+    orig = engine._moe_offloaded
+    cfg = engine.cfg
+
+    def wrapped(p_l, layer, h, *rest):
+        active = rest[-1]
+        x = rms_norm(h, p_l["ln2"], cfg.norm_eps)
+        ids, probs = engine._route(p_l, x)
+        union, w = _batch_union(ids, probs, active, cfg.num_experts)
+        gaps = -np.diff(w[union])
+        k = cfg.num_experts_per_tok
+        if k < cfg.num_experts:
+            logits = (x.float() @ p_l["moe"]["router"])[:, 0].numpy()
+            srt = -np.sort(-logits, axis=-1)[np.asarray(active, bool)]
+            gaps = np.concatenate([gaps, srt[:, k - 1] - srt[:, k]])
+        if gaps.size:
+            seen.append(float(gaps.min()))
+        return orig(p_l, layer, h, *rest)
+
+    engine._moe_offloaded = wrapped
+
+
+def _plain(x):
+    """``x`` with every numpy scalar made a Python one (``torch.load``'s
+    weights-only reader takes no numpy)."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_plain(v) for v in x)
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def run_engine(case, cfg, mesh, rules, inp):
+    """``OffloadEngine.generate`` of the case's prompt (the dense per-row
+    path), or a ``ContinuousOffloadServer`` over the case's prompts, built
+    and run inside the mesh from the whole params: tokens, functional
+    trace rows, ``stats()``, the simulated clock, the last logits, the
+    smallest router margin, the rank's KV pool shape and the calls of
+    each kernel wrapper. A case with "refuse" builds the engine (with
+    ``hbm_budget_bytes``: a server) and returns the error it raised."""
+    whole = inp["params"]
+    margins, out = [], {}
+    with shd.sharding_ctx(mesh, rules):
+        if "refuse" in case:
+            try:
+                ContinuousOffloadServer(whole, cfg, device="cpu",
+                                        **case["refuse"])
+                return {"error": None}
+            except ValueError as e:
+                return {"error": str(e)}
+        counts = {"paged_attention": 0, "moe_ffn": 0}
+        wrapped = {name: getattr(ops, name) for name in counts}
+
+        def counting(name):
+            def call(*a, **kw):
+                counts[name] += 1
+                return wrapped[name](*a, **kw)
+            return call
+
+        for name in counts:
+            setattr(ops, name, counting(name))
+        try:
+            if "prompt" in case:
+                eng = OffloadEngine(whole, cfg, device="cpu",
+                                    **case["engine"])
+                track_margins(eng, margins)
+                out["tokens"] = eng.generate(case["prompt"], case["new"])
+            else:
+                srv = ContinuousOffloadServer(whole, cfg, device="cpu",
+                                              **case["server"])
+                eng = srv.engine
+                track_margins(eng, margins)
+                for prompt in case["prompts"]:
+                    srv.submit(prompt, max_new=case["new"])
+                out["tokens"] = srv.run()
+                out["server_stats"] = _plain(srv.stats())
+                out["logits"] = srv._logits
+                if srv.paged is not None:
+                    out["pool_shape"] = tuple(next(iter(
+                        srv.paged.state["layers"][0].values())).shape)
+        finally:
+            for name, fn in wrapped.items():
+                setattr(ops, name, fn)
+    out.update(
+        rows=_plain([tuple(getattr(s, f) for f in FUNCTIONAL)
+                     for s in eng.trace.steps]),
+        stats=_plain(eng.stats()), sim_time=eng.sim_time,
+        margin=min(margins), launches=counts,
+        attn_shape=tuple(eng.params["layers"]["attn"]["wq"].shape),
+        expert_shape=tuple(eng.params["layers"]["moe"]["experts"]["w1"]
+                           .shape))
+    return out
+
+
 RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model,
-        "cost": run_cost, "train": run_train}
+        "cost": run_cost, "train": run_train, "decodes": run_decodes,
+        "engine": run_engine}
+_MESHES = {}
+
+
+def part_mesh(case, mesh):
+    """The case's own mesh where it names one (built once, by every rank
+    in the parts' order), else ``mesh``."""
+    if "mesh" not in case:
+        return mesh
+    key = (tuple(case["mesh"]), tuple(case.get("axes", ("data", "model"))))
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(*key, "cpu")
+    return _MESHES[key]
 
 
 def run_case(case, mesh, inp):
     """One case under its rules (the JAX test's, or ``sharding_rules``'
     when it gives none); a case of kind "parts" runs each of its parts,
-    a case of its own, on the same ranks, outputs under the part's
-    name."""
+    a case of its own, on the same ranks (on its own mesh where it names
+    one), outputs under the part's name."""
     if case["kind"] == "parts":
-        return {name: run_case(part, mesh, inp[name])
+        return {name: run_case(part, part_mesh(part, mesh), inp[name])
                 for name, part in case["parts"].items()}
     cfg = case_config(case)
     rules = case["rules"] or sharding_rules(cfg, mesh)

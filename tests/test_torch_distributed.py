@@ -81,20 +81,28 @@ def _bridge(tree):
     return ptf.from_jax_params(jax.tree.map(np.asarray, tree), device="cpu")
 
 
-def run_ranks(tmp_path, case, inputs):
-    """Start the WORLD ranks on ``case``; returns rank 0's outputs after
-    checking that every rank returned the same whole outputs."""
+def start_ranks(tmp_path, case, inputs, mesh=MESH):
+    """Start the ranks of ``mesh`` (WORLD of MESH by default) on ``case``
+    and return at once; ``collect_ranks`` waits for them."""
+    world = int(np.prod(mesh))
     torch.save(inputs, tmp_path / "inputs.pt")
-    case = dict(case, mesh=list(MESH), store=f"file://{tmp_path}/store",
+    case = dict(case, mesh=list(mesh), store=f"file://{tmp_path}/store",
                 inputs=str(tmp_path / "inputs.pt"))
     (tmp_path / "case.json").write_text(json.dumps(case))
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     env.pop("PYTHONPATH", None)
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
-         str(tmp_path / "case.json"), str(r), str(WORLD)],
+         str(tmp_path / "case.json"), str(r), str(world)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
+        for r in range(world)]
+    return tmp_path, case, procs
+
+
+def collect_ranks(started):
+    """Every rank's outputs of ``start_ranks``' run, after checking that
+    every rank returned the same whole outputs."""
+    tmp_path, case, procs = started
     logs = []
     try:
         for p in procs:
@@ -106,10 +114,16 @@ def run_ranks(tmp_path, case, inputs):
            for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
     assert not bad, bad
     outs = [torch.load(tmp_path / f"out-{r}.pt", weights_only=True)
-            for r in range(WORLD)]
+            for r in range(len(procs))]
     for part in case.get("parts") or [None]:
         _same_on_every_rank([o if part is None else o[part] for o in outs])
     return outs
+
+
+def run_ranks(tmp_path, case, inputs, mesh=MESH):
+    """Start the ranks on ``case`` and wait for them: every rank's
+    outputs, checked to agree."""
+    return collect_ranks(start_ranks(tmp_path, case, inputs, mesh))
 
 
 def _same_on_every_rank(outs):

@@ -36,6 +36,8 @@ from repro_torch.models import sharding as pshd
 from repro_torch.models import ssm as pssm
 from repro_torch.models import transformer as ptf
 
+from _torch_dist_ranks import per_row_decodes
+
 # the rules of tests/test_distributed.py (sharding_rules would leave the
 # reduced configs' weights whole: d_model x layers is below its cut)
 RULES = {"batch": ("data",), "model": "model", "heads": "model",
@@ -434,15 +436,34 @@ def test_one_rank_cross_families_equal_unsharded(one_rank, arch):
                                        atol=1e-6)
 
 
-def test_unported_families_raise_under_a_mesh(one_rank):
-    """The per-row and paged decodes under a mesh name the ROADMAP item
-    that ports them (A18). (The training loss runs under a mesh since
-    A19: ``tests/test_torch_distributed_train.py``.)"""
-    cfg, tp = _model("mixtral-8x7b", 0, layers=2, d_model=64)
-    x = torch.zeros(1, 1, 64)
-    with pshd.sharding_ctx(one_rank, {"model": "model"}):
-        with pytest.raises(NotImplementedError, match="A18"):
-            pattn.gqa_decode_multipos(ptf._layer(tp["layers"], 0)["attn"],
-                                      cfg, x, {}, torch.zeros(1).long())
+@pytest.mark.parametrize("arch,mla_seq_shard", [
+    ("mixtral-8x7b", True), ("deepseek-v2-236b", False),
+    ("deepseek-v2-236b", True)])
+def test_unported_families_raise_under_a_mesh(one_rank, arch, mla_seq_shard):
+    """The per-row and paged decodes (ROADMAP A18, once refused under a
+    mesh) at one rank: 5 calls of 3 staggered rows, each bitwise its
+    plain run, the cache built under the mesh (the rank's heads are every
+    head and the all-reduces leave one rank's values as they are). MLA's
+    dense per-row decode over a sequence-split cache combines its softmax
+    across the (one) model rank, so there it is held within 1e-6; its
+    paged pool is whole and bitwise. The production mesh still needs its
+    256 ranks."""
+    cfg, tp = _model(arch, 6, layers=1, d_model=64, vocab=128)
+    layer = ptf._layer(tp["layers"], 0)["attn"]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(5, 3, 1, 64)).astype(np.float32))
+    pos = np.array([0, 3, 9])
+    tables = torch.tensor([[4, 1, 6, 0], [2, 5, 3, 8], [7, 9, 10, 11]],
+                          dtype=torch.int32)
+    rules = dict(RULES, mla_seq_shard=mla_seq_shard)
+    local = pshd.shard_params(layer, one_rank, rules)
+    for paged in (False, True):
+        want = per_row_decodes(layer, cfg, x, pos, tables, paged=paged)
+        with pshd.sharding_ctx(one_rank, rules):
+            got = per_row_decodes(local, cfg, x, pos, tables, paged=paged)
+        if cfg.use_mla and mla_seq_shard and not paged:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(got, want), (arch, paged)
     with pytest.raises(RuntimeError, match="256 ranks"):
         pmesh.make_production_mesh(device_type="cpu")
