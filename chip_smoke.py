@@ -171,8 +171,20 @@ It drives the port's two entry points end to end and checks them:
    once a layer a step and ``moe_ffn`` as often as plain, the mesh run's
    calls of both held and timed (``kernels`` entries of their own), the
    collectives a step by kind; then the same with 4-token prefill
-   chunks; a ``mesh_serving`` line. One ``distributed`` JSON line (world
-   size, NCCL version, the eleven results, their times and the phase's
+   chunks; a ``mesh_serving`` line; right after it, (j) memory tiers
+   under the mesh: phase 4d's tiered workload (one HBM budget split into
+   4 slots a layer and 4 KV blocks of 16, 3 requests of 24 + 16 tokens,
+   4-token prefill chunks; the pool overcommits, KV is parked in pinned
+   host memory and resumed) on the same fp32 masters, the tiered server
+   built and run inside the mesh, in TURNS against the plain tiered
+   server: tokens, every step's logits, trace rows with ``miss_tiers``,
+   tier events, ``stats()`` with the clock, per-step H2D bytes, each
+   park's snapshot and the arbiter's bytes for it bitwise or equal,
+   ``paged_attention`` once a layer a step and ``moe_ffn`` as often as
+   plain (the mesh run's calls held and timed), 4 collectives a step by
+   kind; a ``tier_mesh_serving`` line with the step and park / resume
+   copy times by turn. One ``distributed`` JSON line (world
+   size, NCCL version, the twelve results, their times and the phase's
    seconds); then the group is destroyed. The group stays open from 6a
    to the end of phase 7;
 6b. DeepSeek-V2 (MLA, 160 routed experts top-6 beside a shared SwiGLU of
@@ -765,6 +777,79 @@ def install_streams(streams):
     return patched(ExpertCache, "_copy_in", make)
 
 
+# the serving kernels' calls ``recording`` keeps: the heaviest (moe_ffn:
+# most expert rows E*C; paged_attention: most visible keys), its small
+# arguments copied as they were
+SERVING_SPECS = {
+    "moe_ffn": (lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
+                # the slot buffers (GBs) are kept by reference
+                lambda x_e, w1, w3, w2, slots: (x_e.clone(), w1, w3, w2,
+                                                list(slots))),
+    "paged_attention": (visible_keys,
+                        lambda *args: tuple(a.clone() for a in args)),
+}
+
+
+def timed_moves(moves):
+    """Record every ``PagedKVCache._move`` inside the block (a park's copy
+    to host or a resume's to the card) into ``moves`` as ("park" or
+    "resume", the stream it was queued on, its host bytes, whether the
+    host buffer is pinned, start and end CUDA events)."""
+    import torch
+    from repro_torch.core.paged_kv import PagedKVCache
+
+    def recorded(move):
+        def call(self, dst, src):
+            host = src if dst.is_cuda else dst
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            move(self, dst, src)
+            end.record()
+            moves.append(("resume" if dst.is_cuda else "park",
+                          torch.cuda.current_stream(), host.nbytes,
+                          host.is_pinned(), start, end))
+        return call
+    return patched(PagedKVCache, "_move", recorded)
+
+
+def move_times(moves):
+    """Parks' and resumes' counts, host bytes, copy ms and GB/s (after a
+    synchronization) from ``timed_moves``' records."""
+    out = {}
+    for kind in ("park", "resume"):
+        ms = [a.elapsed_time(b) for k, _, _, _, a, b in moves if k == kind]
+        nb = [n for k, _, n, _, _, _ in moves if k == kind]
+        out[kind] = {"n": len(ms), "bytes": nb, "ms": ms,
+                     "gb_per_s": [n / m / 1e6 for n, m in zip(nb, ms)]}
+    return out
+
+
+def tier_plan(cfg, quant):
+    """Phase 4d's tiered server: (its kwargs: one ``hbm_budget_bytes``
+    whose plan lands on TIER_SLOTS slots a layer and TIER_BLOCKS blocks of
+    TIER_BLOCK_SIZE, max_batch 2, 4-token prefill chunks, LFU,
+    speculative prefetch; the plan's slot and block prices), and its
+    TIER_REQUESTS seeded prompts."""
+    import numpy as np
+    from repro_torch.core.costmodel import ModelBytes
+    from repro_torch.serving.offload_serving import _planned_expert_bytes
+    slot_price = _planned_expert_bytes(cfg)
+    block_price = (TIER_BLOCK_SIZE * ModelBytes.from_config(cfg)
+                   .kv_bytes_per_token * cfg.num_layers)
+    experts_part = TIER_SLOTS * cfg.num_layers * slot_price
+    budget = experts_part + TIER_BLOCKS * block_price
+    base = dict(max_batch=2, prefill_chunk=4, kv_block_size=TIER_BLOCK_SIZE,
+                policy="lfu", prefetch="spec", hbm_budget_bytes=budget,
+                tier_expert_frac=experts_part / budget + 1e-9,
+                quant=quant, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             TIER_PROMPT_LEN)]
+               for _ in range(TIER_REQUESTS)]
+    return base, {"slot": slot_price, "block": block_price}, prompts
+
+
 def serve(srv, prompts, ops, prof=None, per_step=None):
     """Run the staggered workload; record each kernel wrapper's heaviest
     call (moe_ffn: most expert rows E*C; paged_attention: most visible
@@ -779,17 +864,9 @@ def serve(srv, prompts, ops, prof=None, per_step=None):
     import torch
     seen, streams = {}, []
     compute = torch.cuda.current_stream()
-    specs = {
-        "moe_ffn": (lambda x_e, *_: x_e.shape[0] * x_e.shape[1],
-                    # the slot buffers (GBs) are kept by reference
-                    lambda x_e, w1, w3, w2, slots: (x_e.clone(), w1, w3, w2,
-                                                    list(slots))),
-        "paged_attention": (visible_keys,
-                            lambda *args: tuple(a.clone() for a in args)),
-    }
     rids, step_ms, step_h2d = [], [], []
     expert_bytes = srv.engine.store.expert_nbytes((0, 0))
-    with recording(ops, seen, specs), install_streams(streams):
+    with recording(ops, seen, SERVING_SPECS), install_streams(streams):
         ops.reset_launch_counts()
         if prof is not None:
             prof.start()
@@ -1658,29 +1735,16 @@ def tier_serving(params, cfg, ops, store, card):
     Every server is built, run and freed one at a time. Returns the
     ``tiers`` report; raises on a failed check."""
     import statistics
-    import numpy as np
     import torch
-    from repro_torch.core.costmodel import ModelBytes
     from repro_torch.core.paged_kv import PagedKVCache
-    from repro_torch.serving.offload_serving import (
-        ContinuousOffloadServer, _planned_expert_bytes)
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
     t_phase = time.perf_counter()
-    slot_price = _planned_expert_bytes(cfg)
-    block_price = (TIER_BLOCK_SIZE * ModelBytes.from_config(cfg)
-                   .kv_bytes_per_token * cfg.num_layers)
-    experts_part = TIER_SLOTS * cfg.num_layers * slot_price
-    budget = experts_part + TIER_BLOCKS * block_price
-    base = dict(max_batch=2, prefill_chunk=4, kv_block_size=TIER_BLOCK_SIZE,
-                policy="lfu", prefetch="spec", hbm_budget_bytes=budget,
-                tier_expert_frac=experts_part / budget + 1e-9,
-                quant=store.quant, device="cuda")
+    base, prices, prompts = tier_plan(cfg, store.quant)
+    budget = base["hbm_budget_bytes"]
+    slot_price, block_price = prices["slot"], prices["block"]
     # what one block of the fp32 pool holds: K and V of every layer
     real_block = (TIER_BLOCK_SIZE * cfg.num_kv_heads * cfg.head_dim * 4 * 2
                   * cfg.num_layers)
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
-                                             TIER_PROMPT_LEN)]
-               for _ in range(TIER_REQUESTS)]
     expert_bytes = store.expert_nbytes((0, 0))
     compute = torch.cuda.current_stream()
 
@@ -1695,20 +1759,6 @@ def tier_serving(params, cfg, ops, store, card):
 
     def run(generate=False, **kw):
         moves = []
-
-        def recorded(move):
-            def call(self, dst, src):
-                host = src if dst.is_cuda else dst
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                move(self, dst, src)
-                end.record()
-                moves.append(("resume" if dst.is_cuda else "park",
-                              torch.cuda.current_stream(), host.nbytes,
-                              host.is_pinned(), start, end))
-            return call
-
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         with reusing(store):
@@ -1723,7 +1773,7 @@ def tier_serving(params, cfg, ops, store, card):
         srv._restore_kv = no_host_sync(srv._restore_kv)
         rids = [srv.submit(p, max_new=TIER_TOKENS) for p in prompts]
         step_ms, step_h2d, logits = [], [], []
-        with patched(PagedKVCache, "_move", recorded):
+        with timed_moves(moves):
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t_loop = time.perf_counter()
@@ -1772,12 +1822,7 @@ def tier_serving(params, cfg, ops, store, card):
                                     for pair in c.staging.values()
                                     for t in pair)}
         torch.cuda.synchronize()
-        for kind in ("park", "resume"):
-            ms = [a.elapsed_time(b) for k, _, _, _, a, b in moves
-                  if k == kind]
-            nb = [n for k, _, n, _, _, _ in moves if k == kind]
-            rec[kind] = {"n": len(ms), "bytes": nb, "ms": ms,
-                         "gb_per_s": [n / m / 1e6 for n, m in zip(nb, ms)]}
+        rec.update(move_times(moves))
         if generate:
             for p, out in zip(prompts, rec["tokens"]):
                 want = srv.engine.generate(p, TIER_TOKENS)
@@ -2862,6 +2907,181 @@ def mla_mesh_serving(params, cfg, prompts, ops, server_kw, store, mesh,
             "pool_layer0": rec["pool"], "launches": rec["launches"],
             "collectives_per_step": {k: v / steps for k, v in
                                      rec["collectives"].items()}}
+
+
+def tier_mesh_run(params, cfg, store, where, mesh, rules, ops):
+    """One run of phase 4d's tiered workload (``tier_plan``, overlap off)
+    on the pinned masters ``store``, the server built and run inside the
+    mesh under ``rules`` (``where`` "mesh") or without one ("plain"):
+    tokens, every step's logits, the trace rows with ``miss_tiers``, the
+    tier events, all of ``stats()`` (the clock too), per-step H2D bytes
+    (each checked against the trace's moved experts), each park's priced
+    bytes and pinned snapshot, the park and resume copies' times, the
+    launches, the recorded kernel calls, the collectives by kind, step
+    times and the rank's pool's layer-0 shapes."""
+    import torch
+    from repro_torch.models import sharding as shd
+    from repro_torch.serving.offload_serving import ContinuousOffloadServer
+    base, _, prompts = tier_plan(cfg, store.quant)
+    seen, counts, moves, parks = {}, {}, [], []
+    step_ms, step_h2d, logits = [], [], []
+    expert_bytes = store.expert_nbytes((0, 0))
+    with contextlib.ExitStack() as stack:
+        if where == "mesh":
+            stack.enter_context(shd.sharding_ctx(mesh, rules))
+        with reusing(store):
+            srv = ContinuousOffloadServer(params, cfg, **base)
+        check(srv.engine.caches[0].n_slots == TIER_SLOTS
+              and srv.paged.num_blocks == TIER_BLOCKS,
+              f"tiers {where}: the plan gave {srv.engine.caches[0].n_slots} "
+              f"slots and {srv.paged.num_blocks} blocks")
+        park = srv.tiers.park_kv
+
+        def parked(rid, arrays, nbytes, *args, **kw):
+            parks.append((nbytes, arrays.flat))
+            return park(rid, arrays, nbytes, *args, **kw)
+
+        srv.tiers.park_kv = parked
+        rids = [srv.submit(p, max_new=TIER_TOKENS) for p in prompts]
+        stack.enter_context(recording(ops, seen, SERVING_SPECS))
+        stack.enter_context(counting_collectives(counts))
+        stack.enter_context(timed_moves(moves))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter()
+        while srv.pending:
+            h2d = sum(c.bytes_transferred for c in srv.engine.caches)
+            rows = len(srv.trace.steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(srv._logits.clone())
+            step_h2d.append(sum(c.bytes_transferred
+                                for c in srv.engine.caches) - h2d)
+            moved = sum(len(r.misses) + len(r.prefetched)
+                        for r in srv.trace.steps[rows:])
+            check(step_h2d[-1] == moved * expert_bytes,
+                  f"tiers {where}: step {len(step_ms)}: {step_h2d[-1]} H2D "
+                  f"bytes, the trace moved {moved} experts")
+        loop_ms = (time.perf_counter() - t_loop) * 1e3
+        launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    stats = srv.stats()
+    rec = {"where": where, "tokens": [srv.result(r) for r in rids],
+           "logits": logits,
+           "rows": [tuple(getattr(r, f) for f in FUNCTIONAL
+                          + ("miss_tiers",)) for r in srv.trace.steps],
+           "events": [dataclasses.astuple(e) for e in srv.trace.tier_events],
+           "all_stats": {k: repr(v) for k, v in stats.items()},
+           "raw": stats, "step_h2d": step_h2d, "step_ms": step_ms,
+           "loop_ms": loop_ms, "launches": launches,
+           "park_bytes": [n for n, _ in parks],
+           "snapshots": [flat for _, flat in parks],
+           "calls": {k: v[1] for k, v in seen.items()},
+           "collectives": counts, **move_times(moves),
+           "pool": [tuple(v.shape) for v in
+                    srv.paged.state["layers"][0].values()]}
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tier_mesh_check(params, cfg, store, mesh, ops, hold_and_time, card):
+    """(j) Memory tiers under the mesh: phase 4d's tiered workload
+    (``tier_plan``: one HBM budget split into 4 slots a layer and 4 KV
+    blocks of 16, 3 requests of 24 + 16 tokens, 4-token prefill chunks,
+    the pool overcommitted so that KV is parked in pinned host memory and
+    resumed) on Mixtral's pinned masters ``store``, the tiered server
+    built and run inside the mesh with the published rules, in TURNS
+    against the plain tiered server (``tier_mesh_run``). Every mesh run
+    bitwise the first plain run, or equal where a thing is a count:
+    tokens, every step's logits, trace rows with ``miss_tiers``, tier
+    events, all of ``stats()`` with the clock, per-step H2D bytes, each
+    park's snapshot and the arbiter's bytes for it;
+    ``paged_attention`` once a layer a step and ``moe_ffn`` as often as
+    plain; the collectives a step by kind: one all-reduce a layer (after
+    ``wo``) and two all-gathers (the embedding, the logits), as (i)'s
+    server; none in the plain runs. The first mesh run's kernel calls are
+    held and timed (``kernels`` entries of their own). Returns the report:
+    step ms and park / resume copy ms by turn, the phase's seconds."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    rules = mesh_rules("mixtral-8x7b", mesh)
+    L = cfg.num_layers
+    runs = []
+    for turn in TURNS:
+        runs.append(tier_mesh_run(params, cfg, store, turn, mesh, rules,
+                                  ops))
+        rec, plain = runs[-1], runs[0]
+        if turn != "mesh" or len(runs) > 2:
+            # the calls keep the run's slot buffers (GBs) by reference:
+            # only the first mesh run's are held and timed
+            rec.pop("calls")
+        steps = len(rec["step_ms"])
+        check(rec["launches"]["paged_attention"] == steps * L,
+              f"tiers {turn}: paged_attention launched "
+              f"{rec['launches']['paged_attention']} times in {steps} steps "
+              f"of {L} layers")
+        check(rec["launches"]["moe_ffn"] > 0, f"tiers {turn}: no moe_ffn")
+        want = ({"all-reduce": L * steps, "all-gather": 2 * steps}
+                if turn == "mesh" else {})
+        check(rec["collectives"] == want,
+              f"tiers {turn}: collectives {rec['collectives']}, expected "
+              f"{want}")
+        s = rec["raw"]
+        check(s["tier_kv_parks"] >= 1 and s["tier_kv_resumes"] >= 1
+              and rec["park"]["n"] == s["tier_kv_parks"]
+              and rec["resume"]["n"] == s["tier_kv_resumes"],
+              f"tiers {turn}: {s['tier_kv_parks']} parks, "
+              f"{s['tier_kv_resumes']} resumes, copies {rec['park']['n']} / "
+              f"{rec['resume']['n']}")
+        if turn == "mesh":
+            for key in ("tokens", "rows", "events", "all_stats", "step_h2d",
+                        "park_bytes", "launches"):
+                check(rec[key] == plain[key],
+                      f"tiers under the mesh: {key} differ from plain")
+            check(len(rec["logits"]) == len(plain["logits"]) and all(
+                torch.equal(a, b) for a, b in zip(rec["logits"],
+                                                  plain["logits"])),
+                  "tiers under the mesh: a step's logits differ from plain")
+            check(len(rec["snapshots"]) == len(plain["snapshots"]) and all(
+                torch.equal(a, b) for a, b in zip(rec["snapshots"],
+                                                  plain["snapshots"])),
+                  "tiers under the mesh: a parked snapshot differs from "
+                  "plain")
+            check(rec["park"]["bytes"] == plain["park"]["bytes"],
+                  "tiers under the mesh: parked host bytes differ")
+    mesh_run = next(r for r in runs if r["where"] == "mesh")
+    hold_and_time(mesh_run["calls"], mesh_run["launches"],
+                  model=f"{cfg.name} tiered server (1x1 mesh)")
+    steps = len(mesh_run["step_ms"])
+    return {"model": cfg.name, "layers": L, "quant": store.quant,
+            "requests": TIER_REQUESTS, "slots_per_layer": TIER_SLOTS,
+            "kv_blocks": TIER_BLOCKS,
+            "rules": {k: rules[k] for k in ("batch", "model", "shard_kv")},
+            "pool_layer0": {"plain": runs[0]["pool"],
+                            "mesh": mesh_run["pool"]},
+            "turns": [dict(turn_summary(r), park_ms=r["park"]["ms"],
+                           resume_ms=r["resume"]["ms"]) for r in runs],
+            "parks": mesh_run["raw"]["tier_kv_parks"],
+            "resumes": mesh_run["raw"]["tier_kv_resumes"],
+            "park_bytes_priced": mesh_run["park_bytes"],
+            "park_bytes_host": mesh_run["park"]["bytes"],
+            "collectives": mesh_run["collectives"],
+            "collectives_per_step": {k: v / steps for k, v in
+                                     mesh_run["collectives"].items()},
+            "launches": mesh_run["launches"],
+            "equal": ["tokens", "logits bitwise", "rows", "tier events",
+                      "stats with the clock", "step_h2d", "park snapshots",
+                      "park bytes"],
+            "sim_time_s": mesh_run["raw"]["sim_time_s"],
+            "step_ms_median_by_turn": [float(np.median(r["step_ms"]))
+                                       for r in runs],
+            "seconds": time.perf_counter() - t_phase, "card": card}
 
 
 def greedy_decode(params, cfg, state, first, steps):
@@ -4735,6 +4955,9 @@ def main() -> None:
                                      server_kw, hold_and_time, card)
         serving["s"] = time.perf_counter() - t0
         print(json.dumps({"mesh_serving": serving}), flush=True)
+        tier_mesh = tier_mesh_check(params, cfg, store, mesh, ops,
+                                    hold_and_time, card)
+        print(json.dumps({"tier_mesh_serving": tier_mesh}), flush=True)
         del params, tp_seen, store
         gc.collect()
         torch.cuda.empty_cache()
@@ -4813,8 +5036,8 @@ def main() -> None:
             "ssm": ssm, "encdec": cross["whisper-tiny"],
             "vlm": cross["llama-3.2-vision-11b"], "train": train,
             "zero1_train": zero1, "offload_serving": serving,
-            "mla_serving": ds_serving["mesh"],
-            "phase_s": ep["s"] + tp["s"] + serving["s"]
+            "tier_serving": tier_mesh, "mla_serving": ds_serving["mesh"],
+            "phase_s": ep["s"] + tp["s"] + serving["s"] + tier_mesh["seconds"]
             + ds_serving["mesh"]["s"] + mla["s"] + hybrid["s"] + ssm["s"]
             + sum(c["s"] for c in cross.values())
             + sum(t["s"] for t in train.values())

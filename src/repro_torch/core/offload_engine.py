@@ -29,19 +29,32 @@ and the arbiter's stalls (disk-resident demand fetches, KV promotes,
 in-flight demotions) land on the simulated clock once a step.
 
 Built and stepped inside ``sharding.sharding_ctx(mesh, rules)`` the
-engine runs tensor-parallel in attention with the experts whole: it takes
-the whole params, builds its ``ExpertStore`` from the whole experts, and
-keeps ``shard_params``' slices of every other leaf (the MoE's, router
-and shared experts included, stay whole), so the embedding, the
-attention decodes (the rank's heads, its dense cache block or its pool
-of KV heads) and the logits run as the rules lay them out, each with its
-collectives. The rows stay whole on every rank: after each all-reduce h
-is the same on every rank, so the routing readback, the caches, the
-grouped FFN, the trace and the clock are the same on every rank. A mesh
-whose data (or pod) axis is larger than 1 raises, and so do memory tiers.
+engine runs tensor-parallel in attention with the experts whole, and
+splits the decode rows over the data (and pod) axes where the rules say
+so (``launch.mesh.sharding_rules(cfg, mesh, global_batch=max_batch)``):
+it takes the whole params, builds its ``ExpertStore`` from the whole
+experts, and keeps ``shard_params``' slices of every other leaf (the
+MoE's, router and shared experts included, stay whole), so the
+embedding, the attention decodes (the rank's rows and heads, its dense
+cache block or its pool of KV heads) and the logits run as the rules lay
+them out, each with its collectives. A step's rows split over the batch
+axes as ``sharding.batch_rows`` splits them; a step whose row count does
+not divide over them (chunked prefill's virtual rows, a batch-1
+``generate``) runs whole on every rank, where JAX's ``sanitize_spec``
+drops the axis. There is one control plane: the router logits are
+gathered over the batch axes before the host readback (and the
+speculative guess's input before its own), so the routing, the caches,
+the policies, the predictors, the trace and the clock are the same on
+every rank; each rank runs the grouped FFN on its rows with its rows of
+the combine matrix, and the logits are gathered back whole. At data size
+1 none of these gathers runs. Memory tiers run under a mesh as without
+one: the arbiter is one numpy copy on every rank, each rank parks and
+resumes its own pool's blocks in the same step, and every park is priced
+at the unsharded pool's bytes (``PagedKVCache.block_nbytes``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,7 +82,8 @@ def _grouped_ffn(xf, cache: ExpertCache, slots: Sequence[int],
                  comb: np.ndarray):
     """xf [B,d]; cache: the layer's cache, whose slot buffers hold w1/w3
     [S,d,ff], w2 [S,ff,d]; slots: the U slots to run; comb [B,U] -> y
-    [B,d].
+    [B,d]. Under a batch rule ``xf`` is the rank's rows and ``comb`` the
+    whole batch's, of which the rank takes its rows.
 
     The resident-expert FFN goes through the grouped SwiGLU kernel
     (``ops.moe_ffn``), which reads the U experts' weights in place, after
@@ -83,7 +97,7 @@ def _grouped_ffn(xf, cache: ExpertCache, slots: Sequence[int],
     b = cache.buffers
     with cache.reading(slots):
         out = ops.moe_ffn(x_e, b["w1"], b["w3"], b["w2"], slots)
-    comb_t = torch.from_numpy(comb)
+    comb_t = shd.batch_rows(torch.from_numpy(comb))
     if xf.is_cuda:
         # from pinned memory, so the upload does not wait for the stream
         # (the host goes on to queue the next chunk's installs)
@@ -159,15 +173,6 @@ class OffloadEngine:
                              f"engine device is {self.device}")
         self.cfg = cfg
         self.mesh, self.rules = shd.active_mesh(), shd.active_rules()
-        if self.mesh is not None:
-            sizes = shd.axis_sizes(self.mesh)
-            rows = sizes.get("data", 1) * sizes.get("pod", 1)
-            if rows > 1:
-                raise ValueError(
-                    f"OffloadEngine under a mesh with {rows} data ranks: the "
-                    f"engine is one batch with one control plane (routing, "
-                    f"caches, clock); a cache on each data replica would be "
-                    f"another system. Use a mesh of data size 1")
         if isinstance(cache_slots, int):
             if cache_slots < 1:
                 raise ValueError(
@@ -264,18 +269,26 @@ class OffloadEngine:
                 "OffloadEngine stepped under another mesh than the one it "
                 "was built under: its params are cut for that one")
 
+    def _rows_ctx(self, n_rows: int):
+        """The sharding context of a step (or a dense state) of ``n_rows``
+        rows: the engine's mesh and rules, with the batch rule dropped
+        where it does not split the rows over more than one rank (one data
+        rank, or a count that does not divide: the step runs whole on every
+        rank). No context without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        b = self.rules.get("batch")
+        n = shd.axis_size(b, self.mesh)
+        rules = self.rules if n > 1 and n_rows % n == 0 else \
+            dict(self.rules, batch=None)
+        return shd.sharding_ctx(self.mesh, rules)
+
     def attach_tiers(self, tiers) -> None:
         """Wire a ``TieredMemoryManager`` in: register every expert's
         master copy (real store bytes) and point the per-layer caches
-        at the arbiter. Call once, before any decoding. Under a mesh it
-        raises: the arbiter's parked bytes and budget would be the
-        rank's while its plan prices the whole model (ROADMAP.md A21)."""
-        if self.mesh is not None:
-            raise ValueError(
-                "memory tiers under a device mesh are not supported: the "
-                "arbiter's parked KV bytes and HBM budget would be the "
-                "rank's while its plan prices the whole model (ROADMAP.md "
-                "A21)")
+        at the arbiter. Call once, before any decoding. Under a mesh
+        every rank holds the whole experts and its own arbiter, the same
+        numpy copy as every other rank's."""
         assert self.tiers is None, "tiers already attached"
         self.tiers = tiers
         if tiers.trace is None:
@@ -292,7 +305,8 @@ class OffloadEngine:
     # ------------------------------------------------------------------
     def init_state(self, batch: int, cache_len: int):
         """The dense per-row decode state; under the mesh the rank's block
-        of one built whole under it (``shard_decode_state``), its length
+        of one built whole under it (``shard_decode_state``: the rank's
+        rows where ``batch`` splits over the batch axes), its length
         rounded up to a multiple of the model axis so that a cache split
         by sequence splits evenly (the slots past a row's position are
         masked, so the extra ones change nothing)."""
@@ -301,11 +315,13 @@ class OffloadEngine:
             return tf.init_decode_state(self.params, self.cfg, batch,
                                         cache_len, dtype=torch.float32,
                                         device=self.device)
-        n = shd.axis_size(shd.model_axis())
-        state = tf.init_decode_state(self.params, self.cfg, batch,
-                                     -(-cache_len // n) * n,
-                                     dtype=torch.float32, device=self.device)
-        return shard_decode_state(state, self.mesh, self.rules)
+        with self._rows_ctx(batch):
+            n = shd.axis_size(shd.model_axis())
+            state = tf.init_decode_state(self.params, self.cfg, batch,
+                                         -(-cache_len // n) * n,
+                                         dtype=torch.float32,
+                                         device=self.device)
+            return shard_decode_state(state, self.mesh, shd.active_rules())
 
     def new_prompt(self, *, reset_context: bool = True) -> int:
         """Allocate a fresh prompt (request) id.
@@ -329,8 +345,11 @@ class OffloadEngine:
 
     # ------------------------------------------------------------------
     def _route(self, p_l, x) -> Tuple[np.ndarray, np.ndarray]:
-        """x [B,1,d] -> (top ids [B,k], top probs [B,k]) on host."""
-        logits = (x.float() @ p_l["moe"]["router"])[:, 0, :].cpu().numpy()
+        """x [B,1,d] (the rank's rows) -> (top ids [B,k], top probs [B,k])
+        of the whole batch on host: the router logits are gathered over
+        the batch axes first."""
+        logits = shd.gather_rows(x.float() @ p_l["moe"]["router"])
+        logits = logits[:, 0, :].cpu().numpy()
         k = self.cfg.num_experts_per_tok
         ids = np.argsort(-logits, axis=-1)[:, :k]
         top = np.take_along_axis(logits, ids, axis=-1)
@@ -389,8 +408,8 @@ class OffloadEngine:
         degradation flags land in the trace for quality attribution.
         """
         cfg = self.cfg
-        x = rms_norm(h, p_l["ln2"], cfg.norm_eps)
-        ids, probs = self._route(p_l, x)   # [B,k]
+        x = rms_norm(h, p_l["ln2"], cfg.norm_eps)   # the rank's rows
+        ids, probs = self._route(p_l, x)   # [B,k], the whole batch
         B = ids.shape[0]
 
         # union of needed experts over ACTIVE rows, most-weighted first
@@ -420,7 +439,7 @@ class OffloadEngine:
         misses: List[int] = []
         evicted: List[int] = []
         miss_tiers: List[str] = []
-        y = torch.zeros((B, cfg.d_model), dtype=torch.float32,
+        y = torch.zeros((x.shape[0], cfg.d_model), dtype=torch.float32,
                         device=self.device)
         cap = cache.n_slots
         for c0 in range(0, len(union), cap):
@@ -569,123 +588,130 @@ class OffloadEngine:
             block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
                                            device=dev)
 
-        h = tf._embed(params, cfg, tokens, pos_vec[:, None])
+        with self._rows_ctx(B):
+            # the rank's rows of the step where the batch rule splits them
+            pos_rows = shd.batch_rows(pos_vec)
+            h = tf._embed(params, cfg, shd.batch_rows(tokens),
+                          pos_rows[:, None])
 
-        # guesses issued at layer l are consumed at layer l+1 of the SAME
-        # token pass (the prefetch travels ahead of the compute wavefront);
-        # each entry is (guess, moved, fault outcomes of the moved ids)
-        pending: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...], Dict]] = {}
-        step_misses = 0
-        step_prefetch = 0
-        act_rows = torch.as_tensor([b for b in range(B) if active[b]],
-                                   dtype=torch.long, device=dev)
-        # the executed pipeline clock starts where the last step ended;
-        # per-layer stages advance it by compute + exposed stall
-        self._clock = self.sim_time
-        self._step_fault_stall_s = 0.0
-        step_degraded = [False] * n_active
-        if self.faults is not None:
-            self.faults.now = self.sim_time
+            # guesses issued at layer l are consumed at layer l+1 of the SAME
+            # token pass (the prefetch travels ahead of the compute wavefront);
+            # each entry is (guess, moved, fault outcomes of the moved ids)
+            pending: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...], Dict]] = {}
+            step_misses = 0
+            step_prefetch = 0
+            act_rows = torch.as_tensor([b for b in range(B) if active[b]],
+                                       dtype=torch.long, device=dev)
+            # the executed pipeline clock starts where the last step ended;
+            # per-layer stages advance it by compute + exposed stall
+            self._clock = self.sim_time
+            self._step_fault_stall_s = 0.0
+            step_degraded = [False] * n_active
+            if self.faults is not None:
+                self.faults.now = self.sim_time
 
-        for l in range(cfg.num_layers):
-            p_l = self._layers[l]
-            if block_tables is None:
-                h, state["layers"][l] = tf._attn_decode_multipos(
-                    p_l, cfg, h, state["layers"][l], pos_vec)
-            else:
-                h, state["layers"][l] = tf._attn_decode_paged(
-                    p_l, cfg, h, state["layers"][l], pos_vec, block_tables)
+            for l in range(cfg.num_layers):
+                p_l = self._layers[l]
+                if block_tables is None:
+                    h, state["layers"][l] = tf._attn_decode_multipos(
+                        p_l, cfg, h, state["layers"][l], pos_rows)
+                else:
+                    h, state["layers"][l] = tf._attn_decode_paged(
+                        p_l, cfg, h, state["layers"][l], pos_vec, block_tables)
 
-            # --- speculative guess for layer l+1 (paper §3.2) ---------
-            if self.spec is not None and l + 1 < cfg.num_layers:
-                p_next = self._layers[l + 1]
-                guess = self.spec.guess(h[act_rows], p_next["ln2"],
-                                        p_next["moe"]["router"])
-                # decided now, copied after layer l's demand installs
-                moved = self.caches[l + 1].prefetch(guess, defer=True)
-                step_prefetch += len(moved)
-                pending[l + 1] = (guess, tuple(moved),
-                                  dict(self.caches[l + 1]
-                                       .last_prefetch_outcomes))
-                if self.overlap:
-                    # issued before layer l's MoE computes: the copy
-                    # has layer l's compute window to hide under
-                    self._issue_transfers(
-                        l + 1, moved, demand=False,
-                        outcomes=self.caches[l + 1].last_prefetch_outcomes
-                        or None)
-
-            pg, pm, po = pending.get(l, ((), (), {}))
-            h, acts, misses, req_deg = self._moe_offloaded(
-                p_l, l, h, pg, pm, po, prompt_ids, token_indices, active)
-            if l + 1 < cfg.num_layers:
-                # layer l+1's speculative copies queue behind layer l's
-                # demand copies (the reference's clock lets a demand
-                # transfer go ahead of queued prefetches)
-                self.caches[l + 1].issue_prefetches()
-            step_misses += misses
-            for i, d in enumerate(req_deg):
-                step_degraded[i] |= d
-            predictor = self.markov if self.markov is not None else self.learned
-            if predictor is not None:
-                if self.learned is not None:
-                    # keep the learned feature walk aligned with training
-                    self.learned.observe(l, acts)
-                if l > 0:
-                    predictor.update(l - 1, self._prev_acts.get(l - 1, ()),
-                                     acts)
-                if l + 1 < cfg.num_layers:
-                    # predict l+1 from THIS token's layer-l set — the
-                    # same-token l -> l+1 transition the table is
-                    # trained on
-                    guess = predictor.predict(l, acts)
-                    moved = self.caches[l + 1].prefetch(guess)
+                # --- speculative guess for layer l+1 (paper §3.2) ---------
+                if self.spec is not None and l + 1 < cfg.num_layers:
+                    p_next = self._layers[l + 1]
+                    # every active row's guess, on every rank
+                    guess = self.spec.guess(shd.gather_rows(h)[act_rows],
+                                            p_next["ln2"],
+                                            p_next["moe"]["router"])
+                    # decided now, copied after layer l's demand installs
+                    moved = self.caches[l + 1].prefetch(guess, defer=True)
                     step_prefetch += len(moved)
                     pending[l + 1] = (guess, tuple(moved),
                                       dict(self.caches[l + 1]
                                            .last_prefetch_outcomes))
                     if self.overlap:
-                        # predicted AFTER layer l's MoE (the clock has
-                        # advanced past it): the copy hides under layer
-                        # l+1's attention + FFN compute
+                        # issued before layer l's MoE computes: the copy
+                        # has layer l's compute window to hide under
                         self._issue_transfers(
                             l + 1, moved, demand=False,
-                            outcomes=self.caches[l + 1]
-                            .last_prefetch_outcomes or None)
-            self._prev_acts[l] = acts
+                            outcomes=self.caches[l + 1].last_prefetch_outcomes
+                            or None)
 
-        logits = tf.logits_from_hidden(params, cfg, h)[:, 0]
+                pg, pm, po = pending.get(l, ((), (), {}))
+                h, acts, misses, req_deg = self._moe_offloaded(
+                    p_l, l, h, pg, pm, po, prompt_ids, token_indices, active)
+                if l + 1 < cfg.num_layers:
+                    # layer l+1's speculative copies queue behind layer l's
+                    # demand copies (the reference's clock lets a demand
+                    # transfer go ahead of queued prefetches)
+                    self.caches[l + 1].issue_prefetches()
+                step_misses += misses
+                for i, d in enumerate(req_deg):
+                    step_degraded[i] |= d
+                predictor = self.markov if self.markov is not None else self.learned
+                if predictor is not None:
+                    if self.learned is not None:
+                        # keep the learned feature walk aligned with training
+                        self.learned.observe(l, acts)
+                    if l > 0:
+                        predictor.update(l - 1, self._prev_acts.get(l - 1, ()),
+                                         acts)
+                    if l + 1 < cfg.num_layers:
+                        # predict l+1 from THIS token's layer-l set — the
+                        # same-token l -> l+1 transition the table is
+                        # trained on
+                        guess = predictor.predict(l, acts)
+                        moved = self.caches[l + 1].prefetch(guess)
+                        step_prefetch += len(moved)
+                        pending[l + 1] = (guess, tuple(moved),
+                                          dict(self.caches[l + 1]
+                                               .last_prefetch_outcomes))
+                        if self.overlap:
+                            # predicted AFTER layer l's MoE (the clock has
+                            # advanced past it): the copy hides under layer
+                            # l+1's attention + FFN compute
+                            self._issue_transfers(
+                                l + 1, moved, demand=False,
+                                outcomes=self.caches[l + 1]
+                                .last_prefetch_outcomes or None)
+                self._prev_acts[l] = acts
 
-        # simulated clock: one step serves n_active tokens; misses are
-        # already batch-union counts (amortization is emergent)
-        if self.overlap:
-            # executed pipeline: per-layer stages already advanced the
-            # clock by compute + exposed stall; transfers that finished
-            # under compute cost nothing
-            self.sim_time = self._clock
-            self.xfer.advance(self.sim_time)
-        else:
-            self.sim_time += self.cost.step_latency(
-                step_misses / cfg.num_layers,
-                prefetch_per_layer=step_prefetch / cfg.num_layers,
-                batch=n_active)
-            if self._step_fault_stall_s:
-                # retries/backoff/abandoned chains land ON TOP of the
-                # analytic formula (which prices one transfer per miss)
-                self.sim_time += self._step_fault_stall_s
-        if self.faults is not None:
-            self.faults.now = self.sim_time
-            self.degraded_tokens += sum(1 for d in step_degraded if d)
-        if self.tiers is not None:
-            # tier stalls (disk-resident demand fetches, in-flight
-            # demotion waits) land on top of the host-link pricing
-            # above; then the arbiter's clock catches up so background
-            # swaps complete
-            self.sim_time += self.tiers.drain_stall()
-            self.tiers.advance(self.sim_time)
-        self.tokens_done += n_active
-        self._steps_done += 1
-        return logits, state
+            logits = shd.gather_rows(
+                tf.logits_from_hidden(params, cfg, h)[:, 0])
+
+            # simulated clock: one step serves n_active tokens; misses are
+            # already batch-union counts (amortization is emergent)
+            if self.overlap:
+                # executed pipeline: per-layer stages already advanced the
+                # clock by compute + exposed stall; transfers that finished
+                # under compute cost nothing
+                self.sim_time = self._clock
+                self.xfer.advance(self.sim_time)
+            else:
+                self.sim_time += self.cost.step_latency(
+                    step_misses / cfg.num_layers,
+                    prefetch_per_layer=step_prefetch / cfg.num_layers,
+                    batch=n_active)
+                if self._step_fault_stall_s:
+                    # retries/backoff/abandoned chains land ON TOP of the
+                    # analytic formula (which prices one transfer per miss)
+                    self.sim_time += self._step_fault_stall_s
+            if self.faults is not None:
+                self.faults.now = self.sim_time
+                self.degraded_tokens += sum(1 for d in step_degraded if d)
+            if self.tiers is not None:
+                # tier stalls (disk-resident demand fetches, in-flight
+                # demotion waits) land on top of the host-link pricing
+                # above; then the arbiter's clock catches up so background
+                # swaps complete
+                self.sim_time += self.tiers.drain_stall()
+                self.tiers.advance(self.sim_time)
+            self.tokens_done += n_active
+            self._steps_done += 1
+            return logits, state
 
     # ------------------------------------------------------------------
     def prefill_tokens(self, state, tokens, positions: Sequence[int], *,

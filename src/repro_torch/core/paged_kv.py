@@ -24,8 +24,11 @@ tested in isolation; pass ``cfg`` to also own the per-layer device
 pools the engine's paged decode path reads and writes. Built under a
 device mesh (``sharding.sharding_ctx``) the GQA pools hold the rank's KV
 heads (``attention.gqa_paged_cache_init``) and MLA's latent pools are
-whole; the allocator, the tables and the sink block are the same on
-every rank.
+whole; neither has a row dim, so every data rank's pool holds every
+row's blocks. The allocator, the tables and the sink block are the same
+on every rank, and ``block_nbytes`` is what one block of the unsharded
+pool holds, so that a park is priced alike on every rank and as without
+a mesh.
 
 ``park_blocks`` / ``restore_blocks`` move a request's blocks to host
 tensors and back (the memory tiers' KV parking, see
@@ -68,13 +71,22 @@ class PagedKVCache:
         # storage, not capacity); the paged decode path writes them in
         # place
         self.state = None
+        self.block_nbytes = 0
         if cfg is not None:
             from repro_torch.models import attention as attn
+            from repro_torch.models.sharding import sharding_ctx
             init = (attn.mla_paged_cache_init if cfg.use_mla
                     else attn.gqa_paged_cache_init)
             self.state = {"layers": [
                 init(cfg, num_blocks + 1, block_size, dtype, device=device)
                 for _ in range(cfg.num_layers)]}
+            # one block of the unsharded pool (every KV head; MLA's latent
+            # and rope key), every layer's pool tensors: a meta block
+            # built outside any mesh
+            with sharding_ctx(None, {}):
+                block = init(cfg, 1, block_size, dtype, device="meta")
+            self.block_nbytes = cfg.num_layers * sum(
+                t.numel() * t.element_size() for t in block.values())
 
     # ----------------------------------------------------------- sizes
     @property

@@ -16,7 +16,9 @@ r], k_rope [N, bs, rd]}``.
 
 Under a device mesh (``repro_torch.models.sharding``) the params are
 ``shard_params``' output, the rank's slice of every weight, and ``x``
-the rank's batch rows; the projections,
+the rank's batch rows (the paged decodes scatter every row's new K/V,
+gathered over the batch axes, into a pool that holds every row's
+blocks); the projections,
 ``gqa_full``, ``mla_full``, ``gqa_decode`` and ``mla_decode`` then run on
 the rank's heads and sum ``wo``'s partial products over the model axis
 (one all-reduce). GQA head counts are zero-padded up to a multiple of
@@ -509,12 +511,19 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
     its pool holds, the kernel runs on them as it is, and ``wo``'s
     partial products are summed over the model axis. A pool of another
     count of KV heads (allocated under another mesh, or under none)
-    raises.
+    raises. Under a batch rule (``sharding.batch_axis``) ``x`` is the
+    rank's rows, while ``pos_vec`` and ``block_tables`` are the whole
+    batch's: the pool has no row dim and holds every row's blocks on
+    every data rank, so the step's new K/V rows are all-gathered over the
+    batch axes and every row is scattered on every rank; the kernel then
+    reads the rank's rows.
     """
+    b = shd.batch_axis()
+    pos_r, tables_r = ((shd.batch_rows(pos_vec), shd.batch_rows(block_tables))
+                       if b else (pos_vec, block_tables))
     B = x.shape[0]
-    bs = cache["k"].shape[1]
     pr, split = _rank_qkv(p, cfg)
-    positions = pos_vec.reshape(B, 1).long()
+    positions = pos_r.reshape(B, 1).long()
     q, k_new, v_new = _project_qkv(pr, cfg, x, positions, rope=True)
     k, v = cache["k"], cache["v"]
     if k.shape[2] != k_new.shape[2]:
@@ -522,18 +531,32 @@ def gqa_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
             f"gqa_decode_paged: the pool holds {k.shape[2]} KV heads, this "
             f"rank's decode {k_new.shape[2]}; allocate it with "
             f"gqa_paged_cache_init under the same mesh")
-
-    rows = torch.arange(B, device=x.device)
-    blk = block_tables[rows, positions[:, 0] // bs].long()
-    off = positions[:, 0] % bs
-    k.index_put_((blk, off), k_new[:, 0].to(k.dtype))
-    v.index_put_((blk, off), v_new[:, 0].to(v.dtype))
+    _scatter_rows((k, v), (k_new[:, 0], v_new[:, 0]), pos_vec, block_tables,
+                  b)
 
     # pos_vec as given (the engines pass int32, the kernel's type, so the
     # wrapper launches no conversion)
-    out = kops.paged_attention(q[:, 0], k, v, block_tables,
-                               pos_vec.reshape(B))
+    out = kops.paged_attention(q[:, 0], k, v, tables_r, pos_r.reshape(B))
     return _out_heads(out[:, None].to(x.dtype), pr["wo"], split), cache
+
+
+def _scatter_rows(pools, news, pos_vec, block_tables, batch_axis):
+    """Row b's new entries ``news`` [B, ...] (the rank's rows where
+    ``batch_axis`` splits them: gathered over it first, in one
+    all-gather) at ``(block_tables[b, pos // bs], pos % bs)`` of each
+    pool [N, bs, ...], in place; ``pos_vec`` [B] and ``block_tables``
+    [B, T] are the whole batch's."""
+    if batch_axis:
+        widths = [n.shape[-1] for n in news]
+        whole = shd.all_gather(torch.cat(news, dim=-1), batch_axis, 0)
+        news = whole.split(widths, dim=-1)
+    bs = pools[0].shape[1]
+    pos = pos_vec.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    blk = block_tables[rows, pos // bs].long()
+    off = pos % bs
+    for t, n in zip(pools, news):
+        t.index_put_((blk, off), n.to(t.dtype))
 
 
 # =====================================================================
@@ -715,21 +738,24 @@ def mla_decode_paged(p, cfg, x, cache, pos_vec, block_tables):
 
     Under a mesh the pool has no head dim and stays whole on every rank:
     every rank writes the same rows, and the rank's heads attend over the
-    whole strip (no softmax combine), summed after ``wo``."""
+    whole strip (no softmax combine), summed after ``wo``. Under a batch
+    rule, the contract of ``gqa_decode_paged``: ``x``
+    the rank's rows, ``pos_vec`` and ``block_tables`` the whole batch's,
+    the new rows gathered over the batch axes and scattered on every
+    rank, the rank's rows attended."""
+    b = shd.batch_axis()
+    pos_r, tables_r = ((shd.batch_rows(pos_vec), shd.batch_rows(block_tables))
+                       if b else (pos_vec, block_tables))
     B = x.shape[0]
-    bs = cache["latent"].shape[1]
-    positions = pos_vec.reshape(B, 1).long()
+    positions = pos_r.reshape(B, 1).long()
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
-    rows = torch.arange(B, device=x.device)
-    blk = block_tables[rows, positions[:, 0] // bs].long()
-    off = positions[:, 0] % bs
     latent, k_rope = cache["latent"], cache["k_rope"]
-    latent.index_put_((blk, off), latent_new[:, 0].to(latent.dtype))
-    k_rope.index_put_((blk, off), k_rope_new[:, 0].to(k_rope.dtype))
+    _scatter_rows((latent, k_rope), (latent_new[:, 0], k_rope_new[:, 0]),
+                  pos_vec, block_tables, b)
 
-    T = block_tables.shape[1]
-    tables = block_tables.long()
+    bs, T = latent.shape[1], tables_r.shape[1]
+    tables = tables_r.long()
     lg = latent[tables].reshape(B, T * bs, latent.shape[-1])
     rg = k_rope[tables].reshape(B, T * bs, k_rope.shape[-1])
     valid = torch.arange(T * bs, device=x.device)[None, :] <= positions

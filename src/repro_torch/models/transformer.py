@@ -587,7 +587,9 @@ def _attn_decode_paged(p, cfg, h, cache, pos_vec, block_tables):
     Rows may share a table at distinct positions (chunked prefill's
     virtual rows) — see ``attention.gqa_decode_paged``. Under a mesh
     ``p`` is the rank's and ``cache`` the rank's pool (its KV heads, or
-    MLA's whole latent pool)."""
+    MLA's whole latent pool); under a batch rule that splits the rows,
+    ``h`` is the rank's rows and ``pos_vec`` / ``block_tables`` the whole
+    batch's, passed through as they are (the pool holds every row)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     decode = attn.mla_decode_paged if cfg.use_mla else attn.gqa_decode_paged
     y, cache = decode(p["attn"], cfg, x, cache, pos_vec, block_tables)

@@ -443,13 +443,15 @@ class ContinuousOffloadServer:
     def _park_kv(self, req: Request) -> None:
         """Snapshot the blocks covering ``req``'s fed tokens to the
         host tier (``PagedKVCache.park_blocks``, on the engine's copy
-        stream; real tensor bytes). The caller then frees the blocks:
-        they stay accounted in flight until the simulated demote
-        transfer completes."""
+        stream). The caller then frees the blocks: they stay accounted
+        in flight until the simulated demote transfer completes. The
+        park is priced at the unsharded pool's bytes of its blocks
+        (``PagedKVCache.block_nbytes``): the snapshot's own bytes without
+        a mesh, and under one the same price on every rank, whose
+        snapshot holds only its pool's KV heads."""
         blocks = self.paged.tables[req.rid][:self.paged.blocks_for(req.pos)]
         arrays = self.paged.park_blocks(blocks, self.engine.copy_stream)
-        nbytes = sum(t.numel() * t.element_size()
-                     for layer in arrays for t in layer.values())
+        nbytes = len(blocks) * self.paged.block_nbytes
         self.tiers.park_kv(req.rid, arrays, nbytes, len(blocks), req.pos,
                            engine_step=self.step_count)
 

@@ -27,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core.offload_engine import (OffloadEngine,  # noqa: E402
                                              _batch_union)
 from repro_torch.kernels import ops  # noqa: E402
@@ -388,23 +389,27 @@ def run_decodes(case, cfg, mesh, rules, inp):
     return out
 
 
-def track_margins(engine, seen):
+def track_margins(engine, seen, splits=None):
     """Record, per MoE call of ``engine``, the smallest gap between two
     summed gate weights of the active rows' batch union (the order the
     engine streams and traces) and between the k-th and (k+1)-th router
-    logit of an active row (where k < E)."""
+    logit of an active row (where k < E); and into ``splits`` whether the
+    call's rows were split over the batch axes."""
     orig = engine._moe_offloaded
     cfg = engine.cfg
 
     def wrapped(p_l, layer, h, *rest):
         active = rest[-1]
+        if splits is not None:
+            splits.append(shd.batch_axis() is not None)
         x = rms_norm(h, p_l["ln2"], cfg.norm_eps)
         ids, probs = engine._route(p_l, x)
         union, w = _batch_union(ids, probs, active, cfg.num_experts)
         gaps = -np.diff(w[union])
         k = cfg.num_experts_per_tok
         if k < cfg.num_experts:
-            logits = (x.float() @ p_l["moe"]["router"])[:, 0].numpy()
+            logits = shd.gather_rows(x.float() @ p_l["moe"]["router"])
+            logits = logits[:, 0].numpy()
             srt = -np.sort(-logits, axis=-1)[np.asarray(active, bool)]
             gaps = np.concatenate([gaps, srt[:, k - 1] - srt[:, k]])
         if gaps.size:
@@ -429,19 +434,26 @@ def run_engine(case, cfg, mesh, rules, inp):
     path), or a ``ContinuousOffloadServer`` over the case's prompts, built
     and run inside the mesh from the whole params: tokens, functional
     trace rows, ``stats()``, the simulated clock, the last logits, the
-    smallest router margin, the rank's KV pool shape and the calls of
-    each kernel wrapper. A case with "refuse" builds the engine (with
-    ``hbm_budget_bytes``: a server) and returns the error it raised."""
+    smallest router margin, whether each MoE call's rows were split over
+    the batch axes, the rank's KV pool shape and the calls of each kernel
+    wrapper. A case with "refuse" builds the engine inside the mesh and
+    steps it (``generate``) under the case's "step_mesh" and under no
+    mesh: the errors each raised."""
     whole = inp["params"]
-    margins, out = [], {}
-    with shd.sharding_ctx(mesh, rules):
-        if "refuse" in case:
+    margins, splits, out = [], [], {}
+    if "refuse" in case:
+        with shd.sharding_ctx(mesh, rules):
+            eng = OffloadEngine(whole, cfg, device="cpu", **case["refuse"])
+        errors = []
+        for other in (part_mesh({"mesh": case["step_mesh"]}, mesh), None):
             try:
-                ContinuousOffloadServer(whole, cfg, device="cpu",
-                                        **case["refuse"])
-                return {"error": None}
+                with shd.sharding_ctx(other, rules if other else {}):
+                    eng.generate([1, 2, 3], 2)
+                errors.append(None)
             except ValueError as e:
-                return {"error": str(e)}
+                errors.append(str(e))
+        return {"errors": errors}
+    with shd.sharding_ctx(mesh, rules):
         counts = {"paged_attention": 0, "moe_ffn": 0}
         wrapped = {name: getattr(ops, name) for name in counts}
 
@@ -457,13 +469,13 @@ def run_engine(case, cfg, mesh, rules, inp):
             if "prompt" in case:
                 eng = OffloadEngine(whole, cfg, device="cpu",
                                     **case["engine"])
-                track_margins(eng, margins)
+                track_margins(eng, margins, splits)
                 out["tokens"] = eng.generate(case["prompt"], case["new"])
             else:
                 srv = ContinuousOffloadServer(whole, cfg, device="cpu",
                                               **case["server"])
                 eng = srv.engine
-                track_margins(eng, margins)
+                track_margins(eng, margins, splits)
                 for prompt in case["prompts"]:
                     srv.submit(prompt, max_new=case["new"])
                 out["tokens"] = srv.run()
@@ -479,16 +491,59 @@ def run_engine(case, cfg, mesh, rules, inp):
         rows=_plain([tuple(getattr(s, f) for f in FUNCTIONAL)
                      for s in eng.trace.steps]),
         stats=_plain(eng.stats()), sim_time=eng.sim_time,
-        margin=min(margins), launches=counts,
+        margin=min(margins), splits=splits, launches=counts,
         attn_shape=tuple(eng.params["layers"]["attn"]["wq"].shape),
         expert_shape=tuple(eng.params["layers"]["moe"]["experts"]["w1"]
                            .shape))
     return out
 
 
+def run_tiers(case, cfg, mesh, rules, inp):
+    """A tiered ``ContinuousOffloadServer`` (the case's "server" kwargs
+    with ``hbm_budget_bytes``; "faults" a ``FaultPlan``'s) built and run
+    inside the mesh from the whole params over the case's prompts:
+    tokens, the trace rows with ``miss_tiers``, the tier and fault
+    events, ``stats()``, the clock, each park's priced bytes and the
+    rank's own snapshot, the KV heads of the rank's pool (unsharded
+    indices), the smallest router margin and whether each MoE call's rows
+    were split over the batch axes."""
+    margins, splits, parks = [], [], []
+    faults = case.get("faults")
+    with shd.sharding_ctx(mesh, rules):
+        srv = ContinuousOffloadServer(
+            inp["params"], cfg, device="cpu",
+            faults=faults and FaultPlan(**faults), **case["server"])
+        track_margins(srv.engine, margins, splits)
+        park = srv.tiers.park_kv
+
+        def parked(rid, arrays, nbytes, *args, **kw):
+            parks.append((nbytes, [{k: v.clone() for k, v in layer.items()}
+                                   for layer in arrays]))
+            return park(rid, arrays, nbytes, *args, **kw)
+
+        srv.tiers.park_kv = parked
+        for prompt in case["prompts"]:
+            srv.submit(prompt, max_new=case["new"])
+        tokens = srv.run()
+        kv_heads = attn_lib._gqa_heads(cfg.num_heads, cfg.num_kv_heads)[3]
+    trace = srv.trace
+    return _plain({
+        "tokens": tokens, "rows": [
+            tuple(getattr(s, f) for f in FUNCTIONAL + ("miss_tiers",))
+            for s in trace.steps],
+        "tier_events": [dataclasses.astuple(e) for e in trace.tier_events],
+        "fault_events": [dataclasses.astuple(e)
+                         for e in trace.fault_events],
+        "stats": srv.stats(), "sim_time": srv.engine.sim_time,
+        "park_bytes": [n for n, _ in parks],
+        "snapshots": [layers for _, layers in parks],
+        "kv_heads": list(kv_heads), "margin": min(margins),
+        "splits": splits, "logits": srv._logits})
+
+
 RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model,
         "cost": run_cost, "train": run_train, "decodes": run_decodes,
-        "engine": run_engine}
+        "engine": run_engine, "tiers": run_tiers}
 _MESHES = {}
 
 

@@ -34,8 +34,10 @@ the (1, 8) mesh from the whole params: tokens, functional trace rows,
 ``stats()`` and ``sim_time`` equal the JAX package's on the same
 weights, the smallest router margin of the mesh run above 1e-4, every
 rank equal to rank 0 (the logits bitwise), the experts whole and the
-attention weights the rank's. A data axis larger than 1 and memory tiers
-under a mesh raise. One set of 8 ranks runs every case.
+attention weights the rank's. An engine stepped under another mesh than
+the one it was built under raises. One set of 8 ranks runs every case
+(the data axis and memory tiers under a mesh:
+``tests/test_torch_distributed_tiers.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -266,13 +268,10 @@ def served(tmp_path_factory):
         parts[name] = m.part("engine", rules=MESHES["1x8"]["rules"], **kw)
         inputs[name] = {"params": m.tp}
     m = models["mixtral"]
-    parts["refuse_data"] = m.part("engine", mesh=[2, 4], rules=RULES,
-                                  refuse=SERVER)
-    parts["refuse_tiers"] = m.part(
-        "engine", rules=MESHES["1x8"]["rules"],
-        refuse=dict(max_batch=2, cache_len=32, kv_block_size=4,
-                    hbm_budget_bytes=10 ** 7))
-    inputs["refuse_data"] = inputs["refuse_tiers"] = {"params": m.tp}
+    parts["refuse_other_mesh"] = m.part(
+        "engine", rules=MESHES["1x8"]["rules"], refuse=POLICY,
+        step_mesh=[2, 4])
+    inputs["refuse_other_mesh"] = {"params": m.tp}
     started = start_ranks(tmp_path_factory.mktemp("serving"),
                           dict(kind="parts", parts=parts), inputs, MESH)
     refs = {name: references(dec_models[name], inputs[f"{name}/1x8"])
@@ -366,8 +365,10 @@ def test_engine_under_the_mesh_matches_jax(served, name):
 
 
 def test_refusals_under_the_mesh(served):
-    """A data axis larger than 1, and memory tiers under a mesh, raise
-    naming the reason."""
+    """An engine built under the (1, 8) mesh and stepped under another
+    mesh, or under none, raises: its params are cut for its own."""
     _, _, outs, _, _ = served
-    assert "2 data ranks" in _agree(outs, "refuse_data")["error"]
-    assert "A21" in _agree(outs, "refuse_tiers")["error"]
+    errors = _agree(outs, "refuse_other_mesh")["errors"]
+    assert len(errors) == 2
+    for e in errors:
+        assert e is not None and "another mesh" in e, e
