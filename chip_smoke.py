@@ -279,7 +279,8 @@ It drives the port's two entry points end to end and checks them:
    backward is timed beside SDPA's forward + backward (``library_ms``)
    and SDPA's backward alone (``library_bwd_ms``), in the call's dtype
    (bf16 calls are bound at the bf16 tensor-core rate, with the work at
-   the kernel's TF32 passes beside it, ``bound_passes_ms``); the SSD
+   the kernel's passes beside it, ``bound_passes_ms``: the forward's TF32
+   ones, the backward's bf16 m16n8k16 ones); the SSD
    backward also at Jamba's published SSD shape, off the path;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
@@ -917,8 +918,7 @@ KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
     (("paged_attention_kernel",), "paged_attention"),
     (("flash_attention_kernel",), "flash_attention"),
-    (("flash_bwd_rows_kernel", "flash_bwd_keys_kernel"),
-     "flash_attention_bwd"),
+    (("flash_bwd_",), "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("ssd_bwd_",), "ssd_chunk_bwd"),
     # cuBLAS's bf16 products on Hopper are "nvjet_*" kernels
@@ -1208,16 +1208,24 @@ def kernel_cases(calls):
                {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
 
-def tf32_pass_flops(name, shape, flops):
-    """``flops`` at the number of TF32 tensor-core passes the kernel gives
-    each product: three for fp32 operands (3xTF32); the flash backward on
-    bf16 inputs, which widen to TF32 exactly, one for S and dP (both
-    operands inputs) and two for dQ, dK and dV (P or dS is fp32, split)."""
-    if name != "flash_attention_bwd" or shape["dtype"] != "torch.bfloat16":
-        return 3 * flops
+def pass_flops(name, shape, flops):
+    """(flops, the rate they run at): ``flops`` at the tensor-core passes
+    the kernel gives each product. fp32 operands: three TF32 passes
+    (3xTF32). The flash forward on bf16 inputs (widened to TF32 exactly):
+    S one TF32 pass, P.V two (P is fp32, split). The flash backward on
+    bf16 inputs: bf16 m16n8k16 passes, S and dP one each in the rows
+    launch's two walks and once more in the keys launch (twice where its
+    dK and dV split over two warps, hd > 128), dQ, dK and dV two each (P
+    and dS as bf16 hi + lo)."""
+    if shape.get("dtype") != "torch.bfloat16":
+        return 3 * flops, TF32_FLOPS_PER_S
     per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
     hd, vd = shape["hd"], shape["vd"]
-    return per * (hd + vd + 2 * (2 * hd + vd))
+    if name == "flash_attention":
+        return per * (hd + 2 * vd), TF32_FLOPS_PER_S
+    keys_sdp = 2 if hd > 128 else 1
+    return (per * ((2 + keys_sdp) * (hd + vd) + 2 * (2 * hd + vd)),
+            BF16_FLOPS_PER_S)
 
 
 def agree(name, got, want, tol, what):
@@ -4254,6 +4262,11 @@ def training_phase(ops, card, hold_and_time, profile):
         check(sorted(seen) == sorted(k for k in ("flash_attention_bwd",
                                                  "ssd_chunk_bwd") if want[k]),
               f"{cfg.name}: backward calls recorded {sorted(seen)}")
+        if dtype == "bfloat16" and "flash_attention_bwd" in seen:
+            # the bf16 forward at the same call (twice a layer a step under
+            # remat), held and timed beside SDPA's bf16 forward
+            q, k, v, _, kw = seen["flash_attention_bwd"]
+            seen["flash_attention"] = (q, k, v, kw)
         hold_and_time(seen, {k: sum(c[k] for c in launches) for k in seen},
                       model=cfg.name)
         del seen
@@ -4736,6 +4749,7 @@ def main() -> None:
           f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
     from repro_torch.configs import get_config
     from repro_torch.core.learned import train_from_trace
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.offload_serving import ContinuousOffloadServer
@@ -4762,6 +4776,15 @@ def main() -> None:
             print(json.dumps({"ptxas": {name: [
                 line.strip() for line in built[name]["ptxas"].splitlines()
                 if line.strip()]}}), flush=True)
+    bwd_kernels = ops.ptxas_kernels(ops.build_log("flash_attention_bwd"))
+    print(json.dumps({"ptxas_kernels": {"flash_attention_bwd": bwd_kernels}}),
+          flush=True)
+    no_spill = flash_mod.BACKWARD.NO_SPILL
+    kept = [r for r in bwd_kernels if r["kernel"] in no_spill]
+    check(len(kept) == len(no_spill)
+          and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+                      for r in kept),
+          f"bf16 flash backward kernels spill or are missing: {kept}")
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,
@@ -4877,12 +4900,12 @@ def main() -> None:
             if library_bwd is not None:
                 rec["library_bwd_ms"] = device_ms(library_bwd, iters,
                                                   graph=graph)
-            if name in PEAK:   # the fp32-core bound, and the TF32 passes
+            if name in PEAK:   # the fp32-core bound, and the passes
                 rec["bound_fp32_ms"] = max(
                     t_bytes, flops / FP32_FLOPS_PER_S) * 1e3
-                rec["bound_passes_ms"] = max(
-                    t_bytes, tf32_pass_flops(name, shape, flops)
-                    / TF32_FLOPS_PER_S) * 1e3
+                passes, pass_rate = pass_flops(name, shape, flops)
+                rec["bound_passes_ms"] = max(t_bytes,
+                                             passes / pass_rate) * 1e3
             if args.profile and library is not None:
                 # name the kernels the library call ran
                 prof = torch.profiler.profile(

@@ -14,13 +14,14 @@ version repeats K/V per query head and runs ``ref.flash_attention_ref``
 (exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
 public wrapper that checks the arguments and picks between the two.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 or
-bf16, every product on the TF32 tensor cores, 3xTF32 for fp32 operands,
-tiles through ``cp.async`` rings, bf16 widened as it is staged, fp32
-sums, bf16 gradients rounded once) has no Pallas counterpart: the JAX
-package trains through XLA blockwise attention. ``launch_bwd`` runs its
-two launches, ``plain_bwd`` (autograd of ``plain``) is what it is held
-against.
+The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; tiles
+through ``cp.async`` rings, fp32 sums) has no Pallas counterpart: the JAX
+package trains through XLA blockwise attention. fp32 runs every product
+3xTF32 on the TF32 tensor cores; bf16 keeps its tiles bf16 in shared
+memory and runs ``mma.sync`` m16n8k16 on the bf16 tensor cores, P and dS
+as bf16 hi + lo, the gradients rounded to bf16 once. ``launch_bwd`` runs
+its two launches, ``plain_bwd`` (autograd of ``plain``) is what it is
+held against.
 """
 from __future__ import annotations
 
@@ -39,11 +40,16 @@ ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
 MAX_HEAD_DIM = 256   # q/k width; v may be narrower
-# the backward's build record (``ops.build_kernels``); the same limits
+# the backward's build record (``ops.build_kernels``); the same limits.
+# NO_SPILL: its bf16 instantiations for hd <= 64, <= 128 and MLA's 192 /
+# 128, which ptxas must compile with no stack and no spills
 BACKWARD = SimpleNamespace(
     SOURCE="flash_attention_bwd.cu", SYMBOL="flash_attention_bwd",
     ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float,
-                                                             ctypes.c_void_p])
+                                                             ctypes.c_void_p],
+    NO_SPILL=("flash_bwd_rows_bf16<4,3>", "flash_bwd_rows_bf16<8,2>",
+              "flash_bwd_rows_bf16<12,3>", "flash_bwd_keys_bf16<4,4,1>",
+              "flash_bwd_keys_bf16<8,8,1>", "flash_bwd_keys_bf16<12,8,2>"))
 
 
 def plain(q, k, v, *, causal: bool, window: int):

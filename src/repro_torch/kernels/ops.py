@@ -25,9 +25,9 @@ Gradients. ``flash_attention`` and ``ssd_chunk`` are differentiable on
 both routes: on the CPU through autograd of the plain version, on a card
 through ``_FlashAttention`` and ``_SsdChunk``, whose backwards launch the
 hand-written backward kernels (``flash_attention_bwd`` and
-``ssd_chunk_bwd``, each counted on its own; every product on the TF32
-tensor cores, 3xTF32 for fp32 operands, as their forwards; flash
-attention in fp32 or bf16, SSD chunk in fp32). The decode-only
+``ssd_chunk_bwd``, each counted on its own; fp32 products 3xTF32 on the
+TF32 tensor cores, as their forwards; flash attention in fp32 or bf16,
+bf16 on the bf16 tensor cores; SSD chunk in fp32). The decode-only
 kernels (``moe_ffn``, ``paged_attention``) write into fresh outputs with
 no autograd record, so their CUDA and meta routes raise when grad mode
 is on and an input requires grad (``_no_backward``) rather than silently
@@ -49,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -135,6 +136,52 @@ def build_kernels() -> Dict[str, dict]:
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return report
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (its ``ptxas`` report) of kernel ``name``'s
+    current library, kept beside it when it was built."""
+    lib = _library_path(CSRC / _MODULES[name].SOURCE)
+    return lib.with_name(f"{lib.name}.log").read_text()
+
+
+def _kernel_label(mangled: str) -> str:
+    """A kernel's Itanium-mangled name as its source writes it, with its
+    template arguments (ints, float, bf16): ``flash_bwd_keys_bf16<12,8,2>``."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():   # <length><name>...
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = re.match(r"I((?:Li-?\d+E|f|13__nv_bfloat16)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(
+            n or ("float" if f else "bf16") for n, f in
+            re.findall(r"Li(-?\d+)E|(f)|13__nv_bfloat16", args.group(1))) + ">"
+    return name
+
+
+def ptxas_kernels(text: str) -> list:
+    """One record a kernel of an ``nvcc -Xptxas -v`` report (a build's
+    ``ptxas``): ``{"kernel", "registers", "stack", "spill_stores",
+    "spill_loads"}``, the last three in bytes."""
+    recs = []
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            recs.append({"kernel": _kernel_label(entry.group(1))})
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame and recs:
+            recs[-1].update(stack=int(frame.group(1)),
+                            spill_stores=int(frame.group(2)),
+                            spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and recs:
+            recs[-1]["registers"] = int(used.group(1))
+    return recs
 
 
 def _entry(name: str):

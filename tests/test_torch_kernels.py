@@ -480,3 +480,32 @@ def test_unsupported_device_raises():
                     torch.zeros(1, 4, 8, device="meta"), [0])
     assert (y.device.type, tuple(y.shape)) == ("meta", (1, 2, 8))
     assert sum(ops.launch_counts().values()) == 0
+
+
+# a build's ptxas report as nvcc -Xptxas -v prints it (sm_90a)
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_keys_bf16ILi12ELi8ELi2EEEvPK13__nv_bfloat16S3_S3_S3_PKfPS1_S6_NS_5ShapeE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_keys_bf16ILi12ELi8ELi2EEEvPK13__nv_bfloat16S3_S3_S3_PKfPS1_S6_NS_5ShapeE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 205 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_bwd_keys_kernelIfLi32EEEvPKT_S3_S3_S3_PKfPS1_S6_NS_5ShapeE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_bwd_keys_kernelIfLi32EEEvPKT_S3_S3_S3_PKfPS1_S6_NS_5ShapeE
+    312 bytes stack frame, 568 bytes spill stores, 700 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14moe_ffn_kernelPKfS0_' for 'sm_90a'
+ptxas info    : Function properties for _Z14moe_ffn_kernelPKfS0_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 368 bytes cmem[0]
+"""
+
+
+def test_ptxas_kernels_reads_each_kernels_registers_and_spills():
+    assert ops.ptxas_kernels(PTXAS_REPORT) == [
+        {"kernel": "flash_bwd_keys_bf16<12,8,2>", "stack": 0,
+         "spill_stores": 0, "spill_loads": 0, "registers": 205},
+        {"kernel": "flash_bwd_keys_kernel<float,32>", "stack": 312,
+         "spill_stores": 568, "spill_loads": 700, "registers": 255},
+        {"kernel": "moe_ffn_kernel", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 40}]
+    assert ops.ptxas_kernels("nvcc: no kernels\n") == []

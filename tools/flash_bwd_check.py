@@ -8,26 +8,32 @@ backward's ``ptxas`` report, holds ``flash_attention_bwd`` against
 autograd of the plain version at the training shapes of
 ``chip_smoke.py`` (Qwen1.5-0.5B: 4 x 2048, 16 heads of 64; Mixtral: 1 x
 2048, 32 / 8 heads of 128; Qwen2.5-3B: 2 x 2048, 16 / 2 heads of 128)
-and at its coverage shapes, in fp32 and in bf16, one JSON line a shape
-and dtype (max |kernel - plain| / max |plain| for dq, dk, dv; bf16
-against the fp32 plain version on the same bf16 values, and against
-float64). At the training shapes it also launches the kernel twice and
-checks that dq, dk and dv are bitwise equal, and times the kernel,
-SDPA's forward + backward and SDPA's backward alone (``autograd.grad``
-over a retained forward graph) in the same dtype with CUDA events. The
-short first call for a change to the kernel, before ``chip_smoke.py``.
-Exits non-zero without a GPU, on a mismatch or on a second launch that
-differs.
+and DeepSeek-V2's MLA call (1 x 2048, 128 heads, hd 192, vd 128) and at
+its coverage shapes, in fp32 and in bf16, one JSON line a shape and
+dtype (max |kernel - plain| / max |plain| for dq, dk, dv; bf16 against
+the fp32 plain version on the same bf16 values, and against float64). At
+the four timed shapes it also launches the kernel twice and checks that
+dq, dk and dv are bitwise equal, times the kernel, SDPA's forward +
+backward and SDPA's backward alone (``autograd.grad`` over a retained
+forward graph) in the same dtype with CUDA events, and gives each of the
+kernel's two launches its device time from ``torch.profiler``. The
+``ptxas`` line lists each backward kernel's registers, stack and spills;
+the bf16 kernels for hd <= 64, <= 128 and 192 / 128 must have neither
+stack nor spills. The short first call for a change to the kernel,
+before ``chip_smoke.py``. Exits non-zero without a GPU, on a mismatch,
+on a second launch that differs or on a bf16 kernel that spills.
 """
 import json
+import re
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# (B, Sq, Sk, H, KV, hd, vd, causal, window); the first three are timed
+# (B, Sq, Sk, H, KV, hd, vd, causal, window); the first four are timed
 SHAPES = [(4, 2048, 2048, 16, 16, 64, 64, True, 0),
           (1, 2048, 2048, 32, 8, 128, 128, True, 0),
           (2, 2048, 2048, 16, 2, 128, 128, True, 0),
+          (1, 2048, 2048, 128, 128, 192, 128, True, 0),
           (2, 160, 160, 4, 2, 64, 64, True, 37),
           (1, 333, 333, 8, 2, 64, 64, True, 0),
           (2, 1, 1500, 6, 6, 64, 64, False, 0),
@@ -42,7 +48,7 @@ TOL = 2e-5   # max |kernel - plain| <= TOL x max |plain|, each output
 # values, and within BF16_F64_TOL x max of float64 (one bf16 rounding at
 # the store, 2^-9 relative, plus the fp32 kernel's 2e-5)
 BF16_TOL, BF16_F64_TOL = 2e-2, 2.0 ** -8
-TIMED = 3
+TIMED = 4
 
 
 def timed_ms(fn, iters=5):
@@ -57,6 +63,25 @@ def timed_ms(fn, iters=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(fn):
+    """{kernel name: device ms} of one call of ``fn``, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*", "",
+                          ev.name)
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
 
 
 def grads_float64(q, k, v, dout, *, causal, window):
@@ -92,11 +117,13 @@ def main():
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
 
-    built = ops.build_kernels()
-    for line in built.get("flash_attention_bwd", {}).get("ptxas",
-                                                         "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas", line.strip())
+    ops.build_kernels()
+    ptxas = ops.ptxas_kernels(ops.build_log("flash_attention_bwd"))
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    no_spill = flash_mod.BACKWARD.NO_SPILL
+    kept = [r for r in ptxas if r["kernel"] in no_spill]
+    ok = len(kept) == len(no_spill) and not any(
+        r["stack"] or r["spill_stores"] or r["spill_loads"] for r in kept)
     fn = ops._entry("flash_attention_bwd")
     rng = np.random.default_rng(0)
 
@@ -108,7 +135,6 @@ def main():
         return [float((a.double() - b.double()).abs().max()
                       / b.double().abs().max()) for a, b in zip(got, want)]
 
-    ok = True
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
              for s in SHAPES]
     for (B, Sq, Sk, H, KV, hd, vd, causal, window), dtype in cases:
@@ -136,6 +162,8 @@ def main():
                                         for a, b in zip(got, again))
             ok &= rec["bitwise_repeat"]
             rec["ms"] = timed_ms(lambda: flash_mod.launch_bwd(
+                fn, q, k, v, dout, **kw))
+            rec["launch_ms"] = launch_ms(lambda: flash_mod.launch_bwd(
                 fn, q, k, v, dout, **kw))
             lq, lk, lv = (t.transpose(1, 2).requires_grad_()
                           for t in (q, k, v))
