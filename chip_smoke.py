@@ -9,7 +9,10 @@ It drives the port's two entry points end to end and checks them:
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints the
    ``ptxas`` reports (registers, shared memory, spills) of flash
-   attention, SSD chunk and their backwards on a JSON line each;
+   attention, SSD chunk and their backwards on a JSON line each; fails
+   if a bf16 flash kernel of ``FORWARD_NO_SPILL`` or ``BACKWARD.NO_SPILL``
+   spills, and if the bf16 forward's SASS (``cuobjdump -sass``, a
+   ``sass_mma_counts`` line) holds an ``HMMA`` or no ``HGMMA``;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -279,8 +282,8 @@ It drives the port's two entry points end to end and checks them:
    backward is timed beside SDPA's forward + backward (``library_ms``)
    and SDPA's backward alone (``library_bwd_ms``), in the call's dtype
    (bf16 calls are bound at the bf16 tensor-core rate, with the work at
-   the kernel's passes beside it, ``bound_passes_ms``: the forward's TF32
-   ones, the backward's bf16 m16n8k16 ones); the SSD
+   the kernel's passes beside it, ``bound_passes_ms``: the forward's bf16
+   wgmma ones, the backward's bf16 m16n8k16 ones); the SSD
    backward also at Jamba's published SSD shape, off the path;
 10. holds each wrapper against its plain version on further shapes the
    main path does not give it: ragged C/d/F, C above 8 rows, several
@@ -288,7 +291,11 @@ It drives the port's two entry points end to end and checks them:
    heads per KV head (1 to 16), head dims up to 256 and a row with no
    visible key, 1 and 4 rows of 2048 and 4096 keys with positions on
    split boundaries, at 0 and at -1 (paged); ragged lengths, windows, no
-   causal mask, values narrower than keys, MQA, bf16, a 4096-key causal row, hd 36 and 37
+   causal mask, values narrower than keys, MQA, bf16 (the bf16 forward
+   also against float64 and launched twice for bitwise equal outputs, at
+   its own twins of the fp32 shapes: G 8 and 64, hd 192 / 128 and 256,
+   rows that see no key, one query over 1500 and 1601 keys, 4096 causal
+   keys), a 4096-key causal row, hd 36 and 37
    (a partial k-step), rows copied 4 bytes or one element at a time,
    the new families' shapes: one query over 1500 keys and 77 over 1601
    (no causal mask, no whole last key tile), 64 heads over 8 KV heads
@@ -433,7 +440,17 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # patches, 32 / 16 = 2 heads; fp32 and bf16) and at decode_32k (8 rows, 1
 # query), and Whisper-tiny's at decode_32k (8 rows, 1 query over 1500
 # frames, all 6 heads: its weights are whole). World size 1 never
-# launches these.
+# launches these. Then bf16 twins of fp32 shapes above, for the bf16
+# forward's own kernel: 64 heads over 8 KV heads at 2048 positions, and 64
+# query heads a KV head (G 64, the most a block takes); MLA's hd 192 / vd
+# 128 and hd 256 (its widest instantiations); more queries than keys under
+# a window (rows that see no key); one query over 1500 and over 1601 keys
+# (one position a block, keys in ragged 128-key tiles); the 4096-key
+# causal row (drift over 32 tiles). Last, widths past MLA's with a narrow
+# v, which take the widest instantiation: hd 256 / vd 128 (fp32 too) and a
+# partial last panel, hd 200 / vd 120; and 64 query heads a KV head over
+# 131100 positions, more position tiles (two positions a block) than a
+# grid's y dimension takes (65535).
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -455,7 +472,19 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (2, 32768, 1601, 2, 2, 128, 128, False, 0, "float32"),
                 (2, 32768, 1601, 2, 2, 128, 128, False, 0, "bfloat16"),
                 (8, 1, 1601, 2, 2, 128, 128, False, 0, "float32"),
-                (8, 1, 1500, 6, 6, 64, 64, False, 0, "float32")]
+                (8, 1, 1500, 6, 6, 64, 64, False, 0, "float32"),
+                (1, 2048, 2048, 64, 8, 128, 128, True, 0, "bfloat16"),
+                (1, 96, 96, 64, 1, 64, 64, True, 0, "bfloat16"),
+                (1, 300, 300, 6, 2, 192, 128, True, 0, "bfloat16"),
+                (1, 200, 200, 16, 1, 256, 256, True, 37, "bfloat16"),
+                (1, 100, 40, 4, 2, 64, 64, True, 16, "bfloat16"),
+                (2, 1, 1500, 6, 6, 64, 64, False, 0, "bfloat16"),
+                (8, 1, 1601, 2, 2, 128, 128, False, 0, "bfloat16"),
+                (1, 4096, 4096, 32, 8, 128, 128, True, 0, "bfloat16"),
+                (1, 200, 200, 16, 1, 256, 128, True, 0, "float32"),
+                (1, 200, 200, 16, 1, 256, 128, True, 0, "bfloat16"),
+                (1, 150, 150, 8, 2, 200, 120, True, 0, "bfloat16"),
+                (1, 131100, 40, 64, 1, 16, 16, False, 0, "bfloat16")]
 # the one-query cross-attention calls the engines launch at every decode
 # step, timed alone (B, Sk, H, hd): Whisper-tiny's 2 rows over 1500
 # frames, 6 heads of 64, and Llama-3.2-Vision's over 1601 patches, 32
@@ -917,7 +946,7 @@ def serve(srv, prompts, ops, prof=None, per_step=None):
 KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
     (("paged_attention_kernel",), "paged_attention"),
-    (("flash_attention_kernel",), "flash_attention"),
+    (("flash_attention_kernel", "flash_fwd_bf16"), "flash_attention"),
     (("flash_bwd_",), "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("ssd_bwd_",), "ssd_chunk_bwd"),
@@ -1211,18 +1240,18 @@ def kernel_cases(calls):
 def pass_flops(name, shape, flops):
     """(flops, the rate they run at): ``flops`` at the tensor-core passes
     the kernel gives each product. fp32 operands: three TF32 passes
-    (3xTF32). The flash forward on bf16 inputs (widened to TF32 exactly):
-    S one TF32 pass, P.V two (P is fp32, split). The flash backward on
-    bf16 inputs: bf16 m16n8k16 passes, S and dP one each in the rows
-    launch's two walks and once more in the keys launch (twice where its
-    dK and dV split over two warps, hd > 128), dQ, dK and dV two each (P
-    and dS as bf16 hi + lo)."""
+    (3xTF32). The flash forward on bf16 inputs: bf16 wgmma passes, S one
+    (2 hd a visible pair and head), P.V two (P as bf16 hi + lo: 4 vd).
+    The flash backward on bf16 inputs: bf16 m16n8k16 passes, S and dP
+    one each in the rows launch's two walks and once more in the keys
+    launch (twice where its dK and dV split over two warps, hd > 128), dQ,
+    dK and dV two each (P and dS as bf16 hi + lo)."""
     if shape.get("dtype") != "torch.bfloat16":
         return 3 * flops, TF32_FLOPS_PER_S
     per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
     hd, vd = shape["hd"], shape["vd"]
     if name == "flash_attention":
-        return per * (hd + 2 * vd), TF32_FLOPS_PER_S
+        return per * (hd + 2 * vd), BF16_FLOPS_PER_S
     keys_sdp = 2 if hd > 128 else 1
     return (per * ((2 + keys_sdp) * (hd + vd) + 2 * (2 * hd + vd)),
             BF16_FLOPS_PER_S)
@@ -1254,7 +1283,8 @@ def agree(name, got, want, tol, what):
 
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
-    PAGED_SHAPES, FLASH_SHAPES, FLASH_BWD_SHAPES (the backward against
+    PAGED_SHAPES, FLASH_SHAPES (bf16 also against float64 and launched
+    twice for bitwise equal outputs), FLASH_BWD_SHAPES (the backward against
     autograd of the plain version, in fp32 and in bf16; bf16 also against
     float64 and launched twice for bitwise equal gradients) and
     SSD_SHAPES, forward and backward
@@ -1324,6 +1354,10 @@ def coverage_checks():
         held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
+        if dtype == torch.bfloat16:
+            kw = dict(causal=causal, window=window)
+            out[-1]["vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
+            out[-1]["bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
     for dt in ("float32", "bfloat16"):
         for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
             q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
@@ -1578,7 +1612,8 @@ def bwd_against_float64(ops, q, k, v, dout, kw):
     ~1e-4 x max at Qwen1.5-0.5B's first layer): each error over the
     output's max |float64|. The kernel must stay within TOL of it, or
     within BF16_F64_TOL on bf16 inputs (float64 and the plain version,
-    in fp32, on the same bf16 values)."""
+    in fp32, on the same bf16 values); on bf16 inputs the forward's
+    output must too (one rounding to bf16 at its store)."""
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v, dout = (t[:1].contiguous() for t in (q, k, v, dout))
@@ -1597,6 +1632,9 @@ def bwd_against_float64(ops, q, k, v, dout, kw):
 
     rep = {"dtype": str(q.dtype), "tol": tol,
            "forward_out": rel(ops.flash_attention(q, k, v, **kw), out64)}
+    if q.dtype == torch.bfloat16:
+        check(rep["forward_out"] <= BF16_F64_TOL,
+              f"flash_attention (bf16) vs float64: {rep['forward_out']}")
     for name, g, pl, w in zip(("dq", "dk", "dv"), got, plain, want):
         rep[name] = {"kernel": rel(g, w), "plain": rel(pl, w)}
         check(rep[name]["kernel"] <= tol,
@@ -1616,6 +1654,66 @@ def bwd_repeat_bitwise(ops, q, k, v, dout, kw):
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     check(same, "flash_attention_bwd: two launches on the same inputs "
                 "differ")
+    return same
+
+
+def flash_out_float64(q, k, v, *, causal, window):
+    """The attention ``flash_mod.plain`` computes, in float64, a few query
+    heads at a time (at most 2^27 scores on the card at once)."""
+    import math
+    import torch
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= qp - kp < window
+    step = max(1, 2 ** 27 // (B * Sq * Sk))
+    out = []
+    for h0 in range(0, H, step):
+        heads = torch.arange(h0, min(H, h0 + step), device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, :, heads].double(),
+                         k[:, :, heads // G].double()) / math.sqrt(hd)
+        p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p,
+                                v[:, :, heads // G].double()))
+    return torch.cat(out, dim=2)
+
+
+def fwd_against_float64(ops, q, k, v, kw):
+    """The bf16 forward kernel and the plain version (fp32, on the same
+    bf16 values) against ``flash_out_float64`` at a call: each max |error|
+    over max |float64|. The kernel must stay within BF16_F64_TOL: one
+    rounding to bf16 at its store over P.V with P as bf16 hi + lo."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
+    got = flash_mod.launch(ops._entry("flash_attention"), q, k, v, **kw)
+    want = flash_out_float64(q, k, v, **kw)
+    plain = flash_mod.plain(q.float(), k.float(), v.float(), **kw)
+
+    def rel(a):
+        return float((a.double() - want).abs().max() / want.abs().max())
+
+    rep = {"kernel": rel(got), "plain": rel(plain), "tol": BF16_F64_TOL}
+    check(got.dtype == torch.bfloat16 and rep["kernel"] <= BF16_F64_TOL,
+          f"flash_attention (bf16) vs float64: {rep}")
+    return rep
+
+
+def fwd_repeat_bitwise(ops, q, k, v, kw):
+    """Two launches of the forward kernel on a call's inputs: the outputs
+    must be bitwise equal (no atomics, every sum in a fixed order)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    fn = ops._entry("flash_attention")
+    kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
+    same = torch.equal(flash_mod.launch(fn, q, k, v, **kw),
+                       flash_mod.launch(fn, q, k, v, **kw))
+    check(same, "flash_attention: two launches on the same inputs differ")
     return same
 
 
@@ -4159,7 +4257,9 @@ def training_phase(ops, card, hold_and_time, profile):
     against its plain version at each model's first call and times it
     (``hold_and_time``), against float64
     (``bwd_against_float64``, ``ssd_bwd_checks``), and launches it twice
-    on that call for bitwise equal outputs; times the SSD backward at
+    on that call for bitwise equal outputs; a bf16 run's flash forward
+    likewise at the same call (``fwd_against_float64``,
+    ``fwd_repeat_bitwise``); times the SSD backward at
     JAMBA_SSD_SHAPE off the path; with ``profile``, traces one more step
     of each whole model, GLUE_ARCH's with the host stacks, and prints a
     ``glue`` line: the ops behind its elementwise adds and fills
@@ -4267,6 +4367,8 @@ def training_phase(ops, card, hold_and_time, profile):
             # remat), held and timed beside SDPA's bf16 forward
             q, k, v, _, kw = seen["flash_attention_bwd"]
             seen["flash_attention"] = (q, k, v, kw)
+            run["fwd_vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
+            run["fwd_bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
         hold_and_time(seen, {k: sum(c[k] for c in launches) for k in seen},
                       model=cfg.name)
         del seen
@@ -4329,9 +4431,10 @@ def train_cli_run(ops, card, hold_and_time):
     ``load_checkpoint`` into an ``init_params`` tree of the config (the
     file's keys exactly, shapes, dtypes, finite, ``step`` 3) and equals
     the trained params bitwise (bf16 leaves are stored as fp32, which
-    holds them exactly). The run's first flash backward call is held
-    against its plain version and timed (``hold_and_time``), against
-    float64, and launched twice for bitwise equal gradients."""
+    holds them exactly). The run's first flash backward call, and the
+    forward at the same inputs, are held against their plain versions and
+    timed (``hold_and_time``), against float64, and launched twice for
+    bitwise equal outputs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4389,9 +4492,14 @@ def train_cli_run(ops, card, hold_and_time):
           f"train CLI: the flash backward ran on {call[0].dtype}")
     rep["bwd_vs_float64"] = bwd_against_float64(ops, *call)
     rep["bwd_bitwise_repeat"] = bwd_repeat_bitwise(ops, *call)
-    hold_and_time(seen, {"flash_attention_bwd": sum(
-        c["flash_attention_bwd"] for c in launches)},
-        model=f"{cfg.name} (train CLI)")
+    q, k, v, _, kw = call
+    seen["flash_attention"] = (q, k, v, kw)   # the forward at the same call
+    rep["fwd_vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
+    rep["fwd_bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
+    hold_and_time(seen, {name: sum(c[name] for c in launches)
+                         for name in ("flash_attention",
+                                      "flash_attention_bwd")},
+                  model=f"{cfg.name} (train CLI)")
     del seen, call
     gc.collect()
     torch.cuda.empty_cache()
@@ -4785,6 +4893,26 @@ def main() -> None:
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
           f"bf16 flash backward kernels spill or are missing: {kept}")
+    fwd_kernels = ops.ptxas_kernels(ops.build_log("flash_attention"))
+    print(json.dumps({"ptxas_kernels": {"flash_attention": fwd_kernels}}),
+          flush=True)
+    no_spill = flash_mod.FORWARD_NO_SPILL
+    kept = [r for r in fwd_kernels if r["kernel"] in no_spill]
+    check(len(kept) == len(no_spill)
+          and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+                      for r in kept),
+          f"bf16 flash forward kernels spill or are missing: {kept}")
+    # the bf16 forward runs warpgroup MMAs (HGMMA) and no mma.sync (HMMA)
+    sass = ops.sass_counts("flash_attention")
+    print(json.dumps({"sass_mma_counts": {"flash_attention": sass}}),
+          flush=True)
+    bf16_fwd = {k: c for k, c in sass.items()
+                if k.startswith("flash_fwd_bf16")}
+    check(len(bf16_fwd) == 4 and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                     for c in bf16_fwd.values())
+          and not any(k.startswith("flash_attention_kernel<bf16")
+                      for k in sass),
+          f"bf16 flash forward SASS: {sass}")
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,
@@ -5040,6 +5168,12 @@ def main() -> None:
         for run in ZERO1_TRAIN_RUNS:
             t_seen = {}
             rep = zero1_train_check(*run, mesh, ops, t_seen)
+            if rep["dtype"] == "bfloat16" and "flash_attention" in t_seen:
+                q, k, v, kw = t_seen["flash_attention"]
+                rep["fwd_vs_float64"] = fwd_against_float64(ops, q, k, v,
+                                                            kw)
+                rep["fwd_bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v,
+                                                               kw)
             if t_seen:
                 hold_and_time(t_seen, {k: rep["launches_mesh_steps"][k]
                                        for k in t_seen},

@@ -1,5 +1,7 @@
 // Full-sequence (prefill) attention with an fp32 online softmax on the
-// tensor cores of Hopper (sm_90a), plain C interface.
+// tensor cores of Hopper (sm_90a), plain C interface. Two kernels behind
+// one entry: fp32 inputs run flash_attention_kernel (3xTF32 mma.sync);
+// bf16 inputs run flash_fwd_bf16 (wgmma fed by TMA), below.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the Pallas TPU kernel behind repro.kernels.ops.flash_attention, called
@@ -10,6 +12,8 @@
 // with G = H / KV query heads per KV head, a causal mask (k <= s), a
 // sliding window (s - k < window, when window > 0), masked scores set to
 // NEG_INF = -1e30 as in the reference, and keys past Sk excluded.
+//
+// ---- fp32: flash_attention_kernel<float, VT>
 //
 // What bounds it on this card: arithmetic. A causal prefill of S tokens
 // does ~2*B*H*S^2*(hd+vd)/2 flops on 2*B*S*(H*hd + KV*(hd+vd)) bytes
@@ -36,9 +40,6 @@
 //    rounding, computed as (bits + 0x1000) & ~0x1fff: the same bits at
 //    full integer rate), and each product is lo.hi + hi.lo + hi.hi: the
 //    dropped lo.lo term is ~2^-22 relative, the error of fp32 itself.
-//    bf16 widens to TF32 exactly, so for bf16 Q, K and V the lo terms are
-//    dropped at compile time (S is one pass, P.V two: P is fp32 and is
-//    still split).
 //  * The k order of a product is free, so Q.K^T runs its 8 dims of a step
 //    as A slot t = dim 2t, slot t + 4 = dim 2t + 1 (and K likewise): each
 //    lane loads a Q or K fragment pair with one 8-byte shared load.
@@ -60,10 +61,10 @@
 //    copy (src-size 0), so 0 * junk never reaches O. Q is staged once.
 //  * Shared-memory rows are padded so the fragment loads of a warp hit
 //    distinct banks: Q and K rows (8-byte pair loads, 8 rows x 4 lanes a
-//    half-warp) to 8 mod 32 words (fp32) or 8 mod 16 elements (bf16); V
-//    rows (rows 2t and 2t+1 x 8 columns) to 16 mod 32 bytes. The columns
-//    past hd (or vd) up to the next multiple of 8 are zeroed once, so a
-//    ragged hd takes a partial last k-step.
+//    half-warp) to 8 mod 32 words; V rows (rows 2t and 2t+1 x 8 columns)
+//    to 16 mod 32 bytes. The columns past hd (or vd) up to the next
+//    multiple of 8 are zeroed once, so a ragged hd takes a partial last
+//    k-step.
 //  * The block walks only the key tiles its rows can see: tiles wholly
 //    above the causal diagonal or wholly outside the window are skipped.
 //    If some row of the block sees no key at all (only when Sq > Sk with
@@ -72,30 +73,103 @@
 //    are all masked accumulates exp(0) terms against m = -1e30; the first
 //    real score rescales them by exp(-1e30 - m) = 0 exactly.
 //  * Occupancy: 16-key tiles keep shared memory at 69 KB at hd = vd = 128
-//    fp32 (Q 64 x 136, two stages of K 16 x 136 and V 16 x 132 floats),
-//    and __launch_bounds__(128, 3) caps registers, so three blocks (12
-//    warps) share an SM; 135 KB and one block at hd = vd = 256. The value
-//    width is a template bound (<= 64/128/256) so the O accumulator
-//    (vd / 8 fragments of 4 floats a lane) stays in registers. ptxas
-//    (-Xptxas -v, sm_90a; chip_smoke.py prints it): fp32 122/151/216
-//    registers for vd <= 64/128/256, bf16 137/164/249; no spills, no
-//    stack; the shared memory is all dynamic.
+//    (Q 64 x 136, two stages of K 16 x 136 and V 16 x 132 floats), and
+//    __launch_bounds__(128, 3) caps registers, so three blocks (12 warps)
+//    share an SM; 135 KB and one block at hd = vd = 256. The value width
+//    is a template bound (<= 64/128/256) so the O accumulator (vd / 8
+//    fragments of 4 floats a lane) stays in registers. ptxas (-Xptxas -v,
+//    sm_90a; chip_smoke.py prints it): 122/151/216 registers for vd <=
+//    64/128/256; no spills, no stack; the shared memory is all dynamic.
 //
-// What wgmma + TMA would add: wgmma issues one 64-row product per
-// warpgroup asynchronously from shared memory and is the only path to the
-// full TF32 rate, and TMA moves a tile with one thread and an mbarrier
-// instead of 128 threads of cp.async. wgmma's TF32 B operand must be
-// K-major in shared memory, which V (key-major for P.V) is not, so V would
-// be transposed in shared memory on arrival; a producer warp would keep
-// the TMA ring full, and the hi/lo splits would be made once a tile in
-// shared memory instead of once a fragment in every warp.
+// What wgmma + TMA would add here: wgmma's TF32 B operand must be K-major
+// in shared memory, which V (key-major for P.V) is not, so V would be
+// transposed in shared memory on arrival, and the hi/lo splits made once a
+// tile in shared memory instead of once a fragment in every warp.
+//
+// ---- bf16: flash_fwd_bf16<HK, VN, KT, NS>
+//
+// What bounds it: operations, at the 989 TFLOP/s of the bf16 tensor cores.
+// Qwen2.5-3B's training call (B 2, S 2048, H 16 / KV 2, hd 128, causal) is
+// 34.4 GFLOP of least work, 0.0348 ms; its 58.7 MB take 0.018 ms. The
+// design executes S in one pass and P.V in two (P as bf16 hi + lo: one
+// rounded pass of P spends a quarter to a third of the 2^-8 budget
+// against float64 before the output's own rounding,
+// tests/test_torch_flash_fwd_bf16_numerics.py), 2 (hd + 2 vd) flops a
+// visible pair and head, 1.5x the least work at hd = vd: 51.6 GFLOP,
+// 0.052 ms. What is left above that is the softmax between the two
+// products of a tile, which this design does not overlap with them inside
+// a warpgroup (the two consumer warpgroups of a block overlap each other).
+//
+// What the design does about it:
+//  * One block of 3 warpgroups per (batch row, KV head, tile of 128 / G
+//    query positions), 128 rows, row r = position q0 + r / G, head
+//    kvh G + r % G: position-major, so one TMA box {64 columns, G heads,
+//    128 / G positions} fills a panel of Q. Warpgroups 0 and 1 consume, 64
+//    rows each; warpgroup 2 produces. setmaxnreg moves registers from the
+//    producer (40) to the consumers (232). Blocks are issued longest causal
+//    range first (a 1-D grid of B KV blocks a position tile, the
+//    last tile first: no 65535 cap on the tiles).
+//  * Both products are wgmma.mma_async bf16 -> fp32 (m64nNk16):
+//    S = Q.K^T with A (Q) and B (the K tile) in shared memory, both
+//    K-major; O += P.V with A (P) from registers and B (the V tile) in
+//    shared memory in its natural key-major order (MN-major, the
+//    descriptor's transpose bit): no transposed copy. The S accumulator's
+//    16 key columns of a k16 step are the A fragment as they stand (the
+//    m16n8k16 fragment layout a warp), so P never touches shared memory.
+//  * Tiles live in shared memory as 128-byte-swizzled panels of 64
+//    columns (hd 128: 2 panels, 192: 3, 256: 4), the layout TMA's
+//    SWIZZLE_128B writes and the wgmma descriptors read: 8-row groups 1024
+//    bytes apart, k16 steps 32 bytes apart within a panel, V's panels a
+//    tile apart.
+//  * Copies: the producer's one thread issues cp.async.bulk.tensor (TMA)
+//    on 4-D tensor maps over the [B, S, heads, width] tensors, encoded on
+//    the host each call (cuTensorMapEncodeTiled through
+//    cudaGetDriverEntryPointByVersion: no -lcuda), passed as __grid_constant__
+//    CUtensorMaps. Q once; K and V tiles of KT keys into an NS-stage ring
+//    with full (TMA bytes) and empty (8 consumer warps) mbarriers. Keys past
+//    Sk and positions past Sq are TMA's zero fill; panels past the width
+//    are not copied (their columns are never stored). Rows TMA cannot
+//    describe (not 16-byte aligned: bf16 hd 37 / vd 21) are copied by the
+//    producer's 128 threads, one row a thread, element loads into the same
+//    swizzled panels with zeros to the panel's end, then
+//    fence.proxy.async and one arrival. No copy loop divides.
+//  * The online softmax stays in registers: the wgmma accumulator gives a
+//    lane rows 16 warp + lane / 4 and + 8 at columns 8j + 2 (lane % 4) +
+//    {0, 1}, the mma.sync quad layout, so the row max is two
+//    xor-shuffles, scores are in log2 units, exp2 is ex2.approx, tiles
+//    every row of a warp sees whole skip the masks, and O is rescaled in
+//    registers. Rows that see no key come out uniform, as in fp32.
+//  * P = 2^(s - m) goes in as bf16 hi + lo, lo pass then hi a 16-key
+//    step, both accumulated into O in fp32 (its slices' truncating adds
+//    cost ~2^-23 each, far below the output's rounding); O / l is rounded
+//    to bf16 once. No atomics: bitwise repeatable.
+//  * Instantiations by width bound (HK q/k, VN v; KT keys a tile, NS
+//    stages): <64, 64, 128, 3> (hd <= 64), <128, 128, 64, 3> (hd <= 128),
+//    <192, 128, 64, 3> (hd <= 192 and vd <= 128: MLA), <256, 256, 64, 2>
+//    (the rest); shared memory 112, 128, 168 and 192 KB.
+//    A consumer thread holds O (VN / 2 floats), S (KT / 2) and P hi + lo
+//    (KT / 2 words). Waiting for P.V before the next tile's S keeps the
+//    three model instantiations within 232 registers: issuing S behind
+//    P.V spilled at hd 128 and 192 and was slower.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_fwd_check.py,
+// CUDA events): Qwen2.5-3B's call 0.155 ms (the TF32 design on
+// widened tiles: 0.817), 333 TFLOP/s of executed passes, 4.5x its bound
+// at 989; Mixtral's shape in bf16 0.156; DeepSeek-V2's MLA call (B 1, H
+// 128, hd 192 / vd 128) 0.672 (from 3.283), 358 TFLOP/s; Qwen1.5-0.5B's
+// (B 4, H 16, hd 64) 0.252, 205 TFLOP/s: at hd 64 a tile's softmax costs
+// what it does at 128 for half the MMA work. SDPA's bf16 forward takes
+// 0.086, 0.328 and 0.117 there. P in one pass instead of hi + lo, in
+// turns: 7-12% less time. ptxas: 168 registers at launch (setmaxnreg
+// then 40 / 232), no stack and no spills at any instantiation; SASS:
+// HGMMA only, no HMMA (chip_smoke.py checks both).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
-#include <type_traits>
-
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -112,21 +186,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ T zero() {
-  return T(0.f);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 // elements p[0], p[1] (p 2-element aligned) as floats
 __device__ __forceinline__ void load_pair(const float* p, float& x0,
                                           float& x1) {
@@ -134,59 +194,48 @@ __device__ __forceinline__ void load_pair(const float* p, float& x0,
   x0 = v.x;
   x1 = v.y;
 }
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& x0,
-                                          float& x1) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  x0 = __low2float(v);
-  x1 = __high2float(v);
-}
 
 // shared-memory row strides (elements) for rows of w elements. Q and K:
-// 8 mod 32 words (fp32) or 8 mod 16 elements (bf16); V: 16 mod 32 bytes
-template <typename T>
+// 8 mod 32 words; V: 16 mod 32 bytes
 __host__ __device__ __forceinline__ int qk_stride(int w) {
-  if (sizeof(T) == 4) {
-    const int w8 = (w + 7) & ~7;
-    return w8 + ((8 - w8) & 31);
-  }
-  return (w + 15) / 16 * 16 + 8;
+  const int w8 = (w + 7) & ~7;
+  return w8 + ((8 - w8) & 31);
 }
-template <typename T>
 __host__ __device__ __forceinline__ int v_stride(int w) {
-  constexpr int e = 32 / static_cast<int>(sizeof(T));
+  constexpr int e = 32 / static_cast<int>(sizeof(float));
   return (w + e - 1) / e * e + e / 2;
 }
 
 // dynamic shared memory: Q [kRows][sq]; K [kStages][kTile][sq];
 // V [kStages][kTile][sv]
-template <typename T>
 size_t smem_bytes(int hd, int vd) {
-  return sizeof(T) *
-         (static_cast<size_t>(kRows + kStages * kTile) * qk_stride<T>(hd) +
-          static_cast<size_t>(kStages * kTile) * v_stride<T>(vd));
+  return sizeof(float) *
+         (static_cast<size_t>(kRows + kStages * kTile) * qk_stride(hd) +
+          static_cast<size_t>(kStages * kTile) * v_stride(vd));
 }
 
 // Rows [0, nrows) of w elements into dst (stride ds); row r comes from
 // src(r), or is zero where src(r) is null. vec: bytes a copy (16, 8, 4;
 // every source row and pointer aligned to it), 0 for element loads.
-template <typename T, typename Src>
-__device__ __forceinline__ void copy_rows(T* dst, int ds, int nrows, int w,
-                                          int vec, const T* base, Src src) {
+template <typename Src>
+__device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
+                                          int w, int vec, const float* base,
+                                          Src src) {
   if (vec == 0) {
     for (int i = threadIdx.x; i < nrows * w; i += kThreads) {
       const int r = i / w, c = i - r * w;
-      const T* s = src(r);
-      dst[r * ds + c] = s ? s[c] : zero<T>();
+      const float* s = src(r);
+      dst[r * ds + c] = s ? s[c] : 0.f;
     }
     return;
   }
-  const int per = vec / static_cast<int>(sizeof(T));
+  const int per = vec / static_cast<int>(sizeof(float));
   const int cpr = w / per;  // copies a row
   for (int i = threadIdx.x; i < nrows * cpr; i += kThreads) {
     const int r = i / cpr, c = (i - r * cpr) * per;
-    const T* s = src(r);
-    T* d = dst + r * ds + c;
-    const T* from = s ? s + c : base;
+    const float* s = src(r);
+    float* d = dst + r * ds + c;
+    const float* from = s ? s + c : base;
     if (vec == 16)
       cp_async<16>(d, from, s != nullptr);
     else if (vec == 8)
@@ -198,18 +247,18 @@ __device__ __forceinline__ void copy_rows(T* dst, int ds, int nrows, int w,
 
 // VT: value n-tiles of 8 columns, a compile-time bound (vd <= 8 * VT) so
 // the O accumulator stays in registers; up to vd 128 three blocks an SM
-template <typename T, int VT>
+template <int VT>
 __global__ void __launch_bounds__(kThreads, VT <= 16 ? 3 : 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int KV, int G, int BQ, int hd, int vd,
-                       int causal, int window, float scale, int vec) {
-  constexpr bool kSplit = std::is_same<T, float>::value;
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int Sq, int Sk, int H, int KV, int G, int BQ, int hd,
+                       int vd, int causal, int window, float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sq = qk_stride<T>(hd), sv = v_stride<T>(vd);
-  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][sq]
-  T* ks = qs + kRows * sq;                 // [kStages][kTile][sq]
-  T* vs = ks + kStages * kTile * sq;       // [kStages][kTile][sv]
+  const int sq = qk_stride(hd), sv = v_stride(vd);
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kRows][sq]
+  float* ks = qs + kRows * sq;                     // [kStages][kTile][sq]
+  float* vs = ks + kStages * kTile * sq;           // [kStages][kTile][sv]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // mma group, lane in the group
@@ -219,21 +268,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_row = static_cast<size_t>(H) * hd;  // one position
   const size_t k_row = static_cast<size_t>(KV) * hd;
   const size_t v_row = static_cast<size_t>(KV) * vd;
-  const T* kb = k + static_cast<size_t>(b) * Sk * k_row +
-                static_cast<size_t>(kvh) * hd;
-  const T* vb = v + static_cast<size_t>(b) * Sk * v_row +
-                static_cast<size_t>(kvh) * vd;
+  const float* kb = k + static_cast<size_t>(b) * Sk * k_row +
+                    static_cast<size_t>(kvh) * hd;
+  const float* vb = v + static_cast<size_t>(b) * Sk * v_row +
+                    static_cast<size_t>(kvh) * vd;
 
   // zero the columns past hd / vd that the last k8 step or n8 tile reads
   const int hd8 = (hd + 7) & ~7, vd8 = (vd + 7) & ~7;
   for (int i = tid; i < (kRows + kStages * kTile) * (hd8 - hd); i += kThreads)
-    qs[(i / (hd8 - hd)) * sq + hd + i % (hd8 - hd)] = zero<T>();
+    qs[(i / (hd8 - hd)) * sq + hd + i % (hd8 - hd)] = 0.f;
   for (int i = tid; i < kStages * kTile * (vd8 - vd); i += kThreads)
-    vs[(i / (vd8 - vd)) * sv + vd + i % (vd8 - vd)] = zero<T>();
+    vs[(i / (vd8 - vd)) * sv + vd + i % (vd8 - vd)] = 0.f;
 
   // row r: head kvh * G + r / BQ, position q0 + r % BQ; rows past G * BQ
   // or past Sq are idle (zero q, never stored)
-  copy_rows(qs, sq, kRows, hd, vec, q, [&](int r) -> const T* {
+  copy_rows(qs, sq, kRows, hd, vec, q, [&](int r) -> const float* {
     const int hg = r / BQ, s = r - hg * BQ;
     return hg < G && s < nq
                ? q + (static_cast<size_t>(b) * Sq + q0 + s) * q_row +
@@ -243,12 +292,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_tile = [&](int tile, int stage) {
     const int k0 = tile * kTile;
     copy_rows(ks + stage * kTile * sq, sq, kTile, hd, vec, k,
-              [&](int j) -> const T* {
+              [&](int j) -> const float* {
                 return k0 + j < Sk ? kb + static_cast<size_t>(k0 + j) * k_row
                                    : nullptr;
               });
     copy_rows(vs + stage * kTile * sv, sv, kTile, vd, vec, v,
-              [&](int j) -> const T* {
+              [&](int j) -> const float* {
                 return k0 + j < Sk ? vb + static_cast<size_t>(k0 + j) * v_row
                                    : nullptr;
               });
@@ -276,7 +325,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < VT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   const int nks = hd8 / 8, nvt = vd8 / 8;
-  const T* qw = qs + warp * 16 * sq + 2 * t;
+  const float* qw = qs + warp * 16 * sq + 2 * t;
   const float sc = scale * kLog2e;  // scores in log2 units, for exp2f
 
   for (int tile = tile_lo; tile <= tile_hi; ++tile) {
@@ -285,8 +334,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_commit();  // (empty on the last tile: keeps wait_group 1 uniform)
     cp_wait<1>();
     __syncthreads();
-    const T* kt = ks + stage * kTile * sq + g * sq + 2 * t;
-    const T* vt = vs + stage * kTile * sv;
+    const float* kt = ks + stage * kTile * sq + g * sq + 2 * t;
+    const float* vt = vs + stage * kTile * sv;
 
     // --- S = Q.K^T: this warp's 16 rows x 16 keys, 2 n-tiles of 8 keys;
     // k-step slot t is dim 8kk + 2t, slot t + 4 dim 8kk + 2t + 1
@@ -300,15 +349,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_pair(qw + (g + 8) * sq + kk * 8, x[1], x[3]);
       uint32_t ah[4], al[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) frag<kSplit>(x[i], ah[i], al[i]);
+      for (int i = 0; i < 4; ++i) frag<true>(x[i], ah[i], al[i]);
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         float y0, y1;
         load_pair(kt + j * 8 * sq + kk * 8, y0, y1);
         uint32_t bh[2], bl[2];
-        frag<kSplit>(y0, bh[0], bl[0]);
-        frag<kSplit>(y1, bh[1], bl[1]);
-        mma3<kSplit, kSplit>(s[j], ah, al, bh, bl);
+        frag<true>(y0, bh[0], bl[0]);
+        frag<true>(y1, bh[1], bl[1]);
+        mma3<true, true>(s[j], ah, al, bh, bl);
       }
     }
 
@@ -374,14 +423,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       frag<true>(s[j][2], ah[1], al[1]);
       frag<true>(s[j][1], ah[2], al[2]);
       frag<true>(s[j][3], ah[3], al[3]);
-      const T* v0 = vt + (j * 8 + 2 * t) * sv + g;
+      const float* v0 = vt + (j * 8 + 2 * t) * sv + g;
 #pragma unroll
       for (int n = 0; n < VT; ++n) {
         if (n < nvt) {
           uint32_t bh[2], bl[2];
-          frag<kSplit>(to_f(v0[n * 8]), bh[0], bl[0]);
-          frag<kSplit>(to_f(v0[sv + n * 8]), bh[1], bl[1]);
-          mma3<true, kSplit>(o[n], ah, al, bh, bl);
+          frag<true>(to_f(v0[n * 8]), bh[0], bl[0]);
+          frag<true>(to_f(v0[sv + n * 8]), bh[1], bl[1]);
+          mma3<true, true>(o[n], ah, al, bh, bl);
         }
       }
     }
@@ -400,8 +449,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hg = row / BQ, s = row - hg * BQ;
     if (hg >= G || s >= nq) continue;
     const float lg = fmaxf(l[h], 1e-30f);
-    T* O = out + (static_cast<size_t>(b) * Sq + q0 + s) * H * vd +
-           static_cast<size_t>(kvh * G + hg) * vd;
+    float* O = out + (static_cast<size_t>(b) * Sq + q0 + s) * H * vd +
+               static_cast<size_t>(kvh * G + hg) * vd;
 #pragma unroll
     for (int n = 0; n < VT; ++n) {
       const int col = n * 8 + 2 * t;
@@ -411,41 +460,486 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int VT>
+template <int VT>
 cudaError_t launch(dim3 grid, cudaStream_t stream, const void* q,
                    const void* k, const void* v, void* out, int Sq, int Sk,
                    int H, int KV, int G, int BQ, int hd, int vd, int causal,
                    int window, float scale, int vec) {
-  const size_t smem = smem_bytes<T>(hd, vd);
+  const size_t smem = smem_bytes(hd, vd);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, VT>,
+      flash_attention_kernel<VT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<T, VT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, G, BQ,
-      hd, vd, causal, window, scale, vec);
+  flash_attention_kernel<VT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
+      G, BQ, hd, vd, causal, window, scale, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(dim3 grid, cudaStream_t stream, const void* q,
                      const void* k, const void* v, void* out, int Sq, int Sk,
                      int H, int KV, int G, int BQ, int hd, int vd, int causal,
                      int window, float scale) {
-  int vec = copy_bytes(q, sizeof(T) * hd);
-  const int vec_k = copy_bytes(k, sizeof(T) * hd);
-  const int vec_v = copy_bytes(v, sizeof(T) * vd);
+  int vec = copy_bytes(q, sizeof(float) * hd);
+  const int vec_k = copy_bytes(k, sizeof(float) * hd);
+  const int vec_v = copy_bytes(v, sizeof(float) * vd);
   if (vec_k < vec) vec = vec_k;
   if (vec_v < vec) vec = vec_v;
   if (vd <= 64)
-    return launch<T, 8>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
-                        vd, causal, window, scale, vec);
+    return launch<8>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
+                     vd, causal, window, scale, vec);
   if (vd <= 128)
-    return launch<T, 16>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ,
-                         hd, vd, causal, window, scale, vec);
-  return launch<T, 32>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
-                       vd, causal, window, scale, vec);
+    return launch<16>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
+                      vd, causal, window, scale, vec);
+  return launch<32>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd, vd,
+                    causal, window, scale, vec);
+}
+
+// ---- bf16: flash_fwd_bf16, wgmma on the bf16 tensor cores fed by TMA
+
+using bf16 = __nv_bfloat16;
+constexpr int kBRows = 128;        // rows a block: 2 consumer warpgroups x 64
+constexpr int kBThreads = 384;     // 2 consumer warpgroups + 1 producer
+constexpr int kPanel = 64;         // bf16 columns of a 128-byte swizzled row
+constexpr int kPanelRow = 128;     // bytes of a panel row
+constexpr int kProducerRegs = 40;  // setmaxnreg: producer / consumers; the
+constexpr int kConsumerRegs = 232; // block starts at 168 (65536 / 384)
+
+struct FwdBf16 {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int Sq, Sk, H, KV, G, BQ, hd, vd, causal, window;
+  float scale;
+  int tma;      // 1: tiles by TMA; 0: element loads (rows not 16-byte aligned)
+  int out_vec;  // 1: output pairs as 4-byte stores
+};
+
+// shared memory of flash_fwd_bf16<HK, VN, KT, NS> (bytes): Q (HK / 64
+// panels of 128 rows), NS stages of K (HK / 64 panels of KT rows) and V (VN
+// / 64 panels of KT rows), the mbarriers, and 1024 bytes to align the
+// start to the swizzle atom
+template <int HK, int VN, int KT, int NS>
+struct FwdLayout {
+  static constexpr int kQBytes = HK / kPanel * kBRows * kPanelRow;
+  static constexpr int kKBytes = HK / kPanel * KT * kPanelRow;
+  static constexpr int kVBytes = VN / kPanel * KT * kPanelRow;
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kBarOffset = kQBytes + NS * kStageBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * NS) + 1024;
+};
+
+// the (d, a, b) MMAs of one k16 step, by width
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n256(d, a, db);
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of two fp32 values, the lower column in
+// the low half of each word
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: relative error below 2^-22, flushes
+// subnormal results to 0)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// row r of a tile of `rows` rows in `np` 128-byte-swizzled panels at
+// `tile`: the w elements of src (none: a zero row), zeros up to 64 np, in
+// 16-byte chunks, one element a load (rows that TMA cannot describe)
+__device__ __forceinline__ void stage_row(unsigned char* tile, int rows,
+                                          int np, int r, const bf16* src,
+                                          int w) {
+  for (int c = 0; c < np * 8; ++c) {
+    union {
+      uint4 u;
+      bf16 e[8];
+    } chunk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * c + i;
+      chunk.e[i] = src != nullptr && col < w ? src[col] : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + (c >> 3) * rows * kPanelRow +
+                              r * kPanelRow + (((c & 7) ^ (r & 7)) << 4)) =
+        chunk.u;
+  }
+}
+
+// One block per (batch row, KV head, tile of BQ = 128 / G positions): 128
+// rows, row r = position q0 + r / G, head kvh G + r % G (idle past G BQ or
+// Sq). Warpgroups 0 and 1 consume (64 rows each: S = Q.K^T and O += P.V by
+// wgmma, the online softmax in registers); warpgroup 2 produces (K and V
+// tiles of KT keys into an NS-stage ring, by TMA or element loads). HK: q/k
+// width bound (k16 steps of S: ceil(hd / 16) <= HK / 16); VN: the P.V
+// product's n (vd <= VN; columns past vd computed and dropped)
+template <int HK, int VN, int KT, int NS>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const FwdBf16 a) {
+  using L = FwdLayout<HK, VN, KT, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;  // [HK / 64][128 rows][128 bytes]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full_q = bars;            // Q arrived
+  uint64_t* full = bars + 1;          // [NS]: a K/V stage arrived
+  uint64_t* empty = bars + 1 + NS;    // [NS]: 8 consumer warps are done
+  auto k_stage = [&](int s) { return smem + L::kQBytes + s * L::kStageBytes; };
+  auto v_stage = [&](int s) { return k_stage(s) + L::kKBytes; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int G = a.G, BQ = a.BQ, Sq = a.Sq, Sk = a.Sk;
+  // a 1-D grid (no 65535 cap on the position tiles): block x is position
+  // tile x / (B KV) counted from the last (longest first), then (b, kvh)
+  const int n_qt = (Sq + BQ - 1) / BQ, bkv_n = gridDim.x / n_qt;
+  const int tile_r = blockIdx.x / bkv_n, bkv = blockIdx.x - tile_r * bkv_n;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const int q0 = (n_qt - 1 - tile_r) * BQ;
+  const int nq = min(BQ, Sq - q0);
+  // keys this tile of positions can see (all of them if its last row sees
+  // none: that row comes out uniform, as in the reference)
+  const int q_last = q0 + nq - 1;
+  int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  int hi = a.causal ? min(Sk - 1, q_last) : Sk - 1;
+  const int lo_last = a.window > 0 ? max(0, q_last - a.window + 1) : 0;
+  if (lo_last > hi) {
+    lo = 0;
+    hi = Sk - 1;
+  }
+  const int tile_lo = lo / KT, n_tiles = hi / KT - tile_lo + 1;
+  const int pq = (a.hd + kPanel - 1) / kPanel;  // live panels of q / k
+  const int pv = (a.vd + kPanel - 1) / kPanel;  // and of v
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---------------- producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (a.tma) {
+      if (threadIdx.x != 2 * 128) return;
+      mbar_expect_tx(full_q, pq * kPanel * G * BQ * 2);
+      for (int p = 0; p < pq; ++p)
+        tma_load_4d(qs + p * kBRows * kPanelRow, &tq, full_q, p * kPanel,
+                    kvh * G, q0, b);
+      int s = 0, use = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        mbar_expect_tx(full + s, (pq + pv) * KT * kPanelRow);
+        const int k0 = (tile_lo + i) * KT;
+        for (int p = 0; p < pq; ++p)
+          tma_load_4d(k_stage(s) + p * KT * kPanelRow, &tk, full + s,
+                      p * kPanel, kvh, k0, b);
+        for (int p = 0; p < pv; ++p)
+          tma_load_4d(v_stage(s) + p * KT * kPanelRow, &tv, full + s,
+                      p * kPanel, kvh, k0, b);
+        if (++s == NS) {
+          s = 0;
+          ++use;
+        }
+      }
+      return;
+    }
+    // rows not 16-byte aligned: thread t stages row t of each tile
+    const int t = threadIdx.x - 2 * 128;
+    const bf16* src = nullptr;
+    if (t < G * BQ) {
+      const int pos = q0 + t / G;
+      if (pos < Sq)
+        src = a.q + (static_cast<size_t>(b) * Sq + pos) * a.H * a.hd +
+              static_cast<size_t>(kvh * G + t % G) * a.hd;
+    }
+    stage_row(qs, kBRows, pq, t, src, a.hd);
+    fence_async_smem();
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (t == 0) mbar_arrive(full_q);
+    const size_t k_row = static_cast<size_t>(a.KV) * a.hd;
+    const size_t v_row = static_cast<size_t>(a.KV) * a.vd;
+    const bf16* kb = a.k + static_cast<size_t>(b) * Sk * k_row +
+                     static_cast<size_t>(kvh) * a.hd;
+    const bf16* vb = a.v + static_cast<size_t>(b) * Sk * v_row +
+                     static_cast<size_t>(kvh) * a.vd;
+    int s = 0, use = 0;
+    for (int i = 0; i < n_tiles; ++i) {
+      if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+      const int key = (tile_lo + i) * KT + t;
+      if (t < KT) {
+        stage_row(k_stage(s), KT, pq, t, key < Sk ? kb + key * k_row : nullptr,
+                  a.hd);
+        stage_row(v_stage(s), KT, pv, t, key < Sk ? vb + key * v_row : nullptr,
+                  a.vd);
+      }
+      fence_async_smem();
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (t == 0) mbar_arrive(full + s);
+      if (++s == NS) {
+        s = 0;
+        ++use;
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // this lane's two rows (h = 0: row g, h = 1: row g + 8 of the warp);
+  // an idle row takes the block's last position
+  const int row0 = 64 * wg + 16 * warp + g;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    pos[h] = row0 + 8 * h < G * BQ ? min(q0 + (row0 + 8 * h) / G, q_last)
+                                   : q_last;
+  const int nks = (a.hd + 15) >> 4;  // k16 steps of S
+  const float sc = a.scale * kLog2e;  // scores in log2 units
+  // descriptors: Q (this warpgroup's 64 rows) and K K-major, 8-row groups
+  // 1024 bytes apart, k16 steps 32 bytes apart within a panel; V MN-major,
+  // its 64-column panels KT rows apart, 16 keys 2048 bytes apart
+  const uint64_t q_desc = sw128_desc(smem_u32(qs) + wg * 64 * kPanelRow, 16,
+                                     1024);
+  const uint64_t k_desc0 = sw128_desc(smem_u32(k_stage(0)), 16, 1024);
+  const uint64_t v_desc0 =
+      sw128_desc(smem_u32(v_stage(0)), KT * kPanelRow, 1024);
+  constexpr uint64_t kStageStep = L::kStageBytes >> 4;
+
+  float o[VN / 2];
+#pragma unroll
+  for (int i = 0; i < VN / 2; ++i) o[i] = 0.f;
+  float s[KT / 2];
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
+  uint32_t ph[KT / 16][4], pl[KT / 16][4];
+  float m[2] = {kNegInf, kNegInf};  // running max, quad-uniform
+  float l[2] = {0.f, 0.f};          // this lane's part of the denominator
+
+  mbar_wait(full_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    // --- S = Q.K^T: this warpgroup's 64 rows x KT keys, fp32
+    mbar_wait(full + stage, phase);
+    const uint64_t kd = k_desc0 + stage * kStageStep;
+    wgmma_fence();
+    fence_regs(s);
+#pragma unroll
+    for (int kk = 0; kk < HK / 16; ++kk) {
+      if (kk < nks) {
+        const uint64_t qstep = (kk >> 2) * (kBRows * kPanelRow >> 4) +
+                               (kk & 3) * 2;
+        const uint64_t kstep = (kk >> 2) * (KT * kPanelRow >> 4) +
+                               (kk & 3) * 2;
+        wgmma_ss<KT>(s, q_desc + qstep, kd + kstep, kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // --- masks and the online softmax; s[4j + e] is row g + 8 (e >> 1),
+    // key k0 + 8j + 2t + (e & 1). A tile every row of the warp sees whole
+    // skips the masks
+    const int k0 = (tile_lo + i) * KT, k_end = k0 + KT - 1;
+    const bool whole = __all_sync(
+        0xffffffffu,
+        k_end < Sk && (!a.causal || k_end <= min(pos[0], pos[1])) &&
+            (a.window == 0 || max(pos[0], pos[1]) - k0 < a.window));
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = k0 + j * 8 + 2 * t + (e & 1);
+        float val;
+        if (whole) {
+          val = s[4 * j + e] * sc;
+        } else if (key >= Sk) {
+          val = -CUDART_INF_F;  // past Sk: no part in the softmax
+        } else if ((a.causal && key > pos[h]) ||
+                   (a.window > 0 && pos[h] - key >= a.window)) {
+          val = kNegInf;
+        } else {
+          val = s[4 * j + e] * sc;
+        }
+        s[4 * j + e] = val;
+        mt[h] = fmaxf(mt[h], val);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(m[h], mt[h]);
+      corr[h] = exp2_sfu(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+    // P = 2^(s - m) as bf16 hi + lo A fragments: the accumulator's 16 key
+    // columns of a k16 step are the fragment as they stand
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[e] = exp2_sfu(s[8 * kk + e] - m[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += p[e];
+      }
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_bf16(p[2 * f], p[2 * f + 1], ph[kk][f], pl[kk][f]);
+    }
+#pragma unroll
+    for (int j = 0; j < VN / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+
+    // --- O += P.V, lo pass then hi a k16 step
+    wgmma_fence();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    const uint64_t vd_ = v_desc0 + stage * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      wgmma_rs<VN>(o, pl[kk], vd_ + kk * (16 * kPanelRow >> 4));
+      wgmma_rs<VN>(o, ph[kk], vd_ + kk * (16 * kPanelRow >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with it
+    if (++stage == NS) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h, pr = r / G;
+    if (r >= G * BQ || q0 + pr >= Sq) continue;  // idle
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    bf16* row = a.out + (static_cast<size_t>(b) * Sq + q0 + pr) * a.H * a.vd +
+                static_cast<size_t>(kvh * G + r - pr * G) * a.vd;
+#pragma unroll
+    for (int j = 0; j < VN / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float x0 = o[4 * j + 2 * h] * inv, x1 = o[4 * j + 2 * h + 1] * inv;
+      if (col + 1 < a.vd && a.out_vec) {
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < a.vd) row[col] = __float2bfloat16(x0);
+        if (col + 1 < a.vd) row[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <int HK, int VN, int KT, int NS>
+cudaError_t launch_bf16(const FwdBf16& a, int B, cudaStream_t stream) {
+  constexpr int smem = FwdLayout<HK, VN, KT, NS>::kBytes;
+  // the widths must fit the instantiation's panels and k16 steps
+  if (a.hd > HK || a.vd > VN) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_bf16<HK, VN, KT, NS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  memset(&tq, 0, sizeof(tq));
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
+  if (a.tma) {
+    if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+    if (!encode_bf16_4d(&tq, a.q, a.hd, a.H, a.Sq, B, a.G, a.BQ) ||
+        !encode_bf16_4d(&tk, a.k, a.hd, a.KV, a.Sk, B, 1, KT) ||
+        !encode_bf16_4d(&tv, a.v, a.vd, a.KV, a.Sk, B, 1, KT))
+      return cudaErrorInvalidValue;
+  }
+  const long long blocks =
+      static_cast<long long>(B) * a.KV * ((a.Sq + a.BQ - 1) / a.BQ);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  flash_fwd_bf16<HK, VN, KT, NS><<<static_cast<unsigned>(blocks), kBThreads,
+                                   smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+// q, k, v rows of hd / hd / vd bf16 elements: by TMA where every row and
+// base pointer is 16-byte aligned (every model shape), else by element
+// loads into the same swizzled tiles
+cudaError_t dispatch_bf16(int B, cudaStream_t stream, const void* q,
+                          const void* k, const void* v, void* out, int Sq,
+                          int Sk, int H, int KV, int hd, int vd, int causal,
+                          int window, float scale) {
+  FwdBf16 a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.out = static_cast<bf16*>(out);
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.BQ = kBRows / a.G;
+  a.hd = hd;
+  a.vd = vd;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.tma = copy_bytes(q, 2 * hd) == 16 && copy_bytes(k, 2 * hd) == 16 &&
+          copy_bytes(v, 2 * vd) == 16;
+  a.out_vec = copy_bytes(out, 2 * vd) >= 4;
+  if (hd <= 64) return launch_bf16<64, 64, 128, 3>(a, B, stream);
+  if (hd <= 128) return launch_bf16<128, 128, 64, 3>(a, B, stream);
+  if (hd <= 192 && vd <= 128) return launch_bf16<192, 128, 64, 3>(a, B, stream);
+  return launch_bf16<256, 256, 64, 2>(a, B, stream);
 }
 
 }  // namespace
@@ -463,13 +957,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || hd <= 0 ||
       hd > kMaxHd || vd > hd || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return static_cast<int>(dispatch_bf16(B, stream, q, k, v, out, Sq, Sk, H,
+                                          KV, hd, vd, causal, window, scale));
   const int G = H / KV;
   const int BQ = kRows / G;  // query positions per block
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(grid, stream, q, k, v, out, Sq, Sk, H,
-                                     KV, G, BQ, hd, vd, causal, window, scale)
-           : dispatch<float>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ,
-                             hd, vd, causal, window, scale);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(grid, stream, q, k, v, out, Sq, Sk, H, KV,
+                                   G, BQ, hd, vd, causal, window, scale));
 }

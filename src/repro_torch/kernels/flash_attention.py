@@ -2,17 +2,22 @@
 plain PyTorch version.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
-The kernel (``csrc/flash_attention.cu``, whose header says what bounds
-it on an H100 and how the design answers) runs one block per (batch
+The kernels (``csrc/flash_attention.cu``, whose header says what bounds
+them on an H100 and how the design answers) run one block per (batch
 row, KV head, tile of query positions) that serves the KV head's G
-query heads, reads K/V in place from ``[B, S, KV, hd]`` through a
-``cp.async`` ring, computes both products on the TF32 tensor cores
-(``mma.sync``, each fp32 operand split hi + lo: 3xTF32, fp32 accuracy),
-keeps the online softmax in registers, skips the key tiles its rows
-cannot see, and masks the ragged edges itself. The plain
-version repeats K/V per query head and runs ``ref.flash_attention_ref``
-(exact softmax), as the JAX wrapper does. ``ops.flash_attention`` is the
-public wrapper that checks the arguments and picks between the two.
+query heads, read K/V in place from ``[B, S, KV, hd]``, keep the online
+softmax in registers, skip the key tiles their rows cannot see, and mask
+the ragged edges themselves. fp32 inputs: 4 warps, tiles through a
+``cp.async`` ring, both products on the TF32 tensor cores (``mma.sync``,
+each fp32 operand split hi + lo: 3xTF32, fp32 accuracy). bf16 inputs:
+``flash_fwd_bf16``, two consumer warpgroups running ``wgmma`` on the bf16
+tensor cores (S in one pass, P.V with P as bf16 hi + lo) fed by a
+producer warp's TMA copies into a ring of 128-byte-swizzled tiles, the
+output rounded to bf16 once (``FORWARD_NO_SPILL``: its instantiations
+that must compile with no spill). The plain version repeats K/V per
+query head and runs ``ref.flash_attention_ref`` (exact softmax), as the
+JAX wrapper does. ``ops.flash_attention`` is the public wrapper that
+checks the arguments and picks between the two.
 
 The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; tiles
 through ``cp.async`` rings, fp32 sums) has no Pallas counterpart: the JAX
@@ -40,6 +45,11 @@ ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
 MAX_HEAD_DIM = 256   # q/k width; v may be narrower
+# the bf16 forward's instantiations for hd <= 64, <= 128 and MLA's 192 /
+# 128, which ptxas must compile with no stack and no spills
+FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
+                    "flash_fwd_bf16<128,128,64,3>",
+                    "flash_fwd_bf16<192,128,64,3>")
 # the backward's build record (``ops.build_kernels``); the same limits.
 # NO_SPILL: its bf16 instantiations for hd <= 64, <= 128 and MLA's 192 /
 # 128, which ptxas must compile with no stack and no spills

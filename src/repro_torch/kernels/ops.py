@@ -184,6 +184,36 @@ def ptxas_kernels(text: str) -> list:
     return recs
 
 
+def _cuobjdump() -> str:
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+
+
+def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel: {"HGMMA": n, "HMMA": m}}``: how many warpgroup MMAs
+    (``wgmma``) and warp-level MMAs (``mma.sync``) the SASS of each kernel
+    of kernel ``name``'s current library holds, by ``cuobjdump -sass``."""
+    opcodes = ("HGMMA", "HMMA")
+    lib = _library_path(CSRC / _MODULES[name].SOURCE)
+    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            counts = out.setdefault(_kernel_label(fn.group(1)),
+                                    {op: 0 for op in opcodes})
+            continue
+        if counts is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\.", line):
+                    counts[op] += 1
+    return out
+
+
 def _entry(name: str):
     """The bound C entry point of kernel ``name`` (built at first use)."""
     if name not in _FNS:
