@@ -11,8 +11,9 @@ It drives the port's two entry points end to end and checks them:
    ``ptxas`` reports (registers, shared memory, spills) of flash
    attention, SSD chunk and their backwards on a JSON line each; fails
    if a bf16 flash kernel of ``FORWARD_NO_SPILL`` or ``BACKWARD.NO_SPILL``
-   spills, and if the bf16 forward's SASS (``cuobjdump -sass``, a
-   ``sass_mma_counts`` line) holds an ``HMMA`` or no ``HGMMA``;
+   spills, and if the SASS of a bf16 forward or backward kernel
+   (``cuobjdump -sass``, a ``sass_mma_counts`` line each) holds an
+   ``HMMA`` or no ``HGMMA``;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -507,8 +508,10 @@ JAMBA_SSD_SHAPE = (32, 128, 256, 64, 128)
 # query over Whisper's 1500 frames and its 448-token decoder over them,
 # the VLM's 77 queries over 1601 patches (Sq != Sk, no causal mask), MLA
 # widths (hd 192, vd 128), rows that see no key (Sq > Sk + window), MQA
-# at hd 256, widths off the multiples of 8, 64 query heads a KV head, and
-# a wide q/k with a narrow v (hd 160, vd 24)
+# at hd 256, widths off the multiples of 8, 64 query heads a KV head, a
+# wide q/k with a narrow v (hd 160, vd 24), and 3 query heads a KV head
+# at aligned widths (the bf16 keys launch's row tiles then leave rows no
+# TMA box fills, and its stats boxes start off 16-byte boundaries)
 FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
                     (1, 333, 333, 8, 2, 64, 64, True, 0),
                     (2, 1, 1500, 6, 6, 64, 64, False, 0),
@@ -519,7 +522,8 @@ FLASH_BWD_SHAPES = [(2, 160, 160, 4, 2, 64, 64, True, 37),
                     (1, 200, 200, 16, 1, 256, 256, True, 37),
                     (1, 70, 70, 6, 3, 37, 21, True, 0),
                     (1, 40, 40, 64, 1, 32, 32, False, 0),
-                    (1, 150, 150, 8, 2, 160, 24, True, 0)]
+                    (1, 150, 150, 8, 2, 160, 24, True, 0),
+                    (2, 96, 96, 6, 2, 64, 64, True, 0)]
 # the training phase: (arch, layers (None: all), batch, sequence, steps,
 # AdamW learning rate, dtype) at published widths, remat, under train()'s
 # cosine schedule (warm-up of one step: step 0 moves nothing). lm_batches'
@@ -1242,9 +1246,9 @@ def pass_flops(name, shape, flops):
     the kernel gives each product. fp32 operands: three TF32 passes
     (3xTF32). The flash forward on bf16 inputs: bf16 wgmma passes, S one
     (2 hd a visible pair and head), P.V two (P as bf16 hi + lo: 4 vd).
-    The flash backward on bf16 inputs: bf16 m16n8k16 passes, S and dP
-    one each in the rows launch's two walks and once more in the keys
-    launch (twice where its dK and dV split over two warps, hd > 128), dQ,
+    The flash backward on bf16 inputs: bf16 wgmma passes, S and dP one
+    each in the rows launch's two walks and once more in the keys launch
+    (S^T twice where its dK and dV take a warpgroup each, hd > 192), dQ,
     dK and dV two each (P and dS as bf16 hi + lo)."""
     if shape.get("dtype") != "torch.bfloat16":
         return 3 * flops, TF32_FLOPS_PER_S
@@ -1252,8 +1256,8 @@ def pass_flops(name, shape, flops):
     hd, vd = shape["hd"], shape["vd"]
     if name == "flash_attention":
         return per * (hd + 2 * vd), BF16_FLOPS_PER_S
-    keys_sdp = 2 if hd > 128 else 1
-    return (per * ((2 + keys_sdp) * (hd + vd) + 2 * (2 * hd + vd)),
+    return (per * (3 * (hd + vd) + 2 * (2 * hd + vd) + (hd if hd > 192
+                                                         else 0)),
             BF16_FLOPS_PER_S)
 
 
@@ -4902,7 +4906,8 @@ def main() -> None:
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
           f"bf16 flash forward kernels spill or are missing: {kept}")
-    # the bf16 forward runs warpgroup MMAs (HGMMA) and no mma.sync (HMMA)
+    # the bf16 forward and backward run warpgroup MMAs (HGMMA) and no
+    # mma.sync (HMMA)
     sass = ops.sass_counts("flash_attention")
     print(json.dumps({"sass_mma_counts": {"flash_attention": sass}}),
           flush=True)
@@ -4913,6 +4918,14 @@ def main() -> None:
           and not any(k.startswith("flash_attention_kernel<bf16")
                       for k in sass),
           f"bf16 flash forward SASS: {sass}")
+    sass = ops.sass_counts("flash_attention_bwd")
+    print(json.dumps({"sass_mma_counts": {"flash_attention_bwd": sass}}),
+          flush=True)
+    bf16_bwd = {k: c for k, c in sass.items()
+                if k.startswith(("flash_bwd_rows_bf16", "flash_bwd_keys_bf16"))}
+    check(len(bf16_bwd) == 8 and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                     for c in bf16_bwd.values()),
+          f"bf16 flash backward SASS: {sass}")
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,

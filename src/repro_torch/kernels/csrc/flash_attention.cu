@@ -498,13 +498,8 @@ cudaError_t dispatch(dim3 grid, cudaStream_t stream, const void* q,
 
 // ---- bf16: flash_fwd_bf16, wgmma on the bf16 tensor cores fed by TMA
 
-using bf16 = __nv_bfloat16;
 constexpr int kBRows = 128;        // rows a block: 2 consumer warpgroups x 64
 constexpr int kBThreads = 384;     // 2 consumer warpgroups + 1 producer
-constexpr int kPanel = 64;         // bf16 columns of a 128-byte swizzled row
-constexpr int kPanelRow = 128;     // bytes of a panel row
-constexpr int kProducerRegs = 40;  // setmaxnreg: producer / consumers; the
-constexpr int kConsumerRegs = 232; // block starts at 168 (65536 / 384)
 
 struct FwdBf16 {
   const bf16* q;
@@ -530,67 +525,6 @@ struct FwdLayout {
   static constexpr int kBarOffset = kQBytes + NS * kStageBytes;
   static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * NS) + 1024;
 };
-
-// the (d, a, b) MMAs of one k16 step, by width
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, da, db, accumulate);
-  else
-    wgmma_ss_n128(d, da, db, accumulate);
-}
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128)
-    wgmma_rs_n128(d, a, db);
-  else
-    wgmma_rs_n256(d, a, db);
-}
-
-// hi = bf16(x), lo = bf16(x - hi) of two fp32 values, the lower column in
-// the low half of each word
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 back = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// 2^x by the SFU (ex2.approx.ftz: relative error below 2^-22, flushes
-// subnormal results to 0)
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// row r of a tile of `rows` rows in `np` 128-byte-swizzled panels at
-// `tile`: the w elements of src (none: a zero row), zeros up to 64 np, in
-// 16-byte chunks, one element a load (rows that TMA cannot describe)
-__device__ __forceinline__ void stage_row(unsigned char* tile, int rows,
-                                          int np, int r, const bf16* src,
-                                          int w) {
-  for (int c = 0; c < np * 8; ++c) {
-    union {
-      uint4 u;
-      bf16 e[8];
-    } chunk;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = 8 * c + i;
-      chunk.e[i] = src != nullptr && col < w ? src[col] : __float2bfloat16(0.f);
-    }
-    *reinterpret_cast<uint4*>(tile + (c >> 3) * rows * kPanelRow +
-                              r * kPanelRow + (((c & 7) ^ (r & 7)) << 4)) =
-        chunk.u;
-  }
-}
 
 // One block per (batch row, KV head, tile of BQ = 128 / G positions): 128
 // rows, row r = position q0 + r / G, head kvh G + r % G (idle past G BQ or

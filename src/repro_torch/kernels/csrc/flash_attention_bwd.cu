@@ -108,75 +108,119 @@
 // bf16 inputs and outputs (training a published config in its own dtype):
 // kernels of their own, flash_bwd_rows_bf16 and flash_bwd_keys_bf16, the
 // algorithm above (two launches, stats then dQ, then dK and dV; D from the
-// kernel's own S and dP; masks, uniform rows, longest first) on the bf16
-// tensor cores.
-//  * Tiles stay bf16 in shared memory (half the fp32 bytes) and arrive by
-//    16-byte cp.async copies (8 or 4 bytes where a row is not 16-byte
-//    aligned; one element a load where it is only 2-byte aligned, hd 37),
-//    with no widening: rows launch, 32-key K/V tiles in a ring of 3
-//    stages at hd <= 64 and 192, 2 at 128 and 256 (shared memory keeps 3
-//    blocks an SM at 128); keys launch, 32-row Q/dO tiles and their stats
-//    in a ring of 3. Row strides are the width rounded up to 16 plus 8
-//    elements, an odd number of 16-byte units: every ldmatrix phase reads
-//    8 distinct bank groups. A copy's source row is found with no
-//    division (the 16-byte path walks chunks and rows by thread index;
-//    the keys launch's row / G is a multiply-high by ceil(2^32 / G)).
-//  * Every product is mma.sync.m16n8k16 bf16 with fp32 accumulators,
-//    fragments by ldmatrix: S = Q.K^T and dP = dO.V^T (S^T, dP^T in the
-//    keys launch) one pass each, exact products, in one loop (two
-//    independent chains); dQ += dS.K, dV += P^T.dO and dK += dS^T.Q take
-//    their B operand by ldmatrix.trans (they contract over the key or row
-//    axis). The m16n8 accumulators of S (or S^T) are the A fragment of a
-//    k16 step as they stand, so P and dS never touch shared memory.
-//  * P and dS are fp32 and go in as bf16 hi + bf16 lo (lo = bf16(x - hi):
-//    two passes against the exact bf16 B operand, 16 bits of x). One
+// kernel's own S and dP; masks, uniform rows, longest first, no atomics)
+// in the design of the bf16 forward (flash_attention.cu): warpgroup MMAs
+// fed by TMA from a producer warp.
+//  * A block is 3 warpgroups of 128 threads: warpgroups 0 and 1 consume,
+//    each the 64-row M of its wgmma products; warpgroup 2 produces, its one
+//    thread keeping a ring of stages full by TMA (cp.async.bulk.tensor on
+//    4-D tensor maps over the [B, S, heads, width] tensors, encoded on the
+//    host each call) with full (TMA bytes) and empty (8 consumer warps)
+//    mbarriers. setmaxnreg moves registers from the producer (40) to the
+//    consumers (232). Tiles live as 128-byte-swizzled panels of 64 columns,
+//    what TMA's SWIZZLE_128B writes and the descriptors read.
+//  * Rows launch: one block per (batch row, KV head, tile of 128 / G
+//    positions), 128 rows position-major (row r: position q0 + r / G, head
+//    r % G), so one TMA box {64 columns, G heads, 128 / G positions} fills
+//    a panel of Q or dO, loaded once. K/V tiles of KT keys stream through
+//    the ring twice (pass 1, pass 2). S = Q.K^T and dP = dO.V^T are
+//    wgmma_ss (both operands K-major); dQ += dS.K is wgmma_rs with the K
+//    tile as B MN-major (the descriptor's transpose bit: its 64-column
+//    panels KT rows apart, 16 keys 2048 bytes apart), as the forward's V.
+//  * Keys launch: one block per (batch row, KV head, 128 keys): warpgroup w
+//    takes keys 64 w .. + 63 as the M of S^T = K.Q^T and dP^T = V.dO^T
+//    (wgmma_ss), and dV += P^T.dO, dK += dS^T.Q (wgmma_rs, the row tile's
+//    Q and dO as B MN-major). The S^T and dP^T accumulators are the A
+//    fragments as they stand (the m16n8k16 layout a warp), so P and dS
+//    never touch shared memory. The walk: the (position, head) rows that
+//    can see the block's keys, position-major, in tiles of RT rows = HC
+//    heads x PT positions, one TMA box each (HC = min(G, RT); G > RT splits
+//    a position's heads over tiles), with the rows' m, 1 / l and D by
+//    1-D TMA boxes of the stats. A box must start on a 16-byte boundary (a
+//    start off one faulted: cudaErrorIllegalInstruction), so each takes RT
+//    + 4 floats from the boundary at or below the tile's first row and the
+//    consumers read at that offset. Rows a box leaves unwritten (G not
+//    dividing RT) are zeroed once; rows past the walk take P = dS = 0.
+//  * Rows TMA cannot describe (not 16-byte aligned: hd 37 / vd 21) are
+//    copied by the producer's 128 threads, a row each, element loads into
+//    the same swizzled panels with zeros to the panel's end, then
+//    fence.proxy.async and one arrival. No copy loop divides.
+//  * P and dS are fp32 and go in as bf16 hi + bf16 lo (lo = bf16(x - hi)):
+//    two wgmma_rs passes, lo then hi, against the exact bf16 B operand. One
 //    rounded pass misses 2^-8 x max of float64: dS cancels (sum_j dS = 0)
-//    and a shared key part turns its rounding into dQ error (1e-2 to
-//    3e-2 x max); one pass of P leaves dV 1.1e-3 to 2.0e-3 x max before
-//    the output's own rounding (tests/test_torch_flash_bwd_bf16_numerics.py).
-//  * Each 16-key or 16-row product is summed from zero (lo pass, then
-//    hi) and added to the running fp32 sum; dQ, dK and dV are rounded to
-//    bf16 once, at the store. No atomics: bitwise repeatable.
-//  * Widths are template bounds so the accumulators fit: hd <= 64, 128
-//    (dQ 2 hd / 16 n-tiles a lane; dK + dV twice that), MLA's 192 / 128
-//    and 256. At 192 / 128 dK + dV are 40 n-tiles: the keys launch runs 8
-//    warps a block, two on each (keys, rows) block, each computing S^T
-//    and dP^T whole and accumulating every other 16-column group (80
-//    floats a lane, not 160); the same at 256. ptxas (sm_90a; the
-//    registers for rows / keys at hd <= 64, 128, 192 / 128, 256): see
-//    PERF.md section 6; no spills and no stack at any of them.
-//  * The keys launch splits a keys block's rows over a cluster of up to
-//    4 blocks when the blocks would not fill the card's slots twice over
+//    and a shared key part turns its rounding into dQ error above 2^-7 x
+//    max; one pass of P spends over a quarter of 2^-8 on dV before the
+//    output's own rounding (tests/test_torch_flash_bwd_bf16_numerics.py).
+//  * Every k16 step accumulates in place in fp32 (the tensor cores truncate
+//    each sum: ~2^-24 of the running sum on average; the CPU emulation of
+//    this order stays within 2^-13 x max before the store's rounding, at a
+//    key block that sees 8192 rows too); dQ, dK and dV are rounded to bf16
+//    once, at the store. No atomics: bitwise repeatable.
+//  * The keys launch splits a keys block's rows over a cluster of up to 4
+//    blocks when the blocks would not fill the card's slots twice over
 //    (a causal walk's blocks average half the longest; GQA walks G heads'
-//    rows, so Qwen2.5-3B's call is 256 blocks of up to 16384 rows: one
-//    ragged wave). Rank r walks the r-th run of row tiles; rank 0 adds
-//    the others' dK and dV from their shared memory (distributed shared
+//    rows, so Qwen2.5-3B's call is 64 blocks of up to 16384 rows). Rank r
+//    walks the r-th run of row tiles; after the walk each rank's consumer
+//    warpgroups put their fp32 dK and dV in their shared memory, one
+//    warpgroup a round, and rank 0 adds them from there (distributed shared
 //    memory), in rank order.
+//  * Instantiations (rows <HK, VK, KT, stages>, keys <HK, VK, RT, stages,
+//    SPLIT>): hd <= 64: <64, 64, 64, 3>, <64, 64, 64, 4, 1>; <= 128: <128,
+//    128, 64, 3>, <128, 128, 32, 4, 1>; MLA's 192 / 128: <192, 128, 64, 3>,
+//    <192, 128, 16, 4, 1> (dK + dV are 160 floats a thread; with 32-row
+//    tiles the keys kernel spills 28 bytes); <= 256: <256, 256, 32, 2>,
+//    <256, 256, 32, 3, 2>, where a keys block is 64 keys and warpgroup 0
+//    takes dK, warpgroup 1 dV (dK + dV, 256 floats a thread, exceed 232
+//    registers), S^T computed by both. A rows consumer holds dQ (HK / 2 floats), S and dP (KT / 2
+//    each) and dS hi + lo (KT / 2 words); a keys consumer dK + dV ((HK +
+//    VK) / 2), S^T and dP^T (RT / 2 each) and P, dS hi + lo (RT / 2 words
+//    each). The launcher refuses hd or vd past its instantiation's panels.
 //  * Work: the least autograd needs is 6 hd + 4 vd flops a visible
 //    (query, key) pair and head (bwd_cost). The kernels execute 14 hd +
 //    10 vd of MMA passes (rows: S and dP twice, dQ two passes; keys: S^T
-//    and dP^T once, dV and dK two passes each), 2.4x at hd = vd; at 192 /
-//    128, 16 hd + 12 vd (S^T and dP^T twice), 2.77x; plus the causal
-//    diagonal's masked half-tiles. What bounds it at the recorded calls
-//    (989 TFLOP/s bf16): operations: Qwen1.5-0.5B's (B 4, H = KV = 16,
-//    hd 64) and Qwen2.5-3B's (B 2, H 16, KV 2, hd 128) 85.9 GFLOP, 0.0869
-//    ms; DeepSeek-V2's MLA call (B 1, H = KV = 128, hd 192, vd 128)
-//    447 GFLOP, 0.452 ms; their bytes take 0.035, 0.018 and 0.18 ms.
+//    and dP^T once, dV and dK two passes each), 2.4x at hd = vd; 16 hd + 10
+//    vd at 256 (S^T twice); plus the causal diagonal's masked part-tiles.
+//    What bounds it at the recorded calls (989 TFLOP/s bf16): operations:
+//    Qwen1.5-0.5B's (B 4, H = KV = 16, hd 64) and Qwen2.5-3B's (B 2, H 16,
+//    KV 2, hd 128) 85.9 GFLOP, 0.0869 ms; DeepSeek-V2's MLA call (B 1, H =
+//    KV = 128, hd 192, vd 128) 447 GFLOP, 0.452 ms; their bytes take
+//    0.035, 0.018 and 0.18 ms.
 //
-// What is left: wgmma + TMA (bf16 wgmma takes B from shared memory in
-// either major order, so dQ, dK and dV need no transposed tile), and the
-// issue and latency cost of mma.sync from few warps a block. Cutting the
-// executed work below 14 hd + 10 vd needs an LSE output from the
-// forward, or dQ by atomics.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --profile, CUDA
+// events): Qwen2.5-3B's training call (B 2, S 2048, H 16 / KV 2, hd 128,
+// causal) 0.913 ms (the mma.sync design: 1.634), 226 TFLOP/s of executed
+// passes, 10.5x its bound at 989; the train CLI's Qwen1.5-0.5B call (B 4,
+// H = KV = 16, hd 64) 1.132 (1.770), 182 TFLOP/s; DeepSeek-V2's MLA call
+// 4.301 (10.008), 248 TFLOP/s. SDPA's bf16 backward alone, same run:
+// 0.793, 0.461, 1.258. tools/flash_bwd_check.py --variants (same card), by
+// launch, rows / keys: 0.357 / 0.536 at Qwen2.5-3B's call, 0.575 / 0.529 at
+// Qwen1.5-0.5B's; in turns against the shipped build: the cluster split is
+// worth 2x at Qwen2.5-3B's call (0.89-0.90 ms; no split 1.81, at most 2
+// blocks 1.12, at most 8 0.89); at MLA's call (4.19-4.31) 32-row keys tiles
+// take 3.85 with their spill, dK and dV on a warpgroup each 5.15. ptxas:
+// 168 registers at launch (setmaxnreg then 40 / 232), no stack and no
+// spills at any bf16 instantiation; SASS: HGMMA only, no HMMA
+// (chip_smoke.py checks both).
+//
+// What is left: the 2.4x executed work (S and dP in both launches and
+// twice in the rows launch; P and dS as hi + lo) needs an LSE and D from
+// the forward, or dQ by atomics, to come down; within a warpgroup the
+// softmax between a tile's products does not overlap them; the keys
+// launch's S^T and dP^T at N = 16 or 32 rows read more shared memory a
+// flop than the tensor cores use.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
+#include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -349,8 +393,10 @@ __device__ __forceinline__ bool row_live(const Shape& sh, int q0, int r,
   return head_in_group < sh.G && pos < sh.Sq;
 }
 
-// 0: visible; 1: masked (NEG_INF, no gradient); 2: past Sk (no part)
-__device__ __forceinline__ int key_state(const Shape& sh, int pos, int key) {
+// 0: visible; 1: masked (NEG_INF, no gradient); 2: past Sk (no part).
+// Sh: Shape or BwdBf16
+template <typename Sh>
+__device__ __forceinline__ int key_state(const Sh& sh, int pos, int key) {
   if (key >= sh.Sk) return 2;
   if ((sh.causal && key > pos) || (sh.window > 0 && pos - key >= sh.window))
     return 1;
@@ -365,8 +411,8 @@ __device__ __forceinline__ float score2(int state, float s, float sc) {
 // the key tiles [lo, hi] (of kT keys) that query positions [q0, q_last]
 // can see; every tile if the last position sees no key (it is uniform
 // over all of them)
-template <int kT = kTile>
-__device__ __forceinline__ void key_range(const Shape& sh, int q0,
+template <int kT = kTile, typename Sh = Shape>
+__device__ __forceinline__ void key_range(const Sh& sh, int q0,
                                           int q_last, int& lo, int& hi) {
   int k_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
   int k_hi = sh.causal ? min(sh.Sk - 1, q_last) : sh.Sk - 1;
@@ -779,234 +825,49 @@ cudaError_t launch(const Shape& sh, cudaStream_t stream, const void* q_,
   return cudaGetLastError();
 }
 
-// ---- bf16: tiles stay bf16 in shared memory, products on the bf16 tensor
-// cores (mma.sync m16n8k16, fragments by ldmatrix)
+// ---- bf16: wgmma on the bf16 tensor cores, fed by TMA from a producer warp
 
-using bf16 = __nv_bfloat16;
-constexpr int kKeyTileH = 32;  // bf16 rows launch: keys a ring stage
-constexpr int kMaxCluster = 4;  // bf16 keys launch: blocks sharing 32 keys
-constexpr int kKeyStages = 3;   // bf16 keys launch: ring stages
+constexpr int kBRows = 128;      // rows launch: rows a block (2 warpgroups x 64)
+constexpr int kBThreads = 384;   // 2 consumer warpgroups + 1 producer
+constexpr int kMaxCluster = 4;   // keys launch: blocks sharing a block of keys
 
-// shared-memory row stride (elements) of a bf16 tile: the width rounded
-// up to whole k16 steps, plus 8. A row is then an odd number of 16-byte
-// units, so the 8 rows an ldmatrix phase reads (16 bytes each, both the
-// plain and the .trans form) sit on 8 distinct 16-byte bank groups
-__host__ __device__ __forceinline__ int hstride(int w) {
-  return ((w + 15) & ~15) + 8;
+struct BwdBf16 {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  float* stats;
+  int B, Sq, Sk, H, KV, G, hd, vd, causal, window;
+  float scale;
+  int BQ;          // rows launch: positions a block, 128 / G
+  int HC, PT, NC;  // keys launch: a row tile is HC heads x PT positions; NC
+                   // tiles a position (G > the tile's rows)
+  unsigned hmul;   // r / HC as a multiply-high by ceil(2^32 / HC); 0: HC 1
+  int tma;      // 1: tiles by TMA; 0: element loads (rows not 16-byte aligned)
+  int out_vec;  // 1: output pairs as 4-byte stores
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// dynamic shared memory (bytes) of each bf16 launch. rows (ns stages):
-// Q [kRows][sq], dO [kRows][sv], K [ns][kKeyTileH][sq], V [ns][kKeyTileH]
-// [sv]. keys: K [kKeys][sq], V [kKeys][sv], Q [kKeyStages][kRowTile][sq],
-// dO [kKeyStages][kRowTile][sv], then fp32 m, 1 / l, D
-// [kKeyStages][3][kRowTile]
-size_t rows_smem_bf16(int hd, int vd, int ns) {
-  return sizeof(bf16) * static_cast<size_t>(kRows + ns * kKeyTileH) *
-         (hstride(hd) + hstride(vd));
+// descriptor offset (16-byte units) of k16 step kk of a K-major operand
+// whose 64-column panels hold `rows` rows
+__device__ __forceinline__ uint64_t kstep(int kk, int rows) {
+  return static_cast<uint64_t>(kk >> 2) * (rows * kPanelRow >> 4) +
+         (kk & 3) * 2;
 }
-size_t keys_smem_bf16(int hd, int vd) {
-  return sizeof(bf16) * static_cast<size_t>(kKeys + kKeyStages * kRowTile) *
-             (hstride(hd) + hstride(vd)) +
-         sizeof(float) * kKeyStages * 3 * kRowTile;
-}
+constexpr uint64_t kRowStep = 16 * kPanelRow >> 4;  // 16 rows, MN-major
 
-// Rows [0, nrows) of w bf16 elements into dst (stride ds) by kN threads;
-// row r comes from src(r), or is zero where src(r) is null. vec 16, 8 or
-// 4: cp.async copies of that many bytes (complete at cp_wait); vec 2 (a
-// row only 2-byte aligned, e.g. hd 37): one element a load, complete when
-// the call returns. At vec 16 thread i copies chunks i % 8, i % 8 + 8, ...
-// of rows i / 8, i / 8 + kN / 8, ... (a quarter warp writes 128
-// contiguous bytes of a row), with no division a copy
-template <int kN, typename Src>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ds, int nrows,
-                                           int w, int vec, const bf16* base,
-                                           Src src) {
-  if (vec == 16) {
-    for (int c = 8 * (threadIdx.x & 7); c < w; c += 64)
-      for (int r = threadIdx.x >> 3; r < nrows; r += kN / 8) {
-        const bf16* s = src(r);
-        cp_async<16>(dst + r * ds + c, s ? s + c : base, s != nullptr);
-      }
-    return;
-  }
-  if (vec == 2) {
-    for (int i = threadIdx.x; i < nrows * w; i += kN) {
-      const int r = i / w, c = i - r * w;
-      const bf16* s = src(r);
-      dst[r * ds + c] = s ? s[c] : __float2bfloat16(0.f);
-    }
-    return;
-  }
-  const int per = vec / 2;
-  const int cpr = w / per;  // copies a row
-  for (int i = threadIdx.x; i < nrows * cpr; i += kN) {
-    const int r = i / cpr, c = (i - r * cpr) * per;
-    const bf16* s = src(r);
-    bf16* d = dst + r * ds + c;
-    const bf16* from = s ? s + c : base;
-    if (vec == 8)
-      cp_async<8>(d, from, s != nullptr);
-    else
-      cp_async<4>(d, from, s != nullptr);
-  }
-}
-
-// n / G for the keys launch's row index: n * ceil(2^32 / G) >> 32 (gmul;
-// 0 for G = 1), exact for n G < 2^32, so for every row of Sq G < 2^26
-__device__ __forceinline__ int div_g(int n, unsigned gmul) {
-  return gmul ? static_cast<int>(__umulhi(static_cast<unsigned>(n), gmul))
-              : n;
-}
-
-// zero columns [w, w rounded up to 16) of nrows rows: the last k16 step
-// reads them, no copy writes them
-template <int kN>
-__device__ __forceinline__ void zero_pad_h(bf16* buf, int nrows, int ds,
-                                           int w) {
-  const int extra = ((w + 15) & ~15) - w;
-  for (int i = threadIdx.x; i < nrows * extra; i += kN)
-    buf[(i / extra) * ds + w + i % extra] = __float2bfloat16(0.f);
-}
-
-// 2^x by the SFU (ex2.approx.ftz: relative error below 2^-22, flushes
-// subnormal results to 0), without exp2f's range handling
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 matrices of 16-bit elements; lane l gives the address of
-// row l % 8 of matrix l / 8. Plain: lane (g, t) gets row g, columns 2t and
-// 2t + 1 of each; .trans: rows 2t and 2t + 1 of column g
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a.b, m16n8k16: a [16x16] row-major bf16 fragment, b [16x8]
-// col-major (b0: k 2t, 2t + 1 of column g; b1: k 2t + 8, 2t + 9), fp32 c
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
-                                      uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// hi = bf16(x), lo = bf16(x - hi) of two fp32 values, the lower column in
-// the low half of each word
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 back = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// the warp's 16 x 16 block held as two m16n8 accumulators c0, c1 (rows g
-// and g + 8, columns 2t, 2t + 1 and 8 + 2t, 9 + 2t) is the A fragment of a
-// k16 step as it stands: split each value hi + lo
-__device__ __forceinline__ void a_frags(const float (&c0)[4],
-                                        const float (&c1)[4],
-                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// s[2i + j] = A.B^T and p[2i + j] = C.D^T: the warp's 16 rows of A (C)
-// against rows 16i + 8j .. + 7 of B (D), i < NB, over nks1 (nks2 <= nks1)
-// k16 steps, in one loop: two independent chains a step. a, c: this
-// lane's ldmatrix addresses in A and C (row a_row, column a_col of the
-// warp's block), b, d: in B and D (row b_row, column b_col); sb, sd:
-// bytes of 16 rows of B and D. One pass: both operands are bf16, their
-// products exact in fp32
-template <int NB, int KMAX>
-__device__ __forceinline__ void dot2_nt16(float (&s)[2 * NB][4], uint32_t a,
-                                          uint32_t b, uint32_t sb, int nks1,
-                                          float (&p)[2 * NB][4], uint32_t c,
-                                          uint32_t d, uint32_t sd, int nks2) {
-#pragma unroll
-  for (int n = 0; n < 2 * NB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = p[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KMAX; ++kk) {
-    if (kk >= nks1) break;
-    uint32_t af[4];
-    ldsm4(af, a + 32 * kk);
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      uint32_t bf[4];
-      ldsm4(bf, b + i * sb + 32 * kk);
-      mma16(s[2 * i], af, bf[0], bf[1]);
-      mma16(s[2 * i + 1], af, bf[2], bf[3]);
-    }
-    if (kk < nks2) {
-      ldsm4(af, c + 32 * kk);
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        uint32_t bf[4];
-        ldsm4(bf, d + i * sd + 32 * kk);
-        mma16(p[2 * i], af, bf[0], bf[1]);
-        mma16(p[2 * i + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// acc[2i + j] += C.B[:, 16 c + 8j .. + 7] for the i-th of the ng column
-// groups c this warp owns (i < NG, each gs bytes after the last): C is a
-// 16 x 16 block of fp32 values as hi + lo A fragments, B's 16 rows match
-// C's columns, b is this lane's ldmatrix.trans address (row a_row, column
-// a_col) in the first group. Each product is summed from zero (lo pass,
-// then hi) and added to acc[n] in fp32: the tensor cores truncate as they
-// accumulate, so one accumulator over thousands of rows drifts
-template <int NG>
-__device__ __forceinline__ void dot_acc16(float (&acc)[2 * NG][4],
-                                          const uint32_t (&hi)[4],
-                                          const uint32_t (&lo)[4], uint32_t b,
-                                          uint32_t gs, int ng) {
-#pragma unroll
-  for (int i = 0; i < NG; ++i) {
-    if (i < ng) {
-      uint32_t bf[4];
-      ldsm4t(bf, b + i * gs);
-      float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16(p0, lo, bf[0], bf[1]);
-      mma16(p1, lo, bf[2], bf[3]);
-      mma16(p0, hi, bf[0], bf[1]);
-      mma16(p1, hi, bf[2], bf[3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[2 * i][e] += p0[e];
-        acc[2 * i + 1][e] += p1[e];
-      }
-    }
-  }
-}
-
-// one or two adjacent bf16 outputs: a 4-byte store where the row allows
-// it (vec >= 4: every row 4-byte aligned, the width even)
-__device__ __forceinline__ void store2(bf16* row, int col, int w, int vec,
+// one or two adjacent bf16 outputs: a 4-byte store where every row allows
+// it (pairs: rows 4-byte aligned, the width even)
+__device__ __forceinline__ void store2(bf16* row, int col, int w, int pairs,
                                        float x0, float x1) {
-  if (col + 1 < w && vec >= 4) {
+  if (col + 1 < w && pairs) {
     *reinterpret_cast<__nv_bfloat162*>(row + col) =
         __floats2bfloat162_rn(x0, x1);
   } else {
@@ -1015,137 +876,238 @@ __device__ __forceinline__ void store2(bf16* row, int col, int w, int vec,
   }
 }
 
-// (1) rows, bf16: the algorithm of flash_bwd_rows_kernel on kKeyTileH-key
-// tiles. HK: k16 steps of hd the dQ accumulator covers (hd <= 16 HK)
-template <int HK, int NS>
-__global__ void __launch_bounds__(kThreads, HK <= 8 ? 3 : 2)
-flash_bwd_rows_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dq, float* __restrict__ stats,
-                    Shape sh) {
-  constexpr int kKT = kKeyTileH;
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  const int sq = hstride(sh.hd), sv = hstride(sh.vd);
-  bf16* qs = reinterpret_cast<bf16*>(smem_h);  // [kRows][sq]
-  bf16* dos = qs + kRows * sq;                  // [kRows][sv]
-  bf16* ks = dos + kRows * sv;                  // [NS][kKT][sq]
-  bf16* vs = ks + NS * kKT * sq;                // [NS][kKT][sv]
+// shared memory of flash_bwd_rows_bf16<HK, VK, KT, NS> (bytes): Q (HK / 64
+// panels of 128 rows), dO (VK / 64), NS stages of K (HK / 64 panels of KT
+// rows) and V (VK / 64), the mbarriers, and 1024 bytes to align the start
+// to the swizzle atom
+template <int HK, int VK, int KT, int NS>
+struct RowsLayout {
+  static constexpr int kQBytes = HK / kPanel * kBRows * kPanelRow;
+  static constexpr int kDoBytes = VK / kPanel * kBRows * kPanelRow;
+  static constexpr int kKBytes = HK / kPanel * KT * kPanelRow;
+  static constexpr int kVBytes = VK / kPanel * KT * kPanelRow;
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kRingOffset = kQBytes + kDoBytes;
+  static constexpr int kBarOffset = kRingOffset + NS * kStageBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * NS) + 1024;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bkv = sh.B * sh.KV;
-  const int b = (blockIdx.x % bkv) / sh.KV, kvh = blockIdx.x % sh.KV;
-  const int nqt = (sh.Sq + sh.BP - 1) / sh.BP;
-  const int q0 = (nqt - 1 - blockIdx.x / bkv) * sh.BP;  // longest first
-  const int q_last = min(q0 + sh.BP, sh.Sq) - 1;
-  const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
-  const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
-  const bf16* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
-                   static_cast<size_t>(kvh) * sh.hd;
-  const bf16* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
-                   static_cast<size_t>(kvh) * sh.vd;
-
-  zero_pad_h<kThreads>(qs, kRows, sq, sh.hd);
-  zero_pad_h<kThreads>(dos, kRows, sv, sh.vd);
-  zero_pad_h<kThreads>(ks, NS * kKT, sq, sh.hd);
-  zero_pad_h<kThreads>(vs, NS * kKT, sv, sh.vd);
-  auto head_row = [&](const bf16* base, int w, int r) -> const bf16* {
-    int hg, pos;
-    return row_live(sh, q0, r, hg, pos)
-               ? base + ((static_cast<size_t>(b) * sh.Sq + pos) * sh.H +
-                         kvh * sh.G + hg) * w
-               : nullptr;
+// (1) rows, bf16: the stats and dQ. One block per (batch row, KV head, tile
+// of BQ = 128 / G positions): 128 rows, row r = position q0 + r / G, head
+// kvh G + r % G (idle past G BQ or Sq), as the forward's. Warpgroups 0 and
+// 1 consume, 64 rows each; warpgroup 2 produces: Q and dO once, then the
+// key tiles [t_lo, t_hi] of KT keys twice (pass 1, pass 2) through an
+// NS-stage ring. HK, VK: q/k and v width bounds (panels of 64 columns)
+template <int HK, int VK, int KT, int NS>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_bwd_rows_bf16(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ BwdBf16 a) {
+  using L = RowsLayout<HK, VK, KT, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;                // [HK / 64][128 rows][128 bytes]
+  unsigned char* dos = smem + L::kQBytes;  // [VK / 64][128 rows][128 bytes]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full_q = bars;          // Q and dO arrived
+  uint64_t* full = bars + 1;        // [NS]: a K/V stage arrived
+  uint64_t* empty = bars + 1 + NS;  // [NS]: 8 consumer warps are done
+  auto k_stage = [&](int s) {
+    return smem + L::kRingOffset + s * L::kStageBytes;
   };
-  stage_rows<kThreads>(qs, sq, kRows, sh.hd, sh.vec, q,
-                       [&](int r) { return head_row(q, sh.hd, r); });
-  stage_rows<kThreads>(dos, sv, kRows, sh.vd, sh.vec, dout,
-                       [&](int r) { return head_row(dout, sh.vd, r); });
-  auto load_tile = [&](int tile, int stage) {
-    const int k0 = tile * kKT;
-    auto krow = [&](int j) -> const bf16* {
-      return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
-    };
-    auto vrow = [&](int j) -> const bf16* {
-      return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
-    };
-    stage_rows<kThreads>(ks + stage * kKT * sq, sq, kKT, sh.hd, sh.vec, k,
-                         krow);
-    stage_rows<kThreads>(vs + stage * kKT * sv, sv, kKT, sh.vd, sh.vec, v,
-                         vrow);
-  };
+  auto v_stage = [&](int s) { return k_stage(s) + L::kKBytes; };
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
+  const int G = a.G, BQ = a.BQ, Sq = a.Sq, Sk = a.Sk;
+  // block x: position tile x / (B KV) counted from the last (the longest
+  // causal walk first), then (b, kvh)
+  const int bkv_n = a.B * a.KV, n_qt = (Sq + BQ - 1) / BQ;
+  const int tile_r = blockIdx.x / bkv_n, bkv = blockIdx.x - tile_r * bkv_n;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const int q0 = (n_qt - 1 - tile_r) * BQ;
+  const int q_last = min(q0 + BQ, Sq) - 1;
   int t_lo, t_hi;
-  key_range<kKT>(sh, q0, q_last, t_lo, t_hi);
-  const int nt = t_hi - t_lo + 1;
-  for (int i = 0; i < NS - 1; ++i) {
-    if (i < 2 * nt) load_tile(t_lo + i % nt, i);
-    cp_commit();  // the first group also holds Q and dO
+  key_range<KT>(a, q0, q_last, t_lo, t_hi);
+  const int nt = t_hi - t_lo + 1;  // key tiles a pass
+  const int pq = (a.hd + kPanel - 1) / kPanel;  // live panels of q / k
+  const int pv = (a.vd + kPanel - 1) / kPanel;  // and of v / dout
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---------------- producer warpgroup
+    regs_dec<kProducerRegs>();
+    const int t = threadIdx.x - 2 * 128;
+    if (a.tma) {
+      if (t != 0) return;
+      mbar_expect_tx(full_q, (pq + pv) * G * BQ * kPanelRow);
+      for (int p = 0; p < pq; ++p)
+        tma_load_4d(qs + p * kBRows * kPanelRow, &tq, full_q, p * kPanel,
+                    kvh * G, q0, b);
+      for (int p = 0; p < pv; ++p)
+        tma_load_4d(dos + p * kBRows * kPanelRow, &tdo, full_q, p * kPanel,
+                    kvh * G, q0, b);
+      int s = 0, use = 0;
+      for (int i = 0; i < 2 * nt; ++i) {
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        mbar_expect_tx(full + s, (pq + pv) * KT * kPanelRow);
+        const int k0 = (t_lo + (i < nt ? i : i - nt)) * KT;
+        for (int p = 0; p < pq; ++p)
+          tma_load_4d(k_stage(s) + p * KT * kPanelRow, &tk, full + s,
+                      p * kPanel, kvh, k0, b);
+        for (int p = 0; p < pv; ++p)
+          tma_load_4d(v_stage(s) + p * KT * kPanelRow, &tv, full + s,
+                      p * kPanel, kvh, k0, b);
+        if (++s == NS) {
+          s = 0;
+          ++use;
+        }
+      }
+      return;
+    }
+    // rows not 16-byte aligned: thread t stages row t of each tile
+    const bf16* qrow = nullptr;
+    const bf16* dorow = nullptr;
+    if (t < G * BQ && q0 + t / G < Sq) {
+      const size_t row = (static_cast<size_t>(b) * Sq + q0 + t / G) * a.H +
+                         kvh * G + t % G;
+      qrow = a.q + row * a.hd;
+      dorow = a.dout + row * a.vd;
+    }
+    stage_row(qs, kBRows, pq, t, qrow, a.hd);
+    stage_row(dos, kBRows, pv, t, dorow, a.vd);
+    fence_async_smem();
+    bar_sync(1, 128);
+    if (t == 0) mbar_arrive(full_q);
+    const size_t k_row = static_cast<size_t>(a.KV) * a.hd;
+    const size_t v_row = static_cast<size_t>(a.KV) * a.vd;
+    const bf16* kb = a.k + static_cast<size_t>(b) * Sk * k_row +
+                     static_cast<size_t>(kvh) * a.hd;
+    const bf16* vb = a.v + static_cast<size_t>(b) * Sk * v_row +
+                     static_cast<size_t>(kvh) * a.vd;
+    int s = 0, use = 0;
+    for (int i = 0; i < 2 * nt; ++i) {
+      if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+      const int key = (t_lo + (i < nt ? i : i - nt)) * KT + t;
+      if (t < KT) {
+        stage_row(k_stage(s), KT, pq, t, key < Sk ? kb + key * k_row : nullptr,
+                  a.hd);
+        stage_row(v_stage(s), KT, pv, t, key < Sk ? vb + key * v_row : nullptr,
+                  a.vd);
+      }
+      fence_async_smem();
+      bar_sync(1, 128);
+      if (t == 0) mbar_arrive(full + s);
+      if (++s == NS) {
+        s = 0;
+        ++use;
+      }
+    }
+    return;
   }
 
-  const int row0 = warp * 16 + g;
-  int hg[2], pos[2];
-  bool live[2];
+  // ---------------- consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // this lane's rows (h = 0: row g, h = 1: row g + 8 of the warp): their
+  // head and position, and whether they are live; an idle row takes the
+  // block's last position and is never stored
+  const int row0 = 64 * wg + 16 * warp + g;
+  auto row_at = [&](int h, int& head, int& pos) {
+    const int r = row0 + 8 * h, pr = r / G;
+    head = r - pr * G;
+    pos = q0 + pr;
+    return r < G * BQ && pos < Sq;
+  };
+  int pos[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-    live[h] = row_live(sh, q0, row0 + 8 * h, hg[h], pos[h]);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float d[2] = {0.f, 0.f};
-  float il[2] = {0.f, 0.f};
-  float acc[2 * HK][4];
-#pragma unroll
-  for (int n = 0; n < 2 * HK; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int nks_q = (sh.hd + 15) / 16, nks_v = (sh.vd + 15) / 16;
-  // ldmatrix lane offsets: A pattern (A operands; B of a product over the
-  // key axis, .trans) and B pattern (B of A.B^T)
-  const int r8 = lane & 7, mi = lane >> 3;
-  const int a_row = r8 + 8 * (mi & 1), a_col = 8 * (mi >> 1);
-  const int b_row = r8 + 8 * (mi >> 1), b_col = 8 * (mi & 1);
-  const uint32_t qa = smem_addr(qs + (16 * warp + a_row) * sq + a_col);
-  const uint32_t doa = smem_addr(dos + (16 * warp + a_row) * sv + a_col);
-  const uint32_t kbt = smem_addr(ks + b_row * sq + b_col);
-  const uint32_t vbt = smem_addr(vs + b_row * sv + b_col);
-  const uint32_t kat = smem_addr(ks + a_row * sq + a_col);
-  const uint32_t k_stage = 2 * kKT * sq, v_stage = 2 * kKT * sv;  // bytes
-  const float sc = sh.scale * kLog2e;
+  for (int h = 0; h < 2; ++h) {
+    int head;
+    if (!row_at(h, head, pos[h])) pos[h] = q_last;
+  }
+  const int nks_q = (a.hd + 15) >> 4, nks_v = (a.vd + 15) >> 4;
+  const float sc = a.scale * kLog2e;  // scores in log2 units
+  // descriptors: Q and dO (this warpgroup's 64 rows), the stage's K and V
+  // K-major (S, dP); its K tile again MN-major, dQ's B: 64-column panels
+  // KT rows apart, 16 keys 2048 bytes apart (the forward's V)
+  const uint64_t q_desc =
+      sw128_desc(smem_u32(qs) + wg * 64 * kPanelRow, 16, 1024);
+  const uint64_t do_desc =
+      sw128_desc(smem_u32(dos) + wg * 64 * kPanelRow, 16, 1024);
+  const uint32_t ring = smem_u32(k_stage(0));
 
+  float acc[HK / 2];  // dQ
+#pragma unroll
+  for (int i = 0; i < HK / 2; ++i) acc[i] = 0.f;
+  float s[KT / 2], dp[KT / 2];
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, quad-uniform
+  float l[2] = {0.f, 0.f};  // pass 1: this lane's part of l; then 1 / l
+  float d[2] = {0.f, 0.f};  // pass 1: this lane's part of l D; then D
+
+  mbar_wait(full_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
   for (int i = 0; i < 2 * nt; ++i) {
-    const int stage = i % NS;
-    cp_wait<NS - 2>();  // tile i has landed
-    __syncthreads();  // ... for every thread; tile i - 1's stage is free
-    const int ahead = i + NS - 1;
-    if (ahead < 2 * nt) load_tile(t_lo + ahead % nt, ahead % NS);
-    cp_commit();  // (empty near the end: keeps wait_group uniform)
-    const int k0 = (t_lo + i % nt) * kKT;
-
-    // S = Q.K^T, dP = dO.V^T: this warp's 16 rows x 32 keys; s[j][e] is
-    // row g + 8 (e >> 1), key k0 + 8j + 2t + (e & 1)
-    float s[4][4], dp[4][4];
-    dot2_nt16<2, HK>(s, qa, kbt + stage * k_stage, 32 * sq, nks_q, dp, doa,
-                 vbt + stage * v_stage, 32 * sv, nks_v);
-    const int k_end = k0 + kKT - 1;
-    const bool whole = __all_sync(
-        kFull, k_end < sh.Sk &&
-                   (!sh.causal || k_end <= min(pos[0], pos[1])) &&
-                   (sh.window == 0 || max(pos[0], pos[1]) - k0 < sh.window));
-    unsigned vis = 0;  // bit 4j + e: s[j][e] visible
+    const bool pass1 = i < nt;
+    const int k0 = (t_lo + (pass1 ? i : i - nt)) * KT;
+    // --- S = Q.K^T, dP = dO.V^T: this warpgroup's 64 rows x KT keys, the
+    // same instructions on the same values in both passes
+    mbar_wait(full + stage, phase);
+    const uint32_t ka = ring + stage * L::kStageBytes;  // the stage's K
+    wgmma_fence();
+    fence_regs(s);
+    fence_regs(dp);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int kk = 0; kk < HK / 16; ++kk)
+      if (kk < nks_q)
+        wgmma_ss<KT>(s, q_desc + kstep(kk, kBRows),
+                     sw128_desc(ka, 16, 1024) + kstep(kk, KT), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < VK / 16; ++kk)
+      if (kk < nks_v)
+        wgmma_ss<KT>(dp, do_desc + kstep(kk, kBRows),
+                     sw128_desc(ka + L::kKBytes, 16, 1024) + kstep(kk, KT),
+                     kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (pass1 && lane == 0) mbar_arrive(empty + stage);  // K and V are read
+
+    // --- masks; s[4j + e] is row g + 8 (e >> 1), key k0 + 8j + 2t +
+    // (e & 1). A tile every row of the warp sees whole skips them
+    const int k_end = k0 + KT - 1;
+    const bool whole = __all_sync(
+        kFull, k_end < Sk && (!a.causal || k_end <= min(pos[0], pos[1])) &&
+                   (a.window == 0 || max(pos[0], pos[1]) - k0 < a.window));
+    uint32_t vis = 0;  // bit 4j + e: s[4j + e] visible
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int st =
-            whole ? 0 : key_state(sh, pos[e >> 1], k0 + 8 * j + 2 * t + (e & 1));
-        s[j][e] = score2(st, s[j][e], sc);
+        const int st = whole ? 0
+                             : key_state(a, pos[e >> 1],
+                                         k0 + 8 * j + 2 * t + (e & 1));
+        s[4 * j + e] = score2(st, s[4 * j + e], sc);
         vis |= (st == 0 ? 1u : 0u) << (4 * j + e);
       }
 
-    if (i < nt) {  // pass 1: m, l and l D, online
+    if (pass1) {  // m, l and l D, online
       float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      for (int x = 0; x < KT / 2; ++x)
+        mt[(x >> 1) & 1] = fmaxf(mt[(x >> 1) & 1], s[x]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float m_new = fmaxf(m[h], quad_max(mt[h]));
@@ -1155,345 +1117,541 @@ flash_bwd_rows_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         d[h] *= corr;
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2_sfu(s[j][e] - m[e >> 1]);
-          l[e >> 1] += p;
-          d[e >> 1] = fmaf(p, dp[j][e], d[e >> 1]);
-        }
+      for (int x = 0; x < KT / 2; ++x) {
+        const int h = (x >> 1) & 1;
+        const float p = exp2_sfu(s[x] - m[h]);
+        l[h] += p;
+        d[h] = fmaf(p, dp[x], d[h]);
+      }
       if (i == nt - 1) {  // the row's stats, for pass 2 and the keys launch
-        const size_t plane = static_cast<size_t>(sh.B) * sh.Sq * sh.H;
+        const size_t plane = static_cast<size_t>(a.B) * Sq * a.H;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          il[h] = 1.f / quad_sum(l[h]);
-          d[h] = quad_sum(d[h]) * il[h];
-          if (live[h] && t == 0) {
+          l[h] = 1.f / quad_sum(l[h]);
+          d[h] = quad_sum(d[h]) * l[h];
+          int head, p;
+          if (row_at(h, head, p) && t == 0) {
             const size_t at =
-                ((static_cast<size_t>(b) * sh.KV + kvh) * sh.Sq + pos[h]) *
-                    sh.G + hg[h];
-            stats[at] = m[h];
-            stats[plane + at] = il[h];
-            stats[2 * plane + at] = d[h];
+                ((static_cast<size_t>(b) * a.KV + kvh) * Sq + p) * G + head;
+            a.stats[at] = m[h];
+            a.stats[plane + at] = l[h];
+            a.stats[2 * plane + at] = d[h];
           }
         }
       }
-    } else {  // pass 2: dS = P (dP - D), dQ += dS.K, one k16 step a half
+    } else {
+      // dS = P (dP - D) as bf16 hi + lo A fragments: the accumulator's 16
+      // key columns of a k16 step are the fragment as they stand
+      uint32_t dh[KT / 16][4], dl[KT / 16][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        float x[8];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const float p = exp2_sfu(s[j][e] - m[h]) * il[h];
-          s[j][e] = (vis >> (4 * j + e)) & 1u ? p * (dp[j][e] - d[h]) : 0.f;
+        for (int e = 0; e < 8; ++e) {
+          const int at = 8 * kk + e, h = (e >> 1) & 1;
+          const float p = exp2_sfu(s[at] - m[h]) * l[h];
+          x[e] = (vis >> at) & 1u ? p * (dp[at] - d[h]) : 0.f;
         }
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t hi[4], lo[4];
-        a_frags(s[2 * half], s[2 * half + 1], hi, lo);
-        dot_acc16<HK>(acc, hi, lo,
-                      kat + stage * k_stage + half * 32 * sq, 32, nks_q);
+        for (int f = 0; f < 4; ++f)
+          split_bf16(x[2 * f], x[2 * f + 1], dh[kk][f], dl[kk][f]);
       }
+      // --- dQ += dS.K, lo pass then hi a k16 step, in place
+      wgmma_fence();
+      fence_regs(acc);
+      fence_regs(dh);
+      fence_regs(dl);
+      const uint64_t kt_desc = sw128_desc(ka, KT * kPanelRow, 1024);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        wgmma_rs<HK>(acc, dl[kk], kt_desc + kk * kRowStep);
+        wgmma_rs<HK>(acc, dh[kk], kt_desc + kk * kRowStep);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dh);
+      fence_regs(dl);
+      if (lane == 0) mbar_arrive(empty + stage);  // K is read
+    }
+    if (++stage == NS) {
+      stage = 0;
+      phase ^= 1u;
     }
   }
-  cp_wait<0>();
 
+  // dq, rounded to bf16 once
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (!live[h]) continue;
-    bf16* row = dq + ((static_cast<size_t>(b) * sh.Sq + pos[h]) * sh.H +
-                      kvh * sh.G + hg[h]) * sh.hd;
+    int head, p;
+    if (!row_at(h, head, p)) continue;
+    bf16* row = a.dq + ((static_cast<size_t>(b) * Sq + p) * a.H + kvh * G +
+                        head) * a.hd;
 #pragma unroll
-    for (int n = 0; n < 2 * HK; ++n)
-      store2(row, 8 * n + 2 * t, sh.hd, sh.vec, acc[n][2 * h] * sh.scale,
-             acc[n][2 * h + 1] * sh.scale);
+    for (int j = 0; j < HK / 8; ++j)
+      store2(row, 8 * j + 2 * t, a.hd, a.out_vec, acc[4 * j + 2 * h] * a.scale,
+             acc[4 * j + 2 * h + 1] * a.scale);
   }
 }
 
-// (2) keys, bf16: the algorithm of flash_bwd_keys_kernel, 4 SPLIT warps a
-// block. Warp w takes keys 16 (w & 1) .. + 15, rows 16 ((w >> 1) & 1) ..
-// + 15 of each row tile (two row streams) and, of the 16-column groups of
-// dK and dV, those c with c % SPLIT == w >> 2: SPLIT warps share a
-// (keys, rows) block, each computes its S^T and dP^T whole and
-// accumulates its own columns, so dK + dV at hd 192 / vd 128 take 80
-// floats a lane, not 160. A cluster of blocks shares 32 keys: rank r
-// walks the r-th of as many runs of the row tiles, and rank 0 adds the
-// others' dK and dV from their shared memory, in rank order. HK, VK: k16
-// steps of hd and vd the accumulators cover (hd <= 16 HK, vd <= 16 VK)
-template <int HK, int VK, int SPLIT>
-__global__ void __launch_bounds__(kThreads * SPLIT,
-                                  SPLIT == 1 && HK <= 4 ? 3 : (SPLIT == 1 ? 2 : 1))
-flash_bwd_keys_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ stats, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, Shape sh) {
-  constexpr int kN = kThreads * SPLIT;
-  constexpr int HKW = (HK + SPLIT - 1) / SPLIT, VKW = (VK + SPLIT - 1) / SPLIT;
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  const int sq = hstride(sh.hd), sv = hstride(sh.vd);
-  bf16* ks = reinterpret_cast<bf16*>(smem_h);  // [kKeys][sq]
-  bf16* vs = ks + kKeys * sq;                   // [kKeys][sv]
-  bf16* qs = vs + kKeys * sv;                   // [kKeyStages][kRowTile][sq]
-  bf16* dos = qs + kKeyStages * kRowTile * sq;     // [kKeyStages][kRowTile][sv]
-  float* sts = reinterpret_cast<float*>(dos + kKeyStages * kRowTile * sv);
+// shared memory of flash_bwd_keys_bf16<HK, VK, RT, NS, SPLIT> (bytes): the
+// block's K and V (kKeys rows), NS stages of a row tile (Q: HK / 64 panels
+// of RT rows, dO: VK / 64, the rows' m, 1 / l and D: RT + 4 floats each
+// from the 16-byte boundary at or below the tile's first row, as TMA
+// boxes must start), the mbarriers, and 1024 bytes to align the start.
+// After the walk the same space holds a warpgroup's fp32 dK and dV
+// partials for the cluster's rank 0
+template <int HK, int VK, int RT, int NS, int SPLIT>
+struct KeysLayout {
+  static constexpr int kKeys = SPLIT == 1 ? 128 : 64;  // keys a block
+  static constexpr int kKBytes = HK / kPanel * kKeys * kPanelRow;
+  static constexpr int kVBytes = VK / kPanel * kKeys * kPanelRow;
+  static constexpr int kQBytes = HK / kPanel * RT * kPanelRow;
+  static constexpr int kDoBytes = VK / kPanel * RT * kPanelRow;
+  static constexpr int kStatStride = ((RT + 4) * 4 + 127) / 128 * 128;
+  static constexpr int kStatBytes = (3 * kStatStride + 1023) / 1024 * 1024;
+  static constexpr int kStageBytes = kQBytes + kDoBytes + kStatBytes;
+  static constexpr int kRingOffset = kKBytes + kVBytes;
+  static constexpr int kBarOffset = kRingOffset + NS * kStageBytes;
+  static constexpr int kPartBytes =
+      64 * 4 * (SPLIT == 1 ? HK + VK : (HK > VK ? HK : VK));
+  static_assert(kPartBytes <= kBarOffset, "partials fit below the barriers");
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * NS) + 1024;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int kg = warp & 1, rs = (warp >> 1) & 1, part = warp >> 2;
+template <int N>
+using Width = std::integral_constant<int, N>;
+
+// (2) keys, bf16: dK and dV. One block per (batch row, KV head, kKeys
+// keys), times a cluster of cs blocks that split its walk. The walk: the
+// (position, head) rows that can see those keys, in row tiles of RT rows
+// (HC heads x PT positions, one TMA box), with their m, 1 / l and D. SPLIT
+// 1: warpgroup w takes keys 64 w .. + 63 of the block's 128, all of dK and
+// dV; SPLIT 2 (hd > 192): both take the block's 64 keys, warpgroup 0 dK,
+// warpgroup 1 dV. Warpgroup 2 produces: K and V once, the row tiles through
+// an NS-stage ring. Rank r of the cluster walks the r-th of cs runs of the
+// tiles; rank 0 adds the others' dK and dV from their shared memory, in
+// rank order, and stores
+template <int HK, int VK, int RT, int NS, int SPLIT>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_bwd_keys_bf16(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tst,
+                    const __grid_constant__ BwdBf16 a) {
+  using L = KeysLayout<HK, VK, RT, NS, SPLIT>;
+  constexpr int kBlockKeys = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* ks = smem;                // [HK / 64][kBlockKeys][128 bytes]
+  unsigned char* vs = smem + L::kKBytes;   // [VK / 64][kBlockKeys][128 bytes]
+  auto q_stage = [&](int s) {
+    return smem + L::kRingOffset + s * L::kStageBytes;
+  };
+  auto do_stage = [&](int s) { return q_stage(s) + L::kQBytes; };
+  auto st_stage = [&](int s) {  // [m, 1 / l, D][kStatStride bytes]
+    return reinterpret_cast<float*>(do_stage(s) + L::kDoBytes);
+  };
+  constexpr int kSS = L::kStatStride / 4;  // floats between the stats
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full_kv = bars;         // K and V arrived
+  uint64_t* full = bars + 1;        // [NS]: a row tile arrived
+  uint64_t* empty = bars + 1 + NS;  // [NS]: 8 consumer warps are done
+
+  const int G = a.G, HC = a.HC, PT = a.PT, NC = a.NC, Sq = a.Sq, Sk = a.Sk;
+  const int box_rows = HC * PT;  // rows a tile's box fills
+  const int pq = (a.hd + kPanel - 1) / kPanel;
+  const int pv = (a.vd + kPanel - 1) / kPanel;
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  if (a.tma && box_rows < RT) {
+    // the rows no box writes stay zero: their P and dS are 0, and the
+    // products' 0 x (what the rows hold) must be 0
+    const int gap = RT - box_rows, panels = pq + pv;
+    for (int i = threadIdx.x; i < NS * panels * gap * 8; i += kBThreads) {
+      const int c = i & 7, rest = i >> 3, row = box_rows + rest % gap;
+      const int sp = rest / gap, s = sp / panels, p = sp - s * panels;
+      unsigned char* panel = p < pq ? q_stage(s) + p * RT * kPanelRow
+                                    : do_stage(s) + (p - pq) * RT * kPanelRow;
+      *reinterpret_cast<uint4*>(panel + row * kPanelRow + c * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+
   const cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int cs = cluster.num_blocks(), rank = cluster.block_rank();
-  const int blk = blockIdx.x / cs;
-  const int bkv = sh.B * sh.KV;
-  const int b = (blk % bkv) / sh.KV, kvh = blk % sh.KV;
-  const int k0 = (blk / bkv) * kKeys;  // small k0 sees the most rows
-  const int k_last = min(k0 + kKeys, sh.Sk) - 1;
-  const size_t k_row = static_cast<size_t>(sh.KV) * sh.hd;
-  const size_t v_row = static_cast<size_t>(sh.KV) * sh.vd;
-  const bf16* kb = k + static_cast<size_t>(b) * sh.Sk * k_row +
-                   static_cast<size_t>(kvh) * sh.hd;
-  const bf16* vb = v + static_cast<size_t>(b) * sh.Sk * v_row +
-                   static_cast<size_t>(kvh) * sh.vd;
-
-  zero_pad_h<kN>(ks, kKeys, sq, sh.hd);
-  zero_pad_h<kN>(vs, kKeys, sv, sh.vd);
-  zero_pad_h<kN>(qs, kKeyStages * kRowTile, sq, sh.hd);
-  zero_pad_h<kN>(dos, kKeyStages * kRowTile, sv, sh.vd);
-  stage_rows<kN>(ks, sq, kKeys, sh.hd, sh.vec, k, [&](int j) -> const bf16* {
-    return k0 + j < sh.Sk ? kb + (k0 + j) * k_row : nullptr;
-  });
-  stage_rows<kN>(vs, sv, kKeys, sh.vd, sh.vec, v, [&](int j) -> const bf16* {
-    return k0 + j < sh.Sk ? vb + (k0 + j) * v_row : nullptr;
-  });
-
-  // the rows that can see these keys, as in flash_bwd_keys_kernel
-  const int p_lo = sh.causal ? k0 : 0;
-  int p_hi = sh.window > 0 ? min(sh.Sq - 1, k_last + sh.window - 1)
-                           : sh.Sq - 1;
-  if (sh.window > 0 && sh.Sk + sh.window - 1 <= sh.Sq - 1) p_hi = sh.Sq - 1;
-  const int rho0 = p_lo * sh.G;
-  const int rho_end = p_lo <= p_hi ? (p_hi + 1) * sh.G : rho0;
-  const int nsteps = (rho_end - rho0 + kRowTile - 1) / kRowTile;
+  const int blk = blockIdx.x / cs, bkv_n = a.B * a.KV;
+  const int b = (blk % bkv_n) / a.KV, kvh = blk % a.KV;
+  const int k0 = (blk / bkv_n) * kBlockKeys;  // small k0 sees the most rows
+  const int k_last = min(k0 + kBlockKeys, Sk) - 1;
+  // the positions that can see these keys; all of them from the first
+  // that sees no key at all (it is uniform over every key)
+  const int p_lo = a.causal ? k0 : 0;
+  int p_hi = a.window > 0 ? min(Sq - 1, k_last + a.window - 1) : Sq - 1;
+  if (a.window > 0 && Sk + a.window - 1 <= Sq - 1) p_hi = Sq - 1;
+  const int n_pb = p_lo <= p_hi ? (p_hi - p_lo) / PT + 1 : 0;
+  const int nsteps = n_pb * NC;
   const int s_lo = rank * nsteps / cs, s_hi = (rank + 1) * nsteps / cs;
-  const size_t plane = static_cast<size_t>(sh.B) * sh.Sq * sh.H;
-  const float* stb =
-      stats + (static_cast<size_t>(b) * sh.KV + kvh) * sh.Sq * sh.G;
-  const unsigned gmul = sh.G == 1 ? 0u : 0xffffffffu / sh.G + 1u;
-  // row rho of the walk, (position rho / G, head kvh G + rho % G), is row
-  // (b Sq + pos) H + kvh G + rho - pos G = b Sq H + kvh G + rho + pos (H - G)
-  const size_t row_base = static_cast<size_t>(b) * sh.Sq * sh.H + kvh * sh.G;
-  auto load_rows = [&](int step, int stage) {
-    const int first = rho0 + step * kRowTile;
-    auto row = [&](const bf16* base, int w, int r) -> const bf16* {
-      const int rho = first + r;
-      if (rho >= rho_end) return nullptr;
-      return base + (row_base + rho + static_cast<size_t>(div_g(rho, gmul)) *
-                                          (sh.H - sh.G)) * w;
-    };
-    auto qrow = [&](int r) { return row(q, sh.hd, r); };
-    auto dorow = [&](int r) { return row(dout, sh.vd, r); };
-    stage_rows<kN>(qs + stage * kRowTile * sq, sq, kRowTile, sh.hd, sh.vec,
-                   q, qrow);
-    stage_rows<kN>(dos + stage * kRowTile * sv, sv, kRowTile, sh.vd, sh.vec,
-                   dout, dorow);
-    for (int i = threadIdx.x; i < 3 * kRowTile; i += kN) {
-      const int c = i / kRowTile, rho = first + i - c * kRowTile;
-      const bool ok = rho < rho_end;
-      cp_async<4>(sts + stage * 3 * kRowTile + i,
-                  ok ? stb + c * plane + rho : stats, ok);
-    }
+  // tile i: positions p_lo + (i / NC) PT .., heads (i % NC) HC .. of the
+  // group; its stats start at element (b KV + kvh) Sq G + position G +
+  // head of each plane, and land in the stage at that element's offset
+  // from its 16-byte boundary
+  const size_t plane = static_cast<size_t>(a.B) * Sq * a.H;
+  const size_t st_base = (static_cast<size_t>(b) * a.KV + kvh) * Sq * G;
+  auto st_at = [&](int i, int c) {  // plane c's first element of tile i
+    const int pb = NC == 1 ? i : i / NC;
+    return c * plane + st_base + static_cast<size_t>(p_lo + pb * PT) * G +
+           (i - pb * NC) * HC;
   };
-  for (int i = 0; i < kKeyStages - 1; ++i) {
-    if (s_lo + i < s_hi) load_rows(s_lo + i, i);
-    cp_commit();  // the first group also holds K and V
-  }
 
-  const int kw0 = k0 + 16 * kg;  // this warp's keys kw0 .. kw0 + 15
-  const int key[2] = {kw0 + g, kw0 + g + 8};
-  float ak[2 * HKW][4], av[2 * VKW][4];
-#pragma unroll
-  for (int n = 0; n < 2 * HKW; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < 2 * VKW; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) av[n][e] = 0.f;
-  const int nks_q = (sh.hd + 15) / 16, nks_v = (sh.vd + 15) / 16;
-  const int ng_q = (nks_q - part + SPLIT - 1) / SPLIT;  // groups owned
-  const int ng_v = (nks_v - part + SPLIT - 1) / SPLIT;
-  const int r8 = lane & 7, mi = lane >> 3;
-  const int a_row = r8 + 8 * (mi & 1), a_col = 8 * (mi >> 1);
-  const int b_row = r8 + 8 * (mi >> 1), b_col = 8 * (mi & 1);
-  const uint32_t ka = smem_addr(ks + (16 * kg + a_row) * sq + a_col);
-  const uint32_t va = smem_addr(vs + (16 * kg + a_row) * sv + a_col);
-  // this row stream's rows of stage 0: B pattern (S^T, dP^T) and, at the
-  // warp's first column group, A pattern (.trans: dV, dK)
-  const uint32_t qbt = smem_addr(qs + (16 * rs + b_row) * sq + b_col);
-  const uint32_t dobt = smem_addr(dos + (16 * rs + b_row) * sv + b_col);
-  const uint32_t qat =
-      smem_addr(qs + (16 * rs + a_row) * sq + 16 * part + a_col);
-  const uint32_t doat =
-      smem_addr(dos + (16 * rs + a_row) * sv + 16 * part + a_col);
-  const uint32_t q_stage = 2 * kRowTile * sq, do_stage = 2 * kRowTile * sv;
-  const float sc = sh.scale * kLog2e;
-
-  for (int step = s_lo; step < s_hi; ++step) {
-    const int stage = (step - s_lo) % kKeyStages;
-    cp_wait<kKeyStages - 2>();  // tile step has landed
-    __syncthreads();  // ... for every thread; the last tile's stage is free
-    const int ahead = step + kKeyStages - 1;
-    if (ahead < s_hi) load_rows(ahead, (ahead - s_lo) % kKeyStages);
-    cp_commit();
-    const float* mrow = sts + stage * 3 * kRowTile + 16 * rs;
-    const int first = rho0 + step * kRowTile + 16 * rs;
-
-    // S^T = K.Q^T, dP^T = V.dO^T: this warp's 16 keys x 16 rows; s[j][e]
-    // is key g + 8 (e >> 1), row 8j + 2t + (e & 1)
-    float s[2][4], dp[2][4];
-    dot2_nt16<1, HK>(s, ka, qbt + stage * q_stage, 0, nks_q, dp, va,
-                 dobt + stage * do_stage, 0, nks_v);
-    // rows past rho_end are zero (q, dO, m, 1 / l, D): P = 0, dS = 0
-    const int pos_first = div_g(first, gmul);
-    const int pos_last = div_g(min(first + 16, rho_end) - 1, gmul);
-    const bool whole = kw0 + 15 < sh.Sk &&
-                       (!sh.causal || kw0 + 15 <= pos_first) &&
-                       (sh.window == 0 || pos_last - kw0 < sh.window);
-    int rpos[4];  // position of rows 2t, 2t + 1, 8 + 2t, 9 + 2t; -1: dead
-    if (!whole) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int rho = first + 8 * (c >> 1) + 2 * t + (c & 1);
-        rpos[c] = rho < rho_end ? div_g(rho, gmul) : -1;
+  if (threadIdx.x >= 2 * 128) {
+    // ---------------- producer warpgroup
+    regs_dec<kProducerRegs>();
+    const int t = threadIdx.x - 2 * 128;
+    if (a.tma) {
+      if (t == 0) {
+        mbar_expect_tx(full_kv, (pq + pv) * kBlockKeys * kPanelRow);
+        for (int p = 0; p < pq; ++p)
+          tma_load_4d(ks + p * kBlockKeys * kPanelRow, &tk, full_kv,
+                      p * kPanel, kvh, k0, b);
+        for (int p = 0; p < pv; ++p)
+          tma_load_4d(vs + p * kBlockKeys * kPanelRow, &tv, full_kv,
+                      p * kPanel, kvh, k0, b);
+        int s = 0, use = 0;
+        for (int i = s_lo; i < s_hi; ++i) {
+          const int pb = NC == 1 ? i : i / NC, ch = i - pb * NC;
+          const int p0 = p_lo + pb * PT;
+          if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+          mbar_expect_tx(full + s,
+                         (pq + pv) * box_rows * kPanelRow + 3 * (RT + 4) * 4);
+          for (int p = 0; p < pq; ++p)
+            tma_load_4d(q_stage(s) + p * RT * kPanelRow, &tq, full + s,
+                        p * kPanel, kvh * G + ch * HC, p0, b);
+          for (int p = 0; p < pv; ++p)
+            tma_load_4d(do_stage(s) + p * RT * kPanelRow, &tdo, full + s,
+                        p * kPanel, kvh * G + ch * HC, p0, b);
+          for (int c = 0; c < 3; ++c)
+            tma_load_1d(st_stage(s) + c * kSS, &tst, full + s,
+                        static_cast<int>(st_at(i, c) & ~size_t(3)));
+          if (++s == NS) {
+            s = 0;
+            ++use;
+          }
+        }
+      }
+    } else {
+      // rows not 16-byte aligned: thread t stages key t of K and V, then
+      // row t (position + t / HC, head + t % HC) of each tile
+      if (t < kBlockKeys) {
+        const int key = k0 + t;
+        const size_t row = (static_cast<size_t>(b) * Sk + key) * a.KV + kvh;
+        stage_row(ks, kBlockKeys, pq, t, key < Sk ? a.k + row * a.hd : nullptr,
+                  a.hd);
+        stage_row(vs, kBlockKeys, pv, t, key < Sk ? a.v + row * a.vd : nullptr,
+                  a.vd);
+      }
+      fence_async_smem();
+      bar_sync(1, 128);
+      if (t == 0) mbar_arrive(full_kv);
+      const int rp = t / HC, rh = t - rp * HC;
+      int s = 0, use = 0;
+      for (int i = s_lo; i < s_hi; ++i) {
+        const int pb = NC == 1 ? i : i / NC, ch = i - pb * NC;
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        if (t < RT) {
+          const int pos = p_lo + pb * PT + rp, hh = ch * HC + rh;
+          const bool ok = t < box_rows && pos < Sq && hh < G;
+          const size_t row =
+              (static_cast<size_t>(b) * Sq + pos) * a.H + kvh * G + hh;
+          stage_row(q_stage(s), RT, pq, t, ok ? a.q + row * a.hd : nullptr,
+                    a.hd);
+          stage_row(do_stage(s), RT, pv, t, ok ? a.dout + row * a.vd : nullptr,
+                    a.vd);
+          float* st = st_stage(s);
+          for (int c = 0; c < 3; ++c) {
+            const size_t at = st_at(i, c);
+            st[c * kSS + (at & 3) + t] =
+                ok ? a.stats[at + t + rp * (G - HC)] : 0.f;
+          }
+        }
+        fence_async_smem();
+        bar_sync(1, 128);
+        if (t == 0) mbar_arrive(full + s);
+        if (++s == NS) {
+          s = 0;
+          ++use;
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * j + 2 * t + (e & 1);
-        const int c = 2 * j + (e & 1);
-        const int st =
-            whole ? 0 : (rpos[c] < 0 ? 2 : key_state(sh, rpos[c], key[e >> 1]));
-        const float p = exp2_sfu(score2(st, s[j][e], sc) - mrow[r]) *
-                        mrow[kRowTile + r];
-        s[j][e] = p;
-        dp[j][e] = st == 0 ? p * (dp[j][e] - mrow[2 * kRowTile + r]) : 0.f;
-      }
-    // dV += P^T.dO, dK += dS^T.Q over the warp's 16 rows (one k16 step)
-    uint32_t hi[4], lo[4];
-    a_frags(s[0], s[1], hi, lo);
-    dot_acc16<VKW>(av, hi, lo, doat + stage * do_stage, 32 * SPLIT, ng_v);
-    a_frags(dp[0], dp[1], hi, lo);
-    dot_acc16<HKW>(ak, hi, lo, qat + stage * q_stage, 32 * SPLIT, ng_q);
+    if (cs > 1)  // the consumers' two rounds of partials
+      for (int r = 0; r < 4; ++r) cluster_sync();
+    return;
   }
-  cp_wait<0>();
 
-  // the block's dK and dV: row stream 1's through the ring's space to
-  // stream 0, which adds them, then the cluster's other blocks' to rank
-  // 0, in rank order (fixed orders). fp32 [4 values of each n8 tile of dK,
-  // then of dV][2 key groups][32 lanes], 512 (nks_q + nks_v) floats; the
-  // ring holds 64 (sq + sv) bf16, more
-  __syncthreads();
-  float* part_sum = reinterpret_cast<float*>(qs);
-  // value e of this warp's n8 tile 2i + j of dK (dV: after dK's 2 nks_q)
-  auto k_at = [&](int i, int j, int e) {
-    return ((4 * (2 * (i * SPLIT + part) + j) + e) * 2 + kg) * 32 + lane;
+  // ---------------- consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7;
+  // NK, NV: the dK and dV columns this warpgroup accumulates (0: none)
+  auto consume = [&](auto nk, auto nv) {
+    constexpr int NK = decltype(nk)::value, NV = decltype(nv)::value;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kb0 = SPLIT == 1 ? 64 * wg : 0;  // its keys in the block
+    const int kw0 = k0 + kb0 + 16 * warp;      // this warp's kw0 .. + 15
+    const int nks_q = (a.hd + 15) >> 4, nks_v = (a.vd + 15) >> 4;
+    const float sc = a.scale * kLog2e;
+    // descriptors: K and V (this warpgroup's 64 keys) and the stage's Q and
+    // dO K-major (S^T, dP^T); its Q and dO again MN-major, dK's and dV's B:
+    // 64-column panels RT rows apart, 16 rows 2048 bytes apart
+    const uint32_t ka = smem_u32(ks) + kb0 * kPanelRow;
+    const uint32_t ring = smem_u32(q_stage(0));
+    // where plane c's stats of tile i start in their box: (st_at(i, c) & 3)
+    // = (first + i's rows + c plane) & 3, from two small ints
+    const int first = static_cast<int>(st_at(0, 0) & 3);
+    const int pl1 = static_cast<int>(plane & 3);
+
+    float ak[NK > 0 ? NK / 2 : 1], av[NV > 0 ? NV / 2 : 1];  // dK, dV
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) ak[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) av[i] = 0.f;
+    float s[RT / 2], dp[RT / 2];
+#pragma unroll
+    for (int i = 0; i < RT / 2; ++i) s[i] = dp[i] = 0.f;
+
+    mbar_wait(full_kv, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = s_lo; i < s_hi; ++i) {
+      const int pb = NC == 1 ? i : i / NC, ch = i - pb * NC;
+      const int p0 = p_lo + pb * PT;
+      // --- S^T = K.Q^T, dP^T = V.dO^T (dK needs dS): 64 keys x RT rows
+      mbar_wait(full + stage, phase);
+      const uint32_t qa = ring + stage * L::kStageBytes;  // the stage's Q
+      wgmma_fence();
+      fence_regs(s);
+      if constexpr (NK > 0) fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < HK / 16; ++kk)
+        if (kk < nks_q)
+          wgmma_ss<RT>(s, sw128_desc(ka, 16, 1024) + kstep(kk, kBlockKeys),
+                       sw128_desc(qa, 16, 1024) + kstep(kk, RT), kk > 0);
+      if constexpr (NK > 0) {
+#pragma unroll
+        for (int kk = 0; kk < VK / 16; ++kk)
+          if (kk < nks_v)
+            wgmma_ss<RT>(dp,
+                         sw128_desc(ka + L::kKBytes, 16, 1024) +
+                             kstep(kk, kBlockKeys),
+                         sw128_desc(qa + L::kQBytes, 16, 1024) + kstep(kk, RT),
+                         kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if constexpr (NK > 0) fence_regs(dp);
+
+      // --- P^T and dS^T; s[4j + e] is key g + 8 (e >> 1) of the warp,
+      // tile row c = 8j + 2t + (e & 1): position p0 + c / HC, head ch HC +
+      // c % HC of the group. A tile whose rows are all live and see the
+      // warp's 16 keys whole skips the masks
+      // the rows' m, 1 / l and D: column c at st[c], st[kSS + o1 + c] and
+      // st[2 kSS + o2 + c]
+      const int a0 = (first + pb * PT * G + ch * HC) & 3;
+      const float* st = st_stage(stage) + a0;
+      const int o1 = ((a0 + pl1) & 3) - a0, o2 = ((a0 + 2 * pl1) & 3) - a0;
+      const int p_end = min(p0 + PT - 1, p_hi);
+      const bool whole =
+          box_rows == RT && p0 + PT - 1 <= p_hi && ch * HC + HC <= G &&
+          kw0 + 15 < Sk && (!a.causal || kw0 + 15 <= p0) &&
+          (a.window == 0 || p_end - kw0 < a.window);
+#pragma unroll
+      for (int j = 0; j < RT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), x = 4 * j + e;
+          int state = 0;
+          if (!whole) {
+            const int rp = a.hmul ? static_cast<int>(__umulhi(c, a.hmul)) : c;
+            const int pos = p0 + rp, hh = ch * HC + c - rp * HC;
+            state = c < box_rows && pos <= p_hi && hh < G
+                        ? key_state(a, pos, kw0 + g + 8 * (e >> 1))
+                        : 2;
+          }
+          const float p = state == 2 ? 0.f
+                                     : exp2_sfu(score2(state, s[x], sc) -
+                                                st[c]) *
+                                           st[kSS + o1 + c];
+          s[x] = p;
+          if constexpr (NK > 0)
+            dp[x] = state == 0 ? p * (dp[x] - st[2 * kSS + o2 + c]) : 0.f;
+        }
+      // as bf16 hi + lo A fragments: the accumulator's 16 row columns of a
+      // k16 step are the fragment as they stand
+      uint32_t ph[RT / 16][4], pl[RT / 16][4], dh[RT / 16][4], dl[RT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < RT / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int x = 8 * kk + 2 * f;
+          if constexpr (NV > 0) split_bf16(s[x], s[x + 1], ph[kk][f], pl[kk][f]);
+          if constexpr (NK > 0) split_bf16(dp[x], dp[x + 1], dh[kk][f], dl[kk][f]);
+        }
+      // --- dV += P^T.dO, dK += dS^T.Q, lo pass then hi a k16 step, in place
+      wgmma_fence();
+      if constexpr (NV > 0) {
+        fence_regs(av);
+        fence_regs(ph);
+        fence_regs(pl);
+        const uint64_t dot = sw128_desc(qa + L::kQBytes, RT * kPanelRow, 1024);
+#pragma unroll
+        for (int kk = 0; kk < RT / 16; ++kk) {
+          wgmma_rs<NV>(av, pl[kk], dot + kk * kRowStep);
+          wgmma_rs<NV>(av, ph[kk], dot + kk * kRowStep);
+        }
+      }
+      if constexpr (NK > 0) {
+        fence_regs(ak);
+        fence_regs(dh);
+        fence_regs(dl);
+        const uint64_t qt = sw128_desc(qa, RT * kPanelRow, 1024);
+#pragma unroll
+        for (int kk = 0; kk < RT / 16; ++kk) {
+          wgmma_rs<NK>(ak, dl[kk], qt + kk * kRowStep);
+          wgmma_rs<NK>(ak, dh[kk], qt + kk * kRowStep);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if constexpr (NV > 0) {
+        fence_regs(av);
+        fence_regs(ph);
+        fence_regs(pl);
+      }
+      if constexpr (NK > 0) {
+        fence_regs(ak);
+        fence_regs(dh);
+        fence_regs(dl);
+      }
+      if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with it
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+
+    // --- the cluster's partials to rank 0, one warpgroup a round, added
+    // in rank order: [value][128 threads] fp32 over the block's tiles
+    if (cs > 1) {
+      bar_sync(2, 256);  // every consumer is done with K, V and the ring
+      float* part = reinterpret_cast<float*>(smem);
+      const int tw = threadIdx.x & 127;
+      for (int w = 0; w < 2; ++w) {
+        if (rank != 0 && wg == w) {
+#pragma unroll
+          for (int x = 0; x < NK / 2; ++x) part[x * 128 + tw] = ak[x];
+#pragma unroll
+          for (int x = 0; x < NV / 2; ++x) part[(NK / 2 + x) * 128 + tw] = av[x];
+        }
+        cluster_sync();
+        if (rank == 0 && wg == w)
+          for (int r = 1; r < cs; ++r) {
+            const float* from = cluster.map_shared_rank(part, r);
+#pragma unroll
+            for (int x = 0; x < NK / 2; ++x) ak[x] += from[x * 128 + tw];
+#pragma unroll
+            for (int x = 0; x < NV / 2; ++x)
+              av[x] += from[(NK / 2 + x) * 128 + tw];
+          }
+        cluster_sync();  // a block's shared memory outlives the reads of it
+      }
+    }
+    if (rank != 0) return;
+    // dk, dv, rounded to bf16 once; the rows of [B, Sk, KV] from the block
+    // index again
+    const int bk = (blockIdx.x / cs) % bkv_n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = kw0 + g + 8 * h;
+      if (key >= Sk) continue;
+      const size_t row = static_cast<size_t>(bk / a.KV) * Sk * a.KV +
+                         static_cast<size_t>(key) * a.KV + bk % a.KV;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+        store2(a.dk + row * a.hd, 8 * j + 2 * t, a.hd, a.out_vec,
+               ak[4 * j + 2 * h] * a.scale, ak[4 * j + 2 * h + 1] * a.scale);
+#pragma unroll
+      for (int j = 0; j < NV / 8; ++j)
+        store2(a.dv + row * a.vd, 8 * j + 2 * t, a.vd, a.out_vec,
+               av[4 * j + 2 * h], av[4 * j + 2 * h + 1]);
+    }
   };
-  auto v_at = [&](int i, int j, int e) {
-    return ((4 * (2 * nks_q + 2 * (i * SPLIT + part) + j) + e) * 2 + kg) *
-               32 + lane;
-  };
-  auto put = [&](float* to) {
-#pragma unroll
-    for (int i = 0; i < HKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (i < ng_q) to[k_at(i, j, e)] = ak[2 * i + j][e];
-#pragma unroll
-    for (int i = 0; i < VKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (i < ng_v) to[v_at(i, j, e)] = av[2 * i + j][e];
-  };
-  auto add = [&](const float* from) {
-#pragma unroll
-    for (int i = 0; i < HKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (i < ng_q) ak[2 * i + j][e] += from[k_at(i, j, e)];
-#pragma unroll
-    for (int i = 0; i < VKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (i < ng_v) av[2 * i + j][e] += from[v_at(i, j, e)];
-  };
-  if (rs == 1) put(part_sum);
-  __syncthreads();
-  if (rs == 0) add(part_sum);
-  if (cs > 1) {
-    __syncthreads();  // stream 0 has read stream 1's part
-    if (rs == 0 && rank != 0) put(part_sum);
-    cluster.sync();
-    if (rs == 0 && rank == 0)
-      for (int r = 1; r < cs; ++r) add(cluster.map_shared_rank(part_sum, r));
-    cluster.sync();  // a block's shared memory outlives the reads of it
-  }
-  if (rs == 1 || rank != 0) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (key[h] >= sh.Sk) continue;
-    const size_t row =
-        (static_cast<size_t>(b) * sh.Sk + key[h]) * sh.KV + kvh;
-#pragma unroll
-    for (int i = 0; i < HKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (i < ng_q)
-          store2(dk + row * sh.hd, 16 * (i * SPLIT + part) + 8 * j + 2 * t,
-                 sh.hd, sh.vec, ak[2 * i + j][2 * h] * sh.scale,
-                 ak[2 * i + j][2 * h + 1] * sh.scale);
-#pragma unroll
-    for (int i = 0; i < VKW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (i < ng_v)
-          store2(dv + row * sh.vd, 16 * (i * SPLIT + part) + 8 * j + 2 * t,
-                 sh.vd, sh.vec, av[2 * i + j][2 * h],
-                 av[2 * i + j][2 * h + 1]);
-  }
+  if constexpr (SPLIT == 1)
+    consume(Width<HK>{}, Width<VK>{});
+  else if (wg == 0)
+    consume(Width<HK>{}, Width<0>{});
+  else
+    consume(Width<0>{}, Width<VK>{});
 }
 
-template <int HK, int VK, int SPLIT, int NS>
-cudaError_t launch_bf16(const Shape& sh, cudaStream_t stream, const void* q_,
-                        const void* k_, const void* v_, const void* dout_,
-                        void* dq_, void* dk_, void* dv_, float* stats) {
-  const bf16* q = static_cast<const bf16*>(q_);
-  const bf16* k = static_cast<const bf16*>(k_);
-  const bf16* v = static_cast<const bf16*>(v_);
-  const bf16* dout = static_cast<const bf16*>(dout_);
-  const size_t rows_smem = rows_smem_bf16(sh.hd, sh.vd, NS);
-  const size_t keys_smem = keys_smem_bf16(sh.hd, sh.vd);
+// the rows launch, then the keys launch, of one instantiation: KT keys a
+// rows-launch tile in NSR stages; RT rows a keys-launch tile in NSK stages
+template <int HK, int VK, int KT, int NSR, int RT, int NSK, int SPLIT>
+cudaError_t launch_bf16(BwdBf16 a, cudaStream_t stream) {
+  using LR = RowsLayout<HK, VK, KT, NSR>;
+  using LK = KeysLayout<HK, VK, RT, NSK, SPLIT>;
+  // the widths must fit the instantiation's panels and k16 steps
+  if (a.hd > HK || a.vd > VK) return cudaErrorInvalidValue;
+  auto* rows = flash_bwd_rows_bf16<HK, VK, KT, NSR>;
+  auto* keys = flash_bwd_keys_bf16<HK, VK, RT, NSK, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_rows_bf16<HK, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(rows_smem));
+      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, LR::kBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_keys_bf16<HK, VK, SPLIT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(keys_smem));
+  err = cudaFuncSetAttribute(
+      keys, cudaFuncAttributeMaxDynamicSharedMemorySize, LK::kBytes);
   if (err != cudaSuccess) return err;
-  const int bkv = sh.B * sh.KV;
-  const int rows_grid = bkv * ((sh.Sq + sh.BP - 1) / sh.BP);
-  flash_bwd_rows_bf16<HK, NS><<<rows_grid, kThreads, rows_smem, stream>>>(
-      q, k, v, dout, static_cast<bf16*>(dq_), stats, sh);
+  a.BQ = kBRows / a.G;
+  a.HC = a.G < RT ? a.G : RT;
+  a.PT = a.G <= RT ? RT / a.G : 1;
+  a.NC = (a.G + a.HC - 1) / a.HC;
+  a.hmul = a.HC == 1 ? 0u : 0xffffffffu / a.HC + 1u;
+  const long long plane = static_cast<long long>(a.B) * a.Sq * a.H;
+  CUtensorMap rq, rdo, rk, rv, kq, kdo, kk, kv, kst;
+  for (CUtensorMap* m : {&rq, &rdo, &rk, &rv, &kq, &kdo, &kk, &kv, &kst})
+    memset(m, 0, sizeof(CUtensorMap));
+  if (a.tma) {
+    if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+    if (3 * plane > 0x7fffffffLL) return cudaErrorInvalidValue;  // the stats
+    if (!encode_bf16_4d(&rq, a.q, a.hd, a.H, a.Sq, a.B, a.G, a.BQ) ||
+        !encode_bf16_4d(&rdo, a.dout, a.vd, a.H, a.Sq, a.B, a.G, a.BQ) ||
+        !encode_bf16_4d(&rk, a.k, a.hd, a.KV, a.Sk, a.B, 1, KT) ||
+        !encode_bf16_4d(&rv, a.v, a.vd, a.KV, a.Sk, a.B, 1, KT) ||
+        !encode_bf16_4d(&kq, a.q, a.hd, a.H, a.Sq, a.B, a.HC, a.PT) ||
+        !encode_bf16_4d(&kdo, a.dout, a.vd, a.H, a.Sq, a.B, a.HC, a.PT) ||
+        !encode_bf16_4d(&kk, a.k, a.hd, a.KV, a.Sk, a.B, 1, LK::kKeys) ||
+        !encode_bf16_4d(&kv, a.v, a.vd, a.KV, a.Sk, a.B, 1, LK::kKeys) ||
+        !encode_f32_1d(&kst, a.stats, 3 * plane, RT + 4))
+      return cudaErrorInvalidValue;
+  }
+  const long long rows_blocks =
+      static_cast<long long>(a.B) * a.KV * ((a.Sq + a.BQ - 1) / a.BQ);
+  const long long keys_blocks = static_cast<long long>(a.B) * a.KV *
+                                ((a.Sk + LK::kKeys - 1) / LK::kKeys);
+  if (rows_blocks > 0x7fffffff || keys_blocks * kMaxCluster > 0x7fffffff)
+    return cudaErrorInvalidConfiguration;
+  flash_bwd_rows_bf16<HK, VK, KT, NSR>
+      <<<static_cast<unsigned>(rows_blocks), kBThreads, LR::kBytes, stream>>>(
+          rq, rdo, rk, rv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // each keys block's rows split over a cluster of cs blocks, as many as
@@ -1501,74 +1659,51 @@ cudaError_t launch_bf16(const Shape& sh, cudaStream_t stream, const void* q_,
   // blocks average half the longest one (the first keys see every row),
   // so with fewer blocks than twice the slots the launch is one ragged
   // wave as long as its longest block (GQA: G heads' rows a walk)
-  const int keys_blocks = bkv * ((sh.Sk + kKeys - 1) / kKeys);
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, flash_bwd_keys_bf16<HK, VK, SPLIT>, kThreads * SPLIT,
-      keys_smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, keys,
+                                                      kBThreads, LK::kBytes);
   if (err != cudaSuccess) return err;
-  const int slots = (sh.causal ? 2 : 1) * sms * per_sm;
-  const int cs = max(1, min(kMaxCluster, slots / keys_blocks));
+  const long long slots = (a.causal ? 2LL : 1LL) * sms * per_sm;
+  const int cs = static_cast<int>(
+      std::max(1LL, std::min<long long>(kMaxCluster, slots / keys_blocks)));
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cs;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(keys_blocks * cs);
-  cfg.blockDim = dim3(kThreads * SPLIT);
-  cfg.dynamicSmemBytes = keys_smem;
+  cfg.gridDim = dim3(static_cast<unsigned>(keys_blocks * cs));
+  cfg.blockDim = dim3(kBThreads);
+  cfg.dynamicSmemBytes = LK::kBytes;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, flash_bwd_keys_bf16<HK, VK, SPLIT>, q, k,
-                            v, dout, static_cast<const float*>(stats),
-                            static_cast<bf16*>(dk_), static_cast<bf16*>(dv_),
-                            sh);
+  return cudaLaunchKernelEx(&cfg, keys, kq, kdo, kk, kv, kst, a);
 }
 
-// the instantiation whose accumulators cover hd and vd: <= 64, <= 128,
-// MLA's 192 / 128 (dK + dV split over two warps a block), <= 256
-cudaError_t dispatch_bf16(const Shape& sh, cudaStream_t stream, const void* q,
-                          const void* k, const void* v, const void* dout,
-                          void* dq, void* dk, void* dv, float* stats) {
-  if (static_cast<long long>(sh.Sq) * sh.G >= (1LL << 26))  // div_g
-    return cudaErrorInvalidValue;
-  if (sh.hd <= 64)
-    return launch_bf16<4, 4, 1, 3>(sh, stream, q, k, v, dout, dq, dk, dv,
-                                   stats);
-  if (sh.hd <= 128)
-    return launch_bf16<8, 8, 1, 2>(sh, stream, q, k, v, dout, dq, dk, dv,
-                                   stats);
-  if (sh.hd <= 192 && sh.vd <= 128)
-    return launch_bf16<12, 8, 2, 3>(sh, stream, q, k, v, dout, dq, dk, dv,
-                                    stats);
-  return launch_bf16<16, 16, 2, 2>(sh, stream, q, k, v, dout, dq, dk, dv,
-                                   stats);
+// the instantiation whose panels cover hd and vd: <= 64, <= 128, MLA's
+// 192 / 128, <= 256 (dK and dV on a warpgroup each)
+cudaError_t dispatch_bf16(const BwdBf16& a, cudaStream_t stream) {
+  if (a.hd <= 64) return launch_bf16<64, 64, 64, 3, 64, 4, 1>(a, stream);
+  if (a.hd <= 128) return launch_bf16<128, 128, 64, 3, 32, 4, 1>(a, stream);
+  if (a.hd <= 192 && a.vd <= 128)
+    return launch_bf16<192, 128, 64, 3, 16, 4, 1>(a, stream);
+  return launch_bf16<256, 256, 32, 2, 32, 3, 2>(a, stream);
 }
 
-// the widest copy every row of q, k, v and dout stays aligned to (16, 8 or
-// 4 bytes); 0 for none. bf16 rows may be 2-byte aligned only (hd 37): then
-// 2, one element a load
-template <typename T>
+// the widest copy every fp32 row of q, k, v and dout stays aligned to (16,
+// 8 or 4 bytes); 0 for none
 int row_copy_bytes(const void* q, const void* k, const void* v,
                    const void* dout, int hd, int vd) {
-  int vec = copy_bytes(q, sizeof(T) * hd);
-  const int vecs[3] = {copy_bytes(k, sizeof(T) * hd),
-                       copy_bytes(v, sizeof(T) * vd),
-                       copy_bytes(dout, sizeof(T) * vd)};
+  int vec = copy_bytes(q, sizeof(float) * hd);
+  const int vecs[3] = {copy_bytes(k, sizeof(float) * hd),
+                       copy_bytes(v, sizeof(float) * vd),
+                       copy_bytes(dout, sizeof(float) * vd)};
   for (int x : vecs) vec = x < vec ? x : vec;
-  if (vec == 0 && sizeof(T) == 2) {
-    const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
-                          reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) |
-                          reinterpret_cast<uintptr_t>(dout);
-    if (any % 2 == 0) vec = 2;
-  }
   return vec;
 }
 
@@ -1601,6 +1736,41 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || hd > kMaxHd ||
       vd <= 0 || vd > hd || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    BwdBf16 a = {};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.dout = static_cast<const __nv_bfloat16*>(dout);
+    a.dq = static_cast<__nv_bfloat16*>(dq);
+    a.dk = static_cast<__nv_bfloat16*>(dk);
+    a.dv = static_cast<__nv_bfloat16*>(dv);
+    a.stats = stats;
+    a.B = B;
+    a.Sq = Sq;
+    a.Sk = Sk;
+    a.H = H;
+    a.KV = KV;
+    a.G = H / KV;
+    a.hd = hd;
+    a.vd = vd;
+    a.causal = causal;
+    a.window = window;
+    a.scale = scale;
+    // TMA where every row and base pointer is 16-byte aligned (every model
+    // shape), else element loads into the same swizzled tiles
+    a.tma = copy_bytes(q, 2 * hd) == 16 && copy_bytes(k, 2 * hd) == 16 &&
+            copy_bytes(v, 2 * vd) == 16 && copy_bytes(dout, 2 * vd) == 16;
+    a.out_vec = copy_bytes(dq, 2 * hd) >= 4 && copy_bytes(dk, 2 * hd) >= 4 &&
+                copy_bytes(dv, 2 * vd) >= 4;
+    const uintptr_t any =
+        reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+        reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+        reinterpret_cast<uintptr_t>(dv);
+    if (any % 2 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+    return static_cast<int>(dispatch_bf16(a, stream));
+  }
   Shape sh;
   sh.B = B;
   sh.Sq = Sq;
@@ -1614,11 +1784,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   sh.causal = causal;
   sh.window = window;
   sh.scale = scale;
-  sh.vec = bf16 ? row_copy_bytes<__nv_bfloat16>(q, k, v, dout, hd, vd)
-                : row_copy_bytes<float>(q, k, v, dout, hd, vd);
+  sh.vec = row_copy_bytes(q, k, v, dout, hd, vd);
   if (sh.vec == 0) return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaError_t err =
-      bf16 ? dispatch_bf16(sh, stream, q, k, v, dout, dq, dk, dv, stats)
-           : dispatch<float>(sh, stream, q, k, v, dout, dq, dk, dv, stats);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch<float>(sh, stream, q, k, v, dout, dq, dk, dv, stats));
 }

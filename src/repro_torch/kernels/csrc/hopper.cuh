@@ -1,16 +1,26 @@
 // Pieces of Hopper's (sm_90a) asynchronous machinery for the kernels that
-// feed warpgroup MMAs from TMA copies: flash_attention.cu's bf16 forward.
-// Warpgroup MMAs (wgmma.mma_async, bf16 in, fp32 accumulators), their
-// shared-memory descriptors for 128-byte-swizzled tiles, mbarriers, TMA
-// tensor copies, register rebalancing between warpgroups, and the host's
-// tensor-map encoder. Internal linkage, as each source's own helpers.
+// feed warpgroup MMAs from TMA copies: the bf16 flash-attention forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu). Warpgroup
+// MMAs (wgmma.mma_async, bf16 in, fp32 accumulators), their shared-memory
+// descriptors for 128-byte-swizzled tiles, mbarriers, TMA tensor copies,
+// cluster barriers, register rebalancing between warpgroups, the host's
+// tensor-map encoder, and the tile helpers both kernels share (bf16 hi +
+// lo splits, the SFU's exp2, a row staged by element loads). Internal
+// linkage, as each source's own helpers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no driver call
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr int kPanel = 64;         // bf16 columns of a 128-byte swizzled row
+constexpr int kPanelRow = 128;     // bytes of a panel row
+constexpr int kProducerRegs = 40;  // setmaxnreg: producer / consumers of a
+constexpr int kConsumerRegs = 232; // 384-thread block (it starts at 168)
 
 // ---- shared memory, mbarriers
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -73,6 +83,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the same for a box of a 1-D tensor map, at element c0
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// ---- every thread of every block of the cluster (not .aligned: the
+// threads of a warp may arrive apart); release / acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+// the threads [0, n) of the block (n a multiple of 32) at barrier `id`
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---- register rebalancing between the warpgroups of a block (every
 // warp of a warpgroup executes it; counts are multiples of 8)
 template <int N>
@@ -120,6 +151,37 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= A.B^T, m64n16k16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A.B^T, m64n32k16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (+)= A.B^T, m64n64k16: A and B from shared memory, both K-major
@@ -240,6 +302,55 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A.B, m64n192k16: A from registers, B from shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
 // d += A.B, m64n256k16: A from registers, B from shared memory MN-major
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
                                             const uint32_t (&a)[4],
@@ -300,6 +411,75 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the (d, a, b) MMAs of one k16 step, by width
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss width");
+  if constexpr (N == 16)
+    wgmma_ss_n16(d, da, db, accumulate);
+  else if constexpr (N == 32)
+    wgmma_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma_rs width");
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128)
+    wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 192)
+    wgmma_rs_n192(d, a, db);
+  else
+    wgmma_rs_n256(d, a, db);
+}
+
+// ---- tile helpers
+// hi = bf16(x), lo = bf16(x - hi) of two fp32 values, the lower column in
+// the low half of each word
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: relative error below 2^-22, flushes
+// subnormal results to 0)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// row r of a tile of `rows` rows in `np` 128-byte-swizzled panels at
+// `tile`: the w elements of src (none: a zero row), zeros up to 64 np, in
+// 16-byte chunks, one element a load (rows that TMA cannot describe)
+__device__ __forceinline__ void stage_row(unsigned char* tile, int rows,
+                                          int np, int r, const bf16* src,
+                                          int w) {
+  for (int c = 0; c < np * 8; ++c) {
+    union {
+      uint4 u;
+      bf16 e[8];
+    } chunk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * c + i;
+      chunk.e[i] = src != nullptr && col < w ? src[col] : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + (c >> 3) * rows * kPanelRow +
+                              r * kPanelRow + (((c & 7) ^ (r & 7)) << 4)) =
+        chunk.u;
+  }
+}
 
 // ---- host side: the driver's tensor-map encoder, reached through the
 // runtime (no link against libcuda)
@@ -344,6 +524,25 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base, int d0, int d1,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
+// a map over the contiguous fp32 vector [d0] (base 16-byte aligned) in
+// boxes of b0 elements (b0 a multiple of 4), unswizzled; elements past d0
+// read as zero. False if the encoder is missing or refuses
+inline bool encode_f32_1d(CUtensorMap* map, const void* base, long long d0,
+                          int b0) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(d0)};
+  const cuuint64_t strides[1] = {0};  // none at rank 1
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(b0)};
+  const cuuint32_t unit[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

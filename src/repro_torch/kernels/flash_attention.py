@@ -19,14 +19,17 @@ query head and runs ``ref.flash_attention_ref`` (exact softmax), as the
 JAX wrapper does. ``ops.flash_attention`` is the public wrapper that
 checks the arguments and picks between the two.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; tiles
-through ``cp.async`` rings, fp32 sums) has no Pallas counterpart: the JAX
-package trains through XLA blockwise attention. fp32 runs every product
-3xTF32 on the TF32 tensor cores; bf16 keeps its tiles bf16 in shared
-memory and runs ``mma.sync`` m16n8k16 on the bf16 tensor cores, P and dS
-as bf16 hi + lo, the gradients rounded to bf16 once. ``launch_bwd`` runs
-its two launches, ``plain_bwd`` (autograd of ``plain``) is what it is
-held against.
+The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 sums)
+has no Pallas counterpart: the JAX package trains through XLA blockwise
+attention. fp32 runs every product 3xTF32 on the TF32 tensor cores
+(``mma.sync``, tiles through ``cp.async`` rings). bf16 runs the forward's
+design: ``flash_bwd_rows_bf16`` and ``flash_bwd_keys_bf16``, two consumer
+warpgroups on ``wgmma`` fed by a producer warp's TMA ring of
+128-byte-swizzled tiles (``setmaxnreg`` 40 / 232), every product on the
+bf16 tensor cores summed in place in fp32, P and dS as bf16 hi + lo, the
+gradients rounded to bf16 once (``BACKWARD.NO_SPILL``: its instantiations
+that must compile with no spill). ``launch_bwd`` runs its two launches,
+``plain_bwd`` (autograd of ``plain``) is what it is held against.
 """
 from __future__ import annotations
 
@@ -52,14 +55,19 @@ FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
                     "flash_fwd_bf16<192,128,64,3>")
 # the backward's build record (``ops.build_kernels``); the same limits.
 # NO_SPILL: its bf16 instantiations for hd <= 64, <= 128 and MLA's 192 /
-# 128, which ptxas must compile with no stack and no spills
+# 128 (rows <HK, VK, keys a tile, stages>; keys <HK, VK, rows a tile,
+# stages, warpgroups a key>), which ptxas must compile with no stack and
+# no spills
 BACKWARD = SimpleNamespace(
     SOURCE="flash_attention_bwd.cu", SYMBOL="flash_attention_bwd",
     ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                              ctypes.c_void_p],
-    NO_SPILL=("flash_bwd_rows_bf16<4,3>", "flash_bwd_rows_bf16<8,2>",
-              "flash_bwd_rows_bf16<12,3>", "flash_bwd_keys_bf16<4,4,1>",
-              "flash_bwd_keys_bf16<8,8,1>", "flash_bwd_keys_bf16<12,8,2>"))
+    NO_SPILL=("flash_bwd_rows_bf16<64,64,64,3>",
+              "flash_bwd_rows_bf16<128,128,64,3>",
+              "flash_bwd_rows_bf16<192,128,64,3>",
+              "flash_bwd_keys_bf16<64,64,64,4,1>",
+              "flash_bwd_keys_bf16<128,128,32,4,1>",
+              "flash_bwd_keys_bf16<192,128,16,4,1>"))
 
 
 def plain(q, k, v, *, causal: bool, window: int):

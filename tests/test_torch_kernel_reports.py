@@ -1,8 +1,10 @@
-"""The build reports ``chip_smoke.py`` and ``tools/flash_fwd_check.py``
-read on the card, parsed on the CPU: the forward kernels' ``ptxas``
-records by the labels ``flash_attention.FORWARD_NO_SPILL`` names, and the
-``HGMMA`` / ``HMMA`` counts of each kernel's SASS (``ops.sass_counts``).
-The mangled names are an H100 build's (nvcc 12.9, sm_90a)."""
+"""The build reports ``chip_smoke.py``, ``tools/flash_fwd_check.py`` and
+``tools/flash_bwd_check.py`` read on the card, parsed on the CPU: the
+forward's and the backward's bf16 kernels' ``ptxas`` records by the
+labels ``flash_attention.FORWARD_NO_SPILL`` and ``BACKWARD.NO_SPILL``
+name, and the ``HGMMA`` / ``HMMA`` counts of each kernel's SASS
+(``ops.sass_counts``). The mangled names are an H100 build's (nvcc 12.9,
+sm_90a)."""
 import subprocess
 from types import SimpleNamespace
 
@@ -16,6 +18,13 @@ BF16 = {"flash_fwd_bf16<64,64,128,3>": "ILi64ELi64ELi128ELi3",
         "flash_fwd_bf16<192,128,64,3>": "ILi192ELi128ELi64ELi3",
         "flash_fwd_bf16<256,256,64,2>": "ILi256ELi256ELi64ELi2"}
 FP32 = NS + "22flash_attention_kernelILi8EEEvPKfS2_S2_Pfiiiiiiiiiifi"
+# the backward's: rows kernels take 4 tensor maps, keys kernels 5
+BWD_NS = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_2b1a21a5"
+BWD_BF16 = ("flash_bwd_rows_bf16<64,64,64,3>", "flash_bwd_rows_bf16<128,128,64,3>",
+            "flash_bwd_rows_bf16<192,128,64,3>", "flash_bwd_rows_bf16<256,256,32,2>",
+            "flash_bwd_keys_bf16<64,64,64,4,1>", "flash_bwd_keys_bf16<128,128,32,4,1>",
+            "flash_bwd_keys_bf16<192,128,16,4,1>", "flash_bwd_keys_bf16<256,256,32,3,2>")
+BWD_FP32 = BWD_NS + "21flash_bwd_rows_kernelIfLi8EEEvPKT_S3_S3_S3_PS1_PfNS_5ShapeE"
 
 
 def _mangled(label):
@@ -40,6 +49,32 @@ def test_forward_no_spill_labels_are_the_kernels():
     assert ops._kernel_label(FP32) == "flash_attention_kernel<8>"
 
 
+def _bwd_mangled(label):
+    name, args = label[:-1].split("<")
+    maps = 4 if name == "flash_bwd_rows_bf16" else 5
+    return (BWD_NS + f"{len(name)}{name}I"
+            + "".join(f"Li{n}E" for n in args.split(",")) + "EEEv14CUtensorMap_st"
+            + "S1_" * (maps - 1) + "NS_7BwdBf16E")
+
+
+def test_backward_no_spill_labels_are_the_kernels():
+    assert set(flash_mod.BACKWARD.NO_SPILL) <= set(BWD_BF16)
+    lines = []
+    for i, label in enumerate(BWD_BF16):
+        spill = 16 if i % 3 == 2 else 0
+        lines += [f"ptxas info    : Compiling entry function "
+                  f"'{_bwd_mangled(label)}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {_bwd_mangled(label)}",
+                  f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+                  f"{spill} bytes spill loads",
+                  "ptxas info    : Used 168 registers, used 3 barriers"]
+    recs = ops.ptxas_kernels("\n".join(lines))
+    assert [r["kernel"] for r in recs] == list(BWD_BF16)
+    assert [r["spill_stores"] for r in recs] == [
+        16 if i % 3 == 2 else 0 for i in range(len(BWD_BF16))]
+    assert ops._kernel_label(BWD_FP32) == "flash_bwd_rows_kernel<float,8>"
+
+
 def test_sass_counts_reads_each_kernels_mma_instructions(monkeypatch):
     listing = "\n".join([
         "\tcode for sm_90a",
@@ -58,3 +93,39 @@ def test_sass_counts_reads_each_kernels_mma_instructions(monkeypatch):
     assert ops.sass_counts("flash_attention") == {
         "flash_fwd_bf16<128,128,64,3>": {"HGMMA": 2, "HMMA": 0},
         "flash_attention_kernel<8>": {"HGMMA": 0, "HMMA": 2}}
+
+
+def test_backward_sass_gate_takes_wgmma_only(monkeypatch):
+    """``tools/flash_bwd_check.py``'s gate: every bf16 backward kernel has
+    HGMMA and no HMMA; the fp32 kernels' HMMA do not count."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "flash_bwd_check.py"
+    spec = importlib.util.spec_from_file_location("flash_bwd_check", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rows, keys = (_bwd_mangled(flash_mod.BACKWARD.NO_SPILL[0]),
+                  _bwd_mangled(flash_mod.BACKWARD.NO_SPILL[-1]))
+    listing = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {rows}",
+        "        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;",
+        f"\t\tFunction : {keys}",
+        "        /*0200*/  HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;",
+        "        /*0210*/  HGMMA.64x192x16.F32.BF16 R88, R152, gdesc[UR8], R88, gsb0 ;",
+        f"\t\tFunction : {BWD_FP32}",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"])
+    monkeypatch.setattr(ops, "_cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: SimpleNamespace(
+        stdout=listing))
+    sass = ops.sass_counts("flash_attention_bwd")
+    assert sass == {
+        flash_mod.BACKWARD.NO_SPILL[0]: {"HGMMA": 1, "HMMA": 0},
+        flash_mod.BACKWARD.NO_SPILL[-1]: {"HGMMA": 2, "HMMA": 0},
+        "flash_bwd_rows_kernel<float,8>": {"HGMMA": 0, "HMMA": 1}}
+    assert tool.bf16_sass_ok(sass)
+    sass[flash_mod.BACKWARD.NO_SPILL[-1]]["HMMA"] = 1    # an mma.sync
+    assert not tool.bf16_sass_ok(sass)
+    del sass[flash_mod.BACKWARD.NO_SPILL[0]]              # no rows kernel
+    sass[flash_mod.BACKWARD.NO_SPILL[-1]]["HMMA"] = 0
+    assert not tool.bf16_sass_ok(sass)
