@@ -11,7 +11,7 @@ It drives the port's two entry points end to end and checks them:
    ``ptxas`` reports (registers, shared memory, spills) of flash
    attention, SSD chunk and their backwards on a JSON line each; fails
    if a bf16 flash kernel of ``FORWARD_NO_SPILL`` or ``BACKWARD.NO_SPILL``
-   spills, and if the SASS of a bf16 forward or backward kernel
+   or a one-query kernel of ``ONE_QUERY_NO_SPILL`` spills, and if the SASS of a bf16 forward or backward kernel
    (``cuobjdump -sass``, a ``sass_mma_counts`` line each) holds an
    ``HMMA`` or no ``HGMMA``;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
@@ -222,7 +222,11 @@ It drives the port's two entry points end to end and checks them:
    period of 40 layers (4 plain, 1 cross) over 1601 seeded patch
    embeddings. Each runs phase 6's prefills and engine comparison with
    ``enc=``; the engine launches flash attention once per cross layer
-   per decode step (one query row), and nothing else;
+   per decode step (one query row), and nothing else, every launch on
+   the one-query route (``ops.route_counts``); Vision's engine call, the
+   route's heaviest, is held and timed as a ``kernels`` entry of its own
+   with the engine's launches, and checked against float64, bitwise on a
+   second launch and row and head independent;
 7. the same for Mamba2-2.7B at its full published widths (d_model 2560,
    d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
@@ -313,12 +317,28 @@ It drives the port's two entry points end to end and checks them:
    BF16_F64_TOL, launched twice for bitwise equal gradients); the SSD
    backward at every SSD chunk shape with seeded output gradients (the
    4096-position chunk against float64);
+   Every fp32 FLASH_SHAPES entry that takes the one-query route (Sq·G <=
+   ``ONE_QUERY_ROWS``) is also held against float64, launched twice for
+   bitwise equal outputs, and cut to its last row and to its last two KV
+   heads' query heads, bitwise the whole call's (``one_query_checks``);
 11. paged attention's batch independence: one row gives bitwise the same
    output alone, as one of 16 rows, and with a table two blocks wider;
 12. the engines' one-query cross-attention calls (Whisper's and
-   Vision's, 2 rows) held against the plain version and timed in CUDA
-   graphs beside the plain version, SDPA and the byte bound (a
-   ``one_query_cross`` line).
+   Vision's, 2 rows): the route taken (``ops.route_counts``), held
+   against the plain version and by ``one_query_checks``, and timed in
+   CUDA graphs beside the plain version, SDPA and the byte bound (a
+   ``one_query_cross`` line, the route's fp32 FMAs bound at the fp32-core
+   rate); beside them each bf16 one-query FLASH_SHAPES entry timed once
+   beside SDPA's bf16 call (``bf16_one_query``);
+13. the one-query route's batch and head independence
+   (``one_query_independence``): at Vision's and Whisper's widths over 8
+   rows, row 3 alone, as one of the 8 and in a call cut to 2 of its heads
+   (a (16, 16) rank's cross call) bitwise equal;
+14. the one-query route's choices timed (``one_query_sweep``): split
+   lengths 32 to 256 at the engines' calls, and the route beside the tile
+   kernel at 1 to 64 rows a KV head (over G and over Sq), with the row
+   count up to which the route won (``sweep_cut``) beside the port's
+   ``ONE_QUERY_ROWS``.
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -451,7 +471,12 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # v, which take the widest instantiation: hd 256 / vd 128 (fp32 too) and a
 # partial last panel, hd 200 / vd 120; and 64 query heads a KV head over
 # 131100 positions, more position tiles (two positions a block) than a
-# grid's y dimension takes (65535).
+# grid's y dimension takes (65535). Then the one-query route's masked
+# shapes of tests/test_torch_flash_one_query.py (fp32 at Sq·G <=
+# ONE_QUERY_ROWS = 8 rows a KV head): causal, window 37 and both at Sq 4
+# with G 2 (8 rows), Sq 3 over Sk 2 under window 1 (a row that sees no
+# key: uniform), G 8 at one query, and hd 37 / vd 21 (4-byte copies) over
+# 129 keys in G 2; and G 16 at one query, past the cut (the tile kernel).
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -485,12 +510,30 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 200, 200, 16, 1, 256, 128, True, 0, "float32"),
                 (1, 200, 200, 16, 1, 256, 128, True, 0, "bfloat16"),
                 (1, 150, 150, 8, 2, 200, 120, True, 0, "bfloat16"),
-                (1, 131100, 40, 64, 1, 16, 16, False, 0, "bfloat16")]
+                (1, 131100, 40, 64, 1, 16, 16, False, 0, "bfloat16"),
+                (2, 4, 100, 8, 4, 64, 64, True, 0, "float32"),
+                (2, 4, 100, 8, 4, 64, 64, False, 37, "float32"),
+                (2, 4, 100, 8, 4, 64, 64, True, 37, "float32"),
+                (2, 3, 2, 4, 2, 64, 64, False, 1, "float32"),
+                (2, 3, 2, 4, 2, 64, 64, True, 1, "float32"),
+                (1, 1, 100, 8, 1, 64, 64, False, 0, "float32"),
+                (2, 1, 129, 6, 3, 37, 21, False, 0, "float32"),
+                (1, 1, 100, 16, 1, 64, 64, False, 0, "float32")]
 # the one-query cross-attention calls the engines launch at every decode
 # step, timed alone (B, Sk, H, hd): Whisper-tiny's 2 rows over 1500
 # frames, 6 heads of 64, and Llama-3.2-Vision's over 1601 patches, 32
 # heads of 128
 ONE_QUERY_CROSS = [(2, 1500, 6, 64), (2, 1601, 32, 128)]
+# the one-query route's two choices, timed beside each other
+# (``one_query_sweep``): its split lengths at those calls, and the rows a
+# KV head (Sq·G) at which it and the tile kernel are timed, over G at one
+# query and over Sq at G 1 (1601 keys, KV heads of 128), at B x KV = 2 x 8
+# (16 blocks of the tile kernel: a fraction of the card) and 8 x 32 (256:
+# most of a wave of it)
+ONE_QUERY_SPLIT_SWEEP = (32, 64, 128, 256)
+ONE_QUERY_ROW_SWEEP = (1, 2, 4, 8, 16, 32, 64)
+ONE_QUERY_ROW_CALLS = (("G", 2, 8), ("Sq", 2, 8), ("G", 8, 32),
+                       ("Sq", 8, 32))
 SSD_SHAPES = [(1, 64, 6, 32, 16, 0.1), (2, 100, 6, 32, 64, 0.1),
               (1, 64, 6, 32, 64, 0.1), (3, 37, 5, 72, 130, 0.1),
               (2, 256, 80, 64, 128, 0.1), (2, 1024, 8, 64, 128, 0.1),
@@ -1177,13 +1220,17 @@ def kernel_cases(calls):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
+        # the one-query route's calls are shorter than a host launch:
+        # timed in CUDA graphs
+        one_query = flash_mod.plan_of(q, k, v) is not None
         yield ("flash_attention",
                lambda: ops.flash_attention(q, k, v, **kw),
                lambda: flash_mod.plain(q, k, v, causal=causal, window=window),
-               library, False, nbytes, flops,
+               library, one_query, nbytes, flops,
                {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
                 "vd": vd, "causal": causal, "window": window,
-                "dtype": str(q.dtype), "visible_pairs": pairs}, None)
+                "dtype": str(q.dtype), "visible_pairs": pairs,
+                "path": "one_query" if one_query else "tiles"}, None)
 
     if "flash_attention_bwd" in calls:
         q, k, v, dout, kw = calls["flash_attention_bwd"]
@@ -1249,7 +1296,10 @@ def pass_flops(name, shape, flops):
     The flash backward on bf16 inputs: bf16 wgmma passes, S and dP one
     each in the rows launch's two walks and once more in the keys launch
     (S^T twice where its dK and dV take a warpgroup each, hd > 192), dQ,
-    dK and dV two each (P and dS as bf16 hi + lo)."""
+    dK and dV two each (P and dS as bf16 hi + lo). The flash forward's
+    one-query route: one pass of fp32 FMAs on the CUDA cores."""
+    if shape.get("path") == "one_query":
+        return flops, FP32_FLOPS_PER_S
     if shape.get("dtype") != "torch.bfloat16":
         return 3 * flops, TF32_FLOPS_PER_S
     per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
@@ -1287,8 +1337,10 @@ def agree(name, got, want, tol, what):
 
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
-    PAGED_SHAPES, FLASH_SHAPES (bf16 also against float64 and launched
-    twice for bitwise equal outputs), FLASH_BWD_SHAPES (the backward against
+    PAGED_SHAPES, FLASH_SHAPES (bf16, and fp32 calls of the one-query
+    route, also against float64 and launched twice for bitwise equal
+    outputs; the one-query route's also row and head independent,
+    ``flash_row_head_independence``), FLASH_BWD_SHAPES (the backward against
     autograd of the plain version, in fp32 and in bf16; bf16 also against
     float64 and launched twice for bitwise equal gradients) and
     SSD_SHAPES, forward and backward
@@ -1358,10 +1410,13 @@ def coverage_checks():
         held("flash_attention", [B, Sq, Sk, H, KV, hd, vd, causal, window,
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
+        kw = dict(causal=causal, window=window)
         if dtype == torch.bfloat16:
-            kw = dict(causal=causal, window=window)
             out[-1]["vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
             out[-1]["bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
+        elif flash_mod.plan_of(q, k, v) is not None:
+            out[-1].update(one_query_checks(ops, q, k, v, got, kw,
+                                            out[-1]["shape"]))
     for dt in ("float32", "bfloat16"):
         for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
             q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
@@ -1406,36 +1461,54 @@ def coverage_checks():
 
 def one_query_cross(floor_ms):
     """The engines' one-query cross-attention calls (ONE_QUERY_CROSS),
-    fp32, seeded: the kernel held against its plain version, then the
-    kernel, the plain version and SDPA on the same call each timed in a
-    CUDA graph (the calls are shorter than a launch from the host), beside
-    the bound: K and V read once, at the memory rate, against the products
-    at the TF32 rate. Returns one record a call."""
+    fp32, seeded: the route the call took (``ops.route_counts`` around
+    it), the kernel held against its plain version and by
+    ``one_query_checks``, then the kernel, the plain
+    version and SDPA on the same call each timed in a CUDA graph (the
+    calls are shorter than a launch from the host), beside the bound: K
+    and V read once, at the memory rate, against the route's fp32 FMAs at
+    the fp32-core rate. Then each bf16 one-query shape of FLASH_SHAPES
+    (the bf16 tile kernel: the route is fp32 only) timed once beside
+    SDPA's bf16 call. Returns (records, bf16 records)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 12)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda().to(dtype)
+
     out = []
     for B, Sk, H, hd in ONE_QUERY_CROSS:
-        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
-            np.float32)).cuda() for shape in ((B, 1, H, hd), (B, Sk, H, hd),
-                                              (B, Sk, H, hd)))
+        q, k, v = rand((B, 1, H, hd)), rand((B, Sk, H, hd)), rand((B, Sk, H,
+                                                                   hd))
         kw = dict(causal=False, window=0)
-        err, rel = agree("flash_attention", ops.flash_attention(q, k, v, **kw),
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, **kw)
+        routes = ops.route_counts()["flash_attention_one_query"]
+        check(routes == 1, f"one-query cross {B, Sk, H}: route count "
+                           f"{routes}, expected the one-query route")
+        err, rel = agree("flash_attention", got,
                          flash_mod.plain(q, k, v, **kw),
                          TOL["flash_attention"], f"one-query cross {B, Sk, H}")
+        checks = one_query_checks(ops, q, k, v, got, kw,
+                                  f"one-query cross {B, Sk, H}")
+        S = flash_mod.plan_of(q, k, v)
         flops, nbytes = flash_mod.cost(q, k, v, **kw)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw), 20,
                        graph=True)
         out.append({
             "shape": {"B": B, "Sq": 1, "Sk": Sk, "H": H, "KV": H, "hd": hd,
                       "vd": hd, "causal": False, "dtype": "torch.float32"},
+            "keys_per_split": S,
+            "splits": len(flash_mod.one_query_splits(1, Sk, False, 0, S)),
             "max_abs_err": err, "max_err_over_max_plain": rel,
-            "tol": TOL["flash_attention"], "ms": ms,
+            "tol": TOL["flash_attention"], **checks, "ms": ms,
             "plain_ms": device_ms(lambda: flash_mod.plain(q, k, v, **kw), 20,
                                   graph=True),
             "library_ms": device_ms(
@@ -1443,7 +1516,152 @@ def one_query_cross(floor_ms):
                 graph=True),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_peak": f"{FP32_PEAK[0]}, {FP32_FLOPS_PER_S / 1e12:g} "
+                          f"TFLOP/s",
+            "share_of_bound": max(t_bytes, t_ops) * 1e3 / ms,
             "bytes": nbytes, "flops": flops, "launch_floor_ms": floor_ms})
+    bf16 = []
+    for B, Sq, Sk, H, KV, hd, vd, causal, window, dt in FLASH_SHAPES:
+        if Sq != 1 or dt != "bfloat16":
+            continue
+        q, k = rand((B, Sq, H, hd), torch.bfloat16), rand((B, Sk, KV, hd),
+                                                          torch.bfloat16)
+        v = rand((B, Sk, KV, vd), torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bf16.append({
+            "shape": [B, Sq, Sk, H, KV, hd, vd, causal, window, dt],
+            "ms": device_ms(lambda: ops.flash_attention(q, k, v, **kw), 20,
+                            graph=True),
+            "library_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 20,
+                graph=True),
+            "bound_ms": flash_mod.cost(q, k, v, **kw)[1] / HBM_BYTES_PER_S
+            * 1e3})
+    return out, bf16
+
+
+def one_query_checks(ops, q, k, v, got, kw, what):
+    """The one-query route at a call whose output is ``got``: max |got -
+    float64| over max |float64| (``flash_out_float64``, within TOL), two
+    launches bitwise equal (``fwd_repeat_bitwise``), and the call's last
+    row and last two KV heads in calls of their own bitwise equal
+    (``flash_row_head_independence``). Returns the record's fields."""
+    kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
+    f64 = flash_out_float64(q, k, v, **kw)
+    vs64 = float((got.double() - f64).abs().max() / f64.abs().max())
+    check(vs64 <= TOL["flash_attention"],
+          f"flash_attention one-query route, {what}, vs float64: {vs64:.3e}")
+    return {"route": "one_query", "vs_float64": vs64,
+            "bitwise_repeat": fwd_repeat_bitwise(ops, q, k, v, kw),
+            "independence": flash_row_head_independence(ops, q, k, v, kw)}
+
+
+def flash_row_head_independence(ops, q, k, v, kw, row=-1):
+    """A flash attention call's row ``row`` in a call of its own, and its
+    last two KV heads' query heads (all of them where KV is 1) in a call
+    of their own, as a rank of the model axis runs them: each bitwise
+    equal to the same outputs of the whole call (the one-query route's
+    splits depend on neither B nor H)."""
+    import torch
+    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    G, r, j = H // KV, row % B, max(0, KV - 2)
+    kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
+    whole = ops.flash_attention(q, k, v, **kw)
+    alone = ops.flash_attention(*(t[r:r + 1].contiguous() for t in (q, k, v)),
+                                **kw)
+    cut = ops.flash_attention(q[:, :, j * G:].contiguous(),
+                              k[:, :, j:].contiguous(),
+                              v[:, :, j:].contiguous(), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(whole[r:r + 1], alone)
+          and torch.equal(whole[:, :, j * G:], cut),
+          f"flash_attention at {tuple(q.shape)} over {k.shape[1]} keys: row "
+          f"{r} alone or heads {j * G}..{H - 1} cut from the call differ")
+    return {"row": r, "of_rows": B, "heads": [j * G, H], "of_heads": H,
+            "bitwise": True}
+
+
+def one_query_independence():
+    """The engines' one-query calls at their widths over 8 rows
+    (Llama-3.2-Vision's 1601 patches and 32 heads of 128, Whisper-tiny's
+    1500 frames and 6 heads of 64): row 3 alone, as one of the 8 rows, and
+    in a call cut to 2 of its heads (a (16, 16) rank's cross call), all
+    bitwise equal (``flash_row_head_independence``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 13)
+    out = []
+    for B, Sk, H, hd in ((8, 1601, 32, 128), (8, 1500, 6, 64)):
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(
+            np.float32)).cuda() for s in ((B, 1, H, hd), (B, Sk, H, hd),
+                                          (B, Sk, H, hd)))
+        rec = flash_row_head_independence(
+            ops, q, k, v, dict(causal=False, window=0), row=3)
+        out.append({"shape": [B, 1, Sk, H, H, hd, hd], **rec})
+    return {"one_query_independence": out}
+
+
+def one_query_sweep(floor_ms):
+    """The one-query route's two choices, each timed in a CUDA graph of 20
+    launches (fp32, seeded): its split length at the engines' calls
+    (ONE_QUERY_CROSS) over ONE_QUERY_SPLIT_SWEEP (None where a split's
+    rows do not fit shared memory and the launch is refused), and the
+    rows a KV head it takes: the route (at its plan's split length) beside
+    the tile kernel at Sq·G in ONE_QUERY_ROW_SWEEP, over G at one query
+    and over Sq at G 1 (ONE_QUERY_ROW_CALLS: (over, B, KV); 1601 keys, KV
+    heads of 128, no mask). ``sweep_cut``: the most rows up to which the
+    route beat the tile kernel at every count, in every sweep, beside the
+    cut the port uses (``ONE_QUERY_ROWS``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 14)
+    fn = ops._entry("flash_attention")
+    kw = dict(causal=False, window=0)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda()
+
+    def timed(q, k, v, S):
+        try:
+            return device_ms(lambda: flash_mod.launch(
+                fn, q, k, v, keys_per_split=S, **kw), 20, graph=True)
+        except RuntimeError:   # refused: the split does not fit
+            return None
+
+    out = {"launch_floor_ms": floor_ms, "cut": flash_mod.ONE_QUERY_ROWS,
+           "split_bytes": flash_mod.ONE_QUERY_SPLIT_BYTES}
+    for B, Sk, H, hd in ONE_QUERY_CROSS:
+        q, k, v = rand(B, 1, H, hd), rand(B, Sk, H, hd), rand(B, Sk, H, hd)
+        out[f"split_{B}x{Sk}x{H}x{hd}"] = {
+            "plan": flash_mod.plan_of(q, k, v),
+            **{f"S{S}": timed(q, k, v, S) for S in ONE_QUERY_SPLIT_SWEEP}}
+    Sk, hd = 1601, 128
+    S = flash_mod.one_query_plan(1, Sk, 1, 1, hd, hd, torch.float32)
+    cut = {}
+    for over, B, KV in ONE_QUERY_ROW_CALLS:
+        k, v = rand(B, Sk, KV, hd), rand(B, Sk, KV, hd)
+        rows = []
+        for R in ONE_QUERY_ROW_SWEEP:
+            G, Sq = (R, 1) if over == "G" else (1, R)
+            q = rand(B, Sq, KV * G, hd)
+            rows.append({"rows": R, "Sq": Sq, "G": G,
+                         "one_query_ms": timed(q, k, v, S),
+                         "tiles_ms": timed(q, k, v, 0)})
+        name = f"rows_over_{over}_{B}x{KV}"
+        out[name] = rows
+        wins = [None not in (r["one_query_ms"], r["tiles_ms"])
+                and r["one_query_ms"] < r["tiles_ms"] for r in rows]
+        n = wins.index(False) if False in wins else len(wins)
+        cut[name] = ONE_QUERY_ROW_SWEEP[n - 1] if n else 0
+        del k, v
+    out["sweep_cut"] = min(cut.values())
+    out["sweep_cut_by"] = cut
     return out
 
 
@@ -2431,7 +2649,9 @@ def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
     Its launch counts, reset just before and read just after, must be
     one flash attention per cross-attention layer per decode step (Sq =
     1; self-attention and SSM decode are plain PyTorch) and nothing
-    else."""
+    else, every one of them on the one-query route (``ops.route_counts``).
+    The engine's first flash attention call is kept (by reference) in the
+    report's "flash_call", to be held and timed."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
@@ -2448,17 +2668,29 @@ def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
         return logits, state
 
     eng._step = step_keeping_last_prompt_logits
+    kept = []
+    flash = ops.flash_attention
+
+    def flash_keeping_first_call(q, k, v, **kw):
+        if not kept:
+            kept.append((q, k, v, dict(kw)))
+        return flash(q, k, v, **kw)
+
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    outs = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW, enc=enc)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    with patched(ops, "flash_attention", lambda _: flash_keeping_first_call):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW, enc=enc)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, routes = ops.launch_counts(), ops.route_counts()
     # the engine runs S + ENGINE_NEW steps (its last one's logits unused)
     check_launches(launches,
                    {"flash_attention": cross_layers(cfg) * (S + ENGINE_NEW)},
                    f"{cfg.name} engine")
+    check(routes["flash_attention_one_query"] == launches["flash_attention"],
+          f"{cfg.name} engine: {routes} of {launches['flash_attention']} "
+          f"flash launches took the one-query route")
     dec = last["logits"]
     V = cfg.vocab_size
     check(tuple(pre_logits.shape) == (B, V) == tuple(dec.shape),
@@ -2478,19 +2710,22 @@ def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
     return {"prefill_vs_decode_max_abs_err": err, "tol": PREFILL_TOL,
             "first_token_rows_checked": int(sure.sum()),
             "engine_tokens": outs, "engine_s": seconds,
-            "engine_launches": launches}
+            "engine_launches": launches, "engine_routes": routes,
+            "flash_call": kept[0] if kept else None}
 
 
 def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
-                  engine_s=ENGINE_S, prefill_s=PREFILL_S):
+                  engine_s=ENGINE_S, prefill_s=PREFILL_S, engine_call=None):
     """Drive ``prefill`` and ``ServingEngine`` for one model (``enc``:
     the cross layers' encoder states or patch embeddings): the
     ``engine_s``-token comparison (``moe_path="dense"``), then two
     PREFILL_B x ``prefill_s`` prefills through ``moe_path="auto"``
     (counted and timed; the second is warm) and, with ``profile``, a
     third under the profiler. Every prefill launches what
-    ``prefill_launches`` says and nothing else. Returns (launches summed
-    over the counted runs, report)."""
+    ``prefill_launches`` says and nothing else. The engine's first flash
+    attention call, where it made one, goes into ``engine_call``
+    ("flash_attention": (q, k, v, kw)). Returns (launches summed over the
+    counted runs, report)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 1)
@@ -2514,6 +2749,9 @@ def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
     rep[f"prefill_{PREFILL_B}x{engine_s}"] = {
         "moe_path": "dense", "launches": launches, "ms": ms}
     rep["engine"] = engine_vs_prefill(params, cfg, toks, logits, enc)
+    call = rep["engine"].pop("flash_call")
+    if call is not None and engine_call is not None:
+        engine_call["flash_attention"] = call
 
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (PREFILL_B, prefill_s))).cuda()
@@ -4019,12 +4257,25 @@ def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
                 np.float32)).cuda()
     seqs = (dict(engine_s=WHISPER_S, prefill_s=WHISPER_S)
             if cfg.family == "encdec" else {})
+    engine_call = {}
     launches, prefill_rep = prefill_phase(params, cfg, ops, seen, profile,
-                                          enc=enc, **seqs)
+                                          enc=enc, engine_call=engine_call,
+                                          **seqs)
     rep.update(prefill_rep, setup=setup, card=card)
     hold_and_time({k: v[1] for k, v in seen.items()},
                   {k: launches[k] + encoder[k] for k in launches},
                   model=cfg.name)
+    if cfg.family == "vlm":
+        # the one-query route's heaviest call: the engine's cross call, held
+        # and timed with the engine's launches, then against float64, twice
+        # for bitwise equal outputs, and row and head independent
+        hold_and_time(engine_call, {"flash_attention": rep["engine"][
+            "engine_launches"]["flash_attention"]},
+            model=f"{cfg.name} engine, one-query route")
+        q, k, v, kw = engine_call["flash_attention"]
+        rep["engine"]["flash_call"] = one_query_checks(
+            ops, q, k, v, ops.flash_attention(q, k, v, **kw), kw,
+            f"{cfg.name} engine call")
     if mesh is not None and cfg.family == "hybrid":
         t0 = time.perf_counter()
         mesh_seen = {}
@@ -4906,6 +5157,12 @@ def main() -> None:
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
           f"bf16 flash forward kernels spill or are missing: {kept}")
+    no_spill = flash_mod.ONE_QUERY_NO_SPILL
+    kept = [r for r in fwd_kernels if r["kernel"] in no_spill]
+    check(len(kept) == len(no_spill)
+          and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+                      for r in kept),
+          f"one-query flash forward kernels spill or are missing: {kept}")
     # the bf16 forward and backward run warpgroup MMAs (HGMMA) and no
     # mma.sync (HMMA)
     sass = ops.sass_counts("flash_attention")
@@ -5019,7 +5276,10 @@ def main() -> None:
             plain_ms = device_ms(plain, iters, graph=graph)
             library_ms = (device_ms(library, iters, graph=graph)
                           if library is not None else None)
-            peak, rate = BF16_PEAK if bf16 else PEAK.get(name, FP32_PEAK)
+            # the flash forward's one-query route runs fp32 FMAs
+            peak, rate = (BF16_PEAK if bf16 else FP32_PEAK
+                          if shape.get("path") == "one_query"
+                          else PEAK.get(name, FP32_PEAK))
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
             bound_ms = max(t_bytes, t_ops) * 1e3
             rec = {
@@ -5230,7 +5490,12 @@ def main() -> None:
                    "ssd_chunk": ssd_launches["ssd_chunk"]})
     print(json.dumps({"coverage": coverage_checks()}), flush=True)
     print(json.dumps(paged_batch_independence()), flush=True)
-    print(json.dumps({"one_query_cross": one_query_cross(floor_ms),
+    cross, bf16_cross = one_query_cross(floor_ms)
+    print(json.dumps({"one_query_cross": cross,
+                      "bf16_one_query": bf16_cross, "card": card}),
+          flush=True)
+    print(json.dumps(one_query_independence()), flush=True)
+    print(json.dumps({"one_query_sweep": one_query_sweep(floor_ms),
                       "card": card}), flush=True)
     print(json.dumps({"wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"card: {card}", flush=True)

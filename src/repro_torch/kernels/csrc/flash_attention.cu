@@ -1,7 +1,10 @@
 // Full-sequence (prefill) attention with an fp32 online softmax on the
-// tensor cores of Hopper (sm_90a), plain C interface. Two kernels behind
+// tensor cores of Hopper (sm_90a), plain C interface. Three kernels behind
 // one entry: fp32 inputs run flash_attention_kernel (3xTF32 mma.sync);
-// bf16 inputs run flash_fwd_bf16 (wgmma fed by TMA), below.
+// bf16 inputs run flash_fwd_bf16 (wgmma fed by TMA); fp32 calls of a few
+// query rows a KV head (the engines' one-query decode calls), which the
+// launcher sends there with a split length, run flash_fwd_one_query (key
+// splits over the card, fp32 FMAs), below.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the Pallas TPU kernel behind repro.kernels.ops.flash_attention, called
@@ -163,6 +166,50 @@
 // turns: 7-12% less time. ptxas: 168 registers at launch (setmaxnreg
 // then 40 / 232), no stack and no spills at any instantiation; SASS:
 // HGMMA only, no HMMA (chip_smoke.py checks both).
+//
+// ---- fp32, one query: flash_fwd_one_query<EPT>
+//
+// What bounds it: bytes, and the latency of fetching them. At R = Sq G
+// query rows a KV head, each K/V row is read once and used for R rows:
+// 4 R flops (fp32 FMAs) a 4-byte element of K or V, ~1 flop a byte at R =
+// 1, below every ridge. The engines' cross calls are R = 1: Llama-3.2-
+// Vision's (B 2, 1601 keys, 32 heads of 128) moves 104.9 MB, 0.031 ms at
+// 3.35 TB/s, for 52 MFLOP (< 1 us at 67 TFLOP/s); Whisper-tiny's (1500
+// keys, 6 heads of 64) 9.2 MB, which sit in L2 between decode steps. The
+// tile kernel above gives such a call B KV blocks (12 and 64 on 132 SMs),
+// each walking ~100 16-key tiles one round trip after another with 1 of
+// its 64 rows live: 0.29 and 0.54 ms, latency, not bytes.
+//
+// What the design does about it:
+//  * Blocks over (batch row, KV head, key split): block (b, kvh, s) takes
+//    keys [s S, s S + S) for every row of its KV head (R = Sq G rows, row
+//    r = position r / G, head kvh G + r % G), so a K/V row is fetched once.
+//    S (a multiple of 32 up to 256) is the launcher's, a function of the
+//    shape alone (flash_attention.py: one_query_plan), so the splits and
+//    the order of every sum are the same for a row in any batch and under
+//    any cut of the heads. Only splits up to the last key a row can see
+//    are launched (one_query_splits), a 1-D grid of B KV n blocks.
+//  * One round trip: a block issues every 16-byte cp.async of its rows'
+//    queries and its split's K and V rows (4 or 8 bytes where a row or
+//    pointer is not 16-byte aligned) before it waits on any: 32 KB in
+//    flight a block at the engines' calls (S 64 at hd 64, 32 at hd 128),
+//    six blocks an SM.
+//  * Scores and P.V are plain fp32 FMAs on the CUDA cores, in fp32's own
+//    accuracy (no 3xTF32 split): a thread per (row, key), lanes on
+//    neighbouring keys of one row, K rows padded to 4 x an odd number of
+//    floats so the 16-byte loads of a quarter-warp hit distinct banks; a
+//    warp a row for the softmax (scores in log2 units, exp2f); then a
+//    thread per (row, value column), EPT of them a pass, keys in order.
+//  * Masks follow the tile kernel: masked keys score NEG_INF, keys past
+//    Sk take no part (-inf). Where the last row sees no key (Sq > Sk with
+//    a window) every split is walked and that row comes out uniform over
+//    every key, as in the reference.
+//  * One split writes the output. More leave each row's (m, l, o) in
+//    scratch the launcher allocates, and the (batch row, KV head)'s last
+//    block to finish (an atomic ticket, as paged_attention.cu) combines
+//    them in split order: M = max m_s, L = sum l_s 2^(m_s - M), O = sum o_s
+//    2^(m_s - M), out = O / max(L, 1e-30). No other atomics: bitwise
+//    repeatable. No host sync or allocation: capturable in a CUDA graph.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -876,24 +923,320 @@ cudaError_t dispatch_bf16(int B, cudaStream_t stream, const void* q,
   return launch_bf16<256, 256, 64, 2>(a, B, stream);
 }
 
+// ---- fp32, one query: flash_fwd_one_query<EPT>
+
+constexpr int kQMaxRows = kMaxG;  // Sq G rows a block takes
+constexpr int kQMaxSplit = 256;   // keys a split: 8 a lane in the softmax
+
+struct OneQuery {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  float* part_m;  // [B KV][n_all][R]: each split's max (log2 units)
+  float* part_l;  // [B KV][n_all][R]: its denominator
+  float* part_o;  // [B KV][n_all][R][vd]: its unnormalised output
+  int* tickets;   // [B KV], zeros: the splits of a (row, KV head) done
+  int Sq, Sk, H, KV, G, R, hd, vd, causal, window;
+  int S;         // keys a split
+  int n;         // splits walked: keys [0, n S) hold every key a row sees
+  int n_all;     // ceil(Sk / S): the partials' stride
+  float scale;   // 1 / sqrt(hd) x log2 e: scores in log2 units
+  int vec;       // bytes a copy (16, 8, 4), 0: element loads
+};
+
+// K row stride in shared memory: 4 x an odd number of floats >= w, so the
+// 16-byte loads of 8 lanes (one key each) hit 8 distinct bank groups
+__host__ __device__ __forceinline__ int odd_quads(int w) {
+  return 4 * (((w + 3) / 4) | 1);
+}
+
+// dynamic shared memory (bytes): q [R][hd4]; K [S][odd_quads(hd)]; V
+// [S][vd4]; the softmax weights [R][S]; a row's m and l; a flag
+size_t one_query_smem(int R, int S, int hd, int vd) {
+  const size_t hd4 = (hd + 3) / 4 * 4, vd4 = (vd + 3) / 4 * 4;
+  return sizeof(float) * (R * hd4 + S * (odd_quads(hd) + vd4) +
+                          static_cast<size_t>(R) * S + 2 * R) +
+         sizeof(int);
+}
+
+// One block per (batch row, KV head, key split): its R = Sq G rows (row r
+// = position r / G, head kvh G + r % G) against keys [k0, k0 + S) of the
+// split. EPT: outputs a thread keeps in registers per pass of P.V.
+template <int EPT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_one_query(const OneQuery a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int R = a.R, S = a.S, hd4 = (a.hd + 3) & ~3, vd4 = (a.vd + 3) & ~3;
+  const int kp = odd_quads(a.hd);
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [R][hd4]
+  float* ks = qs + R * hd4;                        // [S][kp]
+  float* vs = ks + S * kp;                         // [S][vd4]
+  float* ps = vs + S * vd4;                        // [R][S]
+  float* rm = ps + R * S;                          // [R]
+  float* rl = rm + R;                              // [R]
+  int* flag = reinterpret_cast<int*>(rl + R);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pair = blockIdx.x / a.n, split = blockIdx.x - pair * a.n;
+  const int b = pair / a.KV, kvh = pair - b * a.KV;
+  const int k0 = split * S, nk = min(S, a.Sk - k0);  // keys here, >= 1
+  const size_t q_row = static_cast<size_t>(a.H) * a.hd;
+  const size_t k_row = static_cast<size_t>(a.KV) * a.hd;
+  const size_t v_row = static_cast<size_t>(a.KV) * a.vd;
+  const float* kb = a.k + (static_cast<size_t>(b) * a.Sk + k0) * k_row +
+                    static_cast<size_t>(kvh) * a.hd;
+  const float* vb = a.v + (static_cast<size_t>(b) * a.Sk + k0) * v_row +
+                    static_cast<size_t>(kvh) * a.vd;
+  auto out_at = [&](int r) {  // row r's output
+    const int s = r / a.G, g = r - s * a.G;
+    return a.out + (static_cast<size_t>(b) * a.Sq + s) * a.H * a.vd +
+           static_cast<size_t>(kvh * a.G + g) * a.vd;
+  };
+
+  // --- one round trip: the rows' queries, the split's K and V rows, every
+  // copy issued before any is waited on
+  copy_rows(qs, hd4, R, a.hd, a.vec, a.q, [&](int r) -> const float* {
+    const int s = r / a.G, g = r - s * a.G;
+    return a.q + (static_cast<size_t>(b) * a.Sq + s) * q_row +
+           static_cast<size_t>(kvh * a.G + g) * a.hd;
+  });
+  copy_rows(ks, kp, nk, a.hd, a.vec, a.k,
+            [&](int j) -> const float* { return kb + j * k_row; });
+  copy_rows(vs, vd4, nk, a.vd, a.vec, a.v,
+            [&](int j) -> const float* { return vb + j * v_row; });
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  // --- scores in log2 units, fp32 FMAs: a thread per (row, key), lanes on
+  // neighbouring keys of one row (S is a multiple of 32); masked keys score
+  // NEG_INF, keys past the split's take no part (-inf)
+  const int n4 = a.hd >> 2;
+  for (int i = tid; i < R * S; i += kThreads) {
+    const int r = i / S, j = i - r * S;
+    const int key = k0 + j, pos = r / a.G;
+    const bool live = j < nk;
+    float val = -CUDART_INF_F;
+    if (live && ((a.causal && key > pos) ||
+                 (a.window > 0 && pos - key >= a.window))) {
+      val = kNegInf;
+    } else if (live) {
+      const float* qr = qs + r * hd4;
+      const float* kr = ks + j * kp;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < n4; ++c) {
+        const float4 x = reinterpret_cast<const float4*>(qr)[c];
+        const float4 y = reinterpret_cast<const float4*>(kr)[c];
+        s0 = fmaf(x.x, y.x, s0);
+        s1 = fmaf(x.y, y.y, s1);
+        s2 = fmaf(x.z, y.z, s2);
+        s3 = fmaf(x.w, y.w, s3);
+      }
+      for (int d = 4 * n4; d < a.hd; ++d) s0 = fmaf(qr[d], kr[d], s0);
+      val = ((s0 + s1) + (s2 + s3)) * a.scale;
+    }
+    ps[i] = val;
+  }
+  __syncthreads();
+
+  // --- the split's softmax, a warp a row: m, P = 2^(s - m), l
+  for (int r = warp; r < R; r += kWarps) {
+    float* pr = ps + r * S;
+    float m = -CUDART_INF_F;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float p = exp2f(pr[j] - m);
+      pr[j] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      rm[r] = m;
+      rl[r] = l;
+    }
+  }
+  __syncthreads();
+
+  // --- O = P.V: a thread per (row, value column), EPT of them a pass,
+  // keys in order; one split writes the output, more leave partials
+  const int E = R * a.vd;
+  const bool one = a.n == 1;
+  const size_t base = (static_cast<size_t>(pair) * a.n_all + split) * R;
+  for (int e0 = tid; e0 < E; e0 += kThreads * EPT) {
+    float acc[EPT];
+    int po[EPT], vo[EPT];
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int e = min(e0 + u * kThreads, E - 1);  // past E: not stored
+      const int r = e / a.vd;
+      po[u] = r * S;
+      vo[u] = e - r * a.vd;
+      acc[u] = 0.f;
+    }
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j)
+#pragma unroll
+      for (int u = 0; u < EPT; ++u)
+        acc[u] = fmaf(ps[po[u] + j], vs[j * vd4 + vo[u]], acc[u]);
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e >= E) continue;
+      const int r = e / a.vd, d = e - r * a.vd;
+      if (one)
+        out_at(r)[d] = acc[u] / fmaxf(rl[r], 1e-30f);
+      else
+        a.part_o[(base + r) * a.vd + d] = acc[u];
+    }
+  }
+  if (one) return;
+  if (tid < R) {
+    a.part_m[base + tid] = rm[tid];
+    a.part_l[base + tid] = rl[tid];
+  }
+
+  // --- the (row, KV head)'s last split to finish combines them all, in
+  // split order: M = max m_s, e_s = 2^(m_s - M), L = sum l_s e_s, O = sum
+  // o_s e_s, out = O / max(L, 1e-30)
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(a.tickets + pair, 1) == a.n - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const size_t p0 = static_cast<size_t>(pair) * a.n_all * R;
+  if (tid < R) {
+    float M = -CUDART_INF_F;
+    for (int s = 0; s < a.n; ++s)
+      M = fmaxf(M, __ldcg(a.part_m + p0 + s * R + tid));
+    float L = 0.f;
+    for (int s = 0; s < a.n; ++s) {
+      const size_t i = p0 + s * R + tid;
+      L = fmaf(__ldcg(a.part_l + i), exp2f(__ldcg(a.part_m + i) - M), L);
+    }
+    rm[tid] = M;
+    rl[tid] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += kThreads) {
+    const int r = e / a.vd, d = e - r * a.vd;
+    const float M = rm[r];
+    float O = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < a.n; ++s) {
+      const size_t i = p0 + s * R + r;
+      O = fmaf(__ldcg(a.part_o + i * a.vd + d),
+               exp2f(__ldcg(a.part_m + i) - M), O);
+    }
+    out_at(r)[d] = O / rl[r];
+  }
+}
+
+template <int EPT>
+cudaError_t launch_one_query(const OneQuery& a, unsigned blocks, size_t smem,
+                             cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_one_query<EPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  flash_fwd_one_query<EPT><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// fp32 q, k, v at Sq G <= 64 rows a KV head, S keys a split (a multiple of
+// 32 up to 256). part: scratch of B KV ceil(Sk / S) Sq G (vd + 2) floats and
+// tickets B KV int32 zeros, where more than one split is walked (else they
+// may be null)
+cudaError_t dispatch_one_query(int B, cudaStream_t stream, const void* q,
+                               const void* k, const void* v, void* out,
+                               float* part, int* tickets, int Sq, int Sk,
+                               int H, int KV, int hd, int vd, int causal,
+                               int window, int S, float scale) {
+  OneQuery a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.R = Sq * a.G;
+  a.hd = hd;
+  a.vd = vd;
+  a.causal = causal;
+  a.window = window;
+  a.S = S;
+  a.scale = scale * kLog2e;
+  if (a.R > kQMaxRows || S <= 0 || S % 32 != 0 || S > kQMaxSplit)
+    return cudaErrorInvalidValue;
+  // every key a row sees lies in [0, hi]; if the last row sees none (Sq >
+  // Sk with a window), it is uniform over every key, so all are walked
+  int hi = causal && Sq < Sk ? Sq - 1 : Sk - 1;
+  if (window > 0 && Sq - window > hi) hi = Sk - 1;
+  a.n = hi / S + 1;
+  a.n_all = (Sk + S - 1) / S;
+  if (a.n > 1 && (part == nullptr || tickets == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t P = static_cast<size_t>(B) * KV * a.n_all * a.R;
+  a.part_m = part;
+  a.part_l = part == nullptr ? nullptr : part + P;
+  a.part_o = part == nullptr ? nullptr : part + 2 * P;
+  a.tickets = tickets;
+  a.vec = copy_bytes(q, sizeof(float) * hd);
+  const int vec_k = copy_bytes(k, sizeof(float) * hd);
+  const int vec_v = copy_bytes(v, sizeof(float) * vd);
+  if (vec_k < a.vec) a.vec = vec_k;
+  if (vec_v < a.vec) a.vec = vec_v;
+  const size_t smem = one_query_smem(a.R, S, hd, vd);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(B) * KV * a.n;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const int per = (a.R * vd + kThreads - 1) / kThreads;  // outputs a thread
+  if (per <= 1) return launch_one_query<1>(a, nb, smem, stream);
+  if (per <= 2) return launch_one_query<2>(a, nb, smem, stream);
+  if (per <= 4) return launch_one_query<4>(a, nb, smem, stream);
+  return launch_one_query<8>(a, nb, smem, stream);
+}
+
 }  // namespace
 
 // q [B,Sq,H,hd]; k [B,Sk,KV,hd]; v [B,Sk,KV,vd]; out [B,Sq,H,vd]. All of one
 // type (bf16 != 0: bfloat16, else fp32), contiguous, on the device;
 // H % KV == 0, H / KV <= 64, hd <= 256, vd <= hd. window 0 means unbounded.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+// keys_per_split > 0 (fp32 only) takes the one-query route with splits of
+// that many keys (part and tickets: its scratch, dispatch_one_query); 0
+// the tile kernel of the input's type. Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int bf16, int B,
-                                   int Sq, int Sk, int H, int KV, int hd,
-                                   int vd, int causal, int window,
+                                   const void* v, void* out, float* part,
+                                   int* tickets, int bf16, int B, int Sq,
+                                   int Sk, int H, int KV, int hd, int vd,
+                                   int causal, int window, int keys_per_split,
                                    float scale, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || vd <= 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || hd <= 0 ||
-      hd > kMaxHd || vd > hd || window < 0)
+      hd > kMaxHd || vd > hd || window < 0 || keys_per_split < 0 ||
+      (bf16 && keys_per_split > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return static_cast<int>(dispatch_bf16(B, stream, q, k, v, out, Sq, Sk, H,
                                           KV, hd, vd, causal, window, scale));
+  if (keys_per_split > 0)
+    return static_cast<int>(dispatch_one_query(
+        B, stream, q, k, v, out, part, tickets, Sq, Sk, H, KV, hd, vd,
+        causal, window, keys_per_split, scale));
   const int G = H / KV;
   const int BQ = kRows / G;  // query positions per block
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);

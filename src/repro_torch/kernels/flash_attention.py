@@ -19,6 +19,17 @@ query head and runs ``ref.flash_attention_ref`` (exact softmax), as the
 JAX wrapper does. ``ops.flash_attention`` is the public wrapper that
 checks the arguments and picks between the two.
 
+fp32 calls of at most ``ONE_QUERY_ROWS`` query rows a KV head (Sq·G: the
+engines' cross-attention decode calls, one query over the encoder's
+frames) take the one-query route instead, ``flash_fwd_one_query``: one
+block per (batch row, KV head, split of ``one_query_plan``'s keys) that
+fetches its split's K/V rows in one round trip, scores them with fp32
+FMAs on the CUDA cores, and leaves (max, sum, output) partials that the
+row's last block combines in split order (``one_query_splits``: the
+splits a call walks). The split length is a function of the shape
+alone, never of B or H, so a row's output is bitwise the same in any
+batch and under any cut of its heads.
+
 The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 sums)
 has no Pallas counterpart: the JAX package trains through XLA blockwise
 attention. fp32 runs every product 3xTF32 on the TF32 tensor cores
@@ -44,10 +55,23 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = "flash_attention.cu"
 SYMBOL = "flash_attention_fwd"
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
 MAX_HEAD_DIM = 256   # q/k width; v may be narrower
+# the one-query route: fp32 calls of at most ONE_QUERY_ROWS rows (Sq·G) a
+# KV head take it; a split holds the most keys, 32 to 256 in powers of
+# two, whose K and V rows fit ONE_QUERY_SPLIT_BYTES. Both from
+# chip_smoke.py's one_query_sweep on an H100: at 256 (batch row, KV head)
+# pairs the route is 1.7x faster than the tile kernel at 8 rows, ties it
+# at 16 and loses past (at 16 pairs it wins up to 64); 32 KB splits (64
+# keys at hd 64, 32 at 128) timed at or under 64 KB ones at the engines'
+# calls
+ONE_QUERY_ROWS = 8
+ONE_QUERY_SPLIT_BYTES = 32 * 1024
+# its instantiations (outputs a thread a pass), which ptxas must compile
+# with no stack and no spills
+ONE_QUERY_NO_SPILL = tuple(f"flash_fwd_one_query<{n}>" for n in (1, 2, 4, 8))
 # the bf16 forward's instantiations for hd <= 64, <= 128 and MLA's 192 /
 # 128, which ptxas must compile with no stack and no spills
 FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
@@ -84,6 +108,38 @@ def plain(q, k, v, *, causal: bool, window: int):
     return out.reshape(B, H, Sq, vd).transpose(1, 2)
 
 
+def one_query_plan(Sq: int, Sk: int, H: int, KV: int, hd: int, vd: int,
+                   dtype) -> int | None:
+    """Keys a split of the one-query route for a call of this shape, or
+    None where the call takes the tile kernel of its dtype (bf16, or more
+    than ONE_QUERY_ROWS rows a KV head). Never a function of B; the split
+    length depends on (Sk, hd, vd) alone."""
+    if dtype != torch.float32 or Sq * (H // KV) > ONE_QUERY_ROWS:
+        return None
+    S = 256
+    while S > 32 and 4 * S * (hd + vd) > ONE_QUERY_SPLIT_BYTES:
+        S //= 2
+    return min(S, 32 * -(-Sk // 32))   # no wider than the keys
+
+
+def one_query_splits(Sq: int, Sk: int, causal: bool, window: int,
+                     S: int) -> list:
+    """The key ranges [k0, k1) the one-query route walks at split length
+    S: the splits [s·S, (s+1)·S) ∩ [0, Sk) up to the last key a row can
+    see, or every split where the last row sees none (Sq > Sk with a
+    window: it is uniform over every key), as the kernel walks them."""
+    hi = min(Sk - 1, Sq - 1) if causal else Sk - 1
+    if window > 0 and Sq - window > hi:
+        hi = Sk - 1
+    return [(k0, min(k0 + S, Sk)) for k0 in range(0, hi + 1, S)]
+
+
+def plan_of(q, k, v):
+    """``one_query_plan`` of a call's tensors."""
+    return one_query_plan(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                          q.shape[3], v.shape[3], q.dtype)
+
+
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs a call scores unmasked."""
     q = np.arange(Sq)
@@ -116,18 +172,30 @@ def bwd_cost(q, k, v, *, causal: bool, window: int):
                                 + 2 * B * Sk * KV * (hd + vd)))
 
 
-def launch(fn, q, k, v, *, causal: bool, window: int):
+def launch(fn, q, k, v, *, causal: bool, window: int,
+           keys_per_split: int | None = None):
     """Launch on the current stream. Arguments are checked by the
     caller: one dtype (fp32 or bf16), contiguous, on one CUDA device.
-    Returns [B, Sq, H, vd] in q's dtype; raises if the launch was
-    refused."""
+    ``keys_per_split``: the one-query route's split length (default
+    ``one_query_plan``'s; 0 takes the tile kernel). Where the route walks
+    more than one split, its partials' scratch and the rows' tickets are
+    allocated here. Returns [B, Sq, H, vd] in q's dtype; raises if the
+    launch was refused."""
     B, Sq, H, hd = q.shape
     Sk, KV, vd = k.shape[1], k.shape[2], v.shape[-1]
+    S = plan_of(q, k, v) if keys_per_split is None else keys_per_split
     out = torch.empty((B, Sq, H, vd), dtype=q.dtype, device=q.device)
+    part = tickets = 0     # null pointers: one split, or the tile kernel
+    if S and len(one_query_splits(Sq, Sk, causal, window, S)) > 1:
+        rows = B * KV * -(-Sk // S) * Sq * (H // KV)
+        scratch = torch.empty((rows * (vd + 2),), dtype=torch.float32,
+                              device=q.device)
+        counts = torch.zeros((B * KV,), dtype=torch.int32, device=q.device)
+        part, tickets = scratch.data_ptr(), counts.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, vd,
-             int(causal), window, 1.0 / math.sqrt(hd), stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part,
+             tickets, int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd,
+             vd, int(causal), window, S or 0, 1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")

@@ -19,7 +19,9 @@ active nothing is counted.
 Each wrapper keeps a plain integer count in ``LAUNCHES``, incremented
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``reset_launch_counts`` /
-``launch_counts``).
+``launch_counts``). ``ROUTES`` counts, beside it, the flash attention
+launches that took the one-query route (``route_counts``); a launch
+counts once in ``LAUNCHES`` whatever its route.
 
 Gradients. ``flash_attention`` and ``ssd_chunk`` are differentiable on
 both routes: on the CPU through autograd of the plain version, on a card
@@ -73,6 +75,7 @@ _MODULES = {"moe_ffn": moe_gemm, "paged_attention": paged_mod,
             "ssd_chunk_bwd": ssd_mod.BACKWARD}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in _MODULES}
+ROUTES: Dict[str, int] = {"flash_attention_one_query": 0}
 
 
 def _nvcc() -> str:
@@ -409,6 +412,8 @@ class _FlashAttention(torch.autograd.Function):
         out = flash_mod.launch(_entry("flash_attention"), q, k, v,
                                causal=causal, window=window)
         LAUNCHES["flash_attention"] += 1
+        if flash_mod.plan_of(q, k, v) is not None:
+            ROUTES["flash_attention_one_query"] += 1
         return out
 
     @staticmethod
@@ -495,9 +500,14 @@ class _SsdChunk(torch.autograd.Function):
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def route_counts() -> Dict[str, int]:
+    return dict(ROUTES)
