@@ -223,10 +223,18 @@ It drives the port's two entry points end to end and checks them:
    embeddings. Each runs phase 6's prefills and engine comparison with
    ``enc=``; the engine launches flash attention once per cross layer
    per decode step (one query row), and nothing else, every launch on
-   the one-query route (``ops.route_counts``); Vision's engine call, the
-   route's heaviest, is held and timed as a ``kernels`` entry of its own
-   with the engine's launches, and checked against float64, bitwise on a
-   second launch and row and head independent;
+   the one-query route (``ops.route_counts``); the engine's cross call is
+   held and timed as a ``kernels`` entry of its own with the engine's
+   launches, and checked against float64, bitwise on a second launch and
+   row and head independent. After each of Whisper's and Vision's fp32
+   phases the phase runs again, without the mesh, in the config's own
+   bf16 (weights drawn in bf16, bf16 frames through the encoder or bf16
+   patches; prefill vs decode logits within BF16_PREFILL_TOL x max):
+   launches exact and every engine call on the bf16 one-query route, its
+   entries marked "bfloat16" (the engine's call checked against float64
+   within BF16_F64_TOL), the engine run again under ``torch.profiler``
+   for its device busy time; a ``bf16_engine`` line (``engine_s``, launches,
+   routes, ``profiled_engine``);
 7. the same for Mamba2-2.7B at its full published widths (d_model 2560,
    d_inner 5120, 80 SSD heads x headdim 64, state 128, chunk 256, vocab
    50280), depth cut to 8 of 64 layers, fp32: prefill and engine on 2
@@ -317,28 +325,31 @@ It drives the port's two entry points end to end and checks them:
    BF16_F64_TOL, launched twice for bitwise equal gradients); the SSD
    backward at every SSD chunk shape with seeded output gradients (the
    4096-position chunk against float64);
-   Every fp32 FLASH_SHAPES entry that takes the one-query route (Sq·G <=
-   ``ONE_QUERY_ROWS``) is also held against float64, launched twice for
+   Every FLASH_SHAPES entry that takes the one-query route (Sq·G <=
+   ``ONE_QUERY_ROWS`` in fp32, ``ONE_QUERY_ROWS_BF16`` in bf16) is also
+   held against float64 (bf16 within BF16_F64_TOL), launched twice for
    bitwise equal outputs, and cut to its last row and to its last two KV
    heads' query heads, bitwise the whole call's (``one_query_checks``);
 11. paged attention's batch independence: one row gives bitwise the same
    output alone, as one of 16 rows, and with a table two blocks wider;
 12. the engines' one-query cross-attention calls (Whisper's and
-   Vision's, 2 rows): the route taken (``ops.route_counts``), held
-   against the plain version and by ``one_query_checks``, and timed in
-   CUDA graphs beside the plain version, SDPA and the byte bound (a
-   ``one_query_cross`` line, the route's fp32 FMAs bound at the fp32-core
-   rate); beside them each bf16 one-query FLASH_SHAPES entry timed once
-   beside SDPA's bf16 call (``bf16_one_query``);
+   Vision's, 2 rows), in fp32 and in bf16 (with a (16, 16) rank's Vision
+   decode call, 8 rows of 2 heads): the route taken
+   (``ops.route_counts``), held against the plain version and by
+   ``one_query_checks``, and timed in CUDA graphs beside the tile kernel
+   of the dtype, the plain version, SDPA in the same dtype and the byte
+   bound (``one_query_cross`` and ``bf16_one_query`` on one line, the
+   route's fp32 FMAs bound at the fp32-core rate);
 13. the one-query route's batch and head independence
    (``one_query_independence``): at Vision's and Whisper's widths over 8
    rows, row 3 alone, as one of the 8 and in a call cut to 2 of its heads
    (a (16, 16) rank's cross call) bitwise equal;
-14. the one-query route's choices timed (``one_query_sweep``): split
-   lengths 32 to 256 at the engines' calls, and the route beside the tile
-   kernel at 1 to 64 rows a KV head (over G and over Sq), with the row
-   count up to which the route won (``sweep_cut``) beside the port's
-   ``ONE_QUERY_ROWS``.
+14. the one-query route's choices timed (``one_query_sweep``, a line
+   for fp32 and one for bf16): split lengths 32 to 256 at the engines'
+   calls, and the route beside the tile kernel of the dtype at 1 to 64
+   rows a KV head (over G and over Sq), with the row count up to which
+   the route won (``sweep_cut``) beside the port's ``ONE_QUERY_ROWS`` /
+   ``ONE_QUERY_ROWS_BF16``.
 
 Any failed check raises, so the script exits non-zero. The output ends
 with the card line, a ``kernels`` JSON line and the result line
@@ -416,6 +427,16 @@ BF16_F64_TOL = 2.0 ** -8
 # prefill vs the decode_step loop, fp32 logits: rtol = atol (flash vs
 # dense-cache attention, chunked SSD vs the recurrence: summation order)
 PREFILL_TOL = 3e-3
+# the same in a bf16 model (the encdec / vlm engines in their configs'
+# dtype), as max |prefill - decode| <= this x max |prefill|: hidden
+# states kept in bf16 and rounded at other places by the prefill's
+# kernels and the decode loop's (tile kernel vs one-query route, GEMMs vs
+# GEMVs), a few bf16 roundings (2^-8 of the largest value each) by the
+# last layer. Measured on an H100: 9.8e-3 at a max of 1.67 (5.8e-3 x
+# max, Whisper-tiny), 7.0e-2 at 5.91 (1.2e-2 x max, Llama-3.2-Vision);
+# up to 1.7e-2 x max between the port's and JAX's bf16 paths on the CPU
+# (tests/test_torch_bf16_serving.py, the same bound)
+BF16_PREFILL_TOL = 2.0 ** -5
 # further shapes for step 10: (E, C, d, F), the CPU tests' moe_ffn shapes
 # then C > 8 rows over several ragged contraction slices (4- and 16-byte
 # loads); (B, H, KV, hd, N, bs, T), the CPU tests' paged shapes then 3, 5,
@@ -477,6 +498,9 @@ SPLIT_SWEEP = (32, 64, 128, 256)    # split lengths timed beside the kernel's
 # with G 2 (8 rows), Sq 3 over Sk 2 under window 1 (a row that sees no
 # key: uniform), G 8 at one query, and hd 37 / vd 21 (4-byte copies) over
 # 129 keys in G 2; and G 16 at one query, past the cut (the tile kernel).
+# Then the bf16 route's own: hd 37 / vd 21 (element loads: a bf16 row of
+# 74 bytes) over 600 keys in 3 splits, and one causal query over 300 keys
+# (one split walked of three).
 FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (1, 37, 37, 8, 8, 64, 64, True, 0, "float32"),
                 (2, 160, 160, 4, 2, 64, 64, True, 37, "float32"),
@@ -518,12 +542,20 @@ FLASH_SHAPES = [(1, 1, 1, 4, 2, 64, 64, True, 0, "float32"),
                 (2, 3, 2, 4, 2, 64, 64, True, 1, "float32"),
                 (1, 1, 100, 8, 1, 64, 64, False, 0, "float32"),
                 (2, 1, 129, 6, 3, 37, 21, False, 0, "float32"),
-                (1, 1, 100, 16, 1, 64, 64, False, 0, "float32")]
+                (1, 1, 100, 16, 1, 64, 64, False, 0, "float32"),
+                (2, 1, 600, 6, 6, 37, 21, False, 0, "bfloat16"),
+                (2, 1, 300, 4, 4, 64, 64, True, 0, "bfloat16")]
 # the one-query cross-attention calls the engines launch at every decode
 # step, timed alone (B, Sk, H, hd): Whisper-tiny's 2 rows over 1500
 # frames, 6 heads of 64, and Llama-3.2-Vision's over 1601 patches, 32
 # heads of 128
 ONE_QUERY_CROSS = [(2, 1500, 6, 64), (2, 1601, 32, 128)]
+# their bf16 twins (the configs' own dtype), held and timed the same way,
+# and a (16, 16) rank's Vision decode call in bf16 (8 rows, 2 heads)
+ONE_QUERY_CROSS_BF16 = ONE_QUERY_CROSS + [(8, 1601, 2, 128)]
+# the families whose phase runs again in their configs' own bf16 after
+# the fp32 one (``family_phase``)
+BF16_ENGINES = ("whisper-tiny", "llama-3.2-vision-11b")
 # the one-query route's two choices, timed beside each other
 # (``one_query_sweep``): its split lengths at those calls, and the rows a
 # KV head (Sq·G) at which it and the tile kernel are timed, over G at one
@@ -1337,9 +1369,9 @@ def agree(name, got, want, tol, what):
 
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
-    PAGED_SHAPES, FLASH_SHAPES (bf16, and fp32 calls of the one-query
-    route, also against float64 and launched twice for bitwise equal
-    outputs; the one-query route's also row and head independent,
+    PAGED_SHAPES, FLASH_SHAPES (bf16, and calls of the one-query route,
+    also against float64 and launched twice for bitwise equal outputs;
+    the one-query route's also row and head independent,
     ``flash_row_head_independence``), FLASH_BWD_SHAPES (the backward against
     autograd of the plain version, in fp32 and in bf16; bf16 also against
     float64 and launched twice for bitwise equal gradients) and
@@ -1411,12 +1443,12 @@ def coverage_checks():
                                  dt], got, want,
              BF16_TOL if dtype == torch.bfloat16 else None)
         kw = dict(causal=causal, window=window)
-        if dtype == torch.bfloat16:
-            out[-1]["vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
-            out[-1]["bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
-        elif flash_mod.plan_of(q, k, v) is not None:
+        if flash_mod.plan_of(q, k, v) is not None:
             out[-1].update(one_query_checks(ops, q, k, v, got, kw,
                                             out[-1]["shape"]))
+        elif dtype == torch.bfloat16:
+            out[-1]["vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
+            out[-1]["bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
     for dt in ("float32", "bfloat16"):
         for B, Sq, Sk, H, KV, hd, vd, causal, window in FLASH_BWD_SHAPES:
             q, k = rand((B, Sq, H, hd)), rand((B, Sk, KV, hd))
@@ -1460,100 +1492,91 @@ def coverage_checks():
 
 
 def one_query_cross(floor_ms):
-    """The engines' one-query cross-attention calls (ONE_QUERY_CROSS),
-    fp32, seeded: the route the call took (``ops.route_counts`` around
-    it), the kernel held against its plain version and by
-    ``one_query_checks``, then the kernel, the plain
-    version and SDPA on the same call each timed in a CUDA graph (the
+    """The engines' one-query cross-attention calls, seeded, no mask, in
+    fp32 (ONE_QUERY_CROSS) and in bf16 (ONE_QUERY_CROSS_BF16): the route
+    the call took (``ops.route_counts`` around it: one), the kernel held
+    against its plain version (the fp32 plain version on the same values:
+    TOL, BF16_TOL for bf16) and by ``one_query_checks``, then the kernel,
+    the tile kernel of its dtype (``keys_per_split`` 0), the plain
+    version and SDPA in the call's dtype each timed in a CUDA graph (the
     calls are shorter than a launch from the host), beside the bound: K
     and V read once, at the memory rate, against the route's fp32 FMAs at
-    the fp32-core rate. Then each bf16 one-query shape of FLASH_SHAPES
-    (the bf16 tile kernel: the route is fp32 only) timed once beside
-    SDPA's bf16 call. Returns (records, bf16 records)."""
+    the fp32-core rate. Returns (fp32 records, bf16 records)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 12)
+    fn = ops._entry("flash_attention")
+    kw = dict(causal=False, window=0)
 
-    def rand(shape, dtype=torch.float32):
+    def rand(shape, dtype):
         return torch.from_numpy(rng.normal(size=shape).astype(
             np.float32)).cuda().to(dtype)
 
-    out = []
-    for B, Sk, H, hd in ONE_QUERY_CROSS:
-        q, k, v = rand((B, 1, H, hd)), rand((B, Sk, H, hd)), rand((B, Sk, H,
-                                                                   hd))
-        kw = dict(causal=False, window=0)
+    def timed(call):
+        return device_ms(call, 20, graph=True)
+
+    def record(B, Sk, H, hd, dtype):
+        q, k, v = (rand(s, dtype) for s in ((B, 1, H, hd), (B, Sk, H, hd),
+                                            (B, Sk, H, hd)))
+        what = f"one-query cross {B, Sk, H, hd} {dtype}"
         ops.reset_launch_counts()
         got = ops.flash_attention(q, k, v, **kw)
         routes = ops.route_counts()["flash_attention_one_query"]
-        check(routes == 1, f"one-query cross {B, Sk, H}: route count "
-                           f"{routes}, expected the one-query route")
+        check(routes == 1, f"{what}: route count {routes}, expected the "
+                           f"one-query route")
+        tol = BF16_TOL if dtype == torch.bfloat16 else TOL["flash_attention"]
         err, rel = agree("flash_attention", got,
-                         flash_mod.plain(q, k, v, **kw),
-                         TOL["flash_attention"], f"one-query cross {B, Sk, H}")
-        checks = one_query_checks(ops, q, k, v, got, kw,
-                                  f"one-query cross {B, Sk, H}")
+                         flash_mod.plain(q.float(), k.float(), v.float(),
+                                         **kw), tol, what)
+        checks = one_query_checks(ops, q, k, v, got, kw, what)
         S = flash_mod.plan_of(q, k, v)
         flops, nbytes = flash_mod.cost(q, k, v, **kw)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw), 20,
-                       graph=True)
-        out.append({
+        ms = timed(lambda: ops.flash_attention(q, k, v, **kw))
+        return {
             "shape": {"B": B, "Sq": 1, "Sk": Sk, "H": H, "KV": H, "hd": hd,
-                      "vd": hd, "causal": False, "dtype": "torch.float32"},
+                      "vd": hd, "causal": False, "dtype": str(dtype)},
             "keys_per_split": S,
             "splits": len(flash_mod.one_query_splits(1, Sk, False, 0, S)),
-            "max_abs_err": err, "max_err_over_max_plain": rel,
-            "tol": TOL["flash_attention"], **checks, "ms": ms,
-            "plain_ms": device_ms(lambda: flash_mod.plain(q, k, v, **kw), 20,
-                                  graph=True),
-            "library_ms": device_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), 20,
-                graph=True),
+            "max_abs_err": err, "max_err_over_max_plain": rel, "tol": tol,
+            **checks, "ms": ms,
+            "tiles_ms": timed(lambda: flash_mod.launch(
+                fn, q, k, v, keys_per_split=0, **kw)),
+            "plain_ms": timed(lambda: flash_mod.plain(q, k, v, **kw)),
+            "library_ms": timed(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_peak": f"{FP32_PEAK[0]}, {FP32_FLOPS_PER_S / 1e12:g} "
                           f"TFLOP/s",
             "share_of_bound": max(t_bytes, t_ops) * 1e3 / ms,
-            "bytes": nbytes, "flops": flops, "launch_floor_ms": floor_ms})
-    bf16 = []
-    for B, Sq, Sk, H, KV, hd, vd, causal, window, dt in FLASH_SHAPES:
-        if Sq != 1 or dt != "bfloat16":
-            continue
-        q, k = rand((B, Sq, H, hd), torch.bfloat16), rand((B, Sk, KV, hd),
-                                                          torch.bfloat16)
-        v = rand((B, Sk, KV, vd), torch.bfloat16)
-        kw = dict(causal=causal, window=window)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bf16.append({
-            "shape": [B, Sq, Sk, H, KV, hd, vd, causal, window, dt],
-            "ms": device_ms(lambda: ops.flash_attention(q, k, v, **kw), 20,
-                            graph=True),
-            "library_ms": device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), 20,
-                graph=True),
-            "bound_ms": flash_mod.cost(q, k, v, **kw)[1] / HBM_BYTES_PER_S
-            * 1e3})
-    return out, bf16
+            "bytes": nbytes, "flops": flops, "launch_floor_ms": floor_ms}
+
+    return ([record(*s, torch.float32) for s in ONE_QUERY_CROSS],
+            [record(*s, torch.bfloat16) for s in ONE_QUERY_CROSS_BF16])
 
 
 def one_query_checks(ops, q, k, v, got, kw, what):
     """The one-query route at a call whose output is ``got``: max |got -
-    float64| over max |float64| (``flash_out_float64``, within TOL), two
-    launches bitwise equal (``fwd_repeat_bitwise``), and the call's last
-    row and last two KV heads in calls of their own bitwise equal
-    (``flash_row_head_independence``). Returns the record's fields."""
+    float64| over max |float64| (``flash_out_float64``, within TOL; on
+    bf16 inputs within BF16_F64_TOL: fp32 FMAs, one rounding to bf16 at
+    the store), two launches bitwise equal (``fwd_repeat_bitwise``), and
+    the call's last row and last two KV heads in calls of their own
+    bitwise equal (``flash_row_head_independence``). Returns the record's
+    fields."""
+    import torch
     kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
     f64 = flash_out_float64(q, k, v, **kw)
     vs64 = float((got.double() - f64).abs().max() / f64.abs().max())
-    check(vs64 <= TOL["flash_attention"],
-          f"flash_attention one-query route, {what}, vs float64: {vs64:.3e}")
-    return {"route": "one_query", "vs_float64": vs64,
+    tol = (BF16_F64_TOL if q.dtype == torch.bfloat16
+           else TOL["flash_attention"])
+    check(vs64 <= tol, f"flash_attention one-query route, {what}, vs "
+                       f"float64: {vs64:.3e}, tol {tol}")
+    return {"route": "one_query", "vs_float64": vs64, "f64_tol": tol,
             "bitwise_repeat": fwd_repeat_bitwise(ops, q, k, v, kw),
             "independence": flash_row_head_independence(ops, q, k, v, kw)}
 
@@ -1604,17 +1627,19 @@ def one_query_independence():
     return {"one_query_independence": out}
 
 
-def one_query_sweep(floor_ms):
-    """The one-query route's two choices, each timed in a CUDA graph of 20
-    launches (fp32, seeded): its split length at the engines' calls
-    (ONE_QUERY_CROSS) over ONE_QUERY_SPLIT_SWEEP (None where a split's
-    rows do not fit shared memory and the launch is refused), and the
-    rows a KV head it takes: the route (at its plan's split length) beside
-    the tile kernel at Sq·G in ONE_QUERY_ROW_SWEEP, over G at one query
-    and over Sq at G 1 (ONE_QUERY_ROW_CALLS: (over, B, KV); 1601 keys, KV
-    heads of 128, no mask). ``sweep_cut``: the most rows up to which the
-    route beat the tile kernel at every count, in every sweep, beside the
-    cut the port uses (``ONE_QUERY_ROWS``)."""
+def one_query_sweep(floor_ms, dtype_name="float32"):
+    """The one-query route's two choices in one dtype (fp32 or bf16),
+    each timed in a CUDA graph of 20 launches (seeded): its split length
+    at the engines' calls (ONE_QUERY_CROSS; in bf16 ONE_QUERY_CROSS_BF16,
+    with the (16, 16) rank's call) over ONE_QUERY_SPLIT_SWEEP
+    (None where a split's rows do not fit shared memory and the launch is
+    refused), and the rows a KV head it takes: the route (at its plan's
+    split length) beside the tile kernel of the dtype at Sq·G in
+    ONE_QUERY_ROW_SWEEP, over G at one query and over Sq at G 1
+    (ONE_QUERY_ROW_CALLS: (over, B, KV); 1601 keys, KV heads of 128, no
+    mask). ``sweep_cut``: the most rows up to which the route beat the
+    tile kernel at every count, in every sweep, beside the cut the port
+    uses (``ONE_QUERY_ROWS``, ``ONE_QUERY_ROWS_BF16``)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
@@ -1622,10 +1647,12 @@ def one_query_sweep(floor_ms):
     rng = np.random.default_rng(SEED + 14)
     fn = ops._entry("flash_attention")
     kw = dict(causal=False, window=0)
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
 
     def rand(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(
-            np.float32)).cuda()
+            np.float32)).cuda().to(dtype)
 
     def timed(q, k, v, S):
         try:
@@ -1634,15 +1661,18 @@ def one_query_sweep(floor_ms):
         except RuntimeError:   # refused: the split does not fit
             return None
 
-    out = {"launch_floor_ms": floor_ms, "cut": flash_mod.ONE_QUERY_ROWS,
-           "split_bytes": flash_mod.ONE_QUERY_SPLIT_BYTES}
-    for B, Sk, H, hd in ONE_QUERY_CROSS:
+    out = {"launch_floor_ms": floor_ms, "dtype": dtype_name,
+           "cut": (flash_mod.ONE_QUERY_ROWS_BF16 if bf16
+                   else flash_mod.ONE_QUERY_ROWS),
+           "split_bytes": (flash_mod.ONE_QUERY_SPLIT_BYTES_BF16 if bf16
+                           else flash_mod.ONE_QUERY_SPLIT_BYTES)}
+    for B, Sk, H, hd in ONE_QUERY_CROSS_BF16 if bf16 else ONE_QUERY_CROSS:
         q, k, v = rand(B, 1, H, hd), rand(B, Sk, H, hd), rand(B, Sk, H, hd)
         out[f"split_{B}x{Sk}x{H}x{hd}"] = {
             "plan": flash_mod.plan_of(q, k, v),
             **{f"S{S}": timed(q, k, v, S) for S in ONE_QUERY_SPLIT_SWEEP}}
     Sk, hd = 1601, 128
-    S = flash_mod.one_query_plan(1, Sk, 1, 1, hd, hd, torch.float32)
+    S = flash_mod.one_query_plan(1, Sk, 1, 1, hd, hd, dtype)
     cut = {}
     for over, B, KV in ONE_QUERY_ROW_CALLS:
         k, v = rand(B, Sk, KV, hd), rand(B, Sk, KV, hd)
@@ -2640,18 +2670,27 @@ def prefill_launches(cfg):
             "ssd_chunk": kinds.count("ssm")}
 
 
-def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
+def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None, *,
+                      routed=True):
     """``ServingEngine(moe_path="dense").generate_batch`` on the prompts
     ``toks`` [B, S] (and ``enc``): its decode_step logits at the last
     prompt position must equal ``pre_logits`` (prefill on the same
-    prompts) within PREFILL_TOL, and its first token the prefill's
-    argmax on every row whose top-2 margin exceeds twice the tolerance.
-    Its launch counts, reset just before and read just after, must be
-    one flash attention per cross-attention layer per decode step (Sq =
-    1; self-attention and SSM decode are plain PyTorch) and nothing
-    else, every one of them on the one-query route (``ops.route_counts``).
-    The engine's first flash attention call is kept (by reference) in the
-    report's "flash_call", to be held and timed."""
+    prompts) within PREFILL_TOL (rtol = atol; a bf16 model: within
+    BF16_PREFILL_TOL x max |pre_logits|), and its first token the
+    prefill's argmax on every row whose top-2 margin exceeds twice the
+    tolerance. Its launch counts, reset just before and read just after,
+    must be one flash attention per cross-attention layer per decode step
+    (Sq = 1; self-attention and SSM decode are plain PyTorch) and nothing
+    else, every one of them on the one-query route (``ops.route_counts``;
+    ``routed`` False: none of them, a checkout without the route for the
+    model's dtype, which ``tools/flash_one_query_check.py`` times). A
+    bf16 model's run goes again under ``torch.profiler`` (device activity
+    only: its device time by kind, busy and idle share; the profiler
+    slows the host, so its wall is not ``engine_s``), with the same
+    tokens: the bf16 engines' device time is this script's record, the
+    fp32 engines' the tool's. The engine's first flash attention call is
+    kept (by reference) in the report's "flash_call", to be held and
+    timed."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
@@ -2688,9 +2727,10 @@ def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
     check_launches(launches,
                    {"flash_attention": cross_layers(cfg) * (S + ENGINE_NEW)},
                    f"{cfg.name} engine")
-    check(routes["flash_attention_one_query"] == launches["flash_attention"],
+    check(routes["flash_attention_one_query"]
+          == (launches["flash_attention"] if routed else 0),
           f"{cfg.name} engine: {routes} of {launches['flash_attention']} "
-          f"flash launches took the one-query route")
+          f"flash launches took the one-query route (routed {routed})")
     dec = last["logits"]
     V = cfg.vocab_size
     check(tuple(pre_logits.shape) == (B, V) == tuple(dec.shape),
@@ -2699,23 +2739,44 @@ def engine_vs_prefill(params, cfg, toks, pre_logits, enc=None):
     check(all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o)
               for o in outs), f"engine output {outs}")
     err = float((pre_logits - dec).abs().max())
-    check(torch.allclose(pre_logits, dec, rtol=PREFILL_TOL, atol=PREFILL_TOL),
-          f"{cfg.name}: prefill vs decode_step logits differ by {err:.3e}")
+    top_abs = float(pre_logits.abs().max())
+    bf16 = cfg.dtype == "bfloat16"
+    rtol, atol = ((0.0, BF16_PREFILL_TOL * top_abs) if bf16
+                  else (PREFILL_TOL, PREFILL_TOL))
+    check(torch.allclose(pre_logits, dec, rtol=rtol, atol=atol),
+          f"{cfg.name}: prefill vs decode_step logits differ by {err:.3e} "
+          f"(max |prefill| {top_abs:.3e})")
     top = torch.topk(pre_logits, 2, dim=-1).values
-    sure = (top[:, 0] - top[:, 1]) > 2 * PREFILL_TOL * (1 + top[:, 0].abs())
+    sure = (top[:, 0] - top[:, 1]) > 2 * (atol + rtol * top[:, 0].abs())
     first = torch.tensor([o[0] for o in outs], device=pre_logits.device)
     same = first == pre_logits.argmax(dim=-1)
     check(bool(same[sure].all()), f"{cfg.name}: engine first tokens "
           f"{first.tolist()} != prefill argmax on rows with a clear margin")
-    return {"prefill_vs_decode_max_abs_err": err, "tol": PREFILL_TOL,
-            "first_token_rows_checked": int(sure.sum()),
-            "engine_tokens": outs, "engine_s": seconds,
-            "engine_launches": launches, "engine_routes": routes,
-            "flash_call": kept[0] if kept else None}
+    rep = {"prefill_vs_decode_max_abs_err": err,
+           "max_abs_prefill_logit": top_abs, "rtol": rtol, "atol": atol,
+           "first_token_rows_checked": int(sure.sum()),
+           "engine_tokens": outs, "engine_s": seconds,
+           "engine_launches": launches, "engine_routes": routes,
+           "flash_call": kept[0] if kept else None}
+    if bf16:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof.start()
+        again = eng.generate_batch(toks.tolist(), max_new=ENGINE_NEW, enc=enc)
+        torch.cuda.synchronize()
+        prof.stop()
+        rep["profiled_engine"] = device_time_summary(
+            prof, (time.perf_counter() - t0) * 1e3)
+        check(again == outs, f"{cfg.name} engine: a second run's tokens "
+                             f"{again} != {outs}")
+    return rep
 
 
 def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
-                  engine_s=ENGINE_S, prefill_s=PREFILL_S, engine_call=None):
+                  engine_s=ENGINE_S, prefill_s=PREFILL_S, engine_call=None,
+                  routed=True):
     """Drive ``prefill`` and ``ServingEngine`` for one model (``enc``:
     the cross layers' encoder states or patch embeddings): the
     ``engine_s``-token comparison (``moe_path="dense"``), then two
@@ -2724,8 +2785,9 @@ def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
     third under the profiler. Every prefill launches what
     ``prefill_launches`` says and nothing else. The engine's first flash
     attention call, where it made one, goes into ``engine_call``
-    ("flash_attention": (q, k, v, kw)). Returns (launches summed over the
-    counted runs, report)."""
+    ("flash_attention": (q, k, v, kw)); ``routed``: as
+    ``engine_vs_prefill``. Returns (launches summed over the counted
+    runs, report)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 1)
@@ -2748,7 +2810,8 @@ def prefill_phase(params, cfg, ops, seen, profile, *, enc=None,
                                    moe_path="dense")
     rep[f"prefill_{PREFILL_B}x{engine_s}"] = {
         "moe_path": "dense", "launches": launches, "ms": ms}
-    rep["engine"] = engine_vs_prefill(params, cfg, toks, logits, enc)
+    rep["engine"] = engine_vs_prefill(params, cfg, toks, logits, enc,
+                                      routed=routed)
     call = rep["engine"].pop("flash_call")
     if call is not None and engine_call is not None:
         engine_call["flash_attention"] = call
@@ -4196,27 +4259,35 @@ def cross_mesh_check(params, cfg, arch, mesh, ops, self_seen, cross_seen, fe,
     return rep
 
 
-def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
+def family_phase(arch, ops, card, hold_and_time, profile, mesh=None,
+                 dtype="float32", routed=True):
     """One model of the hybrid, encdec or vlm family at its published
     widths, depth cut as JAMBA_LAYERS / VLM_LAYERS say (Whisper-tiny
-    whole), fp32, random weights drawn on the card from the seeded
-    generator: ``prefill_phase`` (the engine comparison with ``enc=``,
-    exact launch counts from the layer kinds, finite logits) on
+    whole), in ``dtype`` (fp32, or the config's own bf16), random weights
+    drawn on the card from the seeded generator: ``prefill_phase`` (the
+    engine comparison with ``enc=``, exact launch counts from the layer
+    kinds, finite logits) on
     PREFILL_B x PREFILL_S tokens (Whisper: its WHISPER_S-token text
     context). encdec: the encoder first runs over 1500 seeded frames,
     launching flash attention once a layer, non-causal; vlm: 1601
-    seeded patch embeddings. The phase's heaviest flash attention and
-    SSD chunk calls are held against their plain versions and timed
-    (``hold_and_time``, entries marked with the model). With ``mesh``,
-    the hybrid then runs ``hybrid_mesh_check`` (its kernel calls held and
-    timed as entries of their own; the report's "mesh_prefill"). Then the
-    params are freed. Returns the report."""
+    seeded patch embeddings; both in ``dtype``. The phase's heaviest
+    flash attention and SSD chunk calls are held against their plain
+    versions and timed (``hold_and_time``, entries marked with the model
+    and a dtype other than fp32), and so is the engine's cross call, the
+    one-query route's, with the engine's launches, then checked by
+    ``one_query_checks`` (``routed`` False: the engine's calls take the
+    tile kernel, and its call is not held). With ``mesh``, the hybrid
+    then runs ``hybrid_mesh_check`` (its kernel calls held and timed as
+    entries of their own; the report's "mesh_prefill"), the encdec and
+    vlm ``cross_mesh_check``. Then the params are freed. Returns the
+    report."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import encoder_forward, init_params
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    label = cfg.name if dtype == "float32" else f"{cfg.name} {dtype}"
     if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, num_layers=JAMBA_LAYERS,
                                   attn_every=JAMBA_LAYERS)
@@ -4229,12 +4300,15 @@ def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
     setup = {"setup_s": time.perf_counter() - t0,
              "device_bytes_allocated": torch.cuda.memory_allocated()}
     rng = np.random.default_rng(SEED + 3)
-    seen, enc, rep = {}, None, {}
+    seen, enc, rep = {}, None, {"dtype": dtype}
     encoder = {name: 0 for name in ops.LAUNCHES}
+
+    def seeded(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda().to(getattr(torch, dtype))
+
     if cfg.family == "encdec":
-        frames = torch.from_numpy(rng.normal(
-            size=(PREFILL_B, cfg.encoder_frames, cfg.d_model)).astype(
-                np.float32)).cuda()
+        frames = seeded(PREFILL_B, cfg.encoder_frames, cfg.d_model)
         with recording(ops, seen, PREFILL_SPECS):
             torch.cuda.synchronize()
             ops.reset_launch_counts()
@@ -4246,36 +4320,34 @@ def family_phase(arch, ops, card, hold_and_time, profile, mesh=None):
         check_launches(encoder, {"flash_attention": cfg.encoder_layers},
                        f"{cfg.name} encoder")
         check(tuple(enc.shape) == (PREFILL_B, cfg.encoder_frames,
-                                   cfg.d_model)
+                                   cfg.d_model) and enc.dtype == frames.dtype
               and bool(torch.isfinite(enc).all()),
-              f"{cfg.name}: encoder states {tuple(enc.shape)}")
+              f"{cfg.name}: encoder states {tuple(enc.shape)} {enc.dtype}")
         rep["encoder"] = {"frames": cfg.encoder_frames, "ms": ms,
                           "launches": encoder}
     elif cfg.family == "vlm":
-        enc = torch.from_numpy(rng.normal(
-            size=(PREFILL_B, cfg.num_image_tokens, cfg.d_model)).astype(
-                np.float32)).cuda()
+        enc = seeded(PREFILL_B, cfg.num_image_tokens, cfg.d_model)
     seqs = (dict(engine_s=WHISPER_S, prefill_s=WHISPER_S)
             if cfg.family == "encdec" else {})
     engine_call = {}
-    launches, prefill_rep = prefill_phase(params, cfg, ops, seen, profile,
-                                          enc=enc, engine_call=engine_call,
-                                          **seqs)
+    launches, prefill_rep = prefill_phase(
+        params, cfg, ops, seen, profile, enc=enc, engine_call=engine_call,
+        routed=routed, **seqs)
     rep.update(prefill_rep, setup=setup, card=card)
     hold_and_time({k: v[1] for k, v in seen.items()},
                   {k: launches[k] + encoder[k] for k in launches},
-                  model=cfg.name)
-    if cfg.family == "vlm":
-        # the one-query route's heaviest call: the engine's cross call, held
-        # and timed with the engine's launches, then against float64, twice
+                  model=label)
+    if engine_call and routed:
+        # the one-query route's calls: the engine's cross call, held and
+        # timed with the engine's launches, then against float64, twice
         # for bitwise equal outputs, and row and head independent
         hold_and_time(engine_call, {"flash_attention": rep["engine"][
             "engine_launches"]["flash_attention"]},
-            model=f"{cfg.name} engine, one-query route")
+            model=f"{label} engine, one-query route")
         q, k, v, kw = engine_call["flash_attention"]
         rep["engine"]["flash_call"] = one_query_checks(
             ops, q, k, v, ops.flash_attention(q, k, v, **kw), kw,
-            f"{cfg.name} engine call")
+            f"{label} engine call")
     if mesh is not None and cfg.family == "hybrid":
         t0 = time.perf_counter()
         mesh_seen = {}
@@ -5277,8 +5349,8 @@ def main() -> None:
             library_ms = (device_ms(library, iters, graph=graph)
                           if library is not None else None)
             # the flash forward's one-query route runs fp32 FMAs
-            peak, rate = (BF16_PEAK if bf16 else FP32_PEAK
-                          if shape.get("path") == "one_query"
+            peak, rate = (FP32_PEAK if shape.get("path") == "one_query"
+                          else BF16_PEAK if bf16
                           else PEAK.get(name, FP32_PEAK))
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
             bound_ms = max(t_bytes, t_ops) * 1e3
@@ -5403,6 +5475,13 @@ def main() -> None:
             if "mesh_cross" in rep:
                 cross[arch] = rep["mesh_cross"]
             print(json.dumps({"prefill": rep}), flush=True)
+            if arch in BF16_ENGINES:
+                # the phase again in the config's own bf16 (no mesh): every
+                # engine cross call on the one-query route's bf16 kernel
+                rep = family_phase(arch, ops, card, hold_and_time,
+                                   args.profile,
+                                   dtype=get_config(arch).dtype)
+                print(json.dumps({"bf16_engine": rep}), flush=True)
 
         # ---- the same for Mamba2, then its SSM split by head --------
         mcfg = dataclasses.replace(get_config("mamba2-2.7b"),
@@ -5495,8 +5574,9 @@ def main() -> None:
                       "bf16_one_query": bf16_cross, "card": card}),
           flush=True)
     print(json.dumps(one_query_independence()), flush=True)
-    print(json.dumps({"one_query_sweep": one_query_sweep(floor_ms),
-                      "card": card}), flush=True)
+    for dt in ("float32", "bfloat16"):
+        print(json.dumps({"one_query_sweep": one_query_sweep(floor_ms, dt),
+                          "card": card}), flush=True)
     print(json.dumps({"wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -167,48 +167,63 @@
 // then 40 / 232), no stack and no spills at any instantiation; SASS:
 // HGMMA only, no HMMA (chip_smoke.py checks both).
 //
-// ---- fp32, one query: flash_fwd_one_query<EPT>
+// ---- one query: flash_fwd_one_query<EPT> (fp32),
+//      flash_fwd_one_query_bf16<EPT> (bf16)
 //
 // What bounds it: bytes, and the latency of fetching them. At R = Sq G
 // query rows a KV head, each K/V row is read once and used for R rows:
-// 4 R flops (fp32 FMAs) a 4-byte element of K or V, ~1 flop a byte at R =
-// 1, below every ridge. The engines' cross calls are R = 1: Llama-3.2-
-// Vision's (B 2, 1601 keys, 32 heads of 128) moves 104.9 MB, 0.031 ms at
-// 3.35 TB/s, for 52 MFLOP (< 1 us at 67 TFLOP/s); Whisper-tiny's (1500
-// keys, 6 heads of 64) 9.2 MB, which sit in L2 between decode steps. The
-// tile kernel above gives such a call B KV blocks (12 and 64 on 132 SMs),
-// each walking ~100 16-key tiles one round trip after another with 1 of
-// its 64 rows live: 0.29 and 0.54 ms, latency, not bytes.
+// 2 R flops (fp32 FMAs) an element of K or V, ~1 flop a byte in bf16 and
+// half that in fp32 at R = 1, below every ridge. The engines' cross calls
+// are R = 1: Llama-3.2-Vision's (B 2, 1601 keys, 32 heads of 128) moves
+// 104.9 MB in fp32, 0.031 ms at 3.35 TB/s, and 52.5 MB in bf16, 0.0157 ms,
+// for 52 MFLOP (< 1 us at 67 TFLOP/s); Whisper-tiny's (1500 keys, 6 heads
+// of 64) 9.2 MB in fp32 and 4.6 MB in bf16, which sit in L2 between
+// decode steps. The tile kernels (fp32 above, bf16 flash_fwd_bf16) give
+// such a call B KV blocks (12 and 64 on 132 SMs), each walking every key
+// tile one round trip after another with 1 of its 64 or 128 rows live:
+// fp32 0.29 and 0.54 ms, bf16 0.037 and (B 8, 2 heads) 0.045 ms,
+// latency, not bytes.
 //
-// What the design does about it:
+// What the design does about it (both types; bf16 differs only in the
+// element it moves):
 //  * Blocks over (batch row, KV head, key split): block (b, kvh, s) takes
 //    keys [s S, s S + S) for every row of its KV head (R = Sq G rows, row
 //    r = position r / G, head kvh G + r % G), so a K/V row is fetched once.
 //    S (a multiple of 32 up to 256) is the launcher's, a function of the
-//    shape alone (flash_attention.py: one_query_plan), so the splits and
-//    the order of every sum are the same for a row in any batch and under
-//    any cut of the heads. Only splits up to the last key a row can see
-//    are launched (one_query_splits), a 1-D grid of B KV n blocks.
+//    shape and the type alone (flash_attention.py: one_query_plan, from the
+//    split's bytes in its type), so the splits and the order of every sum
+//    are the same for a row in any batch and under any cut of the heads.
+//    Only splits up to the last key a row can see are launched
+//    (one_query_splits), a 1-D grid of B KV n blocks.
 //  * One round trip: a block issues every 16-byte cp.async of its rows'
-//    queries and its split's K and V rows (4 or 8 bytes where a row or
-//    pointer is not 16-byte aligned) before it waits on any: 32 KB in
-//    flight a block at the engines' calls (S 64 at hd 64, 32 at hd 128),
-//    six blocks an SM.
+//    queries and its split's K and V rows (4 or 8 bytes, or element loads,
+//    where a row or pointer is not 16-byte aligned) before it waits on any.
+//    K and V stay in their own type in shared memory (bf16: half the
+//    bytes a split, 8 elements a 16-byte copy) and are widened to fp32 at
+//    each FMA.
 //  * Scores and P.V are plain fp32 FMAs on the CUDA cores, in fp32's own
-//    accuracy (no 3xTF32 split): a thread per (row, key), lanes on
-//    neighbouring keys of one row, K rows padded to 4 x an odd number of
-//    floats so the 16-byte loads of a quarter-warp hit distinct banks; a
-//    warp a row for the softmax (scores in log2 units, exp2f); then a
-//    thread per (row, value column), EPT of them a pass, keys in order.
+//    accuracy (no 3xTF32 split, no bf16 rounding of P): a thread per (row,
+//    key), lanes on neighbouring keys of one row, K rows padded to an odd
+//    number of 16-byte units (4 floats or 8 bf16 a unit) so the 16-byte
+//    loads of a quarter-warp hit distinct banks; a warp a row for the
+//    softmax (scores in log2 units, exp2f); then a thread per (row, value
+//    column), EPT of them a pass, keys in order.
 //  * Masks follow the tile kernel: masked keys score NEG_INF, keys past
 //    Sk take no part (-inf). Where the last row sees no key (Sq > Sk with
 //    a window) every split is walked and that row comes out uniform over
 //    every key, as in the reference.
-//  * One split writes the output. More leave each row's (m, l, o) in
+//  * One split writes the output. More leave each row's (m, l, o) in fp32
 //    scratch the launcher allocates, and the (batch row, KV head)'s last
 //    block to finish (an atomic ticket, as paged_attention.cu) combines
 //    them in split order: M = max m_s, L = sum l_s 2^(m_s - M), O = sum o_s
-//    2^(m_s - M), out = O / max(L, 1e-30). No other atomics: bitwise
+//    2^(m_s - M), out = O / max(L, 1e-30). A bf16 output is rounded once,
+//    there. The combine reads every (m, l) into shared memory in one round
+//    trip, takes M with a warp a row, e_s once a (split, row), and keeps 8
+//    of a column's o_s loads in flight (at the engines' calls it takes
+//    10-29% of the bf16 kernel's time; one reading the partials split
+//    after split took 17-40% of either type's:
+//    tools/flash_one_query_check.py); its 8 (n + 1) R bytes of shared
+//    memory bound the keys a call (one_query_plan). No other atomics: bitwise
 //    repeatable. No host sync or allocation: capturable in a CUDA graph.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -233,7 +248,11 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16(x);  // nearest even
+}
 // elements p[0], p[1] (p 2-element aligned) as floats
 __device__ __forceinline__ void load_pair(const float* p, float& x0,
                                           float& x1) {
@@ -261,28 +280,28 @@ size_t smem_bytes(int hd, int vd) {
           static_cast<size_t>(kStages * kTile) * v_stride(vd));
 }
 
-// Rows [0, nrows) of w elements into dst (stride ds); row r comes from
-// src(r), or is zero where src(r) is null. vec: bytes a copy (16, 8, 4;
-// every source row and pointer aligned to it), 0 for element loads.
-template <typename Src>
-__device__ __forceinline__ void copy_rows(float* dst, int ds, int nrows,
-                                          int w, int vec, const float* base,
-                                          Src src) {
+// Rows [0, nrows) of w elements (fp32 or bf16) into dst (stride ds); row
+// r comes from src(r), or is zero where src(r) is null. vec: bytes a copy
+// (16, 8, 4; every source row and pointer aligned to it), 0 for element
+// loads.
+template <typename T, typename Src>
+__device__ __forceinline__ void copy_rows(T* dst, int ds, int nrows, int w,
+                                          int vec, const T* base, Src src) {
   if (vec == 0) {
     for (int i = threadIdx.x; i < nrows * w; i += kThreads) {
       const int r = i / w, c = i - r * w;
-      const float* s = src(r);
-      dst[r * ds + c] = s ? s[c] : 0.f;
+      const T* s = src(r);
+      dst[r * ds + c] = s ? s[c] : T{};
     }
     return;
   }
-  const int per = vec / static_cast<int>(sizeof(float));
+  const int per = vec / static_cast<int>(sizeof(T));
   const int cpr = w / per;  // copies a row
   for (int i = threadIdx.x; i < nrows * cpr; i += kThreads) {
     const int r = i / cpr, c = (i - r * cpr) * per;
-    const float* s = src(r);
-    float* d = dst + r * ds + c;
-    const float* from = s ? s + c : base;
+    const T* s = src(r);
+    T* d = dst + r * ds + c;
+    const T* from = s ? s + c : base;
     if (vec == 16)
       cp_async<16>(d, from, s != nullptr);
     else if (vec == 8)
@@ -923,16 +942,17 @@ cudaError_t dispatch_bf16(int B, cudaStream_t stream, const void* q,
   return launch_bf16<256, 256, 64, 2>(a, B, stream);
 }
 
-// ---- fp32, one query: flash_fwd_one_query<EPT>
+// ---- one query: flash_fwd_one_query<EPT>, flash_fwd_one_query_bf16<EPT>
 
 constexpr int kQMaxRows = kMaxG;  // Sq G rows a block takes
 constexpr int kQMaxSplit = 256;   // keys a split: 8 a lane in the softmax
 
+template <typename T>
 struct OneQuery {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   float* part_m;  // [B KV][n_all][R]: each split's max (log2 units)
   float* part_l;  // [B KV][n_all][R]: its denominator
   float* part_o;  // [B KV][n_all][R][vd]: its unnormalised output
@@ -945,36 +965,86 @@ struct OneQuery {
   int vec;       // bytes a copy (16, 8, 4), 0: element loads
 };
 
-// K row stride in shared memory: 4 x an odd number of floats >= w, so the
-// 16-byte loads of 8 lanes (one key each) hit 8 distinct bank groups
-__host__ __device__ __forceinline__ int odd_quads(int w) {
-  return 4 * (((w + 3) / 4) | 1);
+// elements of T in 16 bytes (4 fp32, 8 bf16), as a shift
+template <typename T>
+constexpr int kShift16 = sizeof(T) == 4 ? 2 : 3;
+
+// w elements of T rounded up to 16 bytes
+template <typename T>
+__host__ __device__ __forceinline__ int pad16(int w) {
+  constexpr int e = 1 << kShift16<T>;
+  return (w + e - 1) & ~(e - 1);
 }
 
-// dynamic shared memory (bytes): q [R][hd4]; K [S][odd_quads(hd)]; V
-// [S][vd4]; the softmax weights [R][S]; a row's m and l; a flag
+// K row stride in shared memory: an odd number of 16-byte units holding
+// w elements, so the 16-byte loads of 8 lanes (one key each) hit 8
+// distinct bank groups
+template <typename T>
+__host__ __device__ __forceinline__ int odd_units(int w) {
+  constexpr int e = 1 << kShift16<T>;
+  return e * (((w + e - 1) / e) | 1);
+}
+
+// dynamic shared memory (bytes): q [R][pad16(hd)], K [S][odd_units(hd)], V
+// [S][pad16(vd)] in T; the softmax weights [R][S], a row's m and l in
+// fp32; a flag
+template <typename T>
 size_t one_query_smem(int R, int S, int hd, int vd) {
-  const size_t hd4 = (hd + 3) / 4 * 4, vd4 = (vd + 3) / 4 * 4;
-  return sizeof(float) * (R * hd4 + S * (odd_quads(hd) + vd4) +
-                          static_cast<size_t>(R) * S + 2 * R) +
-         sizeof(int);
+  return sizeof(T) * (R * pad16<T>(hd) +
+                      S * (odd_units<T>(hd) + pad16<T>(vd))) +
+         sizeof(float) * (static_cast<size_t>(R) * S + 2 * R) + sizeof(int);
+}
+
+// s0..s3 += x . y over 16 bytes of each: 4 fp32, or 8 bf16 widened to fp32
+__device__ __forceinline__ void fma16(const float* x, const float* y,
+                                      float& s0, float& s1, float& s2,
+                                      float& s3) {
+  const float4 a = *reinterpret_cast<const float4*>(x);
+  const float4 b = *reinterpret_cast<const float4*>(y);
+  s0 = fmaf(a.x, b.x, s0);
+  s1 = fmaf(a.y, b.y, s1);
+  s2 = fmaf(a.z, b.z, s2);
+  s3 = fmaf(a.w, b.w, s3);
+}
+// the bf16 at the low and at the high half of a 32-bit word, as fp32
+// (exact: a bf16 is an fp32's top 16 bits)
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void fma16(const bf16* x, const bf16* y,
+                                      float& s0, float& s1, float& s2,
+                                      float& s3) {
+  const uint4 a = *reinterpret_cast<const uint4*>(x);
+  const uint4 b = *reinterpret_cast<const uint4*>(y);
+  s0 = fmaf(bf16_lo(a.x), bf16_lo(b.x), s0);
+  s1 = fmaf(bf16_hi(a.x), bf16_hi(b.x), s1);
+  s2 = fmaf(bf16_lo(a.y), bf16_lo(b.y), s2);
+  s3 = fmaf(bf16_hi(a.y), bf16_hi(b.y), s3);
+  s0 = fmaf(bf16_lo(a.z), bf16_lo(b.z), s0);
+  s1 = fmaf(bf16_hi(a.z), bf16_hi(b.z), s1);
+  s2 = fmaf(bf16_lo(a.w), bf16_lo(b.w), s2);
+  s3 = fmaf(bf16_hi(a.w), bf16_hi(b.w), s3);
 }
 
 // One block per (batch row, KV head, key split): its R = Sq G rows (row r
 // = position r / G, head kvh G + r % G) against keys [k0, k0 + S) of the
-// split. EPT: outputs a thread keeps in registers per pass of P.V.
-template <int EPT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_one_query(const OneQuery a) {
+// split. T: the inputs' and output's type (fp32 or bf16; kept as T in
+// shared memory, widened to fp32 at each FMA). EPT: outputs a thread
+// keeps in registers per pass of P.V.
+template <typename T, int EPT>
+__device__ __forceinline__ void one_query_block(const OneQuery<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int R = a.R, S = a.S, hd4 = (a.hd + 3) & ~3, vd4 = (a.vd + 3) & ~3;
-  const int kp = odd_quads(a.hd);
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [R][hd4]
-  float* ks = qs + R * hd4;                        // [S][kp]
-  float* vs = ks + S * kp;                         // [S][vd4]
-  float* ps = vs + S * vd4;                        // [R][S]
-  float* rm = ps + R * S;                          // [R]
-  float* rl = rm + R;                              // [R]
+  const int R = a.R, S = a.S, hdp = pad16<T>(a.hd), vdp = pad16<T>(a.vd);
+  const int kp = odd_units<T>(a.hd);
+  T* qs = reinterpret_cast<T*>(smem_raw);                 // [R][hdp]
+  T* ks = qs + R * hdp;                                   // [S][kp]
+  T* vs = ks + S * kp;                                    // [S][vdp]
+  float* ps = reinterpret_cast<float*>(vs + S * vdp);     // [R][S]
+  float* rm = ps + R * S;                                 // [R]
+  float* rl = rm + R;                                     // [R]
   int* flag = reinterpret_cast<int*>(rl + R);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -984,10 +1054,10 @@ flash_fwd_one_query(const OneQuery a) {
   const size_t q_row = static_cast<size_t>(a.H) * a.hd;
   const size_t k_row = static_cast<size_t>(a.KV) * a.hd;
   const size_t v_row = static_cast<size_t>(a.KV) * a.vd;
-  const float* kb = a.k + (static_cast<size_t>(b) * a.Sk + k0) * k_row +
-                    static_cast<size_t>(kvh) * a.hd;
-  const float* vb = a.v + (static_cast<size_t>(b) * a.Sk + k0) * v_row +
-                    static_cast<size_t>(kvh) * a.vd;
+  const T* kb = a.k + (static_cast<size_t>(b) * a.Sk + k0) * k_row +
+                static_cast<size_t>(kvh) * a.hd;
+  const T* vb = a.v + (static_cast<size_t>(b) * a.Sk + k0) * v_row +
+                static_cast<size_t>(kvh) * a.vd;
   auto out_at = [&](int r) {  // row r's output
     const int s = r / a.G, g = r - s * a.G;
     return a.out + (static_cast<size_t>(b) * a.Sq + s) * a.H * a.vd +
@@ -996,15 +1066,15 @@ flash_fwd_one_query(const OneQuery a) {
 
   // --- one round trip: the rows' queries, the split's K and V rows, every
   // copy issued before any is waited on
-  copy_rows(qs, hd4, R, a.hd, a.vec, a.q, [&](int r) -> const float* {
+  copy_rows(qs, hdp, R, a.hd, a.vec, a.q, [&](int r) -> const T* {
     const int s = r / a.G, g = r - s * a.G;
     return a.q + (static_cast<size_t>(b) * a.Sq + s) * q_row +
            static_cast<size_t>(kvh * a.G + g) * a.hd;
   });
   copy_rows(ks, kp, nk, a.hd, a.vec, a.k,
-            [&](int j) -> const float* { return kb + j * k_row; });
-  copy_rows(vs, vd4, nk, a.vd, a.vec, a.v,
-            [&](int j) -> const float* { return vb + j * v_row; });
+            [&](int j) -> const T* { return kb + j * k_row; });
+  copy_rows(vs, vdp, nk, a.vd, a.vec, a.v,
+            [&](int j) -> const T* { return vb + j * v_row; });
   cp_commit();
   cp_wait<0>();
   __syncthreads();
@@ -1012,7 +1082,7 @@ flash_fwd_one_query(const OneQuery a) {
   // --- scores in log2 units, fp32 FMAs: a thread per (row, key), lanes on
   // neighbouring keys of one row (S is a multiple of 32); masked keys score
   // NEG_INF, keys past the split's take no part (-inf)
-  const int n4 = a.hd >> 2;
+  const int nc = a.hd >> kShift16<T>;  // whole 16-byte chunks a row
   for (int i = tid; i < R * S; i += kThreads) {
     const int r = i / S, j = i - r * S;
     const int key = k0 + j, pos = r / a.G;
@@ -1022,19 +1092,15 @@ flash_fwd_one_query(const OneQuery a) {
                  (a.window > 0 && pos - key >= a.window))) {
       val = kNegInf;
     } else if (live) {
-      const float* qr = qs + r * hd4;
-      const float* kr = ks + j * kp;
+      const T* qr = qs + r * hdp;
+      const T* kr = ks + j * kp;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll 8
-      for (int c = 0; c < n4; ++c) {
-        const float4 x = reinterpret_cast<const float4*>(qr)[c];
-        const float4 y = reinterpret_cast<const float4*>(kr)[c];
-        s0 = fmaf(x.x, y.x, s0);
-        s1 = fmaf(x.y, y.y, s1);
-        s2 = fmaf(x.z, y.z, s2);
-        s3 = fmaf(x.w, y.w, s3);
-      }
-      for (int d = 4 * n4; d < a.hd; ++d) s0 = fmaf(qr[d], kr[d], s0);
+      for (int c = 0; c < nc; ++c)
+        fma16(qr + (c << kShift16<T>), kr + (c << kShift16<T>), s0, s1, s2,
+              s3);
+      for (int d = nc << kShift16<T>; d < a.hd; ++d)
+        s0 = fmaf(to_f(qr[d]), to_f(kr[d]), s0);
       val = ((s0 + s1) + (s2 + s3)) * a.scale;
     }
     ps[i] = val;
@@ -1065,7 +1131,8 @@ flash_fwd_one_query(const OneQuery a) {
   __syncthreads();
 
   // --- O = P.V: a thread per (row, value column), EPT of them a pass,
-  // keys in order; one split writes the output, more leave partials
+  // keys in order; one split writes the output (rounded to T once), more
+  // leave fp32 partials
   const int E = R * a.vd;
   const bool one = a.n == 1;
   const size_t base = (static_cast<size_t>(pair) * a.n_all + split) * R;
@@ -1084,14 +1151,14 @@ flash_fwd_one_query(const OneQuery a) {
     for (int j = 0; j < nk; ++j)
 #pragma unroll
       for (int u = 0; u < EPT; ++u)
-        acc[u] = fmaf(ps[po[u] + j], vs[j * vd4 + vo[u]], acc[u]);
+        acc[u] = fmaf(ps[po[u] + j], to_f(vs[j * vdp + vo[u]]), acc[u]);
 #pragma unroll
     for (int u = 0; u < EPT; ++u) {
       const int e = e0 + u * kThreads;
       if (e >= E) continue;
       const int r = e / a.vd, d = e - r * a.vd;
       if (one)
-        out_at(r)[d] = acc[u] / fmaxf(rl[r], 1e-30f);
+        store(out_at(r) + d, acc[u] / fmaxf(rl[r], 1e-30f));
       else
         a.part_o[(base + r) * a.vd + d] = acc[u];
     }
@@ -1104,7 +1171,7 @@ flash_fwd_one_query(const OneQuery a) {
 
   // --- the (row, KV head)'s last split to finish combines them all, in
   // split order: M = max m_s, e_s = 2^(m_s - M), L = sum l_s e_s, O = sum
-  // o_s e_s, out = O / max(L, 1e-30)
+  // o_s e_s, out = O / max(L, 1e-30), rounded to T once
   __threadfence();
   __syncthreads();
   if (tid == 0) *flag = atomicAdd(a.tickets + pair, 1) == a.n - 1;
@@ -1112,60 +1179,101 @@ flash_fwd_one_query(const OneQuery a) {
   if (!*flag) return;
   __threadfence();
   const size_t p0 = static_cast<size_t>(pair) * a.n_all * R;
-  if (tid < R) {
+  // every split's (m, l) read in one round trip into shared memory (the
+  // block's tiles are done with), e_s computed once a (split, row), each
+  // output's o_s loads 8 in flight
+  __syncthreads();  // every thread has read the flag
+  float* cm = reinterpret_cast<float*>(smem_raw);  // [R]: M
+  float* cl = cm + R;                              // [R]: max(L, 1e-30)
+  float* we = cl + R;                              // [n][R]: m_s, then e_s
+  float* wl = we + a.n * R;                        // [n][R]: l_s
+  const int nR = a.n * R;
+  for (int i = tid; i < nR; i += kThreads) {
+    we[i] = __ldcg(a.part_m + p0 + i);
+    wl[i] = __ldcg(a.part_l + p0 + i);
+  }
+  __syncthreads();
+  for (int r = warp; r < R; r += kWarps) {  // a warp a row: max is exact
     float M = -CUDART_INF_F;
-    for (int s = 0; s < a.n; ++s)
-      M = fmaxf(M, __ldcg(a.part_m + p0 + s * R + tid));
+    for (int s = lane; s < a.n; s += 32) M = fmaxf(M, we[s * R + r]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    if (lane == 0) cm[r] = M;
+  }
+  __syncthreads();
+  for (int i = tid; i < nR; i += kThreads) {
+    const int r = i % R;
+    we[i] = exp2f(we[i] - cm[r]);
+  }
+  __syncthreads();
+  if (tid < R) {
     float L = 0.f;
-    for (int s = 0; s < a.n; ++s) {
-      const size_t i = p0 + s * R + tid;
-      L = fmaf(__ldcg(a.part_l + i), exp2f(__ldcg(a.part_m + i) - M), L);
-    }
-    rm[tid] = M;
-    rl[tid] = fmaxf(L, 1e-30f);
+    for (int s = 0; s < a.n; ++s) L = fmaf(wl[s * R + tid], we[s * R + tid], L);
+    cl[tid] = fmaxf(L, 1e-30f);
   }
   __syncthreads();
   for (int e = tid; e < E; e += kThreads) {
     const int r = e / a.vd, d = e - r * a.vd;
-    const float M = rm[r];
     float O = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < a.n; ++s) {
-      const size_t i = p0 + s * R + r;
-      O = fmaf(__ldcg(a.part_o + i * a.vd + d),
-               exp2f(__ldcg(a.part_m + i) - M), O);
-    }
-    out_at(r)[d] = O / rl[r];
+#pragma unroll 8
+    for (int s = 0; s < a.n; ++s)
+      O = fmaf(__ldcg(a.part_o + (p0 + s * R + r) * a.vd + d), we[s * R + r],
+               O);
+    store(out_at(r) + d, O / cl[r]);
   }
 }
 
 template <int EPT>
-cudaError_t launch_one_query(const OneQuery& a, unsigned blocks, size_t smem,
-                             cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_one_query(const OneQuery<float> a) {
+  one_query_block<float, EPT>(a);
+}
+
+template <int EPT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_one_query_bf16(const OneQuery<bf16> a) {
+  one_query_block<bf16, EPT>(a);
+}
+
+template <int EPT>
+auto one_query_kernel(const OneQuery<float>&) {
+  return flash_fwd_one_query<EPT>;
+}
+template <int EPT>
+auto one_query_kernel(const OneQuery<bf16>&) {
+  return flash_fwd_one_query_bf16<EPT>;
+}
+
+template <int EPT, typename T>
+cudaError_t launch_one_query(const OneQuery<T>& a, unsigned blocks,
+                             size_t smem, cudaStream_t stream) {
+  const auto kernel = one_query_kernel<EPT>(a);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_one_query<EPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  flash_fwd_one_query<EPT><<<blocks, kThreads, smem, stream>>>(a);
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// fp32 q, k, v at Sq G <= 64 rows a KV head, S keys a split (a multiple of
-// 32 up to 256). part: scratch of B KV ceil(Sk / S) Sq G (vd + 2) floats and
-// tickets B KV int32 zeros, where more than one split is walked (else they
-// may be null)
+// T (fp32 or bf16) q, k, v at Sq G <= 64 rows a KV head, S keys a split (a
+// multiple of 32 up to 256). part: scratch of B KV ceil(Sk / S) Sq G (vd +
+// 2) floats and tickets B KV int32 zeros, where more than one split is
+// walked (else they may be null)
+template <typename T>
 cudaError_t dispatch_one_query(int B, cudaStream_t stream, const void* q,
                                const void* k, const void* v, void* out,
                                float* part, int* tickets, int Sq, int Sk,
                                int H, int KV, int hd, int vd, int causal,
                                int window, int S, float scale) {
-  OneQuery a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.out = static_cast<float*>(out);
+  OneQuery<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.out = static_cast<T*>(out);
   a.Sq = Sq;
   a.Sk = Sk;
   a.H = H;
@@ -1193,12 +1301,14 @@ cudaError_t dispatch_one_query(int B, cudaStream_t stream, const void* q,
   a.part_l = part == nullptr ? nullptr : part + P;
   a.part_o = part == nullptr ? nullptr : part + 2 * P;
   a.tickets = tickets;
-  a.vec = copy_bytes(q, sizeof(float) * hd);
-  const int vec_k = copy_bytes(k, sizeof(float) * hd);
-  const int vec_v = copy_bytes(v, sizeof(float) * vd);
+  a.vec = copy_bytes(q, sizeof(T) * hd);
+  const int vec_k = copy_bytes(k, sizeof(T) * hd);
+  const int vec_v = copy_bytes(v, sizeof(T) * vd);
   if (vec_k < a.vec) a.vec = vec_k;
   if (vec_v < a.vec) a.vec = vec_v;
-  const size_t smem = one_query_smem(a.R, S, hd, vd);
+  size_t smem = one_query_smem<T>(a.R, S, hd, vd);
+  const size_t combine = sizeof(float) * 2 * (a.n + 1) * a.R;
+  if (a.n > 1 && combine > smem) smem = combine;  // the combine's M, L, (m, l)s
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(B) * KV * a.n;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -1206,8 +1316,9 @@ cudaError_t dispatch_one_query(int B, cudaStream_t stream, const void* q,
   const int per = (a.R * vd + kThreads - 1) / kThreads;  // outputs a thread
   if (per <= 1) return launch_one_query<1>(a, nb, smem, stream);
   if (per <= 2) return launch_one_query<2>(a, nb, smem, stream);
-  if (per <= 4) return launch_one_query<4>(a, nb, smem, stream);
-  return launch_one_query<8>(a, nb, smem, stream);
+  // more passes of 4 past 512 outputs a block: an EPT 8 build spilled 12
+  // bytes beside the combine's loads in flight
+  return launch_one_query<4>(a, nb, smem, stream);
 }
 
 }  // namespace
@@ -1215,10 +1326,10 @@ cudaError_t dispatch_one_query(int B, cudaStream_t stream, const void* q,
 // q [B,Sq,H,hd]; k [B,Sk,KV,hd]; v [B,Sk,KV,vd]; out [B,Sq,H,vd]. All of one
 // type (bf16 != 0: bfloat16, else fp32), contiguous, on the device;
 // H % KV == 0, H / KV <= 64, hd <= 256, vd <= hd. window 0 means unbounded.
-// keys_per_split > 0 (fp32 only) takes the one-query route with splits of
-// that many keys (part and tickets: its scratch, dispatch_one_query); 0
-// the tile kernel of the input's type. Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// keys_per_split > 0 takes the one-query route of the input's type with
+// splits of that many keys (part and tickets: its scratch,
+// dispatch_one_query); 0 the tile kernel of the input's type. Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* part,
                                    int* tickets, int bf16, int B, int Sq,
@@ -1227,16 +1338,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    float scale, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || vd <= 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || hd <= 0 ||
-      hd > kMaxHd || vd > hd || window < 0 || keys_per_split < 0 ||
-      (bf16 && keys_per_split > 0))
+      hd > kMaxHd || vd > hd || window < 0 || keys_per_split < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (keys_per_split > 0)
+    return static_cast<int>(
+        (bf16 ? dispatch_one_query<__nv_bfloat16> : dispatch_one_query<float>)(
+            B, stream, q, k, v, out, part, tickets, Sq, Sk, H, KV, hd, vd,
+            causal, window, keys_per_split, scale));
   if (bf16)
     return static_cast<int>(dispatch_bf16(B, stream, q, k, v, out, Sq, Sk, H,
                                           KV, hd, vd, causal, window, scale));
-  if (keys_per_split > 0)
-    return static_cast<int>(dispatch_one_query(
-        B, stream, q, k, v, out, part, tickets, Sq, Sk, H, KV, hd, vd,
-        causal, window, keys_per_split, scale));
   const int G = H / KV;
   const int BQ = kRows / G;  // query positions per block
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);

@@ -21,14 +21,16 @@ checks the arguments and picks between the two.
 
 fp32 calls of at most ``ONE_QUERY_ROWS`` query rows a KV head (Sq·G: the
 engines' cross-attention decode calls, one query over the encoder's
-frames) take the one-query route instead, ``flash_fwd_one_query``: one
-block per (batch row, KV head, split of ``one_query_plan``'s keys) that
-fetches its split's K/V rows in one round trip, scores them with fp32
-FMAs on the CUDA cores, and leaves (max, sum, output) partials that the
-row's last block combines in split order (``one_query_splits``: the
-splits a call walks). The split length is a function of the shape
-alone, never of B or H, so a row's output is bitwise the same in any
-batch and under any cut of its heads.
+frames), and bf16 calls of at most ``ONE_QUERY_ROWS_BF16``, take the
+one-query route instead, ``flash_fwd_one_query`` (fp32) or
+``flash_fwd_one_query_bf16``: one block per (batch row, KV head, split of
+``one_query_plan``'s keys) that fetches its split's K/V rows in one round
+trip, scores them with fp32 FMAs on the CUDA cores (bf16 widened at each
+FMA), and leaves (max, sum, output) partials that the row's last block
+combines in split order (``one_query_splits``: the splits a call walks),
+a bf16 output rounded once. The split length is a function of the shape
+and the dtype alone, never of B or H, so a row's output is bitwise the
+same in any batch and under any cut of its heads.
 
 The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 sums)
 has no Pallas counterpart: the JAX package trains through XLA blockwise
@@ -69,9 +71,22 @@ MAX_HEAD_DIM = 256   # q/k width; v may be narrower
 # calls
 ONE_QUERY_ROWS = 8
 ONE_QUERY_SPLIT_BYTES = 32 * 1024
-# its instantiations (outputs a thread a pass), which ptxas must compile
-# with no stack and no spills
-ONE_QUERY_NO_SPILL = tuple(f"flash_fwd_one_query<{n}>" for n in (1, 2, 4, 8))
+# the same two for bf16 calls (their bf16 bytes against the budget), from
+# the same sweeps run against the bf16 tile kernel (flash_fwd_bf16), which
+# is 6-12x faster per call than the fp32 one: at 256 pairs the route ties
+# it at 1 row (0.092-0.099 vs 0.094-0.097 ms) and loses from 2 (at 16 pairs
+# it wins up to 8); the budget is the engines' calls' own: 16 KB splits (64
+# keys at hd 64, 32 at 128) are 9-10% faster than 32 KB ones at Whisper's
+# (0.0103-0.0113 vs 0.0114-0.0125 ms) and 1-3% at Vision's
+ONE_QUERY_ROWS_BF16 = 1
+ONE_QUERY_SPLIT_BYTES_BF16 = 16 * 1024
+# the combine's shared memory: 8 bytes a (split, row) and a row (the
+# block's dynamic limit on an H100)
+ONE_QUERY_COMBINE_BYTES = 227 * 1024
+# its instantiations (outputs a thread a pass; more passes of 4 past 512
+# outputs a block), which ptxas must compile with no stack and no spills
+ONE_QUERY_NO_SPILL = tuple(f"flash_fwd_one_query{t}<{n}>"
+                           for t in ("", "_bf16") for n in (1, 2, 4))
 # the bf16 forward's instantiations for hd <= 64, <= 128 and MLA's 192 /
 # 128, which ptxas must compile with no stack and no spills
 FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
@@ -111,15 +126,25 @@ def plain(q, k, v, *, causal: bool, window: int):
 def one_query_plan(Sq: int, Sk: int, H: int, KV: int, hd: int, vd: int,
                    dtype) -> int | None:
     """Keys a split of the one-query route for a call of this shape, or
-    None where the call takes the tile kernel of its dtype (bf16, or more
-    than ONE_QUERY_ROWS rows a KV head). Never a function of B; the split
-    length depends on (Sk, hd, vd) alone."""
-    if dtype != torch.float32 or Sq * (H // KV) > ONE_QUERY_ROWS:
+    None where the call takes the tile kernel of its dtype (more than
+    ONE_QUERY_ROWS rows a KV head in fp32, ONE_QUERY_ROWS_BF16 in bf16).
+    Never a function of B or H; the split length depends on (Sk, hd, vd)
+    and the dtype alone: the most keys whose K and V rows, in the dtype's
+    bytes, fit its split budget. A call with more splits than the
+    combine's shared memory holds takes the tile kernel."""
+    rows, budget = {torch.float32: (ONE_QUERY_ROWS, ONE_QUERY_SPLIT_BYTES),
+                    torch.bfloat16: (ONE_QUERY_ROWS_BF16,
+                                     ONE_QUERY_SPLIT_BYTES_BF16)}.get(
+                                         dtype, (0, 0))
+    if Sq * (H // KV) > rows:
         return None
     S = 256
-    while S > 32 and 4 * S * (hd + vd) > ONE_QUERY_SPLIT_BYTES:
+    while S > 32 and dtype.itemsize * S * (hd + vd) > budget:
         S //= 2
-    return min(S, 32 * -(-Sk // 32))   # no wider than the keys
+    S = min(S, 32 * -(-Sk // 32))   # no wider than the keys
+    if 8 * (-(-Sk // S) + 1) * Sq * (H // KV) > ONE_QUERY_COMBINE_BYTES:
+        return None
+    return S
 
 
 def one_query_splits(Sq: int, Sk: int, causal: bool, window: int,

@@ -77,15 +77,18 @@ def test_backward_no_spill_labels_are_the_kernels():
 
 def test_one_query_no_spill_labels_are_the_kernels():
     """The one-query route's instantiations (outputs a thread a pass), by
-    the mangled names of a build of ``flash_fwd_one_query<EPT>(OneQuery)``
+    the mangled names of a build of ``flash_fwd_one_query<EPT>(OneQuery<
+    float>)`` and ``flash_fwd_one_query_bf16<EPT>(OneQuery<bf16>)``
     beside the tile kernels', one of them spilling."""
-    mangled = {n: NS + f"19flash_fwd_one_queryILi{n}EEEvNS_8OneQueryE"
-               for n in (1, 2, 4, 8)}
+    mangled = [NS + f"19flash_fwd_one_queryILi{n}EEEvNS_8OneQueryIfEE"
+               for n in (1, 2, 4)]
+    mangled += [NS + f"24flash_fwd_one_query_bf16ILi{n}EEEvNS_8OneQueryI"
+                "13__nv_bfloat16EE" for n in (1, 2, 4)]
     lines = [f"ptxas info    : Compiling entry function '{FP32}' for "
              "'sm_90a'", "    0 bytes stack frame, 0 bytes spill stores, "
              "0 bytes spill loads", "ptxas info    : Used 122 registers"]
-    for n, name in mangled.items():
-        spill = 8 if n == 8 else 0
+    for i, name in enumerate(mangled):
+        spill = 8 if i == 5 else 0
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
                   "'sm_90a'",
                   f"ptxas info    : Function properties for {name}",
@@ -96,7 +99,7 @@ def test_one_query_no_spill_labels_are_the_kernels():
     assert [r["kernel"] for r in recs] == (["flash_attention_kernel<8>"]
                                            + list(flash_mod.ONE_QUERY_NO_SPILL))
     kept = [r for r in recs if r["kernel"] in flash_mod.ONE_QUERY_NO_SPILL]
-    assert [r["spill_stores"] for r in kept] == [0, 0, 0, 8]
+    assert [r["spill_stores"] for r in kept] == [0, 0, 0, 0, 0, 8]
     assert all(r["registers"] == 40 for r in kept)
 
 
