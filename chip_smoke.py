@@ -10,9 +10,11 @@ It drives the port's two entry points end to end and checks them:
    (one ``nvcc`` per source, all started together) and prints the
    ``ptxas`` reports (registers, shared memory, spills) of flash
    attention, SSD chunk and their backwards on a JSON line each; fails
-   if a bf16 flash kernel of ``FORWARD_NO_SPILL`` or ``BACKWARD.NO_SPILL``
-   or a one-query kernel of ``ONE_QUERY_NO_SPILL`` spills, and if the SASS of a bf16 forward or backward kernel
-   (``cuobjdump -sass``, a ``sass_mma_counts`` line each) holds an
+   if a bf16 flash forward kernel of ``FORWARD_NO_SPILL``, a flash
+   backward kernel (fp32 or bf16) of ``BACKWARD.NO_SPILL`` or a one-query
+   kernel of ``ONE_QUERY_NO_SPILL`` spills, and if the SASS of a bf16
+   forward kernel or of any backward kernel, fp32 or bf16
+   (``cuobjdump -sass``, a ``sass_mma_counts`` line each), holds an
    ``HMMA`` or no ``HGMMA``;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
@@ -321,8 +323,9 @@ It drives the port's two entry points end to end and checks them:
    and a 4096-position chunk
    against a float64 evaluation of the same sums; the flash backward at
    every FLASH_BWD_SHAPES shape in fp32 and in bf16 (bf16: against the
-   fp32 plain version on the same values at BF16_TOL, against float64 at
-   BF16_F64_TOL, launched twice for bitwise equal gradients); the SSD
+   fp32 plain version on the same values at BF16_TOL), each also against
+   float64 (fp32 at TOL, bf16 at BF16_F64_TOL) and launched twice for
+   bitwise equal gradients; the SSD
    backward at every SSD chunk shape with seeded output gradients (the
    4096-position chunk against float64);
    Every FLASH_SHAPES entry that takes the one-query route (Sq·G <=
@@ -1323,7 +1326,10 @@ def kernel_cases(calls):
 def pass_flops(name, shape, flops):
     """(flops, the rate they run at): ``flops`` at the tensor-core passes
     the kernel gives each product. fp32 operands: three TF32 passes
-    (3xTF32). The flash forward on bf16 inputs: bf16 wgmma passes, S one
+    (3xTF32); the fp32 flash backward's wgmma kernels run S and dP twice in
+    the rows launch, dQ, and in the keys launch S^T, dP^T, dK and dV: 5 hd
+    + 4 vd a visible pair and head, and 6 hd + 4 vd at hd > 64, where S^T
+    runs on both warpgroups (1.8-2x the least autograd needs). The flash forward on bf16 inputs: bf16 wgmma passes, S one
     (2 hd a visible pair and head), P.V two (P as bf16 hi + lo: 4 vd).
     The flash backward on bf16 inputs: bf16 wgmma passes, S and dP one
     each in the rows launch's two walks and once more in the keys launch
@@ -1333,6 +1339,11 @@ def pass_flops(name, shape, flops):
     if shape.get("path") == "one_query":
         return flops, FP32_FLOPS_PER_S
     if shape.get("dtype") != "torch.bfloat16":
+        if name == "flash_attention_bwd":
+            per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
+            st = 2 if shape["hd"] > 64 else 1   # S^T's warpgroups
+            return 3 * per * ((4 + st) * shape["hd"] + 4 * shape["vd"]), \
+                TF32_FLOPS_PER_S
         return 3 * flops, TF32_FLOPS_PER_S
     per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
     hd, vd = shape["hd"], shape["vd"]
@@ -1463,11 +1474,10 @@ def coverage_checks():
                  flash_mod.plain_bwd(q.float(), k.float(), v.float(),
                                      dout.float(), **kw),
                  BF16_TOL if dt == "bfloat16" else None)
-            if dt == "bfloat16":
-                out[-1]["vs_float64"] = bwd_against_float64(ops, q, k, v,
-                                                            dout, kw)
-                out[-1]["bitwise_repeat"] = bwd_repeat_bitwise(ops, q, k, v,
-                                                               dout, kw)
+            out[-1]["vs_float64"] = bwd_against_float64(ops, q, k, v, dout,
+                                                        kw)
+            out[-1]["bitwise_repeat"] = bwd_repeat_bitwise(ops, q, k, v,
+                                                           dout, kw)
     for G, Q, H, P, N, scale in SSD_SHAPES + [SSD_ORACLE_SHAPE]:
         dA = -rand((G, Q, H), scale).abs()
         xw, Bm, Cm = rand((G, Q, H, P)), rand((G, Q, N)), rand((G, Q, N))
@@ -5219,7 +5229,7 @@ def main() -> None:
     check(len(kept) == len(no_spill)
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
-          f"bf16 flash backward kernels spill or are missing: {kept}")
+          f"flash backward kernels spill or are missing: {kept}")
     fwd_kernels = ops.ptxas_kernels(ops.build_log("flash_attention"))
     print(json.dumps({"ptxas_kernels": {"flash_attention": fwd_kernels}}),
           flush=True)
@@ -5235,8 +5245,8 @@ def main() -> None:
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
           f"one-query flash forward kernels spill or are missing: {kept}")
-    # the bf16 forward and backward run warpgroup MMAs (HGMMA) and no
-    # mma.sync (HMMA)
+    # the bf16 forward and the backward (fp32 and bf16) run warpgroup MMAs
+    # (HGMMA) and no mma.sync (HMMA)
     sass = ops.sass_counts("flash_attention")
     print(json.dumps({"sass_mma_counts": {"flash_attention": sass}}),
           flush=True)
@@ -5250,11 +5260,14 @@ def main() -> None:
     sass = ops.sass_counts("flash_attention_bwd")
     print(json.dumps({"sass_mma_counts": {"flash_attention_bwd": sass}}),
           flush=True)
-    bf16_bwd = {k: c for k, c in sass.items()
-                if k.startswith(("flash_bwd_rows_bf16", "flash_bwd_keys_bf16"))}
-    check(len(bf16_bwd) == 8 and all(c["HGMMA"] > 0 and c["HMMA"] == 0
-                                     for c in bf16_bwd.values()),
-          f"bf16 flash backward SASS: {sass}")
+    # every backward kernel, fp32 and bf16: warpgroup MMAs, no mma.sync
+    bwd = {k: c for k, c in sass.items() if k.startswith("flash_bwd_")}
+    check(len(bwd) == 16
+          and {k.split("<")[0] for k in bwd} == {
+              "flash_bwd_rows_f32", "flash_bwd_keys_f32",
+              "flash_bwd_rows_bf16", "flash_bwd_keys_bf16"}
+          and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in bwd.values()),
+          f"flash backward SASS: {sass}")
 
     # ---- the model at full widths, 2 layers, and the server ---------
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2,

@@ -1,7 +1,8 @@
 // Pieces of Hopper's (sm_90a) asynchronous machinery for the kernels that
 // feed warpgroup MMAs from TMA copies: the bf16 flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu). Warpgroup
-// MMAs (wgmma.mma_async, bf16 in, fp32 accumulators), their shared-memory
+// (flash_attention.cu) and the fp32 and bf16 backward
+// (flash_attention_bwd.cu). Warpgroup MMAs (wgmma.mma_async, bf16 or tf32
+// in, fp32 accumulators), their shared-memory
 // descriptors for 128-byte-swizzled tiles, mbarriers, TMA tensor copies,
 // cluster barriers, register rebalancing between warpgroups, the host's
 // tensor-map encoder, and the tile helpers both kernels share (bf16 hi +
@@ -144,6 +145,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
@@ -439,6 +445,133 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_rs_n256(d, a, db);
 }
 
+// d (+)= A.B^T, m64n16k8 tf32 (fp32 accumulators): A from registers (4
+// tf32 a thread), B from shared memory K-major
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A.B^T, m64n32k8 tf32 (fp32 accumulators): A from registers (4
+// tf32 a thread), B from shared memory K-major
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A.B^T, m64n64k8 tf32 (fp32 accumulators): A from registers (4
+// tf32 a thread), B from shared memory K-major
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// the tf32 MMA of one k8 step, by width
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32 width");
+  if constexpr (N == 16)
+    wgmma_tf32_n16(d, a, db, accumulate);
+  else if constexpr (N == 32)
+    wgmma_tf32_n32(d, a, db, accumulate);
+  else
+    wgmma_tf32_n64(d, a, db, accumulate);
+}
+
+// d (+)= A.B^T, m64n32k8 tf32 (fp32 accumulators): A and B from shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A.B^T, m64n64k8 tf32 (fp32 accumulators): A and B from shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the tf32 MMA of one k8 step, A from shared memory, by width
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_ss width");
+  if constexpr (N == 32)
+    wgmma_tf32_ss_n32(d, da, db, accumulate);
+  else
+    wgmma_tf32_ss_n64(d, da, db, accumulate);
+}
+
 // ---- tile helpers
 // hi = bf16(x), lo = bf16(x - hi) of two fp32 values, the lower column in
 // the low half of each word
@@ -528,6 +661,27 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base, int d0, int d1,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the same over a contiguous fp32 tensor (base 16-byte aligned, d0 a
+// multiple of 4) in boxes of {32, b1, b2, 1}: 128-byte panel rows
+inline bool encode_f32_4d(CUtensorMap* map, const void* base, int d0, int d1,
+                          int d2, int d3, int b1, int b2) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2),
+                              static_cast<cuuint64_t>(d3)};
+  const cuuint64_t row = 4ull * d0;  // bytes
+  const cuuint64_t strides[3] = {row, row * d1, row * d1 * d2};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // a map over the contiguous fp32 vector [d0] (base 16-byte aligned) in
 // boxes of b0 elements (b0 a multiple of 4), unswizzled; elements past d0

@@ -34,14 +34,18 @@ same in any batch and under any cut of its heads.
 
 The backward (``csrc/flash_attention_bwd.cu``, ``BACKWARD``; fp32 sums)
 has no Pallas counterpart: the JAX package trains through XLA blockwise
-attention. fp32 runs every product 3xTF32 on the TF32 tensor cores
-(``mma.sync``, tiles through ``cp.async`` rings). bf16 runs the forward's
-design: ``flash_bwd_rows_bf16`` and ``flash_bwd_keys_bf16``, two consumer
-warpgroups on ``wgmma`` fed by a producer warp's TMA ring of
-128-byte-swizzled tiles (``setmaxnreg`` 40 / 232), every product on the
+attention. Both dtypes run two consumer warpgroups on ``wgmma`` fed by a
+producer warp's TMA ring of 128-byte-swizzled tiles (``setmaxnreg`` 40 /
+232). fp32: ``flash_bwd_rows_f32`` and ``flash_bwd_keys_f32``, every
+product 3xTF32 on the TF32 tensor cores (each tile split into tf32 hi + lo
+as it lands, by the rows launch's warpgroups or the producer's other
+warps), the accumulations with the
+streamed tile as A (dQ^T = K^T.dS^T, dV^T = dO^T.P, dK^T = Q^T.dS), each
+tile's partial added to the running sum in fp32. bf16:
+``flash_bwd_rows_bf16`` and ``flash_bwd_keys_bf16``, every product on the
 bf16 tensor cores summed in place in fp32, P and dS as bf16 hi + lo, the
-gradients rounded to bf16 once (``BACKWARD.NO_SPILL``: its instantiations
-that must compile with no spill). ``launch_bwd`` runs its two launches,
+gradients rounded to bf16 once. ``BACKWARD.NO_SPILL``: the instantiations
+that must compile with no spill. ``launch_bwd`` runs its two launches,
 ``plain_bwd`` (autograd of ``plain``) is what it is held against.
 """
 from __future__ import annotations
@@ -93,10 +97,14 @@ FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
                     "flash_fwd_bf16<128,128,64,3>",
                     "flash_fwd_bf16<192,128,64,3>")
 # the backward's build record (``ops.build_kernels``); the same limits.
-# NO_SPILL: its bf16 instantiations for hd <= 64, <= 128 and MLA's 192 /
-# 128 (rows <HK, VK, keys a tile, stages>; keys <HK, VK, rows a tile,
-# stages, warpgroups a key>), which ptxas must compile with no stack and
-# no spills
+# NO_SPILL: the instantiations ptxas must compile with no stack and no
+# spills: bf16 for hd <= 64, <= 128 and MLA's 192 / 128 (rows <HK, VK, keys
+# a tile, stages>; keys <HK, VK, rows a tile, stages, warpgroups a key>),
+# fp32 for hd <= 64 (rows <HK, VK, keys a tile, stages, Q and dO split in
+# shared memory, key tiles split by their warpgroup>; keys <HK, VK, rows a
+# tile, stages, column passes,
+# warpgroups on alternate tiles, K and V split in shared memory>; at hd
+# 128 the fp32 kernels spill a little: csrc/flash_attention_bwd.cu)
 BACKWARD = SimpleNamespace(
     SOURCE="flash_attention_bwd.cu", SYMBOL="flash_attention_bwd",
     ARGTYPES=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float,
@@ -106,7 +114,9 @@ BACKWARD = SimpleNamespace(
               "flash_bwd_rows_bf16<192,128,64,3>",
               "flash_bwd_keys_bf16<64,64,64,4,1>",
               "flash_bwd_keys_bf16<128,128,32,4,1>",
-              "flash_bwd_keys_bf16<192,128,16,4,1>"))
+              "flash_bwd_keys_bf16<192,128,16,4,1>",
+              "flash_bwd_rows_f32<64,64,32,4,1,1>",
+              "flash_bwd_keys_f32<64,64,32,2,1,1,1>"))
 
 
 def plain(q, k, v, *, causal: bool, window: int):
