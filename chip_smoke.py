@@ -10,12 +10,13 @@ It drives the port's two entry points end to end and checks them:
    (one ``nvcc`` per source, all started together) and prints the
    ``ptxas`` reports (registers, shared memory, spills) of flash
    attention, SSD chunk and their backwards on a JSON line each; fails
-   if a bf16 flash forward kernel of ``FORWARD_NO_SPILL``, a flash
-   backward kernel (fp32 or bf16) of ``BACKWARD.NO_SPILL`` or a one-query
-   kernel of ``ONE_QUERY_NO_SPILL`` spills, and if the SASS of a bf16
-   forward kernel or of any backward kernel, fp32 or bf16
+   if a tile flash forward kernel (fp32 or bf16) of ``FORWARD_NO_SPILL``,
+   a flash backward kernel (fp32 or bf16) of ``BACKWARD.NO_SPILL`` or a
+   one-query kernel of ``ONE_QUERY_NO_SPILL`` spills, and if the SASS of
+   a tile forward kernel or of any backward kernel, fp32 or bf16
    (``cuobjdump -sass``, a ``sass_mma_counts`` line each), holds an
-   ``HMMA`` or no ``HGMMA``;
+   ``HMMA`` or no ``HGMMA``, or a ``mma.sync`` forward kernel
+   (``flash_attention_kernel``) is left;
 3. builds Mixtral-8x7B at its full published widths (d_model 4096,
    32 heads / 8 KV heads, expert d_ff 14336, 8 experts top-2, vocab
    32000) with the depth cut to 2 layers, fp32, random weights drawn on
@@ -252,7 +253,9 @@ It drives the port's two entry points end to end and checks them:
    forward twice and its backward once per SSM layer, and nothing else;
    losses finite and falling; each backward kernel held against its plain
    version and against float64 at each model's recorded call, and
-   launched twice there for bitwise equal gradients; the kernels with no
+   launched twice there for bitwise equal gradients, and the flash
+   forward likewise at Qwen2.5-3B's (bf16) and Qwen1.5-0.5B's (fp32)
+   call, each a ``kernels`` entry of its own; the kernels with no
    backward refuse inputs that require grad;
 7c. the port's entry points as a user calls them (``launch_phase``):
    ``repro_torch.launch.train.main`` in-process on Qwen1.5-0.5B whole in
@@ -306,9 +309,10 @@ It drives the port's two entry points end to end and checks them:
    heads per KV head (1 to 16), head dims up to 256 and a row with no
    visible key, 1 and 4 rows of 2048 and 4096 keys with positions on
    split boundaries, at 0 and at -1 (paged); ragged lengths, windows, no
-   causal mask, values narrower than keys, MQA, bf16 (the bf16 forward
-   also against float64 and launched twice for bitwise equal outputs, at
-   its own twins of the fp32 shapes: G 8 and 64, hd 192 / 128 and 256,
+   causal mask, values narrower than keys, MQA, bf16 (every tile call,
+   fp32 and bf16, also against float64 and launched twice for bitwise
+   equal outputs; bf16 at its own twins of the fp32 shapes: G 8 and 64,
+   hd 192 / 128 and 256,
    rows that see no key, one query over 1500 and 1601 keys, 4096 causal
    keys), a 4096-key causal row, hd 36 and 37
    (a partial k-step), rows copied 4 bytes or one element at a time,
@@ -1028,7 +1032,7 @@ def serve(srv, prompts, ops, prof=None, per_step=None):
 KINDS = (  # profiler kernel-name fragments -> kind, first match wins
     (("skinny_partial", "swiglu_finish", "sum_partials"), "moe_ffn"),
     (("paged_attention_kernel",), "paged_attention"),
-    (("flash_attention_kernel", "flash_fwd_bf16"), "flash_attention"),
+    (("flash_fwd_f32", "flash_fwd_bf16"), "flash_attention"),
     (("flash_bwd_",), "flash_attention_bwd"),
     (("ssd_chunk_scores_kernel", "ssd_chunk_kernel"), "ssd_chunk"),
     (("ssd_bwd_",), "ssd_chunk_bwd"),
@@ -1323,10 +1327,23 @@ def kernel_cases(calls):
                {"G": G, "Q": Q, "H": H, "P": P, "N": N}, None)
 
 
+def f32_tile_widths(hd, vd):
+    """(HK, VN): the q/k and v widths of the fp32 tile forward's
+    instantiation for a call (``dispatch_f32`` in csrc/flash_attention.cu),
+    at which it runs every k step and value column (panels past the
+    call's widths are zeros)."""
+    for hk, vn in ((64, 64), (128, 128), (192, 128)):
+        if hd <= hk and vd <= vn:
+            return hk, vn
+    return 256, 256
+
+
 def pass_flops(name, shape, flops):
     """(flops, the rate they run at): ``flops`` at the tensor-core passes
     the kernel gives each product. fp32 operands: three TF32 passes
-    (3xTF32); the fp32 flash backward's wgmma kernels run S and dP twice in
+    (3xTF32); the fp32 flash forward's wgmma kernel runs S and P.V at its
+    instantiation's widths (``f32_tile_widths``: 2 (HK + VN) a visible
+    pair and head, three passes each); the fp32 flash backward's wgmma kernels run S and dP twice in
     the rows launch, dQ, and in the keys launch S^T, dP^T, dK and dV: 5 hd
     + 4 vd a visible pair and head, and 6 hd + 4 vd at hd > 64, where S^T
     runs on both warpgroups (1.8-2x the least autograd needs). The flash forward on bf16 inputs: bf16 wgmma passes, S one
@@ -1344,6 +1361,10 @@ def pass_flops(name, shape, flops):
             st = 2 if shape["hd"] > 64 else 1   # S^T's warpgroups
             return 3 * per * ((4 + st) * shape["hd"] + 4 * shape["vd"]), \
                 TF32_FLOPS_PER_S
+        if name == "flash_attention":
+            hk, vn = f32_tile_widths(shape["hd"], shape["vd"])
+            per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
+            return 3 * per * (hk + vn), TF32_FLOPS_PER_S
         return 3 * flops, TF32_FLOPS_PER_S
     per = 2 * shape["B"] * shape["H"] * shape["visible_pairs"]
     hd, vd = shape["hd"], shape["vd"]
@@ -1380,8 +1401,8 @@ def agree(name, got, want, tol, what):
 
 def coverage_checks():
     """Each wrapper against its plain version on the card at MOE_SHAPES,
-    PAGED_SHAPES, FLASH_SHAPES (bf16, and calls of the one-query route,
-    also against float64 and launched twice for bitwise equal outputs;
+    PAGED_SHAPES, FLASH_SHAPES (each also against float64 and launched
+    twice for bitwise equal outputs;
     the one-query route's also row and head independent,
     ``flash_row_head_independence``), FLASH_BWD_SHAPES (the backward against
     autograd of the plain version, in fp32 and in bf16; bf16 also against
@@ -1457,7 +1478,7 @@ def coverage_checks():
         if flash_mod.plan_of(q, k, v) is not None:
             out[-1].update(one_query_checks(ops, q, k, v, got, kw,
                                             out[-1]["shape"]))
-        elif dtype == torch.bfloat16:
+        else:
             out[-1]["vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
             out[-1]["bitwise_repeat"] = fwd_repeat_bitwise(ops, q, k, v, kw)
     for dt in ("float32", "bfloat16"):
@@ -1946,10 +1967,11 @@ def flash_out_float64(q, k, v, *, causal, window):
 
 
 def fwd_against_float64(ops, q, k, v, kw):
-    """The bf16 forward kernel and the plain version (fp32, on the same
-    bf16 values) against ``flash_out_float64`` at a call: each max |error|
-    over max |float64|. The kernel must stay within BF16_F64_TOL: one
-    rounding to bf16 at its store over P.V with P as bf16 hi + lo."""
+    """The forward kernel and the plain version (fp32, on the same values)
+    against ``flash_out_float64`` at a call: each max |error| over max
+    |float64|. A bf16 kernel must stay within BF16_F64_TOL (one rounding
+    to bf16 at its store over P.V with P as bf16 hi + lo), an fp32 one
+    within TOL["flash_attention"]."""
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
     kw = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
@@ -1960,9 +1982,11 @@ def fwd_against_float64(ops, q, k, v, kw):
     def rel(a):
         return float((a.double() - want).abs().max() / want.abs().max())
 
-    rep = {"kernel": rel(got), "plain": rel(plain), "tol": BF16_F64_TOL}
-    check(got.dtype == torch.bfloat16 and rep["kernel"] <= BF16_F64_TOL,
-          f"flash_attention (bf16) vs float64: {rep}")
+    tol = (BF16_F64_TOL if q.dtype == torch.bfloat16
+           else TOL["flash_attention"])
+    rep = {"kernel": rel(got), "plain": rel(plain), "tol": tol}
+    check(got.dtype == q.dtype and rep["kernel"] <= tol,
+          f"flash_attention ({q.dtype}) vs float64: {rep}")
     return rep
 
 
@@ -4594,8 +4618,9 @@ def training_phase(ops, card, hold_and_time, profile):
     against its plain version at each model's first call and times it
     (``hold_and_time``), against float64
     (``bwd_against_float64``, ``ssd_bwd_checks``), and launches it twice
-    on that call for bitwise equal outputs; a bf16 run's flash forward
-    likewise at the same call (``fwd_against_float64``,
+    on that call for bitwise equal outputs; the flash forward likewise
+    at the same call, in every run that records a flash backward call
+    (``fwd_against_float64``,
     ``fwd_repeat_bitwise``); times the SSD backward at
     JAMBA_SSD_SHAPE off the path; with ``profile``, traces one more step
     of each whole model, GLUE_ARCH's with the host stacks, and prints a
@@ -4699,9 +4724,9 @@ def training_phase(ops, card, hold_and_time, profile):
         check(sorted(seen) == sorted(k for k in ("flash_attention_bwd",
                                                  "ssd_chunk_bwd") if want[k]),
               f"{cfg.name}: backward calls recorded {sorted(seen)}")
-        if dtype == "bfloat16" and "flash_attention_bwd" in seen:
-            # the bf16 forward at the same call (twice a layer a step under
-            # remat), held and timed beside SDPA's bf16 forward
+        if "flash_attention_bwd" in seen:
+            # the forward at the same call (twice a layer a step under
+            # remat), held and timed beside SDPA's forward in its dtype
             q, k, v, _, kw = seen["flash_attention_bwd"]
             seen["flash_attention"] = (q, k, v, kw)
             run["fwd_vs_float64"] = fwd_against_float64(ops, q, k, v, kw)
@@ -5238,25 +5263,25 @@ def main() -> None:
     check(len(kept) == len(no_spill)
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
-          f"bf16 flash forward kernels spill or are missing: {kept}")
+          f"tile flash forward kernels spill or are missing: {kept}")
     no_spill = flash_mod.ONE_QUERY_NO_SPILL
     kept = [r for r in fwd_kernels if r["kernel"] in no_spill]
     check(len(kept) == len(no_spill)
           and not any(r["stack"] or r["spill_stores"] or r["spill_loads"]
                       for r in kept),
           f"one-query flash forward kernels spill or are missing: {kept}")
-    # the bf16 forward and the backward (fp32 and bf16) run warpgroup MMAs
-    # (HGMMA) and no mma.sync (HMMA)
+    # the tile forward (fp32 and bf16) and the backward (fp32 and bf16)
+    # run warpgroup MMAs (HGMMA) and no mma.sync (HMMA)
     sass = ops.sass_counts("flash_attention")
     print(json.dumps({"sass_mma_counts": {"flash_attention": sass}}),
           flush=True)
-    bf16_fwd = {k: c for k, c in sass.items()
-                if k.startswith("flash_fwd_bf16")}
-    check(len(bf16_fwd) == 4 and all(c["HGMMA"] > 0 and c["HMMA"] == 0
-                                     for c in bf16_fwd.values())
-          and not any(k.startswith("flash_attention_kernel<bf16")
-                      for k in sass),
-          f"bf16 flash forward SASS: {sass}")
+    for kind in ("flash_fwd_bf16<", "flash_fwd_f32<"):
+        tile = [c for k, c in sass.items() if k.startswith(kind)]
+        check(len(tile) == 4 and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                     for c in tile),
+              f"{kind[:-1]} SASS: {sass}")
+    check(not any(k.startswith("flash_attention_kernel") for k in sass),
+          f"a mma.sync flash forward kernel is left: {sass}")
     sass = ops.sass_counts("flash_attention_bwd")
     print(json.dumps({"sass_mma_counts": {"flash_attention_bwd": sass}}),
           flush=True)

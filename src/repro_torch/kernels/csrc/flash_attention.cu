@@ -1,10 +1,10 @@
 // Full-sequence (prefill) attention with an fp32 online softmax on the
 // tensor cores of Hopper (sm_90a), plain C interface. Three kernels behind
-// one entry: fp32 inputs run flash_attention_kernel (3xTF32 mma.sync);
-// bf16 inputs run flash_fwd_bf16 (wgmma fed by TMA); fp32 calls of a few
-// query rows a KV head (the engines' one-query decode calls), which the
-// launcher sends there with a split length, run flash_fwd_one_query (key
-// splits over the card, fp32 FMAs), below.
+// one entry: fp32 inputs run flash_fwd_f32 (3xTF32 wgmma fed by TMA); bf16
+// inputs run flash_fwd_bf16 (bf16 wgmma fed by TMA); calls of a few query
+// rows a KV head (the engines' one-query decode calls), which the launcher
+// sends there with a split length, run flash_fwd_one_query (key splits
+// over the card, fp32 FMAs), below.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the Pallas TPU kernel behind repro.kernels.ops.flash_attention, called
@@ -16,78 +16,102 @@
 // sliding window (s - k < window, when window > 0), masked scores set to
 // NEG_INF = -1e30 as in the reference, and keys past Sk excluded.
 //
-// ---- fp32: flash_attention_kernel<float, VT>
+// ---- fp32: flash_fwd_f32<HK, VN, KT, NS>
 //
-// What bounds it on this card: arithmetic. A causal prefill of S tokens
-// does ~2*B*H*S^2*(hd+vd)/2 flops on 2*B*S*(H*hd + KV*(hd+vd)) bytes
-// (Mixtral widths, B=2, S=2048: 68.8 GFLOP on 168 MB, which take 0.050 ms
-// at 3.35 TB/s). Both products run as warp-level TF32 tensor-core MMAs:
-// 68.8 GFLOP take 0.139 ms at the 495 TFLOP/s TF32 rate (1.03 ms at the
-// 67 TFLOP/s of the fp32 cores). fp32 inputs need fp32 accuracy (one TF32
-// pass leaves ~1e-3 error on the output, six times the 2e-4 tolerance:
-// tests/test_torch_kernels.py), so each product is split 3xTF32: three MMA passes put this design's
-// floor at 0.42 ms. mma.sync issues from each warp with its operands in
-// registers, so the splits, fragment loads and the softmax share the
-// issue slots with the MMAs; wgmma (below) is the way past that.
+// What bounds it on this card: operations. A causal prefill of S tokens
+// does ~2 B H S^2 (hd + vd) / 2 flops on 4 B S (H hd + KV (hd + vd) + H
+// vd) bytes (Mixtral's call, B 2, S 2048, H 32 / KV 8, hd 128: 68.8 GFLOP
+// on 168 MB, 0.050 ms at 3.35 TB/s). fp32 inputs need fp32 accuracy: one
+// TF32 pass leaves ~2e-3 x max on the output, ten times the 2e-4 tolerance
+// (tests/test_torch_flash_fwd_numerics.py), so each product is split
+// 3xTF32, three TF32 passes: 0.417 ms at the 495 TFLOP/s of the TF32
+// tensor cores is this design's floor there (0.139 for the least work).
+// The mma.sync design it replaced issued every MMA from its warp with the
+// operands in registers, so the hi / lo splits (redone in every warp for
+// every fragment), the fragment loads and the softmax shared issue slots
+// with the MMAs: 2.74 ms at Mixtral's call, 15% of the floor.
 //
 // What the design does about it:
-//  * One block of 4 warps per (batch row, KV head, tile of query
-//    positions) computes the G query heads of that KV head together: its
-//    64 rows are G heads x 64/G positions, so every K/V tile is read once
-//    per block and serves all G heads. K/V are read in place from the
-//    [B,S,KV,hd] projections. Warp w owns rows 16w..16w+15. Blocks are
-//    issued longest causal row range first.
-//  * S = Q.K^T and O += P.V are mma.sync.m16n8k8 TF32 with fp32
-//    accumulators. For an fp32 operand x, hi = tf32(x), lo = tf32(x - hi),
-//    rounded to nearest with ties away from zero (cvt.rna.tf32.f32's
-//    rounding, computed as (bits + 0x1000) & ~0x1fff: the same bits at
-//    full integer rate), and each product is lo.hi + hi.lo + hi.hi: the
-//    dropped lo.lo term is ~2^-22 relative, the error of fp32 itself.
-//  * The k order of a product is free, so Q.K^T runs its 8 dims of a step
-//    as A slot t = dim 2t, slot t + 4 = dim 2t + 1 (and K likewise): each
-//    lane loads a Q or K fragment pair with one 8-byte shared load.
-//  * The online softmax stays in registers: a row of the m16n8
-//    accumulator lives on the 4 lanes of a quad, so the row max is two
-//    xor-shuffles, each lane keeps a partial denominator (one quad sum at
-//    the end), and the O accumulator is rescaled in registers. Scores are
-//    kept in log2 units (scale * log2 e) for exp2f. Tiles that every row
-//    of a warp sees whole skip the per-element masks.
-//  * P goes from the S accumulator to the P.V A operand with no shared
-//    memory and no shuffle. A lane holds P at keys 2t and 2t+1 of each
-//    8-key step, while the A operand wants keys t and t+4; A slot t
-//    carries key 2t and slot t+4 key 2t+1, and the V fragment is read
-//    with the same permutation (rows 2t and 2t+1 of the V tile).
-//  * K/V tiles of 16 keys come in through a two-stage cp.async ring
-//    (16-byte copies; 8 or 4 bytes where a row or pointer is not 16-byte
-//    aligned, element loads where it is not 4-byte aligned): tile j+1
-//    loads while tile j computes. Keys past Sk are zero-filled by the
-//    copy (src-size 0), so 0 * junk never reaches O. Q is staged once.
-//  * Shared-memory rows are padded so the fragment loads of a warp hit
-//    distinct banks: Q and K rows (8-byte pair loads, 8 rows x 4 lanes a
-//    half-warp) to 8 mod 32 words; V rows (rows 2t and 2t+1 x 8 columns)
-//    to 16 mod 32 bytes. The columns past hd (or vd) up to the next
-//    multiple of 8 are zeroed once, so a ragged hd takes a partial last
-//    k-step.
-//  * The block walks only the key tiles its rows can see: tiles wholly
-//    above the causal diagonal or wholly outside the window are skipped.
-//    If some row of the block sees no key at all (only when Sq > Sk with
-//    a window), the block walks every tile, and the row ends up uniform
-//    over all keys, as in the reference. A row whose first visited tiles
-//    are all masked accumulates exp(0) terms against m = -1e30; the first
-//    real score rescales them by exp(-1e30 - m) = 0 exactly.
-//  * Occupancy: 16-key tiles keep shared memory at 69 KB at hd = vd = 128
-//    (Q 64 x 136, two stages of K 16 x 136 and V 16 x 132 floats), and
-//    __launch_bounds__(128, 3) caps registers, so three blocks (12 warps)
-//    share an SM; 135 KB and one block at hd = vd = 256. The value width
-//    is a template bound (<= 64/128/256) so the O accumulator (vd / 8
-//    fragments of 4 floats a lane) stays in registers. ptxas (-Xptxas -v,
-//    sm_90a; chip_smoke.py prints it): 122/151/216 registers for vd <=
-//    64/128/256; no spills, no stack; the shared memory is all dynamic.
+//  * One block of 3 warpgroups per (batch row, KV head, tile of 128 / G
+//    query positions), 128 rows, row r = position q0 + r / G, head kvh G +
+//    r % G: position-major, so one TMA box {32 columns, G heads, 128 / G
+//    positions} fills a panel of Q, and every K/V tile serves the block's
+//    G heads. Warpgroups 0 and 1 consume, 64 rows each; warpgroup 2
+//    produces. setmaxnreg moves registers from the producer (40) to the
+//    consumers (232). Blocks are issued longest causal range first (a 1-D
+//    grid of B KV blocks a position tile, the last tile first: no 65535
+//    cap on the tiles).
+//  * Both products are wgmma.mma_async m64nNk8 tf32 -> fp32, three a k8
+//    step (lo.hi, hi.lo, hi.hi: small terms first), x = hi + lo with hi =
+//    tf32(x) (nearest), lo = tf32(x - hi) (tensor_core.cuh's rounding);
+//    the dropped lo.lo is ~2^-22 relative, fp32's own error.
+//  * TF32 wgmma takes B only K-major, from shared memory. S = Q.K^T: the
+//    K tile is K-major as it lands; Q's A fragments are loaded from the
+//    raw Q tile and split in registers each k8 step (Q split once in
+//    shared memory would take twice Q's 32-128 KB, which the ring needs).
+//    O += P.V: P is A from registers, as the S accumulator leaves it: a
+//    lane holds keys 2t and 2t + 1 of each 8-key step, so A slot t carries
+//    key 2t and slot t + 4 key 2t + 1 (the mma.sync design's trick), and
+//    V is B, K-major: V^T (value columns x keys), its keys in that slot
+//    order. Swapping the product instead (O^T = V^T.P^T, as the fp32
+//    backward swaps its accumulations) would take P through shared memory
+//    each tile and leave O's rows across lanes, its rescale through
+//    shared memory too; the transposed split costs the producer's warps a
+//    4-byte store a value instead of a 16-byte one a chunk.
+//  * Copies: the producer's first thread issues cp.async.bulk.tensor
+//    (TMA) on 4-D tensor maps over the [B, S, heads, width] tensors
+//    (encoded on the host each call), boxes of 32 fp32 columns (one
+//    128-byte-swizzled panel row): Q once, then K and V tiles of KT keys
+//    into an NS-stage ring. A V tile lands raw in the space of K's lo
+//    panels. Keys past Sk and positions past Sq are TMA's zero fill.
+//  * Splits: the producer's other three warps split each stage as it
+//    lands (full -> ready), once for both consumer warpgroups: V first,
+//    into V^T hi and lo (a warp's lanes on 32 consecutive keys of one
+//    4-column chunk, so each column's 32 stores hit 32 banks), then, V
+//    read, K in place (hi) with its lo beside it. The consumers' 8 warps
+//    release a stage (empty) after its P.V. Rows TMA cannot describe (not
+//    16-byte aligned: fp32 hd 37 / vd 21) are loaded by the same three
+//    warps element by element into the same tiles (Q raw, K and V as they
+//    split). The panels past the live widths and the rows no box fills
+//    are zeroed once; every k-step count is a constant of the
+//    instantiation (a runtime count made ptxas wait for every wgmma).
+//  * The online softmax stays in registers, as in bf16 (below): a row of
+//    the accumulator lives on a quad, scores in log2 units, ex2.approx,
+//    masked scores -1e30, keys past Sk -inf, tiles every row of a warp
+//    sees whole skip the masks, rows that see no key come out uniform.
+//  * The tensor cores truncate as they accumulate. S is a short sum
+//    (hd / 8 steps). Each tile's P.V is summed from zero into a partial
+//    and added to O in fp32 with the rescale, O = O corr + P.V (an FMA,
+//    to nearest): summed in place, O drifts with the walk (the CPU
+//    emulation: 11x further at a 4096-key causal row); per tile its error
+//    does not grow with the keys. The output is O / l. No atomics, and a
+//    row's sums run in an order fixed by its position, the widths and G:
+//    bitwise repeatable, and the same in any batch or cut of the heads.
+//  * Instantiations (HK q/k, VN v width bounds; KT keys a tile, NS
+//    stages) and shared memory: <64, 64, 64, 3> (hd <= 64) 225 KB; <128,
+//    128, 32, 2> (hd <= 128) 193 KB; <192, 128, 16, 2> (hd <= 192, vd <=
+//    128: MLA) 209 KB; <256, 256, 16, 1> (the rest) 225 KB. Q raw takes
+//    HK / 2 KB, which bounds KT and NS at the wide ones (at KT 16 a V^T
+//    panel of 32 key slots is half used). A consumer thread holds O (VN /
+//    2 floats), a tile's P.V partial (VN / 2; 64 columns at a time at VN
+//    256), S (KT / 2) and P hi + lo (KT / 4 words each). The launcher
+//    refuses hd or vd past its instantiation's panels.
 //
-// What wgmma + TMA would add here: wgmma's TF32 B operand must be K-major
-// in shared memory, which V (key-major for P.V) is not, so V would be
-// transposed in shared memory on arrival, and the hi/lo splits made once a
-// tile in shared memory instead of once a fragment in every warp.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_fwd_check.py
+// --turns, CUDA events, the mma.sync kernel it replaced in turns):
+// DeepSeek-V2's MLA call (B 2, S 2048, H = KV = 128, hd 192 / vd 128,
+// causal) 7.24-7.46 ms (mma.sync 14.82-14.97), Vision's cross call (2048 x
+// 1601, H = KV = 32, hd 128) 1.74-1.77 (3.91), Whisper's encoder call (B
+// 2, S 1500, H = KV = 6, hd 64) 0.216 (0.365), Mixtral's (B 2, S 2048, H
+// 32 / KV 8, hd 128, causal) 1.106-1.115 (2.75), Jamba's (H 64 / KV 8)
+// 2.18-2.20 (4.93-4.97), Qwen1.5-0.5B's training call (B 4, S 2048, H =
+// KV = 16, hd 64, causal) 0.602 (1.45): 96-189 TFLOP/s of executed passes,
+// 19-38% of the TF32 peak. SDPA's fp32 forward, same process: 7.84, 2.43-
+// 2.46, 0.290, 6.45-6.54, 12.6-13.0, 1.18-1.20. What is left: S and P.V
+// read B three times a k8 step (hi, lo, hi) from shared memory beside Q's
+// raw fragments, the softmax does not overlap a warpgroup's wgmmas, and at
+// hd 64 (Whisper 96 TFLOP/s) a tile's softmax and splits cost what they do
+// at hd 128 for half the MMA work.
 //
 // ---- bf16: flash_fwd_bf16<HK, VN, KT, NS>
 //
@@ -178,11 +202,11 @@
 // 104.9 MB in fp32, 0.031 ms at 3.35 TB/s, and 52.5 MB in bf16, 0.0157 ms,
 // for 52 MFLOP (< 1 us at 67 TFLOP/s); Whisper-tiny's (1500 keys, 6 heads
 // of 64) 9.2 MB in fp32 and 4.6 MB in bf16, which sit in L2 between
-// decode steps. The tile kernels (fp32 above, bf16 flash_fwd_bf16) give
-// such a call B KV blocks (12 and 64 on 132 SMs), each walking every key
-// tile one round trip after another with 1 of its 64 or 128 rows live:
-// fp32 0.29 and 0.54 ms, bf16 0.037 and (B 8, 2 heads) 0.045 ms,
-// latency, not bytes.
+// decode steps. A tile kernel gives such a call B KV blocks (12 and 64
+// on 132 SMs), each walking every key tile one round trip after another
+// with 1 of its 64 or 128 rows live: the fp32 mma.sync tile kernel (64
+// rows, since replaced by flash_fwd_f32) 0.29 and 0.54 ms, bf16 0.037
+// and (B 8, 2 heads) 0.045 ms, latency, not bytes.
 //
 // What the design does about it (both types; bf16 differs only in the
 // element it moves):
@@ -236,14 +260,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;           // the one-query route's block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // rows a block: G heads x positions
-constexpr int kTile = 16;           // keys per K/V tile: 2 mma n-tiles
-constexpr int kNT = kTile / 8;
-constexpr int kStages = 2;          // cp.async ring depth
 constexpr int kMaxHd = 256;         // q/k width
-constexpr int kMaxG = kRows;        // query heads per KV head
+constexpr int kMaxG = 64;           // query heads per KV head
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -252,32 +272,6 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);  // nearest even
-}
-// elements p[0], p[1] (p 2-element aligned) as floats
-__device__ __forceinline__ void load_pair(const float* p, float& x0,
-                                          float& x1) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  x0 = v.x;
-  x1 = v.y;
-}
-
-// shared-memory row strides (elements) for rows of w elements. Q and K:
-// 8 mod 32 words; V: 16 mod 32 bytes
-__host__ __device__ __forceinline__ int qk_stride(int w) {
-  const int w8 = (w + 7) & ~7;
-  return w8 + ((8 - w8) & 31);
-}
-__host__ __device__ __forceinline__ int v_stride(int w) {
-  constexpr int e = 32 / static_cast<int>(sizeof(float));
-  return (w + e - 1) / e * e + e / 2;
-}
-
-// dynamic shared memory: Q [kRows][sq]; K [kStages][kTile][sq];
-// V [kStages][kTile][sv]
-size_t smem_bytes(int hd, int vd) {
-  return sizeof(float) *
-         (static_cast<size_t>(kRows + kStages * kTile) * qk_stride(hd) +
-          static_cast<size_t>(kStages * kTile) * v_stride(vd));
 }
 
 // Rows [0, nrows) of w elements (fp32 or bf16) into dst (stride ds); row
@@ -311,198 +305,379 @@ __device__ __forceinline__ void copy_rows(T* dst, int ds, int nrows, int w,
   }
 }
 
-// VT: value n-tiles of 8 columns, a compile-time bound (vd <= 8 * VT) so
-// the O accumulator stays in registers; up to vd 128 three blocks an SM
-template <int VT>
-__global__ void __launch_bounds__(kThreads, VT <= 16 ? 3 : 1)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       int Sq, int Sk, int H, int KV, int G, int BQ, int hd,
-                       int vd, int causal, int window, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sq = qk_stride(hd), sv = v_stride(vd);
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kRows][sq]
-  float* ks = qs + kRows * sq;                     // [kStages][kTile][sq]
-  float* vs = ks + kStages * kTile * sq;           // [kStages][kTile][sv]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma group, lane in the group
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int nq = min(BQ, Sq - q0);  // live positions in this tile
-  const size_t q_row = static_cast<size_t>(H) * hd;  // one position
-  const size_t k_row = static_cast<size_t>(KV) * hd;
-  const size_t v_row = static_cast<size_t>(KV) * vd;
-  const float* kb = k + static_cast<size_t>(b) * Sk * k_row +
-                    static_cast<size_t>(kvh) * hd;
-  const float* vb = v + static_cast<size_t>(b) * Sk * v_row +
-                    static_cast<size_t>(kvh) * vd;
-
-  // zero the columns past hd / vd that the last k8 step or n8 tile reads
-  const int hd8 = (hd + 7) & ~7, vd8 = (vd + 7) & ~7;
-  for (int i = tid; i < (kRows + kStages * kTile) * (hd8 - hd); i += kThreads)
-    qs[(i / (hd8 - hd)) * sq + hd + i % (hd8 - hd)] = 0.f;
-  for (int i = tid; i < kStages * kTile * (vd8 - vd); i += kThreads)
-    vs[(i / (vd8 - vd)) * sv + vd + i % (vd8 - vd)] = 0.f;
-
-  // row r: head kvh * G + r / BQ, position q0 + r % BQ; rows past G * BQ
-  // or past Sq are idle (zero q, never stored)
-  copy_rows(qs, sq, kRows, hd, vec, q, [&](int r) -> const float* {
-    const int hg = r / BQ, s = r - hg * BQ;
-    return hg < G && s < nq
-               ? q + (static_cast<size_t>(b) * Sq + q0 + s) * q_row +
-                     static_cast<size_t>(kvh * G + hg) * hd
-               : nullptr;
-  });
-  auto load_tile = [&](int tile, int stage) {
-    const int k0 = tile * kTile;
-    copy_rows(ks + stage * kTile * sq, sq, kTile, hd, vec, k,
-              [&](int j) -> const float* {
-                return k0 + j < Sk ? kb + static_cast<size_t>(k0 + j) * k_row
-                                   : nullptr;
-              });
-    copy_rows(vs + stage * kTile * sv, sv, kTile, vd, vec, v,
-              [&](int j) -> const float* {
-                return k0 + j < Sk ? vb + static_cast<size_t>(k0 + j) * v_row
-                                   : nullptr;
-              });
-  };
-
-  // keys this tile of positions can see
-  const int q_last = q0 + nq - 1;
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  int hi = causal ? min(Sk - 1, q_last) : Sk - 1;
-  const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
-  if (lo_last > hi) {  // the last row sees no key: walk them all
+// the key tiles [tile_lo, tile_lo + n) of kT keys that query positions
+// [q0, q_last] can see; every tile if the last position sees none (that
+// row comes out uniform over every key, as in the reference)
+template <int kT, typename A>
+__device__ __forceinline__ void key_tiles(const A& a, int q0, int q_last,
+                                          int& tile_lo, int& n) {
+  int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  int hi = a.causal ? min(a.Sk - 1, q_last) : a.Sk - 1;
+  const int lo_last = a.window > 0 ? max(0, q_last - a.window + 1) : 0;
+  if (lo_last > hi) {
     lo = 0;
-    hi = Sk - 1;
+    hi = a.Sk - 1;
   }
-  const int tile_lo = lo / kTile, tile_hi = hi / kTile;
-  load_tile(tile_lo, 0);
-  cp_commit();  // group: Q and the first tile
+  tile_lo = lo / kT;
+  n = hi / kT - tile_lo + 1;
+}
 
-  // this lane's two rows (h = 0: row g, h = 1: row g + 8 of the warp)
-  const int row0 = warp * 16 + g;
-  const int pos[2] = {q0 + row0 % BQ, q0 + (row0 + 8) % BQ};
+// s[4j + e] (row g + 8 (e >> 1), key k0 + 8j + 2t + (e & 1) of a warp's
+// accumulator) masked and in log2 units (sc: scale x log2 e): masked keys
+// NEG_INF, keys past Sk -inf (no part in the softmax). A tile every row of
+// the warp sees whole skips the per-element tests. The row maxima into mt
+template <int KT, typename A>
+__device__ __forceinline__ void mask_scores(const A& a, float (&s)[KT / 2],
+                                            const int (&pos)[2], int k0,
+                                            int t, float sc, float (&mt)[2]) {
+  const int k_end = k0 + KT - 1;
+  const bool whole = __all_sync(
+      0xffffffffu,
+      k_end < a.Sk && (!a.causal || k_end <= min(pos[0], pos[1])) &&
+          (a.window == 0 || max(pos[0], pos[1]) - k0 < a.window));
+  mt[0] = mt[1] = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, key = k0 + j * 8 + 2 * t + (e & 1);
+      float val;
+      if (whole) {
+        val = s[4 * j + e] * sc;
+      } else if (key >= a.Sk) {
+        val = -CUDART_INF_F;  // past Sk: no part in the softmax
+      } else if ((a.causal && key > pos[h]) ||
+                 (a.window > 0 && pos[h] - key >= a.window)) {
+        val = kNegInf;
+      } else {
+        val = s[4 * j + e] * sc;
+      }
+      s[4 * j + e] = val;
+      mt[h] = fmaxf(mt[h], val);
+    }
+}
+
+// the online softmax's step: the quad's row maxima mt merged into the
+// running max m; corr = 2^(m_old - m_new), l rescaled by it
+__device__ __forceinline__ void online_max(float (&m)[2], float (&l)[2],
+                                           float (&mt)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+    mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+    const float m_new = fmaxf(m[h], mt[h]);
+    corr[h] = exp2_sfu(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= corr[h];
+  }
+}
+
+// ---- fp32: flash_fwd_f32, 3xTF32 wgmma on the TF32 tensor cores fed by TMA
+
+struct FwdF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  int Sq, Sk, H, KV, G, BQ, hd, vd, causal, window;
+  float scale;
+  int tma;      // 1: tiles by TMA; 0: element loads (rows not 16-byte aligned)
+  int out_vec;  // 1: output pairs as 8-byte stores
+};
+
+// shared memory of flash_fwd_f32<HK, VN, KT, NS> (bytes): Q raw (HK / 32
+// panels of 128 rows); NS stages of K split hi and lo (HK / 32 panels of KT
+// rows each; a V tile lands raw in K lo's space) and V^T split hi and lo
+// (VN rows of KT key slots: panels of 32 slots, one at KT 16); the
+// mbarriers; and 1024 bytes to align the start to the swizzle atom
+template <int HK, int VN, int KT, int NS>
+struct FwdF32Layout {
+  static_assert(VN <= HK, "a V tile lands in K lo's panels");
+  static constexpr int kQBytes = HK / 32 * kBRows * kPanelRow;
+  static constexpr int kKBytes = HK / 32 * KT * kPanelRow;         // hi or lo
+  static constexpr int kVBytes = (KT + 31) / 32 * VN * kPanelRow;  // hi or lo
+  static constexpr int kStageBytes = 2 * (kKBytes + kVBytes);
+  static constexpr int kBarOffset = kQBytes + NS * kStageBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 3 * NS) + 1024;
+  static_assert(kBytes <= 232448, "the block's shared memory");
+};
+
+// thread ct's part (of kSplitters) of V^T from a V tile of KT keys in np
+// live 32-column panels: V[key][n] split, hi at (row n, slot) of the K-major
+// tile at vh (VN rows a panel of 32 slots) and lo lo_off bytes on, the keys
+// of each 8-key step in the order of P's A fragments: key 2i at slot i, key
+// 2i + 1 at slot i + 4. tma 1: the raw tile at raw (KT rows a panel); 0:
+// row src(key) of the tensor, element loads. A warp's lanes take
+// consecutive keys of one 4-column chunk, so a column's 32 stores hit 32
+// distinct banks
+template <int KT, int VN, typename Src>
+__device__ __forceinline__ void split_vt(const unsigned char* raw,
+                                         unsigned char* vh, int lo_off, int np,
+                                         int ct, int tma, int w, Src src) {
+  for (int c = ct; c < np * 8 * KT; c += kSplitters) {
+    const int key = c & (KT - 1), ch = c / KT;
+    const int p = ch >> 3, lc = ch & 7;
+    float x[4];
+    if (tma) {
+      const float4 f = *reinterpret_cast<const float4*>(
+          raw + p * KT * kPanelRow + key * kPanelRow +
+          ((lc ^ (key & 7)) << 4));
+      x[0] = f.x;
+      x[1] = f.y;
+      x[2] = f.z;
+      x[3] = f.w;
+    } else {
+      fetch4(src, key, 32 * p + 4 * lc, w, x);
+    }
+    const int slot = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = f32_at(VN, 32 * p + 4 * lc + i, slot);
+      const uint32_t h = tf32(x[i]);
+      *reinterpret_cast<uint32_t*>(vh + o) = h;
+      *reinterpret_cast<uint32_t*>(vh + lo_off + o) =
+          tf32(x[i] - __uint_as_float(h));
+    }
+  }
+}
+
+// One block per (batch row, KV head, tile of BQ = 128 / G positions): 128
+// rows, row r = position q0 + r / G, head kvh G + r % G (idle past G BQ or
+// Sq). Warpgroups 0 and 1 consume, 64 rows each: S = Q.K^T and this tile's
+// P.V by 3xTF32 wgmma k8 steps, the online softmax in registers, O = O corr
+// + the tile's P.V in fp32. Warpgroup 2 produces: warp 8 issues the TMA
+// copies (Q once, then the K and V tiles of KT keys into an NS-stage ring),
+// warps 9-11 split each tile (K hi in place and lo beside it; V into V^T hi
+// and lo) and mark it ready. HK: q/k width bound (HK / 8 k steps of S, the
+// panels past hd zero); VN: P.V's n (vd <= VN, columns past vd computed and
+// dropped)
+template <int HK, int VN, int KT, int NS>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const FwdF32 a) {
+  using L = FwdF32Layout<HK, VN, KT, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;  // [HK / 32][128 rows][128 bytes], raw
+  auto stage = [&](int s) {  // K hi, K lo, V^T hi, V^T lo
+    return smem + L::kQBytes + s * L::kStageBytes;
+  };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full_q = bars;            // Q arrived
+  uint64_t* full = bars + 1;          // [NS]: a K/V stage arrived
+  uint64_t* ready = bars + 1 + NS;    // [NS]: split
+  uint64_t* empty = bars + 1 + 2 * NS;  // [NS]: 8 consumer warps are done
+
+  const int G = a.G, BQ = a.BQ, Sq = a.Sq, Sk = a.Sk;
+  // a 1-D grid: block x is position tile x / (B KV) counted from the last
+  // (the longest causal walk first), then (b, kvh)
+  const int n_qt = (Sq + BQ - 1) / BQ, bkv_n = gridDim.x / n_qt;
+  const int tile_r = blockIdx.x / bkv_n, bkv = blockIdx.x - tile_r * bkv_n;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const int q0 = (n_qt - 1 - tile_r) * BQ;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  int tile_lo, nt;
+  key_tiles<KT>(a, q0, q_last, tile_lo, nt);
+  const int pq = (a.hd + 31) >> 5;  // live panels of q / k
+  const int pv = (a.vd + 31) >> 5;  // and of v
+  const int used = G * BQ;          // rows a Q box fills
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  // what no copy or split writes and a product reads stays zero: Q's rows
+  // past G BQ and its panels past the live ones, K's panels past them, V^T's
+  // rows past 32 pv (the products run every k step of the instantiation)
+  if (used < kBRows)
+    for (int p = 0; p < HK / 32; ++p)
+      zero_chunks(qs + p * kBRows * kPanelRow + used * kPanelRow,
+                  (kBRows - used) * 8);
+  zero_chunks(qs + pq * kBRows * kPanelRow, (HK / 32 - pq) * kBRows * 8);
+  for (int s = 0; s < NS; ++s)
+    for (int x = 0; x < 2; ++x) {
+      zero_chunks(stage(s) + x * L::kKBytes + pq * KT * kPanelRow,
+                  (HK / 32 - pq) * KT * 8);
+      for (int p = 0; p < (KT + 31) / 32; ++p)
+        zero_chunks(stage(s) + 2 * L::kKBytes + x * L::kVBytes +
+                        p * VN * kPanelRow + 32 * pv * kPanelRow,
+                    (VN - 32 * pv) * 8);
+    }
+  fence_async_smem();
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---------------- producer warpgroup
+    regs_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 2 * 128;
+    if (pt < 32) {  // the TMA warp: one thread issues every copy
+      if (!a.tma || pt != 0) return;
+      mbar_expect_tx(full_q, pq * used * kPanelRow);
+      for (int p = 0; p < pq; ++p)
+        tma_load_4d(qs + p * kBRows * kPanelRow, &tq, full_q, p * 32,
+                    kvh * G, q0, b);
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % NS, k0 = (tile_lo + i) * KT;
+        if (i >= NS) mbar_wait(empty + s, ((i / NS) - 1) & 1);
+        mbar_expect_tx(full + s, (pq + pv) * KT * kPanelRow);
+        for (int p = 0; p < pq; ++p)
+          tma_load_4d(stage(s) + p * KT * kPanelRow, &tk, full + s, p * 32,
+                      kvh, k0, b);
+        for (int p = 0; p < pv; ++p)
+          tma_load_4d(stage(s) + L::kKBytes + p * KT * kPanelRow, &tv,
+                      full + s, p * 32, kvh, k0, b);
+      }
+      return;
+    }
+    // warps 9-11: the splitters (and, where TMA cannot describe the rows,
+    // the loaders: element loads of Q once, and of each tile as it splits)
+    const int ct = pt - 32;
+    const size_t k_row = static_cast<size_t>(a.KV) * a.hd;
+    const size_t v_row = static_cast<size_t>(a.KV) * a.vd;
+    const float* kb = a.k + static_cast<size_t>(b) * Sk * k_row +
+                      static_cast<size_t>(kvh) * a.hd;
+    const float* vb = a.v + static_cast<size_t>(b) * Sk * v_row +
+                      static_cast<size_t>(kvh) * a.vd;
+    if (!a.tma) {
+      stage_raw(qs, kBRows, pq, ct, a.hd, [&](int r) -> const float* {
+        const int pr = r / G, pos = q0 + pr;
+        return r < used && pos < Sq
+                   ? a.q + ((static_cast<size_t>(b) * Sq + pos) * a.H +
+                            kvh * G + r - pr * G) * a.hd
+                   : nullptr;
+      });
+      fence_async_smem();
+      bar_sync(1, kSplitters);
+      if (ct == 0) mbar_arrive(full_q);
+    }
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % NS, k0 = (tile_lo + i) * KT;
+      if (a.tma)
+        mbar_wait(full + s, (i / NS) & 1);
+      else if (i >= NS)
+        mbar_wait(empty + s, ((i / NS) - 1) & 1);
+      unsigned char* st = stage(s);
+      split_vt<KT, VN>(st + L::kKBytes, st + 2 * L::kKBytes, L::kVBytes, pv,
+                       ct, a.tma, a.vd, [&](int r) -> const float* {
+                         return k0 + r < Sk ? vb + (k0 + r) * v_row : nullptr;
+                       });
+      bar_sync(1, kSplitters);  // V is read: K lo may take its space
+      split_tile(st, L::kKBytes, KT, pq, ct, a.tma, a.hd,
+                 [&](int r) -> const float* {
+                   return k0 + r < Sk ? kb + (k0 + r) * k_row : nullptr;
+                 });
+      fence_async_smem();
+      bar_sync(1, kSplitters);
+      if (ct == 0) mbar_arrive(ready + s);
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // this lane's two rows (h = 0: row g, h = 1: row g + 8 of the warp);
+  // an idle row takes the block's last position and is never stored
+  const int row0 = 64 * wg + 16 * warp + g;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    pos[h] = row0 + 8 * h < used ? min(q0 + (row0 + 8 * h) / G, q_last)
+                                 : q_last;
+  const float sc = a.scale * kLog2e;  // scores in log2 units
+  // P.V's value columns in chunks of 64 (an m64n64 accumulator each), kPG
+  // of them summed at once: all of them up to VN 128
+  constexpr int kPG = VN <= 128 ? VN / 64 : 1;
+
+  float o[VN / 2];  // O, unnormalised: o[4j + e] row g + 8 (e >> 1),
+                    // column 8j + 2t + (e & 1)
+#pragma unroll
+  for (int x = 0; x < VN / 2; ++x) o[x] = 0.f;
+  float s[KT / 2];
+  float part[kPG][32];  // a tile's P.V, kPG chunks of 64 columns
+  uint32_t ph[KT / 8][4], pl[KT / 8][4];
   float m[2] = {kNegInf, kNegInf};  // running max, quad-uniform
   float l[2] = {0.f, 0.f};          // this lane's part of the denominator
-  float o[VT][4];
-#pragma unroll
-  for (int n = 0; n < VT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  const int nks = hd8 / 8, nvt = vd8 / 8;
-  const float* qw = qs + warp * 16 * sq + 2 * t;
-  const float sc = scale * kLog2e;  // scores in log2 units, for exp2f
 
-  for (int tile = tile_lo; tile <= tile_hi; ++tile) {
-    const int stage = (tile - tile_lo) & 1;
-    if (tile < tile_hi) load_tile(tile + 1, stage ^ 1);
-    cp_commit();  // (empty on the last tile: keeps wait_group 1 uniform)
-    cp_wait<1>();
-    __syncthreads();
-    const float* kt = ks + stage * kTile * sq + g * sq + 2 * t;
-    const float* vt = vs + stage * kTile * sv;
+  mbar_wait(full_q, 0);
+  for (int i = 0; i < nt; ++i) {
+    const int stg = i % NS;
+    mbar_wait(ready + stg, (i / NS) & 1);
+    const unsigned char* kh = stage(stg);
+    // --- S = Q.K^T: this warpgroup's 64 rows x KT keys, 3xTF32 k8 steps
+    // from zero; Q's A fragments split in registers each step
+    const unsigned char* qt = opaque(qs);
+    mma3<KT, HK / 8>(
+        s,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+          raw_frag(qt, kBRows, row0, t, kk, hi, lo);
+        },
+        sw128_desc(smem_u32(kh), 16, 1024),
+        sw128_desc(smem_u32(kh + L::kKBytes), 16, 1024), KT);
 
-    // --- S = Q.K^T: this warp's 16 rows x 16 keys, 2 n-tiles of 8 keys;
-    // k-step slot t is dim 8kk + 2t, slot t + 4 dim 8kk + 2t + 1
-    float s[kNT][4];
+    // --- masks and the online softmax
+    const int k0 = (tile_lo + i) * KT;
+    float mt[2], corr[2];
+    mask_scores<KT>(a, s, pos, k0, t, sc, mt);
+    online_max(m, l, mt, corr);
+    // P = 2^(s - m), split tf32 hi + lo as P.V's A fragments: slot t
+    // carries key 2t and slot t + 4 key 2t + 1 of a k8 step, the S
+    // accumulator's columns as they stand (V^T's slots follow)
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < nks; ++kk) {
-      float x[4];
-      load_pair(qw + g * sq + kk * 8, x[0], x[2]);
-      load_pair(qw + (g + 8) * sq + kk * 8, x[1], x[3]);
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) frag<true>(x[i], ah[i], al[i]);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        float y0, y1;
-        load_pair(kt + j * 8 * sq + kk * 8, y0, y1);
-        uint32_t bh[2], bl[2];
-        frag<true>(y0, bh[0], bl[0]);
-        frag<true>(y1, bh[1], bl[1]);
-        mma3<true, true>(s[j], ah, al, bh, bl);
-      }
-    }
-
-    // --- masks and the online softmax; s[j][e] is row g + 8 * (e >> 1),
-    // key k0 + 8j + 2t + (e & 1). A tile every row of the warp sees whole
-    // skips the masks.
-    const int k0 = tile * kTile, k_end = k0 + kTile - 1;
-    const bool whole = __all_sync(
-        0xffffffffu, k_end < Sk &&
-                         (!causal || k_end <= min(pos[0], pos[1])) &&
-                         (window == 0 || max(pos[0], pos[1]) - k0 < window));
-    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, key = k0 + j * 8 + 2 * t + (e & 1);
-        float val;
-        if (whole) {
-          val = s[j][e] * sc;
-        } else if (key >= Sk) {
-          val = -CUDART_INF_F;  // past Sk: no part in the softmax
-        } else if ((causal && key > pos[h]) ||
-                   (window > 0 && pos[h] - key >= window)) {
-          val = kNegInf;
-        } else {
-          val = s[j][e] * sc;
-        }
-        s[j][e] = val;
-        mt[h] = fmaxf(mt[h], val);
+        p[e] = exp2_sfu(s[4 * kk + e] - m[e >> 1]);
+        l[e >> 1] += p[e];
       }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
-      const float m_new = fmaxf(m[h], mt[h]);
-      corr[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int n = 0; n < VT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
+      const float x[4] = {p[0], p[2], p[1], p[3]};
+      split4(x, ph[kk], pl[kk]);
     }
 
-    // --- O += P.V, 8 keys a step; A slot t carries key 2t, slot t + 4
-    // key 2t + 1 (the S accumulator's own columns), V rows likewise
+    // --- O = O corr + P.V: the tile's P.V from zero (the tensor cores
+    // truncate as they accumulate), added to O in fp32 (to nearest)
+    const uint64_t vth = sw128_desc(smem_u32(kh + 2 * L::kKBytes), 16, 1024);
+    const uint64_t vtl = vth + (L::kVBytes >> 4);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      uint32_t ah[4], al[4];
-      frag<true>(s[j][0], ah[0], al[0]);
-      frag<true>(s[j][2], ah[1], al[1]);
-      frag<true>(s[j][1], ah[2], al[2]);
-      frag<true>(s[j][3], ah[3], al[3]);
-      const float* v0 = vt + (j * 8 + 2 * t) * sv + g;
+    for (int c0 = 0; c0 < VN / 64; c0 += kPG) {
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < VT; ++n) {
-        if (n < nvt) {
-          uint32_t bh[2], bl[2];
-          frag<true>(to_f(v0[n * 8]), bh[0], bl[0]);
-          frag<true>(to_f(v0[sv + n * 8]), bh[1], bl[1]);
-          mma3<true, true>(o[n], ah, al, bh, bl);
+      for (int c = 0; c < kPG; ++c) fence_regs(part[c]);
+      fence_regs(ph);
+      fence_regs(pl);
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk)
+#pragma unroll
+        for (int c = 0; c < kPG; ++c) {
+          const uint64_t at =
+              kstep(kk, VN) + (c0 + c) * (64 * kPanelRow >> 4);
+          wgmma_tf32<64>(part[c], pl[kk], vth + at, kk > 0);
+          wgmma_tf32<64>(part[c], ph[kk], vtl + at, 1);
+          wgmma_tf32<64>(part[c], ph[kk], vth + at, 1);
         }
-      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kPG; ++c) fence_regs(part[c]);
+      fence_regs(ph);
+      fence_regs(pl);
+#pragma unroll
+      for (int c = 0; c < kPG; ++c)
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          o[32 * (c0 + c) + x] =
+              fmaf(o[32 * (c0 + c) + x], corr[(x >> 1) & 1], part[c][x]);
     }
-    __syncthreads();  // the next tile's copies overwrite this stage
+    if (lane == 0) mbar_arrive(empty + stg);  // this warp is done with it
   }
-  cp_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -511,61 +686,87 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
-    const int hg = row / BQ, s = row - hg * BQ;
-    if (hg >= G || s >= nq) continue;
+    const int r = row0 + 8 * h, pr = r / G;
+    if (r >= used || q0 + pr >= Sq) continue;  // idle
     const float lg = fmaxf(l[h], 1e-30f);
-    float* O = out + (static_cast<size_t>(b) * Sq + q0 + s) * H * vd +
-               static_cast<size_t>(kvh * G + hg) * vd;
+    float* row = a.out + ((static_cast<size_t>(b) * Sq + q0 + pr) * a.H +
+                          kvh * G + r - pr * G) * a.vd;
 #pragma unroll
-    for (int n = 0; n < VT; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < vd) store(O + col, o[n][2 * h] / lg);
-      if (col + 1 < vd) store(O + col + 1, o[n][2 * h + 1] / lg);
+    for (int j = 0; j < VN / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float x0 = o[4 * j + 2 * h] / lg, x1 = o[4 * j + 2 * h + 1] / lg;
+      if (col + 1 < a.vd && a.out_vec) {
+        *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+      } else {
+        if (col < a.vd) row[col] = x0;
+        if (col + 1 < a.vd) row[col + 1] = x1;
+      }
     }
   }
 }
 
-template <int VT>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const void* q,
-                   const void* k, const void* v, void* out, int Sq, int Sk,
-                   int H, int KV, int G, int BQ, int hd, int vd, int causal,
-                   int window, float scale, int vec) {
-  const size_t smem = smem_bytes(hd, vd);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<VT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int HK, int VN, int KT, int NS>
+cudaError_t launch_f32(const FwdF32& a, int B, cudaStream_t stream) {
+  constexpr int smem = FwdF32Layout<HK, VN, KT, NS>::kBytes;
+  // the widths must fit the instantiation's panels and k8 steps
+  if (a.hd > HK || a.vd > VN) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32<HK, VN, KT, NS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<VT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
-      G, BQ, hd, vd, causal, window, scale, vec);
+  CUtensorMap tq, tk, tv;
+  memset(&tq, 0, sizeof(tq));
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
+  if (a.tma) {
+    if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+    if (!encode_f32_4d(&tq, a.q, a.hd, a.H, a.Sq, B, a.G, a.BQ) ||
+        !encode_f32_4d(&tk, a.k, a.hd, a.KV, a.Sk, B, 1, KT) ||
+        !encode_f32_4d(&tv, a.v, a.vd, a.KV, a.Sk, B, 1, KT))
+      return cudaErrorInvalidValue;
+  }
+  const long long blocks =
+      static_cast<long long>(B) * a.KV * ((a.Sq + a.BQ - 1) / a.BQ);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  flash_fwd_f32<HK, VN, KT, NS><<<static_cast<unsigned>(blocks), kBThreads,
+                                  smem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(dim3 grid, cudaStream_t stream, const void* q,
-                     const void* k, const void* v, void* out, int Sq, int Sk,
-                     int H, int KV, int G, int BQ, int hd, int vd, int causal,
-                     int window, float scale) {
-  int vec = copy_bytes(q, sizeof(float) * hd);
-  const int vec_k = copy_bytes(k, sizeof(float) * hd);
-  const int vec_v = copy_bytes(v, sizeof(float) * vd);
-  if (vec_k < vec) vec = vec_k;
-  if (vec_v < vec) vec = vec_v;
-  if (vd <= 64)
-    return launch<8>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
-                     vd, causal, window, scale, vec);
-  if (vd <= 128)
-    return launch<16>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd,
-                      vd, causal, window, scale, vec);
-  return launch<32>(grid, stream, q, k, v, out, Sq, Sk, H, KV, G, BQ, hd, vd,
-                    causal, window, scale, vec);
+// q, k, v rows of hd / hd / vd fp32 elements: by TMA where every row and
+// base pointer is 16-byte aligned, else by element loads into the same
+// swizzled tiles
+cudaError_t dispatch_f32(int B, cudaStream_t stream, const void* q,
+                         const void* k, const void* v, void* out, int Sq,
+                         int Sk, int H, int KV, int hd, int vd, int causal,
+                         int window, float scale) {
+  FwdF32 a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.BQ = kBRows / a.G;
+  a.hd = hd;
+  a.vd = vd;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.tma = copy_bytes(q, 4 * hd) == 16 && copy_bytes(k, 4 * hd) == 16 &&
+          copy_bytes(v, 4 * vd) == 16;
+  a.out_vec = copy_bytes(out, 4 * vd) >= 8;
+  if (hd <= 64) return launch_f32<64, 64, 64, 3>(a, B, stream);
+  if (hd <= 128) return launch_f32<128, 128, 32, 2>(a, B, stream);
+  if (hd <= 192 && vd <= 128) return launch_f32<192, 128, 16, 2>(a, B, stream);
+  return launch_f32<256, 256, 16, 1>(a, B, stream);
 }
 
 // ---- bf16: flash_fwd_bf16, wgmma on the bf16 tensor cores fed by TMA
 
-constexpr int kBRows = 128;        // rows a block: 2 consumer warpgroups x 64
-constexpr int kBThreads = 384;     // 2 consumer warpgroups + 1 producer
 
 struct FwdBf16 {
   const bf16* q;
@@ -1345,12 +1546,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
         (bf16 ? dispatch_one_query<__nv_bfloat16> : dispatch_one_query<float>)(
             B, stream, q, k, v, out, part, tickets, Sq, Sk, H, KV, hd, vd,
             causal, window, keys_per_split, scale));
-  if (bf16)
-    return static_cast<int>(dispatch_bf16(B, stream, q, k, v, out, Sq, Sk, H,
-                                          KV, hd, vd, causal, window, scale));
-  const int G = H / KV;
-  const int BQ = kRows / G;  // query positions per block
-  const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
-  return static_cast<int>(dispatch(grid, stream, q, k, v, out, Sq, Sk, H, KV,
-                                   G, BQ, hd, vd, causal, window, scale));
+  return static_cast<int>((bf16 ? dispatch_bf16 : dispatch_f32)(
+      B, stream, q, k, v, out, Sq, Sk, H, KV, hd, vd, causal, window, scale));
 }

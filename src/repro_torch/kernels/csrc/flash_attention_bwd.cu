@@ -291,8 +291,6 @@ __device__ __forceinline__ float quad_max(float x) {
 
 // ---- bf16: wgmma on the bf16 tensor cores, fed by TMA from a producer warp
 
-constexpr int kBRows = 128;      // rows launch: rows a block (2 warpgroups x 64)
-constexpr int kBThreads = 384;   // 2 consumer warpgroups + 1 producer
 constexpr int kMaxCluster = 4;   // keys launch: blocks sharing a block of keys
 
 struct BwdBf16 {
@@ -314,17 +312,6 @@ struct BwdBf16 {
   int out_vec;  // 1: output pairs as 4-byte stores
 };
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// descriptor offset (16-byte units) of k16 step kk of a K-major operand
-// whose 64-column panels hold `rows` rows
-__device__ __forceinline__ uint64_t kstep(int kk, int rows) {
-  return static_cast<uint64_t>(kk >> 2) * (rows * kPanelRow >> 4) +
-         (kk & 3) * 2;
-}
 constexpr uint64_t kRowStep = 16 * kPanelRow >> 4;  // 16 rows, MN-major
 
 // one or two adjacent bf16 outputs: a 4-byte store where every row allows
@@ -1182,77 +1169,6 @@ struct BwdF32 {
 
 constexpr int kFRows = 64;       // rows launch: rows a block (both warpgroups)
 constexpr int kFKeys = 64;       // keys launch: keys a block (both warpgroups)
-constexpr int kSplitters = 96;   // producer threads that split tiles (warps 1-3)
-
-// byte offset of element (row, col) of a tile of `rows` rows laid out as
-// 128-byte-swizzled panels of 32 fp32 columns (TMA's SWIZZLE_128B; K-major
-// as a wgmma operand, the columns its contraction)
-__device__ __forceinline__ int f32_at(int rows, int row, int col) {
-  return (col >> 5) * rows * kPanelRow + row * kPanelRow +
-         ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
-}
-
-// p as the compiler must take it anew: a tile loop recomputes the
-// addresses and descriptors it derives from p at each step instead of
-// holding every k step's in registers across the loop
-template <typename T>
-__device__ __forceinline__ T opaque(T p) {
-  asm volatile("" : "+l"(p));
-  return p;
-}
-
-// hi = tf32(x) (nearest), lo = tf32(x - hi): 3xTF32's split
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = tf32(x[i]);
-    lo[i] = tf32(x[i] - __uint_as_float(hi[i]));
-  }
-}
-
-// acc = A.B over KS k8 steps in 3xTF32, from zero: each step A.lo B.hi,
-// A.hi B.lo (kBLo: the other way round), then A.hi B.hi, small terms first,
-// as one commit group; A's fragments from frag(kk, hi, lo) in registers,
-// B's hi and lo K-major tiles of N rows at descriptors bh and bl (128-byte
-// panels `rows` rows apart). Two fragment buffers alternate: step kk's are
-// written while step kk - 1's group runs, and reused once its group is
-// done. The step count is a constant: with one that ptxas cannot see,
-// it waits for every wgmma as it issues it (columns past a call's width
-// are zeros)
-template <int N, int KS, bool kBLo = false, typename Frag>
-__device__ __forceinline__ void mma3(float (&acc)[N / 2], Frag&& frag,
-                                     uint64_t bh, uint64_t bl, int rows) {
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int x = 0; x < 2; ++x)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ah[x][e] = al[x][e] = 0u;
-  fence_regs(acc);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int x = kk & 1;
-    frag(kk, ah[x], al[x]);
-    const uint64_t o = kstep(kk, rows);
-    wgmma_fence();
-    if constexpr (kBLo) {
-      wgmma_tf32<N>(acc, ah[x], bl + o, kk > 0);
-      wgmma_tf32<N>(acc, al[x], bh + o, 1);
-    } else {
-      wgmma_tf32<N>(acc, al[x], bh + o, kk > 0);
-      wgmma_tf32<N>(acc, ah[x], bl + o, 1);
-    }
-    wgmma_tf32<N>(acc, ah[x], bh + o, 1);
-    wgmma_commit();
-    wgmma_wait<1>();  // step kk - 1 is done: its buffer is free
-    fence_regs(ah[x ^ 1]);
-    fence_regs(al[x ^ 1]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  fence_regs(ah);
-  fence_regs(al);
-}
 
 // acc = A.B over KS k8 steps in 3xTF32 with both operands split in shared
 // memory, issued from zero with no commit or wait (the caller's): A hi and
@@ -1274,23 +1190,6 @@ __device__ __forceinline__ void mma3ss(float (&acc)[N / 2], uint64_t ah,
     }
     wgmma_tf32_ss<N>(acc, ah + oa, bh + ob, 1);
   }
-}
-
-// A fragments of k8 step kk from a raw fp32 tile of `rows` rows: rows row0
-// and row0 + 8 (row0 & 7 = g), columns 8 kk + t and + 4, split hi / lo
-__device__ __forceinline__ void raw_frag(const unsigned char* tile, int rows,
-                                         int row0, int t, int kk,
-                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const unsigned char* p =
-      tile + (kk >> 2) * rows * kPanelRow + row0 * kPanelRow + 4 * t;
-  const int g = row0 & 7, c = 2 * (kk & 3);
-  float x[4];
-  x[0] = *reinterpret_cast<const float*>(p + ((c ^ g) << 4));
-  x[1] = *reinterpret_cast<const float*>(p + 8 * kPanelRow + ((c ^ g) << 4));
-  x[2] = *reinterpret_cast<const float*>(p + (((c + 1) ^ g) << 4));
-  x[3] = *reinterpret_cast<const float*>(p + 8 * kPanelRow +
-                                         (((c + 1) ^ g) << 4));
-  split4(x, hi, lo);
 }
 
 // A fragments of k8 step kk of the transpose of a split tile of `rows`
@@ -1319,70 +1218,6 @@ __device__ __forceinline__ void put2(unsigned char* h, int lo_off, int n,
   *reinterpret_cast<uint2*>(h + lo_off + o) =
       make_uint2(tf32(x0 - __uint_as_float(h0)),
                  tf32(x1 - __uint_as_float(h1)));
-}
-
-// the 4 values at columns col .. col + 3 of row src(r) of a tensor w wide
-// (zeros past w, and for a null row)
-template <typename Src>
-__device__ __forceinline__ void fetch4(Src& src, int r, int col, int w,
-                                       float (&x)[4]) {
-  const float* s = src(r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    x[i] = s != nullptr && col + i < w ? s[col + i] : 0.f;
-}
-
-// thread ct's part (of nthr) of a tile of `rows` rows in np live panels at
-// h: each 16-byte chunk split, hi in place and lo lo_off bytes on. tma 0:
-// a chunk's values come from row src(r) of the tensor (element loads)
-// instead of what TMA left there
-template <typename Src>
-__device__ __forceinline__ void split_tile(unsigned char* h, int lo_off,
-                                           int rows, int np, int ct, int tma,
-                                           int w, Src src,
-                                           int nthr = kSplitters) {
-  for (int c = ct; c < np * rows * 8; c += nthr) {
-    const int p = c / (rows * 8), rem = c - p * rows * 8;
-    const int r = rem >> 3, lc = rem & 7;
-    const int o = p * rows * kPanelRow + r * kPanelRow + ((lc ^ (r & 7)) << 4);
-    float x[4];
-    if (tma) {
-      const float4 f = *reinterpret_cast<const float4*>(h + o);
-      x[0] = f.x;
-      x[1] = f.y;
-      x[2] = f.z;
-      x[3] = f.w;
-    } else {
-      fetch4(src, r, 32 * p + 4 * lc, w, x);
-    }
-    uint32_t hi[4], lo[4];
-    split4(x, hi, lo);
-    *reinterpret_cast<uint4*>(h + o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(h + lo_off + o) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-// the same for a raw tile the consumers split themselves (element loads of
-// the block's own rows, where TMA cannot describe them)
-template <typename Src>
-__device__ __forceinline__ void stage_raw(unsigned char* h, int rows, int np,
-                                          int ct, int w, Src src) {
-  for (int c = ct; c < np * rows * 8; c += kSplitters) {
-    const int p = c / (rows * 8), rem = c - p * rows * 8;
-    const int r = rem >> 3, lc = rem & 7;
-    float x[4];
-    fetch4(src, r, 32 * p + 4 * lc, w, x);
-    *reinterpret_cast<float4*>(h + p * rows * kPanelRow + r * kPanelRow +
-                               ((lc ^ (r & 7)) << 4)) =
-        make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// zero `n` 16-byte chunks at p (a block's threads)
-__device__ __forceinline__ void zero_chunks(unsigned char* p, int n) {
-  for (int i = threadIdx.x; i < n; i += kBThreads)
-    *reinterpret_cast<uint4*>(p + 16 * i) = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // shared memory of flash_bwd_rows_f32<HK, VK, KT, NS, SA, CS> (bytes): Q and dO

@@ -7,14 +7,16 @@ them on an H100 and how the design answers) run one block per (batch
 row, KV head, tile of query positions) that serves the KV head's G
 query heads, read K/V in place from ``[B, S, KV, hd]``, keep the online
 softmax in registers, skip the key tiles their rows cannot see, and mask
-the ragged edges themselves. fp32 inputs: 4 warps, tiles through a
-``cp.async`` ring, both products on the TF32 tensor cores (``mma.sync``,
-each fp32 operand split hi + lo: 3xTF32, fp32 accuracy). bf16 inputs:
-``flash_fwd_bf16``, two consumer warpgroups running ``wgmma`` on the bf16
-tensor cores (S in one pass, P.V with P as bf16 hi + lo) fed by a
-producer warp's TMA copies into a ring of 128-byte-swizzled tiles, the
-output rounded to bf16 once (``FORWARD_NO_SPILL``: its instantiations
-that must compile with no spill). The plain version repeats K/V per
+the ragged edges themselves: two consumer warpgroups running ``wgmma``,
+fed by a producer warp's TMA copies into a ring of 128-byte-swizzled
+tiles. fp32 inputs: ``flash_fwd_f32``, both products on the TF32 tensor
+cores in 3xTF32 (each fp32 operand split hi + lo, fp32 accuracy; the
+producer's other warps split each K/V tile once as it lands), each key
+tile's P.V summed from zero and added to O in fp32. bf16 inputs:
+``flash_fwd_bf16``, on the bf16 tensor cores (S in one pass, P.V with P
+as bf16 hi + lo), the output rounded to bf16 once.
+``FORWARD_NO_SPILL``: the instantiations of both that must compile with
+no spill. The plain version repeats K/V per
 query head and runs ``ref.flash_attention_ref`` (exact softmax), as the
 JAX wrapper does. ``ops.flash_attention`` is the public wrapper that
 checks the arguments and picks between the two.
@@ -63,7 +65,7 @@ SOURCE = "flash_attention.cu"
 SYMBOL = "flash_attention_fwd"
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                           ctypes.c_void_p]
-MAX_GROUP = 64       # query heads per KV head (a block's 64 rows)
+MAX_GROUP = 64       # query heads per KV head (the C entry's limit)
 MAX_HEAD_DIM = 256   # q/k width; v may be narrower
 # the one-query route: fp32 calls of at most ONE_QUERY_ROWS rows (Sq·G) a
 # KV head take it; a split holds the most keys, 32 to 256 in powers of
@@ -91,11 +93,15 @@ ONE_QUERY_COMBINE_BYTES = 227 * 1024
 # outputs a block), which ptxas must compile with no stack and no spills
 ONE_QUERY_NO_SPILL = tuple(f"flash_fwd_one_query{t}<{n}>"
                            for t in ("", "_bf16") for n in (1, 2, 4))
-# the bf16 forward's instantiations for hd <= 64, <= 128 and MLA's 192 /
-# 128, which ptxas must compile with no stack and no spills
+# the tile forward's instantiations <HK, VN, keys a tile, stages> that
+# ptxas must compile with no stack and no spills: bf16 for hd <= 64, <= 128
+# and MLA's 192 / 128; fp32 for hd <= 64 and <= 128 (at MLA's widths the
+# fp32 kernel spills a little: csrc/flash_attention.cu)
 FORWARD_NO_SPILL = ("flash_fwd_bf16<64,64,128,3>",
                     "flash_fwd_bf16<128,128,64,3>",
-                    "flash_fwd_bf16<192,128,64,3>")
+                    "flash_fwd_bf16<192,128,64,3>",
+                    "flash_fwd_f32<64,64,64,3>",
+                    "flash_fwd_f32<128,128,32,2>")
 # the backward's build record (``ops.build_kernels``); the same limits.
 # NO_SPILL: the instantiations ptxas must compile with no stack and no
 # spills: bf16 for hd <= 64, <= 128 and MLA's 192 / 128 (rows <HK, VK, keys

@@ -39,7 +39,9 @@ they carry over:
 * memory: ``temp_bytes`` is the peak of the bytes allocated inside the
   mode and still live (each fresh storage from its op until its last
   tensor is freed, ``weakref.finalize``); a kernel call allocates its
-  outputs, not its scratch.
+  outputs, not its scratch; a collective runs on copies of its tensors
+  (``_on_copies``), so a communication library's worker thread never
+  holds, and frees, the program's own.
 
 Eager has no loops to multiply: every executed op is counted once, so
 there are no trip counts. ``by_op`` splits the aten ops' part by op
@@ -53,7 +55,7 @@ from typing import Dict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 _TRANSCENDENTAL = frozenset({
@@ -95,6 +97,41 @@ def nbytes(t: torch.Tensor) -> int:
 
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
+
+
+def _on_copies(func, args, kwargs):
+    """``func(*args, **kwargs)`` for a collective, run on copies of its
+    tensors, waited for, and its results copied back into the tensors it
+    writes. A communication library may hold the tensors it is given until
+    its worker thread lets go of them (gloo's work queue does), so their
+    Python objects, and ``OpCost``'s finalizers on them, would be freed on
+    that thread at a time that varies from run to run; the copies take
+    that hold, and the caller's tensors live as long as the program keeps
+    them. Every c10d op writes its results into its first argument (its
+    schema says so by name, ``tensors`` / ``output...``, not by alias
+    annotation), so that argument's tensors are the ones copied back; the
+    inputs are left as they are, which also holds where an input is a
+    view of an output. Runs with the mode off (inside its dispatch): the
+    copies are not counted."""
+    pairs = {}
+
+    def swap(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if id(x) not in pairs:
+            pairs[id(x)] = (x, x.detach().clone())
+        return pairs[id(x)][1]
+
+    out = func(*tree_map(swap, args), **tree_map(swap, kwargs))
+    for leaf in tree_leaves(out):
+        if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "wait"):
+            leaf.wait()
+    first = func._schema.arguments[0].name
+    for t in tensors(args[0] if args else kwargs[first]):
+        t.copy_(pairs[id(t)][1])
+    back = {id(c): o for o, c in pairs.values()}
+    return tree_map(lambda x: back.get(id(x), x)
+                    if isinstance(x, torch.Tensor) else x, out)
 
 
 class OpCost(TorchDispatchMode):
@@ -173,13 +210,15 @@ class OpCost(TorchDispatchMode):
     # ---------------------------------------------------------- ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "c10d":
+            out = _on_copies(func, args, kwargs)
+            if not self._opaque:
+                self._collective(func, args)
+            return out
         out = func(*args, **kwargs)
         if self._opaque:
             return out
         ins = tensors((args, kwargs))
-        if func.namespace == "c10d":
-            self._collective(func, args)
-            return out
         outs = tensors(out)
         seen = {_storage(t) for t in ins}
         for t in outs:

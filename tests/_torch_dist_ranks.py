@@ -16,7 +16,7 @@ own ("mesh", "axes"): every rank builds it, in the parts' order.
 import dataclasses
 import json
 import sys
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -541,6 +541,29 @@ def run_tiers(case, cfg, mesh, rules, inp):
         "splits": splits, "logits": srv._logits})
 
 
+def run_collective_values(case, inp):
+    """What ``all_reduce`` (blocking and async), ``all_to_all_single`` and
+    ``all_gather_into_tensor`` write on this rank, from its row of
+    ``inp["x"]``, run plain and again under ``OpCost``; no model."""
+    x = inp["x"][dist.get_rank()]
+    world = dist.get_world_size()
+    out = {}
+    for name in ("plain", "counted"):
+        with OpCost() if name == "counted" else nullcontext():
+            reduced_ = x.clone()
+            dist.all_reduce(reduced_)
+            waited = x * 2
+            dist.all_reduce(waited, async_op=True).wait()
+            swapped = torch.empty_like(x)
+            dist.all_to_all_single(swapped, x)
+            gathered = x.new_empty(world * x.numel())
+            dist.all_gather_into_tensor(gathered, x)
+        out[name] = {"all_reduce": reduced_, "async_all_reduce": waited,
+                     "all_to_all": swapped, "all_gather": gathered,
+                     "input": x.clone()}
+    return out
+
+
 RUNS = {"moe": run_moe, "moe_auto": run_moe_auto, "model": run_model,
         "cost": run_cost, "train": run_train, "decodes": run_decodes,
         "engine": run_engine, "tiers": run_tiers}
@@ -566,6 +589,8 @@ def run_case(case, mesh, inp):
     if case["kind"] == "parts":
         return {name: run_case(part, part_mesh(part, mesh), inp[name])
                 for name, part in case["parts"].items()}
+    if case["kind"] == "collective_values":
+        return run_collective_values(case, inp)
     cfg = case_config(case)
     rules = case["rules"] or sharding_rules(cfg, mesh)
     return RUNS[case["kind"]](case, cfg, mesh, rules, inp)

@@ -545,6 +545,47 @@ def test_collectives_equal_under_gloo_and_fake(tmp_path):
     assert "all-gather" in fake["dense_decode"]["collective_calls"]
 
 
+def test_collective_values_equal_under_op_cost(tmp_path):
+    """On each rank of a gloo group of 2, the tensors that an all-reduce
+    (blocking and async), an all-to-all and an all-gather write under
+    ``OpCost`` (which runs each collective on copies of its tensors)
+    equal those of the same calls run without it, and the inputs stay as
+    they were."""
+    world = 2
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (world, 6), dtype=np.float32))
+    torch.save({"x": x}, tmp_path / "inputs.pt")
+    case = {"kind": "collective_values", "mesh": [1, world],
+            "store": f"file://{tmp_path}/store",
+            "inputs": str(tmp_path / "inputs.pt")}
+    (tmp_path / "case.json").write_text(json.dumps(case))
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
+         str(tmp_path / "case.json"), str(r), str(world)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    bad = [(r, p.returncode, log[-3000:])
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    assert not bad, bad
+    for r in range(world):
+        out = torch.load(tmp_path / f"out-{r}.pt", weights_only=True)
+        plain, counted = out["plain"], out["counted"]
+        assert torch.equal(plain["all_reduce"], x.sum(0)), r
+        assert torch.equal(plain["all_to_all"],
+                           x.reshape(world, world, -1)[:, r].reshape(-1)), r
+        assert torch.equal(plain["all_gather"], x.reshape(-1)), r
+        for name in plain:
+            assert torch.equal(counted[name], plain[name]), (r, name)
+        assert torch.equal(counted["input"], x[r]), r
+
+
 # ------------------------------------------------------------------ CLI
 def _cli(*argv):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),

@@ -1,23 +1,31 @@
 """The build reports ``chip_smoke.py``, ``tools/flash_fwd_check.py`` and
 ``tools/flash_bwd_check.py`` read on the card, parsed on the CPU: the
-forward's bf16 and the backward's fp32 and bf16 kernels' ``ptxas``
-records by the labels ``flash_attention.FORWARD_NO_SPILL`` and
-``BACKWARD.NO_SPILL`` name, and the ``HGMMA`` / ``HMMA`` counts of each
-kernel's SASS (``ops.sass_counts``). The mangled names are an H100
-build's (nvcc 12.9, sm_90a)."""
+forward's and the backward's fp32 and bf16 kernels' ``ptxas`` records by
+the labels ``flash_attention.FORWARD_NO_SPILL`` and ``BACKWARD.NO_SPILL``
+name, the ``HGMMA`` / ``HMMA`` counts of each kernel's SASS
+(``ops.sass_counts``), and the tools' gates on them. The mangled names
+are an H100 build's (nvcc 12.9, sm_90a)."""
+import importlib.util
 import subprocess
+from pathlib import Path
 from types import SimpleNamespace
 
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops
 
 NS = "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_2c138979"
-ARGS = "EEEv14CUtensorMap_stS1_S1_NS_7FwdBf16E"
+TILE = {"flash_fwd_bf16": "EEEv14CUtensorMap_stS1_S1_NS_7FwdBf16E",
+        "flash_fwd_f32": "EEEv14CUtensorMap_stS1_S1_NS_6FwdF32E"}
 BF16 = {"flash_fwd_bf16<64,64,128,3>": "ILi64ELi64ELi128ELi3",
         "flash_fwd_bf16<128,128,64,3>": "ILi128ELi128ELi64ELi3",
         "flash_fwd_bf16<192,128,64,3>": "ILi192ELi128ELi64ELi3",
         "flash_fwd_bf16<256,256,64,2>": "ILi256ELi256ELi64ELi2"}
-FP32 = NS + "22flash_attention_kernelILi8EEEvPKfS2_S2_Pfiiiiiiiiiifi"
+F32 = {"flash_fwd_f32<64,64,64,3>": "ILi64ELi64ELi64ELi3",
+       "flash_fwd_f32<128,128,32,2>": "ILi128ELi128ELi32ELi2",
+       "flash_fwd_f32<192,128,16,2>": "ILi192ELi128ELi16ELi2",
+       "flash_fwd_f32<256,256,16,1>": "ILi256ELi256ELi16ELi1"}
+# the mma.sync fp32 kernel the wgmma one replaced, which the gates refuse
+MMA_SYNC = NS + "22flash_attention_kernelILi8EEEvPKfS2_S2_Pfiiiiiiiiiifi"
 # the backward's: rows kernels take 4 tensor maps, keys kernels 5
 BWD_NS = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_2b1a21a5"
 BWD_BF16 = ("flash_bwd_rows_bf16<64,64,64,3>", "flash_bwd_rows_bf16<128,128,64,3>",
@@ -32,13 +40,28 @@ BWD_FP32 = ("flash_bwd_rows_f32<64,64,32,4,1,1>", "flash_bwd_rows_f32<128,128,32
 
 
 def _mangled(label):
-    return NS + "14flash_fwd_bf16" + BF16[label] + ARGS
+    name = label.split("<")[0]
+    return (NS + f"{len(name)}{name}" + {**BF16, **F32}[label]
+            + TILE[name])
+
+
+def _tool(name):
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
 
 
 def test_forward_no_spill_labels_are_the_kernels():
-    assert set(flash_mod.FORWARD_NO_SPILL) < set(BF16)
+    """Every label of ``FORWARD_NO_SPILL`` is one of the tile kernels,
+    fp32 and bf16, read back from its mangled name; the fp32 ones at hd
+    <= 64 and <= 128 are there."""
+    assert set(flash_mod.FORWARD_NO_SPILL) < set(BF16) | set(F32)
+    assert {"flash_fwd_f32<64,64,64,3>", "flash_fwd_f32<128,128,32,2>"} \
+        < set(flash_mod.FORWARD_NO_SPILL)
     lines = []
-    for label in BF16:
+    for label in list(BF16) + list(F32):
         lines += [f"ptxas info    : Compiling entry function "
                   f"'{_mangled(label)}' for 'sm_90a'",
                   "ptxas info    : Function properties for "
@@ -47,10 +70,10 @@ def test_forward_no_spill_labels_are_the_kernels():
                   "spill loads",
                   "ptxas info    : Used 168 registers, used 2 barriers"]
     recs = ops.ptxas_kernels("\n".join(lines))
-    assert [r["kernel"] for r in recs] == list(BF16)
+    assert [r["kernel"] for r in recs] == list(BF16) + list(F32)
     assert all(r["registers"] == 168 and r["spill_stores"] == 0
                for r in recs)
-    assert ops._kernel_label(FP32) == "flash_attention_kernel<8>"
+    assert ops._kernel_label(MMA_SYNC) == "flash_attention_kernel<8>"
 
 
 def _bwd_mangled(label):
@@ -94,9 +117,10 @@ def test_one_query_no_spill_labels_are_the_kernels():
                for n in (1, 2, 4)]
     mangled += [NS + f"24flash_fwd_one_query_bf16ILi{n}EEEvNS_8OneQueryI"
                 "13__nv_bfloat16EE" for n in (1, 2, 4)]
-    lines = [f"ptxas info    : Compiling entry function '{FP32}' for "
+    tile = _mangled("flash_fwd_f32<64,64,64,3>")
+    lines = [f"ptxas info    : Compiling entry function '{tile}' for "
              "'sm_90a'", "    0 bytes stack frame, 0 bytes spill stores, "
-             "0 bytes spill loads", "ptxas info    : Used 122 registers"]
+             "0 bytes spill loads", "ptxas info    : Used 168 registers"]
     for i, name in enumerate(mangled):
         spill = 8 if i == 5 else 0
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
@@ -106,7 +130,7 @@ def test_one_query_no_spill_labels_are_the_kernels():
                   f"stores, {spill} bytes spill loads",
                   "ptxas info    : Used 40 registers, used 1 barriers"]
     recs = ops.ptxas_kernels("\n".join(lines))
-    assert [r["kernel"] for r in recs] == (["flash_attention_kernel<8>"]
+    assert [r["kernel"] for r in recs] == (["flash_fwd_f32<64,64,64,3>"]
                                            + list(flash_mod.ONE_QUERY_NO_SPILL))
     kept = [r for r in recs if r["kernel"] in flash_mod.ONE_QUERY_NO_SPILL]
     assert [r["spill_stores"] for r in kept] == [0, 0, 0, 0, 0, 8]
@@ -122,27 +146,41 @@ def test_sass_counts_reads_each_kernels_mma_instructions(monkeypatch):
         "        /*0210*/  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], "
         "R88, gsb0 ;",
         "        /*0220*/  FMUL R3, R3, R4 ;",
-        f"\t\tFunction : {FP32}",
+        f"\t\tFunction : {_mangled('flash_fwd_f32<128,128,32,2>')}",
+        "        /*0100*/  HGMMA.64x32x8.F32.TF32 R24, R4, gdesc[UR4], RZ, "
+        "!UPT, gsb0 ;",
+        "        /*0110*/  HGMMA.64x64x8.F32.TF32 R88, R8, gdesc[UR8], R88, "
+        "gsb0 ;",
+        "        /*0120*/  HGMMA.64x64x8.F32.TF32 R120, R8, gdesc[UR8], "
+        "R120, gsb0 ;",
+        f"\t\tFunction : {MMA_SYNC}",
         "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
         "        /*0110*/  HMMA.1688.F32.TF32 R4, R8, R14, R4 ;"])
     monkeypatch.setattr(ops, "_cuobjdump", lambda: "cuobjdump")
     monkeypatch.setattr(subprocess, "run", lambda *a, **k: SimpleNamespace(
         stdout=listing))
-    assert ops.sass_counts("flash_attention") == {
+    sass = ops.sass_counts("flash_attention")
+    assert sass == {
         "flash_fwd_bf16<128,128,64,3>": {"HGMMA": 2, "HMMA": 0},
+        "flash_fwd_f32<128,128,32,2>": {"HGMMA": 3, "HMMA": 0},
         "flash_attention_kernel<8>": {"HGMMA": 0, "HMMA": 2}}
+    # tools/flash_fwd_check.py's gate: both tile kernels on wgmma only,
+    # no mma.sync forward kernel left
+    tool = _tool("flash_fwd_check")
+    assert not tool.sass_ok(sass)
+    del sass["flash_attention_kernel<8>"]
+    assert tool.sass_ok(sass)
+    sass["flash_fwd_f32<128,128,32,2>"]["HMMA"] = 1   # an fp32 mma.sync
+    assert not tool.sass_ok(sass)
+    del sass["flash_fwd_f32<128,128,32,2>"]           # no fp32 tile kernel
+    assert not tool.sass_ok(sass)
 
 
 def test_backward_sass_gate_takes_wgmma_only(monkeypatch):
     """``tools/flash_bwd_check.py``'s gate: every backward kernel, fp32 and
     bf16, has HGMMA and no HMMA, and the rows and keys kernels of both
     dtypes are there."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "tools" / "flash_bwd_check.py"
-    spec = importlib.util.spec_from_file_location("flash_bwd_check", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _tool("flash_bwd_check")
     rows, keys = (_bwd_mangled(flash_mod.BACKWARD.NO_SPILL[0]),
                   _bwd_mangled(flash_mod.BACKWARD.NO_SPILL[5]))
     rows32, keys32 = (_bwd_mangled(BWD_FP32[1]), _bwd_mangled(BWD_FP32[5]))

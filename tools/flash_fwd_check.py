@@ -3,6 +3,7 @@
 
     python3 tools/flash_fwd_check.py              # from the root of a checkout
     python3 tools/flash_fwd_check.py --one-pass   # also time P in one pass
+    python3 tools/flash_fwd_check.py --turns DIR  # also against DIR's kernel
 
 Builds the port's CUDA kernels (``ops.build_kernels``), prints the
 forward's ``ptxas`` report (registers, stack, spills of each kernel) and
@@ -17,7 +18,20 @@ equal outputs. At the first ``TIMED`` shapes (the training calls of
 ``chip_smoke.py``: Qwen1.5-0.5B, Mixtral, Qwen2.5-3B, DeepSeek-V2's MLA)
 it times the kernel and SDPA's forward in the same dtype with CUDA
 events, beside the rate of the tensor-core passes the kernel executes
-(``chip_smoke.pass_flops``). One JSON line a shape and dtype.
+(``chip_smoke.pass_flops``). One JSON line a shape and dtype. Then the
+fp32 forward at the recorded fp32 calls (``CALLS``: DeepSeek-V2's MLA
+prefill, Llama-3.2-Vision's cross call, Whisper's encoder call,
+Mixtral's and Jamba's prefill calls, Qwen1.5-0.5B's training call):
+against float64, two launches bitwise equal, its time beside SDPA's fp32
+forward (``enable_gqa``), the TFLOP/s of its executed 3xTF32 passes and
+their share of the TF32 tensor cores' rate (the 3xTF32 floor over the
+time).
+
+``--turns DIR`` builds ``DIR``'s forward (a checkout of another commit,
+e.g. ``git archive <parent> | tar -x -C build/parent``) into
+``build/flash_fwd_turns`` and times it against this one in turns (other,
+this, this, other) at ``CALLS`` in fp32, with SDPA's fp32 forward in the
+same process and the two outputs' largest difference over max |this|.
 
 ``--one-pass`` builds a copy of the source into ``build/`` with P.V's lo
 pass deleted (P rounded to bf16 once, as JAX rounds it) and times it
@@ -26,11 +40,12 @@ shipped) at the timed shapes, with both errors against float64: what
 the hi + lo split costs. The shipped source has no such switch.
 
 Exits non-zero without a GPU, on a mismatch, on a second launch that
-differs, on a bf16 forward kernel with ``HMMA`` or without ``HGMMA``
-instructions, or on one of ``FORWARD_NO_SPILL`` that spills.
+differs, on a tile forward kernel (``flash_fwd_f32``, ``flash_fwd_bf16``)
+with ``HMMA`` or without ``HGMMA`` instructions, on a ``mma.sync``
+forward kernel left (``flash_attention_kernel``), or on one of
+``FORWARD_NO_SPILL`` that spills.
 """
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -43,8 +58,19 @@ from chip_smoke import (BF16_F64_TOL, BF16_TOL,  # noqa: E402
                         flash_out_float64, pass_flops)
 from chip_smoke import TOL as SMOKE_TOL  # noqa: E402
 from flash_bwd_check import SHAPES, TIMED, timed_ms  # noqa: E402
+from flash_one_query_check import built_entry  # noqa: E402
 
 TOL = SMOKE_TOL["flash_attention"]
+# the recorded fp32 calls (B, Sq, Sk, H, KV, hd, vd, causal, window):
+# DeepSeek-V2's MLA prefill, Llama-3.2-Vision's cross call, Whisper's
+# encoder call, Mixtral's and Jamba's prefill calls, Qwen1.5-0.5B's
+# training call
+CALLS = {"deepseek-v2": (2, 2048, 2048, 128, 128, 192, 128, True, 0),
+         "vision-cross": (2, 2048, 1601, 32, 32, 128, 128, False, 0),
+         "whisper-encoder": (2, 1500, 1500, 6, 6, 64, 64, False, 0),
+         "mixtral": (2, 2048, 2048, 32, 8, 128, 128, True, 0),
+         "jamba": (2, 2048, 2048, 64, 8, 128, 128, True, 0),
+         "qwen1.5-0.5b-train": (4, 2048, 2048, 16, 16, 64, 64, True, 0)}
 LO_PASS = "wgmma_rs<VN>(o, pl[kk], vd_ + kk * (16 * kPanelRow >> 4));"
 
 
@@ -60,19 +86,28 @@ def one_pass_entry(ops, flash_mod):
     for header in ops.CSRC.glob("*.cuh"):
         (out / header.name).write_text(header.read_text())
     (out / flash_mod.SOURCE).write_text(src.replace(LO_PASS, ""))
-    lib = out / "libflash_one_pass.so"
-    subprocess.run([ops._nvcc(), *ops.NVCC_FLAGS, "-o", str(lib),
-                    str(out / flash_mod.SOURCE)], check=True,
-                   capture_output=True)
-    fn = getattr(ctypes.CDLL(str(lib)), flash_mod.SYMBOL)
-    fn.argtypes = flash_mod.ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return built_entry(ops, flash_mod, out / flash_mod.SOURCE, out,
+                       "flash_one_pass")[0]
+
+
+def sass_ok(sass):
+    """Both tile forward kernels are in ``sass`` (``ops.sass_counts``),
+    ``flash_fwd_f32`` and ``flash_fwd_bf16``, every instantiation of each
+    runs warpgroup MMAs and no warp-level one, and no ``mma.sync``
+    forward kernel (``flash_attention_kernel``) is left."""
+    ok = not any(k.startswith("flash_attention_kernel") for k in sass)
+    for kind in ("flash_fwd_f32", "flash_fwd_bf16"):
+        tile = [c for k, c in sass.items() if k.startswith(kind + "<")]
+        ok &= bool(tile) and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                 for c in tile)
+    return ok
 
 
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--one-pass", action="store_true")
+    parser.add_argument("--turns", default="",
+                        help="a checkout whose forward to time in turns")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -80,6 +115,9 @@ def main():
     import torch.nn.functional as F
     if not torch.cuda.is_available():
         sys.exit("flash_fwd_check.py: this script needs a CUDA GPU")
+    # fp32 products in full fp32 (no TF32), as chip_smoke.py runs them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
 
@@ -97,14 +135,14 @@ def main():
         r["stack"] or r["spill_stores"] or r["spill_loads"] for r in kept)
     sass = ops.sass_counts("flash_attention")
     print(json.dumps({"sass": sass}), flush=True)
-    bf16_kernels = {k: c for k, c in sass.items()
-                    if k.startswith("flash_fwd_bf16")}
-    ok &= bool(bf16_kernels) and all(c["HGMMA"] > 0 and c["HMMA"] == 0
-                                     for c in bf16_kernels.values())
-    ok &= not any(k.startswith("flash_attention_kernel<bf16")
-                  for k in sass)
+    ok &= sass_ok(sass)
     fn = ops._entry("flash_attention")
     one = one_pass_entry(ops, flash_mod) if args.one_pass else None
+    other = built_entry(
+        ops, flash_mod, Path(args.turns).resolve() / "src" / "repro_torch" /
+        "kernels" / "csrc" / flash_mod.SOURCE,
+        ROOT / "build" / "flash_fwd_turns", "flash_turns")[0] \
+        if args.turns else None
     rng = np.random.default_rng(0)
 
     def rand(*shape):
@@ -157,6 +195,41 @@ def main():
                     flash_out_float64(q, k, v, **kw))
         ok &= rec["ok"]
         print(json.dumps(rec), flush=True)
+    for call, (B, Sq, Sk, H, KV, hd, vd, causal, window) in CALLS.items():
+        q, k, v = rand(B, Sq, H, hd), rand(B, Sk, KV, hd), rand(B, Sk, KV, vd)
+        kw = dict(causal=causal, window=window)
+        got = flash_mod.launch(fn, q, k, v, **kw)
+        rec = {"call": call, "shape": [B, Sq, Sk, H, KV, hd, vd, causal,
+                                       window],
+               "rel_err_float64": rel(got, flash_out_float64(q, k, v, **kw)),
+               "bitwise_repeat": torch.equal(
+                   got, flash_mod.launch(fn, q, k, v, **kw))}
+        rec["ok"] = rec["rel_err_float64"] <= TOL and rec["bitwise_repeat"]
+        rec["ms"] = timed_ms(lambda: flash_mod.launch(fn, q, k, v, **kw))
+        lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
+        rec["sdpa_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal, enable_gqa=True))
+        visible = flash_mod.visible_pairs(Sq, Sk, causal, window)
+        passes, rate = pass_flops("flash_attention", {
+            "dtype": "torch.float32", "B": B, "H": H, "hd": hd, "vd": vd,
+            "visible_pairs": visible}, 2 * B * H * visible * (hd + vd))
+        rec["floor_ms"] = passes / rate * 1e3
+        rec["tflops_of_passes"] = passes / rec["ms"] / 1e9
+        rec["share_of_floor"] = rec["floor_ms"] / rec["ms"]
+        if other is not None:
+            theirs = flash_mod.launch(other, q, k, v, **kw)
+            rec["rel_to_other"] = float((got - theirs).abs().max()
+                                        / got.abs().max())
+            rec["other_this_this_other_ms"] = [
+                timed_ms(lambda f=f: flash_mod.launch(f, q, k, v, **kw))
+                for f in (other, fn, fn, other)]
+            rec["sdpa_ms_after"] = timed_ms(
+                lambda: F.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=causal, enable_gqa=True))
+        ok &= rec["ok"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, lq, lk, lv, got
+        torch.cuda.empty_cache()
     name = torch.cuda.get_device_name(0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
